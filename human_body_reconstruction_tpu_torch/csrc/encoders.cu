@@ -1,0 +1,230 @@
+// Forward kernels of the two encoders on the serving path, for Hopper (sm_90a).
+//
+// hbr_cp_forward replaces human_body_reconstruction_tpu/ops/cp_pallas.py
+// _fwd_kernel (and _fwd_kernel_axis, its per-axis split for high ranks):
+// every CP level's three factor lines are linearly interpolated at the point
+// and multiplied across the axes, giving features (N, L*R) in f32.
+//
+// hbr_dense_forward replaces human_body_reconstruction_tpu/ops/dense_pallas.py
+// _fwd_kernel: trilinear interpolation of each dense coarse grid (G, G, G, F),
+// giving features (N, D*F) in f32.
+//
+// The TPU kernels evaluate both as two-hot matrix products because every
+// random read there costs a whole memory tile.  That costs about
+// 3 * sum_G * C_pad * 2 = 2.2 MFLOP per point for CP at the flagship
+// ladder.  On this card the bf16 factor lines (3 * 2685 * 25 * 2 B, about
+// 0.4 MB) and grids (about 0.2 MB) stay resident in the 50 MB L2, so a direct
+// gather-and-lerp computes the same function with about 1 kFLOP per point.
+// What bounds it is the L2 reads of the gathered rows (1.5 KB per point for
+// CP) and the HBM writes of the (N, C) f32 output (500 B per point for CP).
+// The design answers that as follows:
+//  * the CP kernel gives each block a tile of points.  It first computes every
+//    (point, level, axis) cell and lerp weight once, into shared memory.  Then
+//    consecutive threads take consecutive output columns, so the output rows
+//    of the tile are written as one contiguous, coalesced span and
+//    neighbouring threads read neighbouring entries of the same line rows;
+//  * the dense kernel gives one thread to a point (D*F is 4 at the flagship);
+//  * both write into a caller-given row stride, so that the encoder's dense and
+//    CP features land side by side in one (N, D*F + L*R) matrix with no
+//    concatenation pass.
+//
+// Numerics follow the TPU kernels: factor lines and grids are bf16 (with
+// bf16 = 1); the CP lerp weights 1-frac and frac and the dense pair weights
+// wy*wz are computed in f32 and then rounded to bf16; accumulation is f32.
+// With bf16 = 0 nothing is rounded.  Every multiply and add is written with
+// the _rn intrinsics so the compiler cannot contract it into an FMA: the plain
+// PyTorch versions (ops/cp_kernel.py, ops/dense_kernel.py) do the same
+// operations in the same order, and the two agree bit for bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define HBR_MAX_LEVELS 16
+
+struct HbrLevels {
+  int n_levels;
+  int size[HBR_MAX_LEVELS];    // G_l: line length (CP) or grid side (dense)
+  int offset[HBR_MAX_LEVELS];  // CP: first row of level l in the packed lines;
+                               // dense: first element of grid l
+  float scale[HBR_MAX_LEVELS];  // level resolution N_l, as f32
+};
+
+template <typename T>
+__device__ __forceinline__ float load_f32(const T* p);
+template <>
+__device__ __forceinline__ float load_f32<float>(const float* p) {
+  return __ldg(p);
+}
+template <>
+__device__ __forceinline__ float load_f32<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// Weight rounding: to bf16 and back when the tables are bf16, none in f32.
+template <typename T>
+__device__ __forceinline__ float round_w(float w);
+template <>
+__device__ __forceinline__ float round_w<float>(float w) {
+  return w;
+}
+template <>
+__device__ __forceinline__ float round_w<__nv_bfloat16>(float w) {
+  return __bfloat162float(__float2bfloat16_rn(w));
+}
+
+// x0 = clip(floor(xl), 0, g-2) and frac = clip(xl - floor(xl), 0, 1) for
+// xl = xn * scale (cp_pallas.py:416-423).  Points outside the box keep their
+// fractional part: the position itself is never clamped.
+__device__ __forceinline__ void axis_coord(float xn, float scale, int g,
+                                           int* x0, float* frac) {
+  const float xl = __fmul_rn(xn, scale);
+  const float x0f = floorf(xl);
+  *frac = fminf(fmaxf(__fsub_rn(xl, x0f), 0.0f), 1.0f);
+  *x0 = (int)fminf(fmaxf(x0f, 0.0f), (float)(g - 2));
+}
+
+constexpr int CP_POINTS = 32;    // points per block
+constexpr int CP_THREADS = 256;
+
+// lines: (3, total_rows, rank), level l in rows [offset[l], offset[l] + size[l]).
+// out[p, l*rank + r] = prod_d lerp(lines[d, offset[l] + x0_d], lines[d, ... + 1]).
+template <typename T>
+__global__ void __launch_bounds__(CP_THREADS)
+cp_forward_kernel(const float* __restrict__ xn, const T* __restrict__ lines,
+                  long long n, int total_rows, int rank, HbrLevels lv,
+                  float* __restrict__ out, long long out_stride) {
+  __shared__ int s_row[CP_POINTS * HBR_MAX_LEVELS * 3];
+  __shared__ float s_lo[CP_POINTS * HBR_MAX_LEVELS * 3];
+  __shared__ float s_hi[CP_POINTS * HBR_MAX_LEVELS * 3];
+  const int L = lv.n_levels;
+  const long long p0 = (long long)blockIdx.x * CP_POINTS;
+  const int np = (int)min((long long)CP_POINTS, n - p0);
+
+  // Phase 1: one (point, level, axis) cell and its two weights per entry.
+  for (int t = threadIdx.x; t < np * L * 3; t += blockDim.x) {
+    const int p = t / (L * 3);
+    const int l = (t / 3) % L;
+    const int d = t % 3;
+    int x0;
+    float frac;
+    axis_coord(xn[(p0 + p) * 3 + d], lv.scale[l], lv.size[l], &x0, &frac);
+    s_row[t] = d * total_rows + lv.offset[l] + x0;
+    s_lo[t] = round_w<T>(__fsub_rn(1.0f, frac));
+    s_hi[t] = round_w<T>(frac);
+  }
+  __syncthreads();
+
+  // Phase 2: consecutive threads take consecutive output columns.
+  const int C = L * rank;
+  for (int t = threadIdx.x; t < np * C; t += blockDim.x) {
+    const int p = t / C;
+    const int c = t - p * C;
+    const int l = c / rank;
+    const int r = c - l * rank;
+    const int base = (p * L + l) * 3;
+    float f = 0.0f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const T* row = lines + (long long)s_row[base + d] * rank + r;
+      const float td = __fadd_rn(__fmul_rn(s_lo[base + d], load_f32(row)),
+                                 __fmul_rn(s_hi[base + d], load_f32(row + rank)));
+      f = d == 0 ? td : __fmul_rn(f, td);
+    }
+    out[(p0 + p) * out_stride + c] = f;
+  }
+}
+
+constexpr int DENSE_THREADS = 128;
+
+// grids: each level's (G, G, G, F) grid flattened, level l from offset[l].
+// For each x corner a: T_a = sum over the four (y, z) corners of
+// round(wy*wz) * grid, then out = round(T_0*wx_0) + round(T_1*wx_1), which is
+// dense_pallas.py's pair-weight product followed by its fold over x.
+template <typename T>
+__global__ void __launch_bounds__(DENSE_THREADS)
+dense_forward_kernel(const float* __restrict__ xn, const T* __restrict__ grids,
+                     long long n, int F, HbrLevels lv, float* __restrict__ out,
+                     long long out_stride) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const float pos[3] = {xn[p * 3], xn[p * 3 + 1], xn[p * 3 + 2]};
+  for (int l = 0; l < lv.n_levels; ++l) {
+    const int g = lv.size[l];
+    int i0[3];
+    float fr[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) axis_coord(pos[d], lv.scale[l], g, &i0[d], &fr[d]);
+    const float wx[2] = {__fsub_rn(1.0f, fr[0]), fr[0]};
+    const float wy[2] = {__fsub_rn(1.0f, fr[1]), fr[1]};
+    const float wz[2] = {__fsub_rn(1.0f, fr[2]), fr[2]};
+    float pair[2][2];
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) pair[b][c] = round_w<T>(__fmul_rn(wy[b], wz[c]));
+    const T* grid = grids + lv.offset[l];
+    for (int f = 0; f < F; ++f) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const long long xrow = (long long)(i0[0] + a) * g;
+        float t = 0.0f;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const long long idx = ((xrow + i0[1] + b) * g + i0[2] + c) * F + f;
+            const float term = __fmul_rn(pair[b][c], load_f32(grid + idx));
+            t = (b == 0 && c == 0) ? term : __fadd_rn(t, term);
+          }
+        }
+        const float folded = round_w<T>(__fmul_rn(t, wx[a]));
+        acc = a == 0 ? folded : __fadd_rn(acc, folded);
+      }
+      out[p * out_stride + l * F + f] = acc;
+    }
+  }
+}
+
+extern "C" {
+
+// Each launcher returns cudaGetLastError() right after the launch (0 = ok).
+int hbr_cp_forward(const float* xn, const void* lines, int bf16, long long n,
+                   int total_rows, int rank, const HbrLevels* lv, float* out,
+                   long long out_stride, void* stream) {
+  if (n <= 0) return 0;
+  const unsigned int blocks = (unsigned int)((n + CP_POINTS - 1) / CP_POINTS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    cp_forward_kernel<__nv_bfloat16><<<blocks, CP_THREADS, 0, s>>>(
+        xn, (const __nv_bfloat16*)lines, n, total_rows, rank, *lv, out, out_stride);
+  } else {
+    cp_forward_kernel<float><<<blocks, CP_THREADS, 0, s>>>(
+        xn, (const float*)lines, n, total_rows, rank, *lv, out, out_stride);
+  }
+  return (int)cudaGetLastError();
+}
+
+int hbr_dense_forward(const float* xn, const void* grids, int bf16, long long n,
+                      int features, const HbrLevels* lv, float* out,
+                      long long out_stride, void* stream) {
+  if (n <= 0) return 0;
+  const unsigned int blocks = (unsigned int)((n + DENSE_THREADS - 1) / DENSE_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    dense_forward_kernel<__nv_bfloat16><<<blocks, DENSE_THREADS, 0, s>>>(
+        xn, (const __nv_bfloat16*)grids, n, features, *lv, out, out_stride);
+  } else {
+    dense_forward_kernel<float><<<blocks, DENSE_THREADS, 0, s>>>(
+        xn, (const float*)grids, n, features, *lv, out, out_stride);
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* hbr_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+int hbr_max_levels(void) { return HBR_MAX_LEVELS; }
+
+}  // extern "C"

@@ -1,0 +1,140 @@
+"""Radiance-field forward and eval-time ray rendering (counterpart of the JAX
+models/nerf.py), density mode.
+
+The model is a ``Field`` module holding the encoder tables (dense coarse
+grids, CP factor lines) and the MLP head; it plays the role of the JAX
+params pytree.  ``scene`` is {"mu": (3,), "sigma": scalar or (3,),
+"min_bound", "max_bound"} as tensors on the field's device.
+
+Only the eval path is ported: no jitter, the occupancy mask applied, the
+guided (``cfg.render.eval_guided`` > 0 with a grid) and ladder branches,
+no top-K compaction.  SDF mode and the hierarchical second pass are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from human_body_reconstruction_tpu_torch.models.mlp import MLP3D
+from human_body_reconstruction_tpu_torch.ops import (
+    compositing, dense_grid, hash_encoding, lowrank, occupancy, positional,
+    sampling)
+from human_body_reconstruction_tpu_torch.utils.config import PipelineConfig
+
+
+class Field(nn.Module):
+    """Encoder tables plus MLP head of one model.
+
+    With a ``generator`` the tables and MLP are initialised as the JAX
+    package does (U(-init_scale, init_scale) grids, U(-cp_init_scale,
+    cp_init_scale) lines, torch-default linears) on the generator's device
+    and then moved to ``device``; without one they are zeros, to be
+    loaded from a checkpoint.
+    """
+
+    def __init__(self, cfg: PipelineConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        h = cfg.hash
+        if h.variant != "cp" and h.num_hashed_levels > 0:
+            raise NotImplementedError(
+                f"encoder variant {h.variant!r} is not ported; only 'cp'")
+        if cfg.render.use_sdf:
+            raise NotImplementedError("SDF mode is not ported yet")
+        if generator is not None:
+            dense = dense_grid.init_dense(h, generator)
+            lines = lowrank.init_lines(h, generator) \
+                if h.num_hashed_levels else []
+        else:
+            dense = [torch.zeros((g, g, g, h.features_per_level))
+                     for g in dense_grid.dense_grid_sizes(h)]
+            lines = [torch.zeros((h.dim, g, h.cp_rank))
+                     for g in lowrank.cp_line_sizes(h)] \
+                if h.num_hashed_levels else []
+        self.dense = nn.ParameterList(nn.Parameter(g) for g in dense)
+        self.lines = nn.ParameterList(nn.Parameter(ln) for ln in lines)
+        self.mlp = MLP3D(cfg.mlp, h.out_dim, cfg.dir_enc.out_dim,
+                         generator=generator)
+        if device is not None:
+            self.to(device)
+
+
+def scene_from_bounds(lo, hi, normalization: str = "diagonal", device=None):
+    """Scene dict from bounds: mu = min bound; sigma = the diagonal norm
+    ("diagonal") or the per-axis extent ("unit_box")."""
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=device)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=device)
+    if normalization == "unit_box":
+        sigma = torch.clamp(hi - lo, min=1e-6)
+    else:
+        sigma = torch.sqrt(torch.sum((hi - lo) ** 2))
+    return {"mu": lo, "sigma": sigma, "min_bound": lo, "max_bound": hi}
+
+
+def encode_points(field: Field, scene, pts, cfg: PipelineConfig):
+    """(N, 3) world points -> (N, cfg.hash.out_dim) features."""
+    enc = {"dense": list(field.dense), "lines": list(field.lines)}
+    return hash_encoding.encode_params(enc, pts, scene["mu"], scene["sigma"],
+                                       cfg.hash)
+
+
+def field_forward(field: Field, scene, pts, dirs_enc, cfg: PipelineConfig,
+                  compute_dtype=None):
+    """(rgb (N, 3), density (N,)) at world points with encoded view dirs."""
+    feats = encode_points(field, scene, pts, cfg)
+    return field.mlp(feats, dirs_enc, compute_dtype)
+
+
+def _render_pass(field, scene, rays_o, rays_d, dir_norm, t,
+                 cfg: PipelineConfig, occ, compute_dtype, dt_override=None):
+    """One encode -> MLP -> composite pass at samples t (B, S), with the
+    occupancy mask applied when a grid is given."""
+    B, S = t.shape
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]    # (B,S,3)
+    mask = None
+    if occ is not None:
+        mask = occupancy.lookup(occ, pts, scene["mu"], scene["sigma"])
+    dirs_enc = positional.positional_encode(
+        rays_d, cfg.dir_enc.num_freq, cfg.dir_enc.mode)             # (B, dv)
+    dirs_rep = dirs_enc[:, None, :].expand(B, S, dirs_enc.shape[-1])
+    rgb, density = field_forward(field, scene, pts.reshape(B * S, 3),
+                                 dirs_rep.reshape(B * S, -1), cfg,
+                                 compute_dtype=compute_dtype)
+    rgb = rgb.reshape(B, S, 3)
+    density = density.reshape(B, S)
+    if mask is not None:
+        density = density * mask
+    color, weights, _ = compositing.composite(
+        t, rgb, density, dir_norm, sigma_clip_min=cfg.render.sigma_clip_min,
+        white_background=cfg.render.white_background, dt=dt_override)
+    return color, weights, density
+
+
+def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
+                cfg: PipelineConfig, *, num_samples: Optional[int] = None,
+                occ: Optional[occupancy.OccupancyGrid] = None,
+                compute_dtype=None):
+    """Eval-time render of a ray batch.  Returns {"coarse", "fine" (the
+    same tensor: no hierarchical pass), "weights", "t", "density"}."""
+    if cfg.render.use_sdf:
+        raise NotImplementedError("SDF mode is not ported yet")
+    S = cfg.render.num_samples if num_samples is None else num_samples
+    dt_guided = None
+    if cfg.render.eval_guided > 0 and occ is not None:
+        t, dt_guided = sampling.occupancy_guided_ts(
+            rays_o, rays_d, occ, scene["mu"], scene["sigma"],
+            cfg.render.near, cfg.render.far, cfg.render.eval_guided,
+            num_probe=cfg.render.occ_probes or S, dt_mode=cfg.render.occ_dt)
+    else:
+        t = sampling.stratified_ts(
+            (rays_o.shape[0],), cfg.render.near, cfg.render.far, S,
+            log_sampling=cfg.render.log_sampling, device=rays_o.device)
+    color, weights, density = _render_pass(
+        field, scene, rays_o, rays_d, dir_norm, t, cfg, occ, compute_dtype,
+        dt_override=dt_guided)
+    return {"coarse": color, "fine": color, "weights": weights, "t": t,
+            "density": density}

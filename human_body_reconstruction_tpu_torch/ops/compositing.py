@@ -1,0 +1,45 @@
+"""Emission-absorption compositing (counterpart of the JAX ops/compositing.py).
+
+  dt_i  = t_{i+1} - t_i (last dt = 0) unless given, times |d|
+  sigma = max(sigma, sigma_clip_min)
+  alpha = 1 - exp(-sigma * dt)
+  T_i   = exp(-sum_{j<i} sigma_j dt_j)        (exclusive transmittance)
+  C     = sum_i T_i * alpha_i * rgb_i
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def exclusive_cumsum(x, dim: int = -1):
+    """Cumulative sum shifted right by one, with a leading zero."""
+    c = torch.cumsum(x, dim=dim)
+    zero = torch.zeros_like(c.narrow(dim, 0, 1))
+    return torch.cat([zero, c.narrow(dim, 0, x.shape[dim] - 1)], dim=dim)
+
+
+def composite(t, rgb, sigma, dir_norm=None, *, sigma_clip_min: float = -10.0,
+              white_background: bool = False, dt=None):
+    """t (..., S), rgb (..., S, 3), sigma (..., S); ``dir_norm`` (..., 1)
+    or (...,) scales dt to metric distance; ``dt`` (..., S) overrides the
+    neighbour differences.  Returns (color (..., 3), weights, trans)."""
+    if dt is None:
+        dt = torch.cat([t[..., 1:] - t[..., :-1], torch.zeros_like(t[..., :1])],
+                       dim=-1)
+    if dir_norm is not None:
+        dt = dt * (dir_norm if dir_norm.dim() == t.dim() else dir_norm[..., None])
+    sigma = torch.clamp(sigma, min=sigma_clip_min)
+    prod = sigma * dt
+    alpha = 1.0 - torch.exp(-prod)
+    trans = torch.exp(-exclusive_cumsum(prod, dim=-1))
+    weights = trans * alpha
+    color = torch.sum(weights[..., None] * rgb, dim=-2)
+    if white_background:
+        color = color + (1.0 - torch.sum(weights, dim=-1, keepdim=True))
+    return color, weights, trans
+
+
+def psnr(pred, target, max_val: float = 1.0):
+    mse = torch.mean((pred - target) ** 2)
+    return 10.0 * torch.log10(max_val ** 2 / mse)

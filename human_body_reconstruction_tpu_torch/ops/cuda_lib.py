@@ -1,0 +1,133 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
+
+The sources are compiled by hand with ``nvcc`` for Hopper (``sm_90a``) into a
+library with a plain C interface, loaded with ``ctypes``.  The build happens at
+first use, into ``human_body_reconstruction_tpu_torch/build/`` (which git
+ignores), under a name keyed on a hash of the sources, so a checkout builds
+exactly what it holds.  Nothing here runs at import time: the CPU tests
+import every module on machines with no CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+MAX_LEVELS = 16            # HBR_MAX_LEVELS in csrc/encoders.cu
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class HbrLevels(ctypes.Structure):
+    """Mirror of ``struct HbrLevels`` in csrc/encoders.cu."""
+
+    _fields_ = [("n_levels", ctypes.c_int),
+                ("size", ctypes.c_int * MAX_LEVELS),
+                ("offset", ctypes.c_int * MAX_LEVELS),
+                ("scale", ctypes.c_float * MAX_LEVELS)]
+
+
+def make_levels(sizes, offsets, scales) -> HbrLevels:
+    if len(sizes) > MAX_LEVELS:
+        raise ValueError(f"{len(sizes)} levels; the kernels take at most "
+                         f"{MAX_LEVELS}")
+    lv = HbrLevels()
+    lv.n_levels = len(sizes)
+    for l, (g, off, s) in enumerate(zip(sizes, offsets, scales)):
+        lv.size[l], lv.offset[l], lv.scale[l] = int(g), int(off), float(s)
+    return lv
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libhbr_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the "
+                           "kernels are built with nvcc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build() -> tuple[Path, str]:
+    """Compile csrc/*.cu unless this exact source set is built already.
+
+    Returns (library path, compiler log); the log holds ``-Xptxas -v``'s
+    register and shared-memory counts of each kernel when it was built now.
+    """
+    out = library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources()]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hbr_cp_forward.argtypes = [p, p, i, ll, i, i,
+                                   ctypes.POINTER(HbrLevels), p, ll, p]
+    lib.hbr_cp_forward.restype = i
+    lib.hbr_dense_forward.argtypes = [p, p, i, ll, i,
+                                      ctypes.POINTER(HbrLevels), p, ll, p]
+    lib.hbr_dense_forward.restype = i
+    lib.hbr_error_string.argtypes = [i]
+    lib.hbr_error_string.restype = ctypes.c_char_p
+    lib.hbr_max_levels.argtypes = []
+    lib.hbr_max_levels.restype = i
+    if lib.hbr_max_levels() != MAX_LEVELS:
+        raise RuntimeError("csrc/encoders.cu HBR_MAX_LEVELS != cuda_lib.MAX_LEVELS")
+    return lib
+
+
+def check(code: int, what: str):
+    """Raise if a launcher returned a nonzero cudaGetLastError()."""
+    if code != 0:
+        msg = library().hbr_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def stream_handle(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_out(out: torch.Tensor, n: int, c: int, device: torch.device):
+    """Validate a caller-given output view: f32 on ``device``, (n, c), unit
+    column stride and a row stride of at least c."""
+    if (out.dtype != torch.float32 or out.device != device
+            or tuple(out.shape) != (n, c) or out.stride(1) != 1
+            or (n > 1 and out.stride(0) < c)):
+        raise ValueError(
+            f"out must be float32 ({n}, {c}) on {device} with unit column "
+            f"stride; got {out.dtype} {tuple(out.shape)} on {out.device} "
+            f"strides {out.stride()}")
