@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's training and serving paths once on one CUDA card.
 
 1. Build the port's CUDA kernels from csrc/ with nvcc.
-2. Write a full-width (flagship preset) run directory in the JAX layout:
-   seeded random weights, config JSON, bounds, and an occupancy grid whose
-   mask is a seeded ball around the subject.
-3. Restore it through the port's server and answer a 400x400 frame on the
+2. Training (the zero-flag flagship run, at full width): render the
+   synthetic textured dataset (20 views, 400x400, 384 GT samples), train it
+   through the port's CLI objects for TRAIN_STEPS steps with the occupancy
+   warmup cut to OCC_WARMUP (the TV warmup follows it), every kernel's
+   launch count reset just before; print step time and rays/s of the
+   unculled and the guided phase, occupied fraction and train PSNR.  Then
+   hold each backward kernel to its plain version at the two training
+   shapes (768,000 and 2,048,000 points), one training step's loss and
+   gradients on the card to the same step on the CPU (plain versions),
+   profile one guided step, and save, restore and serve the trained model.
+3. Serving: write a full-width (flagship preset) run directory in the JAX
+   layout: seeded random weights, config JSON, bounds, and an occupancy
+   grid whose mask is a seeded ball around the subject.  Restore it
+   through the port's server and answer a 400x400 frame on the
    128-sample ladder, one at eval_guided 64, a 4-pose orbit batch and a
    health request, with every kernel's launch count reset just before.
-4. Hold each kernel against its plain PyTorch version on the card at the
-   serving shapes (2,097,152 points, about 70% of them outside the unit
+4. Hold each forward kernel against its plain PyTorch version on the card
+   at the serving shapes (2,097,152 points, about 70% of them outside the unit
    box of normalised coordinates), and a whole frame rendered through the
    kernels against the same frame through the plain versions (on the CPU).
 
 Any failure ends the run with a nonzero exit.  Output: the card's name and
-power limit, per-request and per-kernel lines, then one JSON line listing
-the kernels, and last ``{"ok": true, "device": {...}}``.
+power limit, per-phase, per-request and per-kernel lines, then one JSON line
+listing the four kernels (launches counted on the training path), and last
+``{"ok": true, "device": {...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
 """
@@ -25,11 +36,14 @@ from __future__ import annotations
 import base64
 import copy
 import json
+import math
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -37,6 +51,15 @@ N_POINTS = 16384 * 128          # one ladder chunk: 16384 rays x 128 samples
 CP_TOL = 1e-6                   # kernel vs plain: same operations, same order
 DENSE_TOL = 1e-6
 FRAME_TOL = 1e-3                # card vs CPU: f32 math on two devices, bf16 MLP
+TRAIN_STEPS = 200
+OCC_WARMUP = 64                 # the preset's 256, cut to fit the time limit
+TRAIN_POINTS = (16000 * 48, 16000 * 128)   # guided and unculled steps
+# backward kernel vs plain: the same terms, summed by f32 atomics in another
+# order, then rounded to bf16: ops/cuda_lib.sum_order_tolerance (one bf16
+# ulp of the plain value + 2^-18 of the entry's sum of |terms| + 1e-6)
+STEP_LOSS_RTOL = 1e-4           # one step, card vs CPU
+STEP_GRAD_RTOL = 1e-2           # per group, ||card - cpu|| / ||cpu||
+SOURCE = "human_body_reconstruction_tpu_torch/csrc/encoders.cu"
 
 
 def check(cond, what):
@@ -103,6 +126,275 @@ def write_run_dir(path: str, device: torch.device):
     return float(mask.mean())
 
 
+def all_kernels():
+    """(name, wrapper) of every kernel of the training path."""
+    from human_body_reconstruction_tpu_torch.ops import cp_kernel, dense_kernel
+
+    return [("cp_forward", cp_kernel.cp_encode_kernel),
+            ("dense_forward", dense_kernel.dense_encode_kernel),
+            ("cp_backward", cp_kernel.cp_encode_backward_kernel),
+            ("dense_backward", dense_kernel.dense_encode_backward_kernel)]
+
+
+def train(run_dir: str, device: torch.device, tag: str):
+    """The zero-flag flagship training run through the port's CLI objects.
+    Returns (trainer, dataset, launches during training)."""
+    from human_body_reconstruction_tpu_torch.cli import train_hash
+    from human_body_reconstruction_tpu_torch.ops import occupancy
+    from human_body_reconstruction_tpu_torch.train.trainer import Trainer
+    from human_body_reconstruction_tpu_torch.utils import config as C
+
+    args = train_hash.build_parser().parse_args([
+        "--synthetic", "--synthetic_subject", "textured", "--device", "cuda",
+        "--occ_warmup", str(OCC_WARMUP), "--steps", str(TRAIN_STEPS),
+        "--out_dir", run_dir, "--model_name", "flagship"])
+    cfg = train_hash.make_config(args)
+    train_hash.check_supported(args, cfg)
+    want = C.flagship_config()
+    check(cfg.hash == want.hash and cfg.mlp == want.mlp
+          and cfg.render == want.render
+          and cfg.train.ray_batch == want.train.ray_batch
+          and cfg.train.cp_tv_warmup == OCC_WARMUP + 64,
+          "the preset's full width, only the warmups cut")
+    t0 = time.perf_counter()
+    ds, _ = train_hash.load_dataset(args, device)
+    torch.cuda.synchronize()
+    print(f"train data: textured, {tuple(ds['images'].shape)} rendered on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
+    trainer = Trainer(cfg=cfg, ds=ds, out_dir=run_dir, model_name="flagship",
+                      total_steps=TRAIN_STEPS, log_fn=print)
+    kernels = all_kernels()
+    for _, kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    phases = {}
+    for name, n in (("warm", 4), ("unculled", OCC_WARMUP - 4),
+                    ("install", 4), ("guided", TRAIN_STEPS - OCC_WARMUP - 4)):
+        t0 = time.perf_counter()
+        trainer.run(n, log_every=16)
+        torch.cuda.synchronize()
+        phases[name] = (n, time.perf_counter() - t0)
+    launches = {nm: kern.launches for nm, kern in kernels}
+    for name in ("unculled", "guided"):
+        n, sec = phases[name]
+        print(f"train {name}: {n} steps, {1e3 * sec / n:.2f} ms/step, "
+              f"{n * cfg.train.ray_batch / sec:.1f} rays/s {tag}")
+    hist = trainer.history
+    occ_frac = float(occupancy.occupied_fraction(trainer.state.occ))
+    print(f"train: {trainer.state.step} steps, occupied fraction "
+          f"{occ_frac:.4f}, PSNR {hist[0]['psnr']:.2f} dB (step "
+          f"{hist[0]['step']}) -> {hist[-1]['psnr']:.2f} dB (step "
+          f"{hist[-1]['step']})")
+    print(f"launches while training: {launches}")
+    check(trainer.state.step == TRAIN_STEPS and trainer.state.occ is not None,
+          "trained past the occupancy warmup")
+    check(all(math.isfinite(r["loss"]) for r in hist), "finite losses")
+    check(hist[-1]["psnr"] > hist[0]["psnr"] + 1.0, "train PSNR rose")
+    check(0.0 < occ_frac < 1.0, "the grid culls some cells and keeps some")
+    check(all(n > 0 for n in launches.values()), launches)
+    return trainer, ds, launches
+
+
+def backward_checks(trainer, device, tag):
+    """Each backward kernel against its plain version at both training
+    shapes, from a seeded (N, 129) cotangent read through a row stride."""
+    from human_body_reconstruction_tpu_torch.ops import (
+        cp_kernel, cuda_lib, dense_kernel)
+
+    field, scene, h = trainer.state.field, trainer.scene, trainer.cfg.hash
+    d = h.dense_levels * h.features_per_level
+    gen = torch.Generator(device).manual_seed(SEED + 3)
+    out = {}
+    for n in TRAIN_POINTS:
+        xn = torch.rand((n, 3), generator=gen, device=device) * 1.5 - 0.25
+        pts = scene["mu"] + xn * scene["sigma"]
+        g = torch.randn((n, h.out_dim + 3), generator=gen, device=device)
+        g = g[:, 3:]
+        for nm, kern, plain, tables, cols in (
+                ("cp_backward", cp_kernel.cp_encode_backward_kernel,
+                 cp_kernel.cp_encode_plain_backward, list(field.lines),
+                 g[:, d:]),
+                ("dense_backward", dense_kernel.dense_encode_backward_kernel,
+                 dense_kernel.dense_encode_plain_backward, list(field.dense),
+                 g[:, :d])):
+            a = (tables, pts, scene["mu"], scene["sigma"], h, cols)
+            with torch.no_grad():
+                got, want = kern(*a), plain(*a)
+                abs_sum = plain([t.abs() for t in tables], *a[1:-1],
+                                cols.abs())
+                torch.cuda.synchronize()
+                err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+                ulps = max(float(((x - y).abs() / (cuda_lib.bf16_ulp(y)
+                                                   + 1e-6)).max())
+                           for x, y in zip(got, want))
+                ratio = max(float(((x - y).abs() / cuda_lib.sum_order_tolerance(
+                    y, s, True)).max()) for x, y, s in zip(got, want, abs_sum))
+                check(all(x.shape == y.shape and bool(torch.isfinite(x).all())
+                          for x, y in zip(got, want)),
+                      f"{nm} gradients finite, of the plain version's shapes")
+                ms = time_ms(lambda: kern(*a))
+                plain_ms = time_ms(lambda: plain(*a), reps=5)
+            print(f"kernel {nm}: {n} points, max_abs_err {err:.3e}, worst "
+                  f"|err| / tolerance {ratio:.3f} (tol 1; / (bf16 ulp + 1e-6)"
+                  f" {ulps:.3f}), {ms:.4f} ms vs plain {plain_ms:.4f} ms {tag}")
+            check(ratio <= 1.0, (nm, n, err, ratio))
+            if n == TRAIN_POINTS[0]:
+                out[nm] = (err, ms, plain_ms)
+            else:
+                out[nm] = (max(err, out[nm][0]),) + out[nm][1:]
+    return out
+
+
+def step_on_card_vs_cpu(trainer, ds, device):
+    """One guided training step's loss and gradients from the same params,
+    batch and sample positions: kernels on the card, plain on the CPU.
+    (Placed on each device from the same draws, t differs by a few f32 ulps
+    through the order of the CDF sums, and that alone moves the gradient by
+    about 5e-3 of its norm.)"""
+    from human_body_reconstruction_tpu_torch.ops import sampling
+    from human_body_reconstruction_tpu_torch.train import step
+
+    cfg, st, r = trainer.cfg, trainer.state, trainer.cfg.render
+    gen = torch.Generator(device).manual_seed(SEED + 4)
+    batch = step.sample_ray_batch(ds["images"], ds["c2ws"], ds["K"],
+                                  cfg.train.ray_batch, gen)
+    placement = sampling.occupancy_guided_ts(
+        *batch[:2], st.occ, trainer.scene["mu"], trainer.scene["sigma"],
+        r.near, r.far, r.compact_samples, num_probe=r.occ_probes,
+        dt_mode=r.occ_dt, jitter=True, explore_frac=r.occ_explore,
+        probe_jitter=r.occ_probe_jitter, stratified=r.occ_stratified,
+        generator=gen)
+
+    def loss_and_grads(field, dev):
+        move = (lambda t: t.to(dev))
+        field.zero_grad(set_to_none=True)
+        loss, _ = step.loss_fn(
+            field, {k: move(v) for k, v in trainer.scene.items()},
+            [move(t) for t in batch], cfg,
+            type(st.occ)(*(move(t) for t in st.occ)), torch.bfloat16,
+            step=st.step, placement=[move(t) for t in placement])
+        loss.backward()
+        groups = {"dense": field.dense, "lines": field.lines,
+                  "mlp": list(field.mlp.parameters())}
+        grads = {k: torch.cat([p.grad.reshape(-1) for p in ps]).cpu()
+                 for k, ps in groups.items()}
+        field.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    card_loss, card = loss_and_grads(st.field, device)
+    cpu = torch.device("cpu")
+    cpu_loss, ref = loss_and_grads(copy.deepcopy(st.field).to(cpu), cpu)
+    rel = {k: float(torch.linalg.vector_norm(card[k] - ref[k])
+                    / torch.linalg.vector_norm(ref[k])) for k in ref}
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"step {st.step} card vs CPU ({cfg.train.ray_batch} rays x "
+          f"{cfg.render.compact_samples} guided samples): loss "
+          f"{card_loss:.7f} vs {cpu_loss:.7f} (rel {loss_rel:.2e}, tol "
+          f"{STEP_LOSS_RTOL:g}); gradient rel norm "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (tol {STEP_GRAD_RTOL:g})")
+    check(loss_rel <= STEP_LOSS_RTOL, ("step loss", card_loss, cpu_loss))
+    check(all(v <= STEP_GRAD_RTOL for v in rel.values()), ("step grads", rel))
+
+
+def profile_step(trainer, tag):
+    """torch.profiler over one guided training step, forward and backward +
+    optimizer profiled separately: device kernel time by kind and the
+    device's idle share (1 - busy / wall, wall ending in a synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from human_body_reconstruction_tpu_torch.train import step
+
+    cfg, st, ds = trainer.cfg, trainer.state, trainer.ds
+    kinds = (("encoder fwd", ("cp_forward_kernel", "dense_forward_kernel")),
+             ("encoder bwd", ("cp_backward_kernel", "dense_backward_kernel")),
+             ("optimizer", ("multi_tensor", "adam")),
+             ("gemm", ("gemm", "sm90_xmma", "cutlass", "ampere")))
+
+    def kind(name):
+        low = name.lower()
+        return next((k for k, keys in kinds if any(s in low for s in keys)),
+                    "other")
+
+    def window(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans, by_kind = [], {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            a, b = e.time_range.start, e.time_range.end
+            spans.append((a, b))
+            by_kind[kind(e.name)] = by_kind.get(kind(e.name), 0.0) + (b - a)
+        busy, end = 0.0, -math.inf
+        for a, b in sorted(spans):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        return res, wall * 1e3, busy / 1e3, {k: v / 1e3 for k, v in by_kind.items()}
+
+    batch = step.sample_ray_batch(ds["images"], ds["c2ws"], ds["K"],
+                                  cfg.train.ray_batch, trainer.generator)
+    st.opt.zero_grad()
+    (loss, _), wall_f, busy_f, fwd = window(lambda: step.loss_fn(
+        st.field, trainer.scene, batch, cfg, st.occ, torch.bfloat16,
+        step=st.step, generator=trainer.generator))
+    _, wall_b, busy_b, bwd = window(
+        lambda: (loss.backward(), st.opt.step(st.step)))
+    st.step += 1
+    if busy_f + busy_b == 0.0:
+        print("profile: the profiler recorded no device time: not measured")
+        return
+    fmt = (lambda d: ", ".join(f"{k} {v:.3f}" for k, v in sorted(d.items())))
+    print(f"profile guided step {st.step}: forward wall {wall_f:.3f} ms, "
+          f"device {busy_f:.3f} ms [{fmt(fwd)}]; backward+optimizer wall "
+          f"{wall_b:.3f} ms, device {busy_b:.3f} ms [{fmt(bwd)}]; idle share "
+          f"{1.0 - (busy_f + busy_b) / (wall_f + wall_b):.3f} {tag}")
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The server's own PNG (8-bit RGB, one IDAT, no filtering)."""
+    w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
+    n = int.from_bytes(data[33:37], "big")
+    rows = np.frombuffer(zlib.decompress(data[41:41 + n]), np.uint8)
+    return rows.reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
+
+
+def serve_trained(trainer, ds, run_dir, tag):
+    """Save the trained model, restore it through RenderServer, render a
+    training view on the 128-sample ladder and score it."""
+    from human_body_reconstruction_tpu_torch.cli import serve
+
+    trainer.save()
+    args = serve.build_parser().parse_args([
+        "--ckpt_dir", run_dir, "--model_name", "flagship", "--use_occ",
+        "--device", "cuda"])
+    server = serve.RenderServer(args)
+    check(all(torch.equal(a, b) for a, b in zip(
+        server.field.parameters(), trainer.state.field.parameters()))
+          and torch.equal(server.occ.mask, trainer.state.occ.mask),
+          "restored params and grid equal the trained ones")
+    pose, W = 1, ds["W"]
+    cax = 2.0 * math.atan(W / (2.0 * float(ds["K"][0, 0])))
+    req = {"c2w": ds["c2ws"][pose].tolist(), "height": ds["H"], "width": W,
+           "camera_angle_x": cax, "num_samples": 128}
+    server.handle(req)                       # first use at this shape
+    resp = server.handle(req)
+    check(resp["ok"], resp)
+    img = decode_png(base64.b64decode(resp["image_b64"])) / 255.0
+    gt = ds["images"][pose].cpu().numpy()
+    psnr = 10.0 * math.log10(1.0 / max(float(np.mean((img - gt) ** 2)), 1e-12))
+    print(f"served trained model: view {pose} {ds['H']}x{W} ladder 128 in "
+          f"{resp['wall_s']} s ({resp['rays_per_sec']} rays/s), PSNR "
+          f"{psnr:.2f} dB against the ground truth {tag}")
+    check(np.isfinite(img).all() and psnr > 12.0, ("served PSNR", psnr))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -128,6 +420,15 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+
+    with tempfile.TemporaryDirectory() as train_dir:
+        trainer, ds, train_launches = train(train_dir, device, tag)
+        bwd = backward_checks(trainer, device, tag)
+        step_on_card_vs_cpu(trainer, ds, device)
+        profile_step(trainer, tag)
+        serve_trained(trainer, ds, train_dir, tag)
+        del trainer, ds
+    torch.cuda.empty_cache()
 
     kernels = [
         ("cp_forward", cp_kernel.cp_encode_kernel, cp_kernel.cp_encode_plain,
@@ -180,7 +481,7 @@ def main() -> int:
                   f"eval_guided {resp['eval_guided']}: wall {resp['wall_s']} s,"
                   f" {resp['rays_per_sec']} rays/s {tag}")
     print(f"health: {json.dumps(responses[-1])}")
-    print(f"launches while serving: {launches}")
+    print(f"launches while serving (forward kernels): {launches}")
     check(all(n > 0 for n in launches.values()), launches)
 
     # each kernel against its plain version at the serving shapes
@@ -205,9 +506,16 @@ def main() -> int:
               f"box), out {tuple(got.shape)}, max_abs_err {err:.3e} (tol "
               f"{tol:g}), {ms:.4f} ms vs plain {plain_ms:.4f} ms {tag}")
         check(err <= tol, (nm, err))
-        report.append({"name": nm, "route": "cuda",
-                       "source": "human_body_reconstruction_tpu_torch/csrc/encoders.cu",
-                       "replaces": replaces, "launches": launches[nm],
+        report.append({"name": nm, "route": "cuda", "source": SOURCE,
+                       "replaces": replaces, "launches": train_launches[nm],
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    for nm, replaces in (
+            ("cp_backward", "human_body_reconstruction_tpu/ops/cp_pallas.py:173"),
+            ("dense_backward",
+             "human_body_reconstruction_tpu/ops/dense_pallas.py:152")):
+        err, ms, plain_ms = bwd[nm]
+        report.append({"name": nm, "route": "cuda", "source": SOURCE,
+                       "replaces": replaces, "launches": train_launches[nm],
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
 
     # a whole frame through the kernels (card) vs the plain versions (CPU)

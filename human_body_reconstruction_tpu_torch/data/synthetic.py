@@ -1,9 +1,20 @@
-"""Camera poses for synthetic views (numpy; the pose helpers of the JAX
-data/synthetic.py, whose scene renderers are not ported)."""
+"""Procedural synthetic scenes (counterpart of the JAX data/synthetic.py).
+
+Pose helpers (numpy), the analytic emissive volumes ``blob_field`` (smooth,
+for small tests) and ``textured_field`` (the hard scene of the zero-flag
+trainer: a thin shell, three rods and a core under a 3-octave albedo), and
+their ground-truth renders through the same compositing as the model.  The
+card's machine has no JAX, so the port renders its own ground truth.  The
+humanoid, sphere and tangle subjects are not ported yet.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from human_body_reconstruction_tpu_torch.ops import compositing, sampling
+from human_body_reconstruction_tpu_torch.ops import rays as rays_lib
 
 
 def look_at_pose(eye, target=(0.0, 0.0, 0.0), up=(0.0, 0.0, 1.0)):
@@ -32,3 +43,88 @@ def orbit_poses(n: int, radius: float = 4.0, elevation: float = 0.5):
         eye = (radius * np.cos(th), radius * np.sin(th), elevation * radius)
         poses.append(look_at_pose(eye))
     return np.stack(poses)
+
+
+def blob_field(pts):
+    """Two coloured Gaussian blobs.  Returns (rgb (N, 3), sigma (N,))."""
+    c1 = pts.new_tensor([0.35, 0.0, 0.0])
+    c2 = pts.new_tensor([-0.35, 0.2, 0.1])
+    s1 = 40.0 * torch.exp(-torch.sum((pts - c1) ** 2, dim=-1) / (2 * 0.3 ** 2))
+    s2 = 30.0 * torch.exp(-torch.sum((pts - c2) ** 2, dim=-1) / (2 * 0.25 ** 2))
+    sigma = s1 + s2
+    w1 = s1 / (sigma + 1e-9)
+    rgb = (w1[..., None] * pts.new_tensor([0.9, 0.3, 0.2])
+           + (1 - w1)[..., None] * pts.new_tensor([0.2, 0.5, 0.9]))
+    return rgb, sigma
+
+
+def textured_field(pts):
+    """The hard scene: a thin shell at radius 0.85, three thin rods through
+    the centre and a small core, under a 3-octave incommensurate trig
+    albedo of base frequency 24 (wavelengths down to ~0.08 units).
+    Returns (rgb (N, 3), sigma (N,))."""
+    freq = 24.0
+    r = torch.linalg.vector_norm(pts, dim=-1)
+    sharp = 200.0
+    shell = torch.exp(-((r - 0.85) / 0.025) ** 2)
+    rod_r = 0.03
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    rx = torch.sqrt(y ** 2 + z ** 2)
+    ry = torch.sqrt(x ** 2 + z ** 2)
+    rz = torch.sqrt(x ** 2 + y ** 2)
+    inside = (r < 0.95).to(torch.float32)
+    rods = (torch.sigmoid(-sharp * (rx - rod_r))
+            + torch.sigmoid(-sharp * (ry - rod_r))
+            + torch.sigmoid(-sharp * (rz - rod_r))) * inside
+    core = torch.sigmoid(-sharp * (r - 0.18))
+    sigma = 120.0 * shell + 90.0 * torch.clamp(rods, 0.0, 1.0) + 90.0 * core
+
+    def octave(f, phase):
+        return (torch.sin(f * x + phase) * torch.sin(f * 1.31 * y + 2.1 * phase)
+                * torch.sin(f * 0.87 * z + 0.7 * phase))
+
+    tex = (octave(freq, 0.0) + 0.5 * octave(2.3 * freq, 1.0),
+           octave(1.7 * freq, 2.0) + 0.5 * octave(3.1 * freq, 0.4),
+           octave(1.3 * freq, 4.0) + 0.5 * octave(2.7 * freq, 1.7))
+    rgb = torch.stack([0.5 + 0.33 * t for t in tex], dim=-1)
+    return torch.clamp(rgb, 0.0, 1.0), sigma
+
+
+@torch.no_grad()
+def render_gt_image(H: int, W: int, K, c2w, field=blob_field,
+                    near: float = 2.0, far: float = 6.0,
+                    num_samples: int = 256):
+    """Ground-truth (H, W, 3) render of an analytic field on K's device:
+    dense uniform samples, 16384 rays at a time."""
+    chunk_rays = 16384
+    o, d, n = rays_lib.full_image_rays(H, W, K, c2w)
+    t_row = sampling.linspace(near, far, num_samples, K.device)
+    out = []
+    for s in range(0, o.shape[0], chunk_rays):
+        oc, dc, nc = o[s:s + chunk_rays], d[s:s + chunk_rays], n[s:s + chunk_rays]
+        t = t_row.expand(oc.shape[0], num_samples)
+        pts = oc[:, None, :] + dc[:, None, :] * t[..., None]
+        rgb, sigma = field(pts.reshape(-1, 3))
+        color, _, _ = compositing.composite(
+            t, rgb.reshape(oc.shape[0], num_samples, 3),
+            sigma.reshape(oc.shape[0], num_samples), nc)
+        out.append(color)
+    return torch.cat(out).reshape(H, W, 3)
+
+
+def make_dataset(n_views: int = 8, H: int = 48, W: int = 48,
+                 focal: float = 55.0, near: float = 2.0, far: float = 6.0,
+                 field=blob_field, radius: float = 4.0,
+                 elevation: float = 0.5, gt_samples: int = 0, device=None):
+    """Synthetic dataset on ``device``: images (N, H, W, 3), c2ws
+    (N, 4, 4), K (3, 3) as f32 tensors, plus H, W, near, far."""
+    K = torch.tensor([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]],
+                     dtype=torch.float32, device=device)
+    c2ws = torch.as_tensor(orbit_poses(n_views, radius=radius,
+                                       elevation=elevation), device=device)
+    kw = {"num_samples": gt_samples} if gt_samples else {}
+    images = torch.stack([
+        render_gt_image(H, W, K, c2ws[k], field=field, near=near, far=far,
+                        **kw) for k in range(n_views)])
+    return {"images": images, "c2ws": c2ws, "K": K, "H": H, "W": W,
+            "near": near, "far": far}

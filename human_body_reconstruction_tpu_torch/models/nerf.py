@@ -1,4 +1,4 @@
-"""Radiance-field forward and eval-time ray rendering (counterpart of the JAX
+"""Radiance-field forward and ray rendering (counterpart of the JAX
 models/nerf.py), density mode.
 
 The model is a ``Field`` module holding the encoder tables (dense coarse
@@ -6,10 +6,14 @@ grids, CP factor lines) and the MLP head; it plays the role of the JAX
 params pytree.  ``scene`` is {"mu": (3,), "sigma": scalar or (3,),
 "min_bound", "max_bound"} as tensors on the field's device.
 
-Only the eval path is ported: no jitter, the occupancy mask applied, the
-guided (``cfg.render.eval_guided`` > 0 with a grid) and ladder branches,
-no top-K compaction.  SDF mode and the hierarchical second pass are not
-ported yet and raise.
+``render_rays`` has the eval branch (no jitter, the occupancy mask applied,
+guided placement when ``cfg.render.eval_guided`` > 0 with a grid, else the
+ladder) and the training branch (``jitter=True``): the jittered ladder
+while no grid is attached, then occupancy-guided placement with
+exploration, computed under ``no_grad`` and with no mask lookup (masking
+would zero the gradient of every exploration sample).  Not ported yet, and
+raising: top-K compaction (training with a grid but without guided
+placement), SDF mode and the hierarchical second pass.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from human_body_reconstruction_tpu_torch.models.mlp import MLP3D
+from human_body_reconstruction_tpu_torch.models.mlp import (
+    MLP3D, apply_density_activation)
 from human_body_reconstruction_tpu_torch.ops import (
     compositing, dense_grid, hash_encoding, lowrank, occupancy, positional,
     sampling)
@@ -89,14 +94,24 @@ def field_forward(field: Field, scene, pts, dirs_enc, cfg: PipelineConfig,
     return field.mlp(feats, dirs_enc, compute_dtype)
 
 
+def density_only(field: Field, scene, pts, cfg: PipelineConfig,
+                 compute_dtype=None):
+    """(N,) activated density at world points: the density branch only
+    (occupancy refreshes)."""
+    raw, _ = field.mlp.density(encode_points(field, scene, pts, cfg),
+                               compute_dtype)
+    return apply_density_activation(raw, cfg.mlp)[..., 0]
+
+
 def _render_pass(field, scene, rays_o, rays_d, dir_norm, t,
-                 cfg: PipelineConfig, occ, compute_dtype, dt_override=None):
+                 cfg: PipelineConfig, occ, compute_dtype, dt_override=None,
+                 apply_mask=True):
     """One encode -> MLP -> composite pass at samples t (B, S), with the
-    occupancy mask applied when a grid is given."""
+    occupancy mask applied when a grid is given and ``apply_mask``."""
     B, S = t.shape
     pts = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]    # (B,S,3)
     mask = None
-    if occ is not None:
+    if occ is not None and apply_mask:
         mask = occupancy.lookup(occ, pts, scene["mu"], scene["sigma"])
     dirs_enc = positional.positional_encode(
         rays_d, cfg.dir_enc.num_freq, cfg.dir_enc.mode)             # (B, dv)
@@ -117,24 +132,54 @@ def _render_pass(field, scene, rays_o, rays_d, dir_norm, t,
 def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
                 cfg: PipelineConfig, *, num_samples: Optional[int] = None,
                 occ: Optional[occupancy.OccupancyGrid] = None,
-                compute_dtype=None):
-    """Eval-time render of a ray batch.  Returns {"coarse", "fine" (the
-    same tensor: no hierarchical pass), "weights", "t", "density"}."""
-    if cfg.render.use_sdf:
+                compute_dtype=None, jitter: bool = False,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None, placement=None):
+    """Render a ray batch.  Returns {"coarse", "fine" (the same tensor: no
+    hierarchical pass), "weights", "t", "density"}.
+
+    ``jitter`` selects the training branch, whose random draws come from
+    ``generator``; ``draws`` may replace them: "u" (the ladder jitter, or
+    the iid quantiles of guided placement), "xi" (its stratified draw),
+    "probe_u" (its probe jitter).  ``placement`` (t (B, S), dt (B, S) or
+    None) replaces the sampler's output altogether: a step's gradient moves
+    measurably when t moves by a few f32 ulps, so comparisons of one step
+    across devices hand both the same samples."""
+    r = cfg.render
+    if r.use_sdf:
         raise NotImplementedError("SDF mode is not ported yet")
-    S = cfg.render.num_samples if num_samples is None else num_samples
+    if jitter and r.hierarchical:
+        raise NotImplementedError("hierarchical sampling is not ported yet")
+    S = r.num_samples if num_samples is None else num_samples
+    draws = draws or {}
     dt_guided = None
-    if cfg.render.eval_guided > 0 and occ is not None:
-        t, dt_guided = sampling.occupancy_guided_ts(
-            rays_o, rays_d, occ, scene["mu"], scene["sigma"],
-            cfg.render.near, cfg.render.far, cfg.render.eval_guided,
-            num_probe=cfg.render.occ_probes or S, dt_mode=cfg.render.occ_dt)
-    else:
-        t = sampling.stratified_ts(
-            (rays_o.shape[0],), cfg.render.near, cfg.render.far, S,
-            log_sampling=cfg.render.log_sampling, device=rays_o.device)
+    guided_train = r.occ_guided and occ is not None and jitter
+    guided_eval = r.eval_guided > 0 and occ is not None and not jitter
+    if jitter and occ is not None and not guided_train and \
+            0 < r.compact_samples < S:
+        raise NotImplementedError("top-K sample compaction is not ported yet")
+    with torch.no_grad():              # placement depends on no parameter
+        if placement is not None:
+            t, dt_guided = placement
+        elif guided_train or guided_eval:
+            t, dt_guided = sampling.occupancy_guided_ts(
+                rays_o, rays_d, occ, scene["mu"], scene["sigma"], r.near,
+                r.far, (r.compact_samples or S) if guided_train
+                else r.eval_guided,
+                num_probe=r.occ_probes or S, dt_mode=r.occ_dt, jitter=jitter,
+                explore_frac=r.occ_explore if guided_train else 0.0,
+                probe_jitter=r.occ_probe_jitter and jitter,
+                stratified=r.occ_stratified and jitter, generator=generator,
+                u=draws.get("u"), xi=draws.get("xi"),
+                probe_u=draws.get("probe_u"))
+        else:
+            t = sampling.stratified_ts(
+                (rays_o.shape[0],), r.near, r.far, S,
+                log_sampling=r.log_sampling, device=rays_o.device,
+                jitter=jitter, per_ray_jitter=r.per_ray_jitter,
+                generator=generator, u=draws.get("u"))
     color, weights, density = _render_pass(
         field, scene, rays_o, rays_d, dir_norm, t, cfg, occ, compute_dtype,
-        dt_override=dt_guided)
+        dt_override=dt_guided, apply_mask=not guided_train)
     return {"coarse": color, "fine": color, "weights": weights, "t": t,
             "density": density}

@@ -1,19 +1,26 @@
-"""CP factor-line encoder forward: the CUDA kernel and its plain version.
+"""CP factor-line encoder: the CUDA kernels and their plain versions.
 
-Counterpart of the JAX ops/cp_pallas.py (``_fwd_kernel`` and
-``_fwd_kernel_axis`` via ``cp_encode_pallas``).  The kernel is
-``hbr_cp_forward`` in csrc/encoders.cu; the note there says what bounds it
-on Hopper and why it gathers two rows per line instead of forming the
-TPU's two-hot matrix product.  Both versions compute the Pallas kernel's
-numerics:
+Counterpart of the JAX ops/cp_pallas.py: the forward ``_fwd_kernel`` and
+``_fwd_kernel_axis`` (via ``cp_encode_pallas``) and the backward
+``_bwd_kernel`` (the VJP ``_cp_matmul_bwd``).  The kernels are
+``hbr_cp_forward`` and ``hbr_cp_backward`` in csrc/encoders.cu; the notes
+there say what bounds them on Hopper and why they gather and scatter two
+rows per line instead of forming the TPU's two-hot matrix products.  Both
+versions compute the Pallas kernels' numerics:
 
-  T_d = bf16(1 - frac_d) * bf16(line_d[x0_d]) + bf16(frac_d) * bf16(line_d[x0_d + 1])
-  out = T_0 * T_1 * T_2                       (f32 throughout)
+  T_d  = bf16(1 - frac_d) * bf16(line_d[x0_d]) + bf16(frac_d) * bf16(line_d[x0_d + 1])
+  out  = (T_0 * T_1) * T_2                     (f32 throughout)
+
+  dT_0 = (g * T_2) * T_1,  dT_1 = T_0 * (g * T_2),  dT_2 = (T_0 * T_1) * g
+  dline_d[x0_d]     += bf16(1 - frac_d) * bf16(dT_d)
+  dline_d[x0_d + 1] += bf16(frac_d) * bf16(dT_d)     (f32 sums, then bf16)
 
 with the weights computed in f32 before rounding, and nothing rounded when
-``cfg.dense_bf16`` is off.  ``cp_encode_kernel`` is the wrapper: for tensors
-on the CPU it runs ``cp_encode_plain``; for tensors on a CUDA device it
-launches the kernel or raises.
+``cfg.dense_bf16`` is off.  Positions get no gradient (the Pallas path
+stop-gradients the fractions).  ``cp_encode_kernel`` and
+``cp_encode_backward_kernel`` are the wrappers: for tensors on the CPU they
+run ``cp_encode_plain`` and ``cp_encode_plain_backward``; for tensors on a
+CUDA device they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -29,6 +36,16 @@ from human_body_reconstruction_tpu_torch.ops.lowrank import (
 from human_body_reconstruction_tpu_torch.utils.config import HashConfig
 
 
+def _lerps(ln, x0, frac, rnd):
+    """Per axis: (weight lo, weight hi, T_d) of one level, (N, R) each."""
+    out = []
+    for d in range(3):
+        w_lo, w_hi = rnd(1.0 - frac[:, d:d + 1]), rnd(frac[:, d:d + 1])
+        t = w_lo * ln[d][x0[:, d]] + w_hi * ln[d][x0[:, d] + 1]
+        out.append((w_lo, w_hi, t))
+    return out
+
+
 def cp_encode_plain(lines, x, mu, sigma, cfg: HashConfig):
     """(N, 3) world points -> (N, n_cp_levels * R) f32, Pallas numerics."""
     _check(lines, cfg)
@@ -37,58 +54,123 @@ def cp_encode_plain(lines, x, mu, sigma, cfg: HashConfig):
     outs = []
     for ln, g, scale in zip(lines, cp_line_sizes(cfg), cp_scales(cfg)):
         x0, frac = axis_coords(xn * float(scale), g)                # (N, 3)
-        ln = rnd(ln.to(torch.float32))
-        feat = None
-        for d in range(3):
-            lo = rnd(1.0 - frac[:, d:d + 1]) * ln[d][x0[:, d]]
-            hi = rnd(frac[:, d:d + 1]) * ln[d][x0[:, d] + 1]
-            feat = lo + hi if feat is None else feat * (lo + hi)
-        outs.append(feat)
+        (_, _, t0), (_, _, t1), (_, _, t2) = _lerps(
+            rnd(ln.to(torch.float32)), x0, frac, rnd)
+        outs.append(t0 * t1 * t2)
     return torch.cat(outs, dim=-1)
 
 
-def cp_encode_kernel(lines, x, mu, sigma, cfg: HashConfig, out=None):
-    """Wrapper: CPU tensors -> ``cp_encode_plain``; CUDA tensors -> the CUDA
-    kernel.  ``out`` (optional) is an (N, n_cp_levels * R) f32 view with
-    unit column stride to write into (a column block of the encoder's
-    feature matrix).  Returns the features.  Shapes and devices are checked
-    before either runs, so the CPU tests see what the kernel refuses."""
+def cp_encode_plain_backward(lines, x, mu, sigma, cfg: HashConfig, grad):
+    """Gradient of ``cp_encode_plain`` w.r.t. each level's lines, given the
+    gradient ``grad`` (N, n_cp_levels * R) of its output, Pallas numerics.
+    Returns a list of f32 (3, G_l, R) tensors."""
+    _check(lines, cfg)
+    rnd = round_bf16 if cfg.dense_bf16 else (lambda v: v)
+    xn = normalise(x, mu, sigma)
+    rank = lines[0].shape[-1]
+    out = []
+    for l, (ln, g, scale) in enumerate(zip(lines, cp_line_sizes(cfg),
+                                           cp_scales(cfg))):
+        x0, frac = axis_coords(xn * float(scale), g)
+        (wl0, wh0, t0), (wl1, wh1, t1), (wl2, wh2, t2) = _lerps(
+            rnd(ln.detach().to(torch.float32)), x0, frac, rnd)
+        gl = grad[:, l * rank:(l + 1) * rank]
+        dp = gl * t2
+        dline = torch.zeros((3, g, rank), dtype=torch.float32,
+                            device=x.device)
+        for d, (w_lo, w_hi, dt) in enumerate(((wl0, wh0, dp * t1),
+                                              (wl1, wh1, t0 * dp),
+                                              (wl2, wh2, (t0 * t1) * gl))):
+            dt = rnd(dt)
+            dline[d].index_add_(0, x0[:, d], w_lo * dt)
+            dline[d].index_add_(0, x0[:, d] + 1, w_hi * dt)
+        out.append(rnd(dline))
+    return out
+
+
+def _check_args(lines, x, cfg: HashConfig):
+    """Shapes and devices the kernels rely on; returns (n, rank, C)."""
     _check(lines, cfg)
     if x.dim() != 2 or x.shape[1] != 3:
         raise ValueError(f"points must be (N, 3), got {tuple(x.shape)}")
     n, rank = x.shape[0], lines[0].shape[-1]
-    c = len(lines) * rank
-    sizes = cp_line_sizes(cfg)
-    for ln, g in zip(lines, sizes):
+    for ln, g in zip(lines, cp_line_sizes(cfg)):
         if ln.device != x.device or tuple(ln.shape) != (3, g, rank):
             raise ValueError(f"lines must be (3, {g}, {rank}) on the "
                              f"points' device, got {tuple(ln.shape)} on "
                              f"{ln.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"CP encoder kernels: unsupported device {x.device}")
+    return n, rank, len(lines) * rank
+
+
+def _kernel_inputs(lines, x, mu, sigma, cfg: HashConfig):
+    """(normalised points, packed (3, sum_G, R) lines in the stored dtype,
+    level struct, total rows) for a launch."""
+    sizes = cp_line_sizes(cfg)
+    store = torch.bfloat16 if cfg.dense_bf16 else torch.float32
+    packed = torch.cat([ln.detach() for ln in lines], dim=1).to(store)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    lv = cuda_lib.make_levels(sizes, offsets[:-1], cp_scales(cfg))
+    return (normalise(x, mu, sigma).contiguous(), packed.contiguous(), lv,
+            int(offsets[-1]))
+
+
+def cp_encode_kernel(lines, x, mu, sigma, cfg: HashConfig, out=None):
+    """Forward wrapper: CPU tensors -> ``cp_encode_plain``; CUDA tensors ->
+    ``hbr_cp_forward``.  ``out`` (optional) is an (N, n_cp_levels * R) f32
+    view with unit column stride to write into (a column block of the
+    encoder's feature matrix).  Returns the features.  Shapes and devices
+    are checked before either runs, so the CPU tests see what the kernel
+    refuses."""
+    n, rank, c = _check_args(lines, x, cfg)
     if out is not None:
         cuda_lib.check_out(out, n, c, x.device)
     if x.device.type == "cpu":
         res = cp_encode_plain(lines, x, mu, sigma, cfg)
         return res if out is None else out.copy_(res)
-    if x.device.type != "cuda":
-        raise ValueError(f"cp_encode_kernel: unsupported device {x.device}")
     if out is None:
         out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    store = torch.bfloat16 if cfg.dense_bf16 else torch.float32
-    packed = torch.cat([ln.detach() for ln in lines], dim=1).to(store)
-    packed = packed.contiguous()                           # (3, sum_G, R)
-    xn = normalise(x, mu, sigma).contiguous()
-    offsets = np.concatenate([[0], np.cumsum(sizes)])
-    lv = cuda_lib.make_levels(sizes, offsets[:-1], cp_scales(cfg))
-    lib = cuda_lib.library()
-    code = lib.hbr_cp_forward(
-        xn.data_ptr(), packed.data_ptr(), int(cfg.dense_bf16), n,
-        int(offsets[-1]), rank, lv, out.data_ptr(), out.stride(0),
+    xn, packed, lv, total = _kernel_inputs(lines, x, mu, sigma, cfg)
+    code = cuda_lib.library().hbr_cp_forward(
+        xn.data_ptr(), packed.data_ptr(), int(cfg.dense_bf16), n, total,
+        rank, lv, out.data_ptr(), out.stride(0),
         cuda_lib.stream_handle(x.device))
     cp_encode_kernel.launches += 1
     cuda_lib.check(code, "hbr_cp_forward")
     return out
 
 
+def cp_encode_backward_kernel(lines, x, mu, sigma, cfg: HashConfig, grad):
+    """Backward wrapper: the gradient of the lines given ``grad``, the
+    (N, n_cp_levels * R) f32 gradient of the features (any row stride, unit
+    column stride: a column block of the encoder's gradient).  CPU tensors
+    -> ``cp_encode_plain_backward``; CUDA tensors -> ``hbr_cp_backward``.
+    Returns a list of f32 (3, G_l, R) tensors."""
+    n, rank, c = _check_args(lines, x, cfg)
+    cuda_lib.check_out(grad, n, c, x.device, name="grad")
+    if x.device.type == "cpu":
+        return cp_encode_plain_backward(lines, x, mu, sigma, cfg, grad)
+    sizes = cp_line_sizes(cfg)
+    xn, packed, lv, total = _kernel_inputs(lines, x, mu, sigma, cfg)
+    dlines = torch.zeros((3, total, rank), dtype=torch.float32,
+                         device=x.device)
+    if n > 0:
+        k = cuda_lib.shared_prefix([3 * g * rank * 4 for g in sizes],
+                                   cuda_lib.BWD_SHARED_BYTES)
+        code = cuda_lib.library().hbr_cp_backward(
+            xn.data_ptr(), packed.data_ptr(), int(cfg.dense_bf16),
+            grad.data_ptr(), grad.stride(0), n, total, rank, lv,
+            int(sum(sizes[:k])), dlines.data_ptr(),
+            cuda_lib.stream_handle(x.device))
+        cp_encode_backward_kernel.launches += 1
+        cuda_lib.check(code, "hbr_cp_backward")
+    if cfg.dense_bf16:
+        dlines = round_bf16(dlines)
+    return list(torch.split(dlines, sizes, dim=1))
+
+
 cp_encode_kernel.launches = 0
+cp_encode_backward_kernel.launches = 0

@@ -5,7 +5,9 @@ library with a plain C interface, loaded with ``ctypes``.  The build happens at
 first use, into ``human_body_reconstruction_tpu_torch/build/`` (which git
 ignores), under a name keyed on a hash of the sources, so a checkout builds
 exactly what it holds.  Nothing here runs at import time: the CPU tests
-import every module on machines with no CUDA toolkit.
+import every module on machines with no CUDA toolkit.  The last two
+functions are the tolerance the backward kernels are held to against their
+plain versions, by the tests and by chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 MAX_LEVELS = 16            # HBR_MAX_LEVELS in csrc/encoders.cu
+# Shared-memory accumulator of a backward kernel's coarse levels, per block:
+# at the flagship width the two coarsest CP levels (68 KB) or the coarsest
+# dense grid (47 KB), so that two blocks fit on one SM.
+BWD_SHARED_BYTES = 96 * 1024
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -101,6 +107,12 @@ def library() -> ctypes.CDLL:
     lib.hbr_dense_forward.argtypes = [p, p, i, ll, i,
                                       ctypes.POINTER(HbrLevels), p, ll, p]
     lib.hbr_dense_forward.restype = i
+    lib.hbr_cp_backward.argtypes = [p, p, i, p, ll, ll, i, i,
+                                    ctypes.POINTER(HbrLevels), i, p, p]
+    lib.hbr_cp_backward.restype = i
+    lib.hbr_dense_backward.argtypes = [p, i, p, ll, ll, i,
+                                       ctypes.POINTER(HbrLevels), i, p, p]
+    lib.hbr_dense_backward.restype = i
     lib.hbr_error_string.argtypes = [i]
     lib.hbr_error_string.restype = ctypes.c_char_p
     lib.hbr_max_levels.argtypes = []
@@ -121,13 +133,53 @@ def stream_handle(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def check_out(out: torch.Tensor, n: int, c: int, device: torch.device):
-    """Validate a caller-given output view: f32 on ``device``, (n, c), unit
+def check_out(out: torch.Tensor, n: int, c: int, device: torch.device,
+              name: str = "out"):
+    """Validate a caller-given row-strided matrix view (an output to write,
+    or an incoming gradient to read): f32 on ``device``, (n, c), unit
     column stride and a row stride of at least c."""
     if (out.dtype != torch.float32 or out.device != device
             or tuple(out.shape) != (n, c) or out.stride(1) != 1
             or (n > 1 and out.stride(0) < c)):
         raise ValueError(
-            f"out must be float32 ({n}, {c}) on {device} with unit column "
+            f"{name} must be float32 ({n}, {c}) on {device} with unit column "
             f"stride; got {out.dtype} {tuple(out.shape)} on {out.device} "
             f"strides {out.stride()}")
+
+
+def shared_prefix(sizes, budget: int) -> int:
+    """How many leading entries of ``sizes`` (each level's accumulator size
+    in bytes) fit together in ``budget`` bytes: the coarse levels a backward
+    kernel accumulates in shared memory."""
+    total, k = 0, 0
+    for s in sizes:
+        if total + s > budget:
+            break
+        total, k = total + s, k + 1
+    return k
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (elementwise, f32; 0 at 0): the
+    tolerance unit of a sum that is rounded to bf16 after being taken in
+    another order."""
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def sum_order_tolerance(ref, abs_sum, bf16: bool):
+    """Elementwise bound on |a - ref| where a and ref are f32 sums of the
+    same terms taken in two orders (atomics, index_add_), then rounded to
+    bf16 when ``bf16``.  ``abs_sum`` is the sum of the terms' absolute
+    values S.  Two orders differ by about 2^-24 * S / sqrt(3) when the
+    partial sums wander like a random walk, and by up to 2^-24 * S * sqrt(n)
+    / 2 when they drift before cancelling (n terms), so the bound allows
+    2^-18 * S; the bf16 rounding of two sums that straddle a rounding
+    boundary adds one bf16 ulp of ref; 1e-6 covers zeros.  At the training
+    path's 768,000 points, the plain backwards summed in another point
+    order read up to 0.99 of it, and a dropped point, swapped lerp weights
+    or an unrounded dT read 60 to 10^5 times it
+    (tests/test_torch_kernels.py::test_sum_order_tolerance_rejects_faults)."""
+    tol = 2.0 ** -18 * abs_sum + 1e-6
+    return tol + bf16_ulp(ref) if bf16 else tol

@@ -1,11 +1,12 @@
-"""Occupancy grid lookups (counterpart of the JAX ops/occupancy.py).
+"""Occupancy grid (counterpart of the JAX ops/occupancy.py).
 
 The grid is a float density EMA plus a float {0, 1} mask; a lookup is a
 multiplicative density mask.  Cells are ``trunc((x - mu) / sigma * G)``
 clipped into the grid: the conversion truncates toward zero before the
 clip, as the JAX ``astype(int32)`` does, and the flat index is
-``(cx * G + cy) * G + cz``.  The EMA update belongs to training and is not
-ported yet.
+``(cx * G + cy) * G + cz``.  ``update`` is one training-time culling round:
+decay the EMA and re-evaluate the density at jittered centres of a random
+subset of cells.
 """
 
 from __future__ import annotations
@@ -44,3 +45,56 @@ def lookup(grid: OccupancyGrid, points, mu, sigma):
     c = cell_indices(points, mu, sigma, g).long()
     flat = (c[..., 0] * g + c[..., 1]) * g + c[..., 2]
     return grid.mask.reshape(-1)[flat]
+
+
+def update(grid: OccupancyGrid, density_fn, mu, sigma, *,
+           num_cells: int = 2 ** 18, decay: float = 0.95, generator=None,
+           flat_idx=None, jitter=None) -> OccupancyGrid:
+    """One culling round (a new grid; the old one is not modified).
+
+    ``density_fn`` maps (N, 3) world points to (N,) density.  Cells never
+    visited hold +inf (occupied) and take the fresh estimate directly;
+    visited cells take max(decayed, fresh).  ``flat_idx`` (num_cells,) and
+    ``jitter`` (num_cells, 3) replace the draws from ``generator``.  A cell
+    drawn twice in one round gets several candidate values; the JAX
+    ``.at[].set`` keeps an unspecified one, and this port keeps the largest
+    (``scatter_reduce`` amax), which is one of them and does not depend on
+    the device or the order of the writes."""
+    g = grid.density.shape[0]
+    dev = grid.density.device
+    if flat_idx is None:
+        flat_idx = torch.randint(0, g * g * g, (num_cells,),
+                                 generator=generator, device=dev)
+    if jitter is None:
+        jitter = torch.rand((flat_idx.shape[0], 3), generator=generator,
+                            device=dev)
+    cells = torch.stack([flat_idx // (g * g), (flat_idx // g) % g,
+                         flat_idx % g], dim=-1).to(torch.float32)
+    pts = (cells + jitter) / g * sigma + mu
+    d = torch.clamp(density_fn(pts), min=0.0)
+    dens = grid.density.reshape(-1)
+    decayed = torch.where(torch.isinf(dens), dens, dens * decay)
+    old = decayed[flat_idx]
+    new = torch.where(torch.isinf(old), d, torch.maximum(old, d))
+    density = decayed.scatter_reduce(0, flat_idx, new, reduce="amax",
+                                     include_self=False).reshape(g, g, g)
+    mask = (torch.isinf(density) | (density > grid.threshold)).to(
+        torch.float32)
+    return OccupancyGrid(density, mask, grid.threshold)
+
+
+def occupied_fraction(grid: OccupancyGrid):
+    return torch.mean(grid.mask)
+
+
+@torch.no_grad()
+def update_from_field(grid: OccupancyGrid, field, scene, cfg, *,
+                      generator=None, flat_idx=None,
+                      jitter=None) -> OccupancyGrid:
+    """One culling round against the model's own density field (f32), at
+    ``update``'s defaults: 2^18 cells, decay 0.95."""
+    from human_body_reconstruction_tpu_torch.models import nerf
+
+    return update(grid, lambda p: nerf.density_only(field, scene, p, cfg),
+                  scene["mu"], scene["sigma"], generator=generator,
+                  flat_idx=flat_idx, jitter=jitter)

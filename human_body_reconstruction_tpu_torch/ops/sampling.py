@@ -1,10 +1,14 @@
-"""Sample placement along rays, eval mode (counterpart of the JAX
-ops/sampling.py).
+"""Sample placement along rays (counterpart of the JAX ops/sampling.py).
 
 Serving renders are deterministic: the stratified ladder has no jitter, the
 inverse CDF draws fixed quantiles ``u = linspace(0, 1 - 1e-6, K)``, and the
 occupancy-guided placement probes interval midpoints with no exploration
-floor.  The training-time random variants are not ported yet.
+floor.  Training (``jitter=True``) jitters the ladder per ray, draws the
+inverse CDF's ``u`` iid or stratified, and may jitter the probes and route
+a share of the sample mass to empty intervals.  Every random draw comes
+from an explicit ``torch.Generator`` and can be injected instead (``u``,
+``xi``, ``probe_u``): the JAX package draws other bits from its keys, so the
+tests hand both sides the same numbers.
 """
 
 from __future__ import annotations
@@ -35,33 +39,68 @@ def linspace(start: float, stop: float, num: int, device=None):
                                  device=device)])
 
 
+def _uniform(shape, generator, device, high: float = 1.0):
+    """U[0, high) in f32 from ``generator`` (which lives on ``device``)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u if high == 1.0 else u * high
+
+
 def stratified_ts(batch_shape, near: float, far: float, num_samples: int,
-                  log_sampling: bool = False, device=None):
-    """The unjittered sample ladder, broadcast to batch_shape + (S,)."""
+                  log_sampling: bool = False, device=None, *,
+                  jitter: bool = False, per_ray_jitter: bool = True,
+                  generator=None, u=None):
+    """The sample ladder, broadcast to batch_shape + (S,).  With ``jitter``
+    each sample moves by ``u * (far - near) / S`` with u ~ U[0, 1) per ray
+    (or one u vector shared by the batch without ``per_ray_jitter``);
+    ``u`` replaces the draw."""
+    shape = tuple(batch_shape) + (num_samples,)
     if log_sampling:
-        t = torch.exp(linspace(math.log(near), math.log(far), num_samples,
-                               device))
+        lo, hi = _f32(math.log(near)), _f32(math.log(far))
+        base = linspace(lo, hi, num_samples, device)
     else:
-        t = linspace(near, far, num_samples, device)
-    return t.expand(tuple(batch_shape) + (num_samples,))
+        lo, hi = _f32(near), _f32(far)
+        base = linspace(near, far, num_samples, device)
+    t = base
+    if jitter:
+        if u is None:
+            u = _uniform(shape if per_ray_jitter else (num_samples,),
+                         generator, device)
+        step = _f32(np.float32(np.float32(hi) - np.float32(lo))
+                    / np.float32(num_samples))
+        t = base + u * step
+    if log_sampling:
+        t = torch.exp(t)
+    return t.expand(shape)
 
 
-def sample_pdf(bins, weights, num_samples: int, *, eps: float = 1e-5, u=None):
-    """Deterministic inverse-CDF sampling of a piecewise-constant pdf.
+def sample_pdf(bins, weights, num_samples: int, *, eps: float = 1e-5, u=None,
+               jitter: bool = False, stratified: bool = False,
+               generator=None, xi=None):
+    """Inverse-CDF sampling of a piecewise-constant pdf.
 
-    bins (..., S) sorted; weights (..., S-1) non-negative.  ``u`` (broadcast
-    to (..., num_samples)) replaces the fixed quantiles, for tests.  The
-    JAX version computes each pick as a masked reduction; the largest j
-    with ``cdf_j <= u`` is ``searchsorted(cdf, u, right=True) - 1``, which
-    picks the same bins.  Returns (..., num_samples) in [bins[0], bins[-1]].
+    bins (..., S) sorted; weights (..., S-1) non-negative.  The quantiles
+    ``u`` are, unless given: fixed ``linspace(0, 1 - 1e-6, K)`` without
+    ``jitter``; with it, ``(i + xi) / K`` for ``stratified`` (one draw per
+    CDF stratum, so t comes out sorted) or iid, each draw U[0, 1 - 1e-6)
+    (``xi`` replaces the stratified draw).  The JAX version computes each
+    pick as a masked reduction; the largest j with ``cdf_j <= u`` is
+    ``searchsorted(cdf, u, right=True) - 1``, which picks the same bins.
+    Returns (..., num_samples) in [bins[0], bins[-1]].
     """
     weights = torch.clamp(weights, min=0.0) + eps
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
     shape = cdf.shape[:-1] + (num_samples,)
-    if u is None:
+    if u is None and not jitter:
         u = linspace(0.0, 1.0 - 1e-6, num_samples, cdf.device)
+    elif u is None and stratified:
+        if xi is None:
+            xi = _uniform(shape, generator, cdf.device, 1.0 - 1e-6)
+        u = (torch.arange(num_samples, dtype=torch.float32,
+                          device=cdf.device) + xi) / num_samples
+    elif u is None:
+        u = _uniform(shape, generator, cdf.device, 1.0 - 1e-6)
     u = torch.broadcast_to(torch.as_tensor(u, dtype=cdf.dtype,
                                            device=cdf.device), shape)
     cdf = cdf.contiguous()
@@ -81,24 +120,48 @@ def sample_pdf(bins, weights, num_samples: int, *, eps: float = 1e-5, u=None):
 
 def occupancy_guided_ts(rays_o, rays_d, occ, mu, sigma, near: float,
                         far: float, num_samples: int, num_probe: int = 0,
-                        eps: float = 1e-3, dt_mode: str = "clip"):
-    """Eval-mode occupancy-guided placement: probe ``num_probe`` interval
-    midpoints against the grid, place ``num_samples`` samples at fixed
-    quantiles of each ray's occupied-interval CDF.  Returns (t (B, K)
-    sorted, dt (B, K)); ``dt_mode`` "mass" is the importance-weighted
+                        eps: float = 1e-3, dt_mode: str = "clip", *,
+                        jitter: bool = False, explore_frac: float = 0.0,
+                        probe_jitter: bool = False, stratified: bool = False,
+                        generator=None, u=None, xi=None, probe_u=None):
+    """Occupancy-guided placement: probe ``num_probe`` intervals of
+    [near, far] against the grid, place ``num_samples`` samples by inverse
+    CDF over each ray's occupied intervals.  Returns (t (B, K) sorted,
+    dt (B, K)); ``dt_mode`` "mass" is the importance-weighted
     dt = h*W/(K*m), "clip" runs dt to the next sample clipped at the
-    sample's interval end (see the JAX docstring for both)."""
+    sample's interval end (see the JAX docstring for both).
+
+    Eval (the defaults): midpoint probes, fixed quantiles, no exploration.
+    Training: ``jitter`` draws the quantiles (``stratified`` or iid, then
+    sorted), ``probe_jitter`` moves each probe uniformly within its
+    interval (``probe_u`` (B, M) replaces that draw), and ``explore_frac``
+    floors the empty intervals so that they get that share of each ray's
+    mass.  ``u``/``xi`` go to :func:`sample_pdf`."""
     M = num_probe or 2 * num_samples
     dev = rays_o.device
     near, far = _f32(near), _f32(far)
     h = _f32(np.float32(far - near) / np.float32(M))
     idx = torch.arange(M, dtype=torch.float32, device=dev)
-    tm = near + (idx + 0.5) * h                                     # (M,)
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * tm[None, :, None]
+    if probe_jitter:
+        if probe_u is None:
+            probe_u = _uniform(rays_o.shape[:-1] + (M,), generator, dev)
+        tm = near + (idx + probe_u) * h                              # (B, M)
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * tm[..., None]
+    else:
+        tm = near + (idx + 0.5) * h                                  # (M,)
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * tm[None, :, None]
     m = occ_lib.lookup(occ, pts, mu, sigma)                         # (B, M)
+    if explore_frac > 0.0:
+        n_occ = torch.sum(m, dim=-1, keepdim=True)                  # (B, 1)
+        f = explore_frac
+        c = (f / (1.0 - f)) * n_occ / torch.clamp(M - n_occ, min=1.0)
+        m = m + c * (1.0 - m)
     bins = near + torch.arange(M + 1, dtype=torch.float32, device=dev) * h
     bins = bins.expand(m.shape[:-1] + (M + 1,))
-    t = sample_pdf(bins, m, num_samples, eps=eps)                   # sorted
+    t = sample_pdf(bins, m, num_samples, eps=eps, u=u, jitter=jitter,
+                   stratified=stratified, generator=generator, xi=xi)
+    if jitter and not stratified:
+        t = torch.sort(t, dim=-1).values             # iid u land unordered
     interval = torch.floor((t - near) / h)                          # (B, K)
     if dt_mode == "mass":
         K = num_samples

@@ -9,7 +9,10 @@ lines, then ``mlp.col[*]``, then ``mlp.sig[*]``, each layer ``b`` before
 ``nn.Linear.weight``.  A full train-state checkpoint stores (params,
 opt_state), so its params are a positional prefix and load the same way.
 The occupancy grid rides along as ``extra_occ_{density,mask,threshold}``.
-Bounds are ``np.stack([min, max])`` under either spelling,
+``save_train_state`` writes the params plus ``extra_step`` and those
+extras; the optimizer state is not saved yet, so a port-written checkpoint
+restores a model (in either package) but does not resume training.  Bounds
+are ``np.stack([min, max])`` under either spelling,
 ``bounds_model.npy`` or ``bounds.npy``.
 """
 
@@ -100,6 +103,16 @@ def save_params(path: str, field: Field, extra=None):
 
 def occ_extras(occ: OccupancyGrid) -> dict:
     return dict(zip(OCC_KEYS, occ))
+
+
+def save_train_state(path: str, state):
+    """The trainer's checkpoint: the field's params as the leading
+    ``leaf_i`` (JAX order), the step count, and the occupancy grid when
+    attached."""
+    extra = {"step": np.int64(state.step)}
+    if state.occ is not None:
+        extra.update(occ_extras(state.occ))
+    save_params(path, state.field, extra=extra)
 
 
 def load_params(path: str, field: Field) -> Field:

@@ -1,12 +1,19 @@
-"""Eval-time image rendering (counterpart of ``render_chunk``,
+"""The training step and eval-time image rendering (counterpart of
+``sample_ray_batch``, ``loss_fn``, ``train_step``, ``render_chunk``,
 ``render_image_fused`` and ``render_poses_fused`` in the JAX
 train/step.py).
+
+A training step samples a batch of (image, pixel) rays on the device,
+renders them on the training branch of ``nerf.render_rays``, takes the
+loss (MSE coarse + MSE fine, the factor-line TV after its warmup, the
+density L1 when weighted), back-propagates through the encoder kernels and
+applies the grouped optimizer.  The MLP computes in
+``cfg.train.compute_dtype`` (bf16 operands, f32 accumulation).
 
 The JAX package renders a frame as one compiled dispatch with a ``lax.map``
 over chunks; here the chunk loop is eager PyTorch.  Rays are independent,
 so the last chunk is simply shorter instead of padded.  ``bf16`` means what
-it means in JAX: the MLP runs in bf16 compute with f32 accumulation.  The
-training step is not ported yet.
+it means in JAX: the MLP runs in bf16 compute with f32 accumulation.
 """
 
 from __future__ import annotations
@@ -14,8 +21,76 @@ from __future__ import annotations
 import torch
 
 from human_body_reconstruction_tpu_torch.models import nerf
+from human_body_reconstruction_tpu_torch.ops import compositing
 from human_body_reconstruction_tpu_torch.ops import rays as rays_lib
 from human_body_reconstruction_tpu_torch.utils.config import PipelineConfig
+
+
+def sample_ray_batch(images, c2ws, K, batch: int, generator=None,
+                     img_idx=None, pix_idx=None):
+    """Uniformly sample ``batch`` (image, pixel) pairs and build their
+    rays.  images (N, H, W, 3) f32 and c2ws (N, 4, 4) on the device;
+    ``img_idx``/``pix_idx`` (batch,) replace the draws.  Returns (rays_o,
+    rays_d, dir_norm, gt)."""
+    N, H, W = images.shape[:3]
+    dev = images.device
+    if img_idx is None:
+        img_idx = torch.randint(0, N, (batch,), generator=generator,
+                                device=dev)
+    if pix_idx is None:
+        pix_idx = torch.randint(0, H * W, (batch,), generator=generator,
+                                device=dev)
+    j, i = pix_idx // W, pix_idx % W
+    o, d, n = rays_lib.rays_for_pixels(i, j, K, c2ws[img_idx])
+    return o, d, n, images[img_idx, j, i]
+
+
+def loss_fn(field, scene, batch, cfg: PipelineConfig, occ=None,
+            compute_dtype=None, step=None, generator=None, draws=None,
+            placement=None):
+    """(loss, aux) of one ray batch, as the JAX ``loss_fn``.  ``step``
+    (the update count) gates the factor-line TV by ``cfg.train.cp_tv_warmup``;
+    ``draws`` and ``placement`` go to ``render_rays``."""
+    rays_o, rays_d, dir_norm, gt = batch
+    out = nerf.render_rays(field, scene, rays_o, rays_d, dir_norm, cfg,
+                           occ=occ, compute_dtype=compute_dtype, jitter=True,
+                           generator=generator, draws=draws,
+                           placement=placement)
+    mse = torch.mean((out["fine"] - gt) ** 2)
+    loss = torch.mean((out["coarse"] - gt) ** 2) + mse
+    aux = {"mse": mse}
+    tc = cfg.train
+    if tc.cp_tv_weight > 0.0 and len(field.lines):
+        # normalised by the global rank (JAX: exact under rank parallelism)
+        rank = cfg.hash.cp_rank
+        tv = sum(torch.sum((ln[:, 1:, :] - ln[:, :-1, :]) ** 2)
+                 / (ln.shape[0] * (ln.shape[1] - 1) * rank)
+                 for ln in field.lines) / len(field.lines)
+        if tc.cp_tv_warmup <= 0 or step is None or step >= tc.cp_tv_warmup:
+            loss = loss + tc.cp_tv_weight * tv
+        aux["cp_tv"] = tv
+    if tc.sigma_l1_weight > 0.0:
+        sl1 = torch.mean(torch.clamp(out["density"], min=0.0))
+        loss = loss + tc.sigma_l1_weight * sl1
+        aux["sigma_l1"] = sl1
+    aux["psnr"] = compositing.psnr(out["fine"], gt)
+    return loss, aux
+
+
+def train_step(state, scene, images, c2ws, K, cfg: PipelineConfig,
+               batch_size: int, generator=None):
+    """One optimization step, in place on ``state`` (its field, optimizer
+    and step count).  Returns the metrics (detached tensors)."""
+    batch = sample_ray_batch(images, c2ws, K, batch_size, generator)
+    state.opt.zero_grad()
+    compute_dtype = (torch.bfloat16 if cfg.train.compute_dtype == "bfloat16"
+                     else None)
+    loss, aux = loss_fn(state.field, scene, batch, cfg, state.occ,
+                        compute_dtype, step=state.step, generator=generator)
+    loss.backward()
+    state.opt.step(state.step)
+    state.step += 1
+    return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
 
 
 @torch.no_grad()

@@ -1,0 +1,177 @@
+"""High-level trainer (counterpart of the JAX train/trainer.py): data,
+model, grouped optimizer, occupancy warmup and refreshes, periodic eval
+renders, checkpoints and metrics.
+
+One process on one device.  The JAX trainer's data- and level-parallel
+branches, its compiled-executable cache and fused multi-step dispatches,
+optimizer-state resume, gradient-norm probes and live preview are not
+ported.  The step count is kept on the host; every random draw comes from
+one ``torch.Generator`` on the training device, seeded with
+``cfg.train.seed`` (the JAX keys give other bits, so runs of the two
+packages are alike in distribution, not in samples).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from human_body_reconstruction_tpu_torch.models import nerf
+from human_body_reconstruction_tpu_torch.ops import occupancy
+from human_body_reconstruction_tpu_torch.ops import rays as rays_lib
+from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt_lib
+from human_body_reconstruction_tpu_torch.train import state as state_lib
+from human_body_reconstruction_tpu_torch.train import step as step_lib
+from human_body_reconstruction_tpu_torch.utils import config as C
+from human_body_reconstruction_tpu_torch.utils.observability import MetricsLogger
+
+
+def init_params(cfg: C.PipelineConfig, generator: torch.Generator) -> nerf.Field:
+    """A freshly initialised field on the generator's device."""
+    return nerf.Field(cfg, generator=generator)
+
+
+def scene_from_dataset(ds, cfg: C.PipelineConfig):
+    """Bounds of every ray of every view at {near, far + margin} -> the
+    scene dict ("diagonal" or "unit_box" normalisation)."""
+    lo, hi = rays_lib.scene_bounds(ds["H"], ds["W"], ds["K"], ds["c2ws"],
+                                   cfg.render.near, cfg.render.far)
+    return nerf.scene_from_bounds(lo, hi, cfg.render.normalization,
+                                  device=ds["K"].device)
+
+
+@dataclasses.dataclass
+class Trainer:
+    cfg: C.PipelineConfig
+    ds: dict                       # images/c2ws/K tensors on the device
+    out_dir: str = "results"
+    model_name: str = "default"
+    bounds_path: str = "bounds_model.npy"
+    log_fn: Callable[[str], None] = print
+    eval_ds: Optional[dict] = None
+    total_steps: Optional[int] = None  # schedule horizon; default
+                                       # num_epochs * steps per epoch
+
+    def __post_init__(self):
+        cfg = self.cfg
+        self.device = self.ds["images"].device
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.scene = scene_from_dataset(self.ds, cfg)
+        ckpt_lib.save_bounds(
+            os.path.join(self.out_dir, self.bounds_path),
+            self.scene["min_bound"].cpu().numpy(),
+            self.scene["max_bound"].cpu().numpy())
+        self.generator = torch.Generator(self.device).manual_seed(
+            cfg.train.seed)
+        field = init_params(cfg, self.generator)
+        occ = (occupancy.init_grid(cfg.render.occupancy_resolution,
+                                   cfg.render.occ_threshold, self.device)
+               if cfg.render.occupancy else None)
+        # occupancy warmup: train unculled first; the grid is installed
+        # (and refreshed from the field at once) at the warmup step
+        self._occ_pending = None
+        if occ is not None and cfg.train.occ_warmup_steps > 0:
+            self._occ_pending, occ = occ, None
+        if self.total_steps is None:
+            self.total_steps = cfg.train.num_epochs * max(
+                1, (self.ds["images"].numel() // 3) // cfg.train.ray_batch)
+        self.state = state_lib.create_train_state(
+            field, cfg.train, self.total_steps, occ=occ)
+        self.history = []
+        self.metrics = MetricsLogger(self.out_dir,
+                                     name=f"{self.model_name}_metrics")
+
+    # -- checkpointing ----------------------------------------------------
+    def ckpt_path(self):
+        return os.path.join(self.out_dir, f"{self.model_name}_ckpt.npz")
+
+    def save(self):
+        """The checkpoint (params, step, occupancy grid) and the config
+        JSON; the bounds were written at construction."""
+        ckpt_lib.save_train_state(self.ckpt_path(), self.state)
+        C.to_json(self.cfg, os.path.join(
+            self.out_dir, f"{self.model_name}_config.json"))
+
+    # -- occupancy --------------------------------------------------------
+    def _install_occ(self, step_no: int):
+        """End of warmup: attach the grid and refresh it from the (now
+        trained) field so the first culling decision is informed."""
+        self.state.occ, self._occ_pending = self._occ_pending, None
+        self.update_occupancy()
+        self.log_fn(f"occupancy culling engaged at step {step_no}")
+
+    def update_occupancy(self):
+        if self.state.occ is not None:
+            self.state.occ = occupancy.update_from_field(
+                self.state.occ, self.state.field, self.scene, self.cfg,
+                generator=self.generator)
+
+    # -- training ---------------------------------------------------------
+    def run(self, steps: int, log_every: int = 100,
+            eval_every: Optional[int] = None):
+        cfg = self.cfg
+        t_last = time.perf_counter()
+        rays_done = 0
+        start_step = self.state.step
+
+        def crossed(upto: int, n: int, every: int) -> bool:
+            """Did [upto-n, upto] cross a multiple of ``every``?"""
+            return every > 0 and upto // every > (upto - n) // every
+
+        for i in range(1, steps + 1):
+            if self._occ_pending is not None and (
+                    start_step + i - 1 >= cfg.train.occ_warmup_steps):
+                self._install_occ(start_step + i - 1)
+            metrics = step_lib.train_step(
+                self.state, self.scene, self.ds["images"], self.ds["c2ws"],
+                self.ds["K"], cfg, cfg.train.ray_batch, self.generator)
+            rays_done += cfg.train.ray_batch
+            step_no = start_step + i
+            if cfg.render.occupancy and crossed(step_no, 1,
+                                                cfg.train.update_rate):
+                self.update_occupancy()
+            if log_every and crossed(i, 1, log_every):
+                rec = {"step": step_no, "loss": float(metrics["loss"]),
+                       "psnr": float(metrics["psnr"])}
+                dt = time.perf_counter() - t_last     # after the sync above
+                rec["rays_per_sec"] = rays_done / dt
+                if self.state.occ is not None:
+                    rec["occupied_frac"] = float(
+                        occupancy.occupied_fraction(self.state.occ))
+                self.history.append(rec)
+                self.metrics.log(rec)
+                self.log_fn(
+                    f"step {rec['step']:7d}  loss {rec['loss']:.5f}  "
+                    f"psnr {rec['psnr']:6.2f}  "
+                    f"{rec['rays_per_sec'] / 1e6:7.3f} Mrays/s")
+                t_last = time.perf_counter()
+                rays_done = 0
+            if eval_every and crossed(i, 1, eval_every):
+                self.eval_render(tag=f"{step_no:07d}")
+                self.save()
+        return self.state
+
+    def eval_render(self, tag: str = "final"):
+        """Render view 0 of the eval (else the training) dataset in f32 on
+        the eval branch with 256 samples; write a PNG and return the PSNR
+        against the dataset image."""
+        from human_body_reconstruction_tpu_torch.cli.serve import png_bytes
+
+        ds = self.eval_ds if self.eval_ds is not None else self.ds
+        img = step_lib.render_image(
+            self.state.field, self.scene, ds["H"], ds["W"], ds["K"],
+            ds["c2ws"][0], self.cfg, occ=self.state.occ,
+            num_samples=256).cpu().numpy()
+        gt = ds["images"][0].cpu().numpy()
+        mse = float(np.mean((img - gt) ** 2))
+        psnr = 10 * np.log10(1.0 / max(mse, 1e-12))
+        path = os.path.join(self.out_dir, f"{self.model_name}_{tag}.png")
+        with open(path, "wb") as f:
+            f.write(png_bytes((np.clip(img, 0, 1) * 255).astype(np.uint8)))
+        self.log_fn(f"eval [{tag}] view 0: PSNR {psnr:.2f} dB")
+        return psnr

@@ -1,27 +1,33 @@
 """PyTorch port vs the JAX package: the dense and CP encoders, their kernel
-wrappers' plain versions, and the full encoder's feature order.
+wrappers' plain versions (forward and backward), the full encoder's feature
+order and its gradients.
 
 Small CP config: 4 levels up to n_max 128, rank 8, auto dense levels (2
 dense, G 18 and 34; 2 CP levels, G 66 and 130).  Tables and points are made
 with numpy from a seed; a third of the points lie outside the scene box.
-The Pallas kernels run here only through the dense one in interpret mode
-(the CP one is too slow interpreted); the CUDA kernels themselves are held
-to their plain versions by tests/test_torch_kernels.py, on the card.
+The Pallas kernels run here in interpret mode: the dense one at this
+config, the CP one (too slow interpreted at this size) at one level, rank 4
+and 64 points.  The CUDA kernels themselves are held to their plain
+versions by tests/test_torch_kernels.py, on the card.
+Gradients are taken against a seeded normal cotangent and compared with
+``jax.grad`` of the JAX functions.
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from human_body_reconstruction_tpu.ops import cp_pallas as jcp_pallas
 from human_body_reconstruction_tpu.ops import dense_grid as jdense
 from human_body_reconstruction_tpu.ops import dense_pallas as jdense_pallas
 from human_body_reconstruction_tpu.ops import hash_encoding as jhe
 from human_body_reconstruction_tpu.ops import lowrank as jlowrank
 from human_body_reconstruction_tpu_torch.ops import (
-    cp_kernel, dense_grid, dense_kernel, hash_encoding, lowrank)
+    cp_kernel, cuda_lib, dense_grid, dense_kernel, hash_encoding, lowrank)
 from human_body_reconstruction_tpu_torch.utils import config as C
 
 MU = np.array([-1.0, -2.0, -0.5], np.float32)
@@ -202,3 +208,155 @@ def test_wrappers_reject_bad_inputs():
                      tl, *args, out=torch.empty((x.shape[0], 1)))):
         with pytest.raises(ValueError):
             call()
+
+
+def cotangent(x, cfg, seed=7):
+    return np.random.default_rng(seed).normal(
+        size=(x.shape[0], cfg.out_dim)).astype(np.float32)
+
+
+def jax_grad(fn, tables, x, cols, cfg, **kw):
+    """jax.grad of sum(fn(tables, x) * cols) w.r.t. each table."""
+    def f(t):
+        return jnp.sum(fn(t, jnp.asarray(x), jnp.asarray(MU), SIGMA, cfg, **kw)
+                       * jnp.asarray(cols))
+    return [np.asarray(g) for g in
+            jax.grad(f)(tuple(jnp.asarray(a) for a in tables))]
+
+
+def port_args(x, cfg):
+    return torch.tensor(x), torch.tensor(MU), torch.tensor(SIGMA), cfg
+
+
+def all_close(port, ref, atol):
+    assert len(port) == len(ref)
+    for a, b in zip(port, ref):
+        assert tuple(a.shape) == b.shape
+        close(a.detach().numpy(), b, atol)
+
+
+# Gradient tolerances, on |gradient| up to about 4.5.  f32: the same sums in
+# another order, measured 1.4e-6: atol 1e-5.  bf16: the Pallas roundings
+# (bf16 lerp weights of f32 fractions, dT rounded to bf16, the result rounded
+# to bf16) against the XLA ones (bf16(1 - bf16(frac)) weights, bf16
+# products): one bf16 ulp of the largest entries, measured 1.56e-2: atol 3e-2.
+GRAD_ATOL = {False: 1e-5, True: 3e-2}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cp_backward_matches_xla_grad(bf16):
+    cfg = small_cfg(bf16)
+    _, lines, x = make_tables(cfg)
+    d = cfg.dense_levels * cfg.features_per_level
+    ct = cotangent(x, cfg)[:, d:]
+    port = cp_kernel.cp_encode_plain_backward(
+        [torch.tensor(a) for a in lines], *port_args(x, cfg), torch.tensor(ct))
+    all_close(port, jax_grad(jlowrank.cp_encode, lines, x, ct, cfg),
+              GRAD_ATOL[bf16])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dense_backward_matches_xla_grad(bf16):
+    cfg = small_cfg(bf16)
+    grids, _, x = make_tables(cfg)
+    d = cfg.dense_levels * cfg.features_per_level
+    ct = cotangent(x, cfg)[:, :d]
+    port = dense_kernel.dense_encode_plain_backward(
+        [torch.tensor(a) for a in grids], *port_args(x, cfg), torch.tensor(ct))
+    all_close(port, jax_grad(jdense.dense_encode, grids, x, ct, cfg),
+              GRAD_ATOL[bf16])
+
+
+def test_dense_backward_matches_pallas_interpret_grad():
+    """dense_encode_plain_backward against the VJP of dense_pallas's kernel
+    run interpreted: the same terms (bf16(bf16(g) * wx) * bf16(wy * wz)),
+    summed in another order, then rounded to bf16; measured exact: one bf16
+    ulp of the reference plus 1e-6, the tolerance the CUDA kernel is held
+    to."""
+    cfg = small_cfg(True)
+    grids, _, x = make_tables(cfg)
+    d = cfg.dense_levels * cfg.features_per_level
+    ct = cotangent(x, cfg)[:, :d]
+    port = dense_kernel.dense_encode_plain_backward(
+        [torch.tensor(a) for a in grids], *port_args(x, cfg), torch.tensor(ct))
+    ref = jax_grad(jdense_pallas.dense_encode_pallas, grids, x, ct, cfg,
+                   interpret=True)
+    for a, b in zip(port, ref):
+        b = torch.tensor(b)
+        assert bool(((a - b).abs() <= cuda_lib.bf16_ulp(b) + 1e-6).all())
+
+
+def test_cp_backward_matches_pallas_interpret_grad():
+    """cp_encode_plain_backward against the VJP of cp_pallas's kernel run
+    interpreted, on one CP level (G 65) at rank 4 and 64 points: the
+    interpreted kernel takes about 3 s at this size.  The same terms
+    (bf16 lerp weights times bf16(dT)), summed in another order, then
+    rounded to bf16; measured exact: one bf16 ulp of the reference plus
+    1e-6, the tolerance the CUDA kernel is held to."""
+    base = dataclasses.replace(small_cfg(True), num_levels=3, n_max=64,
+                               cp_rank=4)
+    cfg = dataclasses.replace(base,
+                              dense_levels=dense_grid.auto_dense_levels(base))
+    assert lowrank.cp_line_sizes(cfg) == [65]
+    _, lines, x = make_tables(cfg)
+    x = x[:64]
+    d = cfg.dense_levels * cfg.features_per_level
+    ct = cotangent(x, cfg)[:, d:]
+    port = cp_kernel.cp_encode_plain_backward(
+        [torch.tensor(a) for a in lines], *port_args(x, cfg), torch.tensor(ct))
+    ref = jax_grad(jcp_pallas.cp_encode_pallas, lines, x, ct, cfg,
+                   interpret=True)
+    assert len(port) == len(ref) == 1
+    for a, b in zip(port, ref):
+        b = torch.tensor(b)
+        assert a.shape == b.shape
+        assert bool(((a - b).abs() <= cuda_lib.bf16_ulp(b) + 1e-6).all())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_encode_params_grad_matches_autograd_of_plain(bf16):
+    """The encoder Function on the CPU: its forward is the plain forwards',
+    exactly, and its backward (the plain backwards, which round dT and the
+    result to bf16 as the Pallas VJPs do) is autograd of the plain forwards
+    within the tolerance above (f32 measured 9.5e-7, bf16 1.6e-2)."""
+    cfg = small_cfg(bf16)
+    grids, lines, x = make_tables(cfg)
+    args = port_args(x, cfg)
+    ct = torch.tensor(cotangent(x, cfg))
+    tg = [torch.tensor(a, requires_grad=True) for a in grids]
+    tl = [torch.tensor(a, requires_grad=True) for a in lines]
+    out = hash_encoding.encode_params({"dense": tg, "lines": tl}, *args)
+    ref = torch.cat([dense_kernel.dense_encode_plain(tg, *args),
+                     cp_kernel.cp_encode_plain(tl, *args)], dim=-1)
+    assert torch.equal(out, ref)
+    got = torch.autograd.grad((out * ct).sum(), tg + tl)
+    want = torch.autograd.grad((ref * ct).sum(), tg + tl)
+    all_close(got, [w.numpy() for w in want], GRAD_ATOL[bf16])
+    # the positions get no gradient
+    xs = args[0].clone().requires_grad_()
+    feats = hash_encoding.encode_params({"dense": tg, "lines": tl}, xs,
+                                        *args[1:])
+    assert torch.autograd.grad(feats.sum(), xs, allow_unused=True)[0] is None
+
+
+def test_backward_wrappers_on_cpu_run_plain():
+    cfg = small_cfg(True)
+    grids, lines, x = make_tables(cfg)
+    tg, tl = both(grids)[0], both(lines)[0]
+    args = port_args(x, cfg)
+    d = cfg.dense_levels * cfg.features_per_level
+    wide = torch.tensor(cotangent(x, cfg))
+    before = (cp_kernel.cp_encode_backward_kernel.launches,
+              dense_kernel.dense_encode_backward_kernel.launches)
+    for kern, plain, tabs, cols in (
+            (cp_kernel.cp_encode_backward_kernel,
+             cp_kernel.cp_encode_plain_backward, tl, wide[:, d:]),
+            (dense_kernel.dense_encode_backward_kernel,
+             dense_kernel.dense_encode_plain_backward, tg, wide[:, :d])):
+        for a, b in zip(kern(tabs, *args, cols), plain(tabs, *args, cols)):
+            assert torch.equal(a, b)
+        for bad in (cols[:-1], cols[:, 1:], cols.double(), cols[:, ::2]):
+            with pytest.raises(ValueError):
+                kern(tabs, *args, bad)
+    assert (cp_kernel.cp_encode_backward_kernel.launches,
+            dense_kernel.dense_encode_backward_kernel.launches) == before

@@ -6,10 +6,18 @@ conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
-Kernel and plain version do the same f32 operations in the same order
-(csrc/encoders.cu uses the non-contracting _rn intrinsics), so they are held
-to 1e-6.  The unmarked tests check the build and launch plumbing that runs
-on any machine.
+The forward kernels and their plain versions do the same f32 operations in
+the same order (csrc/encoders.cu uses the non-contracting _rn intrinsics),
+so they are held to 1e-6.  The backward kernels compute the same terms but
+sum them with f32 atomics, in an order that changes from run to run (the
+plain versions' index_add_ is atomic on the card too), and round the sums
+to bf16: they are held elementwise to ``cuda_lib.sum_order_tolerance``:
+one bf16 ulp of the plain value (bf16 only), plus 2^-18 of the entry's sum
+of absolute terms (from the plain backward of |tables| and |gradient|),
+plus 1e-6.  The unmarked tests check the build and launch plumbing that
+runs on any machine, and read that tolerance at the training path's shape
+against the plain backwards summed in another order and with planted
+faults.
 """
 
 import dataclasses
@@ -19,7 +27,7 @@ import pytest
 import torch
 
 from human_body_reconstruction_tpu_torch.ops import (
-    cp_kernel, cuda_lib, dense_grid, dense_kernel, lowrank)
+    cp_kernel, cuda_lib, dense_grid, dense_kernel, hash_encoding, lowrank)
 from human_body_reconstruction_tpu_torch.utils import config as C
 
 TOL = 1e-6
@@ -130,3 +138,163 @@ def test_check_out_validation():
                 torch.empty((9, 7))):
         with pytest.raises(ValueError):
             cuda_lib.check_out(bad, 10, 7, dev)
+
+
+def grads_close(kern, plain, tables, args, g, bf16: bool) -> bool:
+    """Kernel vs plain backward within the tolerance of the module
+    docstring, for every table."""
+    got = kern(tables, *args, g)
+    want = plain(tables, *args, g)
+    abs_sum = plain([t.abs() for t in tables], *args, g.abs())
+    torch.cuda.synchronize()
+    return all(a.shape == b.shape and bool(
+        ((a - b).abs() <= cuda_lib.sum_order_tolerance(b, s, bf16)).all())
+        for a, b, s in zip(got, want, abs_sum))
+
+
+def cotangent(n, c, device, seed=1, extra=3):
+    """A seeded (n, c) gradient read through a row stride of c + extra."""
+    g = torch.randn((n, c + extra), generator=torch.Generator().manual_seed(seed))
+    return g.to(device)[:, extra:]
+
+
+@pytest.mark.parametrize("encoder", ["cp", "dense"])
+def test_sum_order_tolerance_rejects_faults(encoder, monkeypatch):
+    """The backward tolerance read from both sides at the training path's
+    shape (768,000 points, the preset's tables, bf16), on the CPU.  The
+    plain backward summed in another point order stays within it (measured
+    0.987 CP, 0.989 dense).  Three planted faults exceed it (measured 305 /
+    62 for one point's terms dropped, 3.6e4 / 1.3e5 for the lo and hi lerp
+    weights swapped in the scatter, 64 / 463 for dT, or in the dense
+    backward the gradient and its x fold, not rounded to bf16)."""
+    h = C.flagship_config().hash
+    n = 768_000
+    grids, lines, (x, mu, sigma, _) = tables(h, "cpu", n=n)
+    d = h.dense_levels * h.features_per_level
+    g = cotangent(n, h.out_dim, "cpu")
+    if encoder == "cp":
+        mod, tabs, cols = cp_kernel, lines, g[:, d:]
+        plain = cp_kernel.cp_encode_plain_backward
+    else:
+        mod, tabs, cols = dense_kernel, grids, g[:, :d]
+        plain = dense_kernel.dense_encode_plain_backward
+
+    def run(pts=x, grad=cols):
+        return plain(tabs, pts, mu, sigma, h, grad)
+
+    want = run()
+    abs_sum = plain([t.abs() for t in tabs], x, mu, sigma, h, cols.abs())
+
+    def reading(got):
+        return max(float(((a - b).abs()
+                          / cuda_lib.sum_order_tolerance(b, s, True)).max())
+                   for a, b, s in zip(got, want, abs_sum))
+
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(2))
+    assert reading(run(x[perm], cols[perm])) <= 1.0
+    dropped = cols.clone()
+    dropped[0] = 0.0
+    faults = {"dropped point": run(grad=dropped)}
+    with monkeypatch.context() as mp:
+        if encoder == "cp":
+            lerps = cp_kernel._lerps
+            mp.setattr(cp_kernel, "_lerps", lambda *a: [
+                (hi, lo, t) for lo, hi, t in lerps(*a)])
+        else:
+            weights = dense_kernel._weights
+
+            def swapped(*a):
+                x0, wx, pair = weights(*a)
+                return x0, wx[::-1], pair
+
+            mp.setattr(dense_kernel, "_weights", swapped)
+        faults["swapped weights"] = run()
+    with monkeypatch.context() as mp:
+        # the per-point (N, columns > 1) tensors are the only ones of that
+        # shape the backwards round: dT (CP), the gradient and its x fold
+        # (dense)
+        mp.setattr(mod, "round_bf16", lambda v: v if (
+            v.dim() == 2 and v.shape[0] == n and v.shape[1] > 1)
+            else dense_grid.round_bf16(v))
+        faults["unrounded dT"] = run()
+    for name, got in faults.items():
+        assert reading(got) > 1.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_backward_kernels_match_plain(cuda_device, bf16):
+    cfg = small_cfg(bf16)
+    grids, lines, args = tables(cfg, cuda_device)
+    d = cfg.dense_levels * cfg.features_per_level
+    g = cotangent(1000, cfg.out_dim, cuda_device)
+    n_cp = cp_kernel.cp_encode_backward_kernel.launches
+    n_dense = dense_kernel.dense_encode_backward_kernel.launches
+    assert grads_close(cp_kernel.cp_encode_backward_kernel,
+                       cp_kernel.cp_encode_plain_backward, lines, args,
+                       g[:, d:], bf16)
+    assert grads_close(dense_kernel.dense_encode_backward_kernel,
+                       dense_kernel.dense_encode_plain_backward, grids, args,
+                       g[:, :d], bf16)
+    assert cp_kernel.cp_encode_backward_kernel.launches == n_cp + 1
+    assert dense_kernel.dense_encode_backward_kernel.launches == n_dense + 1
+
+
+@pytest.mark.cuda
+def test_backward_kernels_full_width(cuda_device):
+    """The preset's tables (two CP levels and one dense grid in shared
+    memory, the rest through global atomics) and a strided gradient."""
+    h = C.flagship_config().hash
+    grids, lines, args = tables(h, cuda_device, n=200_003)
+    d = h.dense_levels * h.features_per_level
+    g = cotangent(200_003, h.out_dim, cuda_device, extra=5)
+    assert grads_close(cp_kernel.cp_encode_backward_kernel,
+                       cp_kernel.cp_encode_plain_backward, lines, args,
+                       g[:, d:], True)
+    assert grads_close(dense_kernel.dense_encode_backward_kernel,
+                       dense_kernel.dense_encode_plain_backward, grids, args,
+                       g[:, :d], True)
+    n = cp_kernel.cp_encode_backward_kernel.launches
+    empty = (args[0][:0],) + args[1:]
+    zero = cp_kernel.cp_encode_backward_kernel(lines, *empty, g[:0, d:])
+    assert all(not z.any() for z in zero)
+    assert cp_kernel.cp_encode_backward_kernel.launches == n
+
+
+@pytest.mark.cuda
+def test_backward_kernels_reject_bad_inputs(cuda_device):
+    cfg = small_cfg(True)
+    grids, lines, args = tables(cfg, cuda_device)
+    d = cfg.dense_levels * cfg.features_per_level
+    g = cotangent(1000, cfg.out_dim, cuda_device)
+    for call in (
+            lambda: cp_kernel.cp_encode_backward_kernel(     # CPU gradient
+                lines, *args, g[:, d:].cpu()),
+            lambda: cp_kernel.cp_encode_backward_kernel(     # wrong width
+                lines, *args, g[:, d + 1:]),
+            lambda: dense_kernel.dense_encode_backward_kernel(  # f64
+                grids, *args, g[:, :d].double()),
+            lambda: dense_kernel.dense_encode_backward_kernel(  # column stride
+                grids, *args, g[:, :2 * d:2])):
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.cuda
+def test_encode_params_gives_every_table_a_gradient(cuda_device):
+    """On the card the encoder's tables stay in the autograd graph: a loss
+    through encode_params reaches every grid and line, through the kernels."""
+    cfg = small_cfg(True)
+    grids, lines, (x, mu, sigma, _) = tables(cfg, cuda_device)
+    params = [t.requires_grad_() for t in grids + lines]
+    launches = (cp_kernel.cp_encode_backward_kernel.launches,
+                dense_kernel.dense_encode_backward_kernel.launches)
+    feats = hash_encoding.encode_params({"dense": grids, "lines": lines}, x,
+                                        mu, sigma, cfg)
+    assert feats.grad_fn is not None
+    (feats * cotangent(1000, cfg.out_dim, cuda_device)).sum().backward()
+    assert all(p.grad is not None and bool(p.grad.abs().sum() > 0)
+               for p in params)
+    assert (cp_kernel.cp_encode_backward_kernel.launches,
+            dense_kernel.dense_encode_backward_kernel.launches) == tuple(
+                n + 1 for n in launches)

@@ -188,8 +188,9 @@ class _JnpWithTorchSums:
                                      keepdim=keepdims).numpy())
 
     @staticmethod
-    def linspace(start, stop, num):
-        return jnp.asarray(sampling.linspace(start, stop, num).numpy())
+    def linspace(start, stop, num, dtype=None):
+        return jnp.asarray(sampling.linspace(float(start), float(stop),
+                                             num).numpy())
 
 
 @pytest.mark.parametrize("dt_mode", ["mass", "clip"])
@@ -233,3 +234,156 @@ def test_level_geometry_full_width():
     assert dense_grid.auto_dense_levels(base) == jdense.auto_dense_levels(base) == 2
     assert dense_grid.dense_grid_sizes(h) == jdense.dense_grid_sizes(h) == [18, 35]
     assert h.out_dim == 2 * 2 + 5 * 25 == 129
+
+
+# ------------------------------------------------- training-time variants
+#
+# The JAX side draws its randomness from keys; each test draws the same
+# numbers with jax.random from the same keys and hands them to the port.
+
+@pytest.mark.parametrize("log_sampling", [False, True])
+@pytest.mark.parametrize("per_ray", [True, False])
+def test_stratified_ts_jitter_match(log_sampling, per_ray):
+    key = jax.random.PRNGKey(11)
+    u = np.asarray(jax.random.uniform(key, (5, 32) if per_ray else (32,)))
+    port = sampling.stratified_ts((5,), 2.0, 6.0, 32,
+                                  log_sampling=log_sampling, jitter=True,
+                                  per_ray_jitter=per_ray, u=torch.tensor(u))
+    ref = jsampling.stratified_ts(key, (5,), 2.0, 6.0, 32,
+                                  per_ray_jitter=per_ray,
+                                  log_sampling=log_sampling, jitter=True)
+    assert tuple(port.shape) == ref.shape
+    close(port, ref)
+    # drawn from a generator: inside each jittered stratum
+    t = sampling.stratified_ts((5,), 2.0, 6.0, 32, jitter=True,
+                               generator=torch.Generator().manual_seed(0))
+    base = sampling.stratified_ts((5,), 2.0, 6.0, 32)
+    assert bool(((t >= base) & (t < base + 4.0 / 32)).all())
+
+
+@pytest.mark.parametrize("stratified", [False, True])
+def test_sample_pdf_jitter_match(stratified):
+    """iid u, or stratified (i + xi) / K: the JAX draw, injected."""
+    rng = np.random.default_rng(12)
+    bins = np.sort(rng.uniform(2, 6, (30, 17)), axis=-1).astype(np.float32)
+    w = rng.uniform(0, 1, (30, 16)).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    draw = np.asarray(jax.random.uniform(key, (30, 12), maxval=1.0 - 1e-6))
+    port = sampling.sample_pdf(
+        torch.tensor(bins), torch.tensor(w), 12, jitter=True,
+        stratified=stratified,
+        **({"xi": torch.tensor(draw)} if stratified
+           else {"u": torch.tensor(draw)}))
+    ref = jsampling.sample_pdf(key, jnp.asarray(bins), jnp.asarray(w), 12,
+                               stratified=stratified)
+    close(port, ref)
+    if stratified:
+        assert bool((port[:, 1:] >= port[:, :-1]).all())
+
+
+@pytest.mark.parametrize("stratified,probe_jitter",
+                         [(True, False), (False, True), (True, True)])
+def test_occupancy_guided_ts_training_match(stratified, probe_jitter,
+                                            monkeypatch):
+    """Training placement: 5% exploration floor, stratified or iid (then
+    sorted) quantiles, optional probe jitter, mass dt.  The JAX side gets
+    torch's sums (see test_occupancy_guided_ts_match): atol 1e-5."""
+    monkeypatch.setattr(jsampling, "jnp", _JnpWithTorchSums())
+    rng = np.random.default_rng(13)
+    mask = np.zeros((16, 16, 16), np.float32)
+    mask[4:12, 4:12, 4:12] = 1.0
+    jg, tg = _occ_pair(mask)
+    o, d = _rays(rng, 64)
+    K, M = 12, 20
+    key = jax.random.PRNGKey(5)
+    draws = {}
+    k_pdf = key
+    if probe_jitter:
+        kp, k_pdf = jax.random.split(key)
+        draws["probe_u"] = torch.tensor(np.asarray(
+            jax.random.uniform(kp, (64, M))))
+    draw = torch.tensor(np.asarray(jax.random.uniform(
+        k_pdf, (64, K), maxval=1.0 - 1e-6)))
+    draws["xi" if stratified else "u"] = draw
+    t_p, dt_p = sampling.occupancy_guided_ts(
+        torch.tensor(o), torch.tensor(d), tg, torch.tensor(MU),
+        torch.tensor(SIGMA), 2.0, 6.0, K, num_probe=M, dt_mode="mass",
+        jitter=True, explore_frac=0.05, probe_jitter=probe_jitter,
+        stratified=stratified, **draws)
+    t_j, dt_j = jsampling.occupancy_guided_ts(
+        key, jnp.asarray(o), jnp.asarray(d), jg, jnp.asarray(MU), SIGMA,
+        2.0, 6.0, K, num_probe=M, jitter=True, explore_frac=0.05,
+        probe_jitter=probe_jitter, dt_mode="mass", stratified=stratified)
+    close(t_p, t_j)
+    close(dt_p, dt_j)
+    assert bool((t_p[:, 1:] >= t_p[:, :-1]).all())
+
+
+class _InjectedRandom:
+    """Stands in for jax.random inside the JAX occupancy module: the cells
+    and jitter of an update round are the test's."""
+
+    def __init__(self, cells, jitter):
+        self.cells, self.jitter = cells, jitter
+
+    @staticmethod
+    def split(key):
+        return key, key
+
+    def randint(self, key, shape, lo, hi):
+        return jnp.asarray(self.cells)
+
+    def uniform(self, key, shape):
+        return jnp.asarray(self.jitter)
+
+
+def test_occupancy_update_match(monkeypatch):
+    """One culling round from the same grid, with distinct injected cells
+    and jitter: decay, inf for never-visited cells, max with the fresh
+    density, the threshold mask (density atol 1e-5, mask exact)."""
+    rng = np.random.default_rng(14)
+    g = 16
+    dens = rng.uniform(0.0, 0.05, (g, g, g)).astype(np.float32)
+    dens[rng.random((g, g, g)) < 0.3] = np.inf
+    cells = rng.choice(g ** 3, 700, replace=False).astype(np.int32)
+    jit = rng.uniform(size=(700, 3)).astype(np.float32)
+
+    def field(p, lib):
+        return 3.0 * lib.exp(-lib.sum(p ** 2, axis=-1) * 4.0) - 0.5
+
+    monkeypatch.setattr(jocc, "jax", type("J", (), {
+        "random": _InjectedRandom(cells, jit)}))
+    jgrid = jocc.OccupancyGrid(density=jnp.asarray(dens),
+                               mask=jnp.ones((g, g, g)),
+                               threshold=jnp.float32(0.01))
+    ref = jocc.update(jgrid, lambda p: field(p, jnp), None, jnp.asarray(MU),
+                      SIGMA, num_cells=700, decay=0.9)
+    tgrid = occupancy.OccupancyGrid(torch.tensor(dens), torch.ones(g, g, g),
+                                    torch.tensor(0.01))
+    port = occupancy.update(
+        tgrid, lambda p: 3.0 * torch.exp(-torch.sum(p ** 2, dim=-1) * 4.0)
+        - 0.5, torch.tensor(MU), torch.tensor(SIGMA), decay=0.9,
+        flat_idx=torch.tensor(cells, dtype=torch.long),
+        jitter=torch.tensor(jit))
+    fin = np.isfinite(np.asarray(ref.density))
+    np.testing.assert_array_equal(np.isfinite(port.density.numpy()), fin)
+    close(port.density.numpy()[fin], np.asarray(ref.density)[fin])
+    np.testing.assert_array_equal(port.mask.numpy(), np.asarray(ref.mask))
+    assert float(occupancy.occupied_fraction(port)) == pytest.approx(
+        float(jocc.occupied_fraction(ref)))
+    assert torch.equal(tgrid.density, torch.tensor(dens))   # not modified
+
+
+def test_occupancy_update_duplicate_cells_keep_largest():
+    grid = occupancy.OccupancyGrid(torch.full((4, 4, 4), float("inf")),
+                                   torch.ones(4, 4, 4), torch.tensor(0.5))
+    cells = torch.tensor([5, 5, 5, 9])
+    vals = iter([torch.tensor([0.1, 0.7, 0.3, 0.2])])
+    out = occupancy.update(grid, lambda p: next(vals), torch.zeros(3),
+                           torch.tensor(1.0), flat_idx=cells,
+                           jitter=torch.zeros(4, 3))
+    flat = out.density.reshape(-1)
+    assert float(flat[5]) == pytest.approx(0.7) and float(flat[9]) == pytest.approx(0.2)
+    assert float(out.mask.reshape(-1)[5]) == 1.0
+    assert float(out.mask.reshape(-1)[9]) == 0.0
+    assert int(torch.isinf(flat).sum()) == 62
