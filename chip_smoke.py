@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's training and serving paths once on one CUDA card.
 
-1. Build the port's CUDA kernels from csrc/ with nvcc.
-2. Training (the zero-flag flagship run, at full width): render the
+1. Build the port's CUDA kernels from csrc/ with nvcc (one process per
+   source, all started together).
+2. Flagship training (the zero-flag run, at full width): render the
    synthetic textured dataset (20 views, 400x400, 384 GT samples), train it
    through the port's CLI objects for TRAIN_STEPS steps with the occupancy
    warmup cut to OCC_WARMUP (the TV warmup follows it), every kernel's
@@ -12,21 +13,40 @@
    shapes (768,000 and 2,048,000 points), one training step's loss and
    gradients on the card to the same step on the CPU (plain versions),
    profile one guided step, and save, restore and serve the trained model.
-3. Serving: write a full-width (flagship preset) run directory in the JAX
+3. Hash-grid training (``--stochastic --hw_rng``, the reference repo's own
+   model at full width: corner hash grid, L 16, T 2^16, n_max 2048, 64
+   samples, 16,000 rays, no occupancy grid) on the same dataset for
+   HASH_STEPS steps, the three hash-path kernels' launch counts reset just
+   before; print ms/step, rays/s, PSNR and launches.  Hold the Philox kernel
+   to its plain version bit for bit (and its mean and chi^2 on the card) and
+   the hash forward and backward kernels, in both modes, to theirs at the
+   path's shapes (1,024,000 points, u of (3, 16, 1,024,000)); one stochastic
+   step on the card against the CPU from the same batch, ladder and encoder
+   uniforms; profile one step; serve the trained model exact on a 64-sample
+   ladder.
+4. Serving: write a full-width (flagship preset) run directory in the JAX
    layout: seeded random weights, config JSON, bounds, and an occupancy
    grid whose mask is a seeded ball around the subject.  Restore it
    through the port's server and answer a 400x400 frame on the
    128-sample ladder, one at eval_guided 64, a 4-pose orbit batch and a
    health request, with every kernel's launch count reset just before.
-4. Hold each forward kernel against its plain PyTorch version on the card
+5. Hold each forward kernel against its plain PyTorch version on the card
    at the serving shapes (2,097,152 points, about 70% of them outside the unit
    box of normalised coordinates), and a whole frame rendered through the
    kernels against the same frame through the plain versions (on the CPU).
 
+Each kernel's bound is the larger of the bytes its call must move (each
+input read once, each output written once) over 3.35 TB/s and its scalar
+operations over the card's rate for them (67 TFLOP/s f32; 33.5 TOP/s for
+the integer Philox rounds, which an H100 SM issues on 64 of its 128 lanes a
+clock), from this run's shapes.  ``library_ms`` is one PyTorch call that
+computes the same function (``torch.rand`` for the Philox kernel; none for
+the encoders).
+
 Any failure ends the run with a nonzero exit.  Output: the card's name and
 power limit, per-phase, per-request and per-kernel lines, then one JSON line
-listing the four kernels (launches counted on the training path), and last
-``{"ok": true, "device": {...}}``.
+listing the seven kernels (launches counted on the path that runs each), and
+last ``{"ok": true, "device": {...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
 """
@@ -60,6 +80,12 @@ TRAIN_POINTS = (16000 * 48, 16000 * 128)   # guided and unculled steps
 STEP_LOSS_RTOL = 1e-4           # one step, card vs CPU
 STEP_GRAD_RTOL = 1e-2           # per group, ||card - cpu|| / ||cpu||
 SOURCE = "human_body_reconstruction_tpu_torch/csrc/encoders.cu"
+HASH_STEPS = 150
+HASH_POINTS = 16000 * 64        # one step of the hash path: rays x samples
+HASH_TOL = 1e-6                 # hash forward vs plain (both modes)
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak
+F32_OPS_PER_S = 67e12           # non-tensor f32
+INT32_OPS_PER_S = F32_OPS_PER_S / 2
 
 
 def check(cond, what):
@@ -84,6 +110,18 @@ def time_ms(fn, reps: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
+    """(least time in ms, "bytes" or "operations") of a call that must move
+    n_bytes and do ops scalar operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def write_run_dir(path: str, device: torch.device):
@@ -210,14 +248,17 @@ def backward_checks(trainer, device, tag):
         pts = scene["mu"] + xn * scene["sigma"]
         g = torch.randn((n, h.out_dim + 3), generator=gen, device=device)
         g = g[:, 3:]
-        for nm, kern, plain, tables, cols in (
+        n_cp, rank = len(field.lines), h.cp_rank
+        for nm, kern, plain, tables, cols, ops in (
                 ("cp_backward", cp_kernel.cp_encode_backward_kernel,
                  cp_kernel.cp_encode_plain_backward, list(field.lines),
-                 g[:, d:]),
+                 g[:, d:], n * n_cp * (rank * 26 + 3 * 6)),
                 ("dense_backward", dense_kernel.dense_encode_backward_kernel,
                  dense_kernel.dense_encode_plain_backward, list(field.dense),
-                 g[:, :d])):
+                 g[:, :d], n * h.dense_levels
+                 * (28 + 18 * h.features_per_level))):
             a = (tables, pts, scene["mu"], scene["sigma"], h, cols)
+            bnd = bound(nbytes(pts, cols, *tables, *tables), ops)
             with torch.no_grad():
                 got, want = kern(*a), plain(*a)
                 abs_sum = plain([t.abs() for t in tables], *a[1:-1],
@@ -236,10 +277,11 @@ def backward_checks(trainer, device, tag):
                 plain_ms = time_ms(lambda: plain(*a), reps=5)
             print(f"kernel {nm}: {n} points, max_abs_err {err:.3e}, worst "
                   f"|err| / tolerance {ratio:.3f} (tol 1; / (bf16 ulp + 1e-6)"
-                  f" {ulps:.3f}), {ms:.4f} ms vs plain {plain_ms:.4f} ms {tag}")
+                  f" {ulps:.3f}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+                  f"bound {bnd[0]:.4f} ms ({bnd[1]}) {tag}")
             check(ratio <= 1.0, (nm, n, err, ratio))
             if n == TRAIN_POINTS[0]:
-                out[nm] = (err, ms, plain_ms)
+                out[nm] = (err, ms, plain_ms, bnd)
             else:
                 out[nm] = (max(err, out[nm][0]),) + out[nm][1:]
     return out
@@ -297,8 +339,8 @@ def step_on_card_vs_cpu(trainer, ds, device):
     check(all(v <= STEP_GRAD_RTOL for v in rel.values()), ("step grads", rel))
 
 
-def profile_step(trainer, tag):
-    """torch.profiler over one guided training step, forward and backward +
+def profile_step(trainer, label, tag):
+    """torch.profiler over one training step, forward and backward +
     optimizer profiled separately: device kernel time by kind and the
     device's idle share (1 - busy / wall, wall ending in a synchronise)."""
     from torch.profiler import ProfilerActivity, profile
@@ -306,8 +348,11 @@ def profile_step(trainer, tag):
     from human_body_reconstruction_tpu_torch.train import step
 
     cfg, st, ds = trainer.cfg, trainer.state, trainer.ds
-    kinds = (("encoder fwd", ("cp_forward_kernel", "dense_forward_kernel")),
-             ("encoder bwd", ("cp_backward_kernel", "dense_backward_kernel")),
+    kinds = (("encoder fwd", ("cp_forward_kernel", "dense_forward_kernel",
+                              "hash_forward_kernel")),
+             ("encoder bwd", ("cp_backward_kernel", "dense_backward_kernel",
+                              "hash_backward_kernel")),
+             ("philox", ("uniform_bits_kernel",)),
              ("optimizer", ("multi_tensor", "adam")),
              ("gemm", ("gemm", "sm90_xmma", "cutlass", "ampere")))
 
@@ -351,7 +396,7 @@ def profile_step(trainer, tag):
         print("profile: the profiler recorded no device time: not measured")
         return
     fmt = (lambda d: ", ".join(f"{k} {v:.3f}" for k, v in sorted(d.items())))
-    print(f"profile guided step {st.step}: forward wall {wall_f:.3f} ms, "
+    print(f"profile {label} step {st.step}: forward wall {wall_f:.3f} ms, "
           f"device {busy_f:.3f} ms [{fmt(fwd)}]; backward+optimizer wall "
           f"{wall_b:.3f} ms, device {busy_b:.3f} ms [{fmt(bwd)}]; idle share "
           f"{1.0 - (busy_f + busy_b) / (wall_f + wall_b):.3f} {tag}")
@@ -365,34 +410,236 @@ def decode_png(data: bytes) -> np.ndarray:
     return rows.reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
 
 
-def serve_trained(trainer, ds, run_dir, tag):
+def serve_trained(trainer, ds, run_dir, samples, tag):
     """Save the trained model, restore it through RenderServer, render a
-    training view on the 128-sample ladder and score it."""
+    training view exact on a ``samples`` ladder and score it."""
     from human_body_reconstruction_tpu_torch.cli import serve
 
     trainer.save()
-    args = serve.build_parser().parse_args([
-        "--ckpt_dir", run_dir, "--model_name", "flagship", "--use_occ",
-        "--device", "cuda"])
+    occ = trainer.state.occ
+    args = serve.build_parser().parse_args(
+        ["--ckpt_dir", run_dir, "--model_name", trainer.model_name,
+         "--device", "cuda"] + (["--use_occ"] if occ is not None else []))
     server = serve.RenderServer(args)
     check(all(torch.equal(a, b) for a, b in zip(
         server.field.parameters(), trainer.state.field.parameters()))
-          and torch.equal(server.occ.mask, trainer.state.occ.mask),
+          and (occ is None or torch.equal(server.occ.mask, occ.mask)),
           "restored params and grid equal the trained ones")
     pose, W = 1, ds["W"]
     cax = 2.0 * math.atan(W / (2.0 * float(ds["K"][0, 0])))
     req = {"c2w": ds["c2ws"][pose].tolist(), "height": ds["H"], "width": W,
-           "camera_angle_x": cax, "num_samples": 128}
+           "camera_angle_x": cax, "num_samples": samples}
     server.handle(req)                       # first use at this shape
     resp = server.handle(req)
     check(resp["ok"], resp)
     img = decode_png(base64.b64decode(resp["image_b64"])) / 255.0
     gt = ds["images"][pose].cpu().numpy()
     psnr = 10.0 * math.log10(1.0 / max(float(np.mean((img - gt) ** 2)), 1e-12))
-    print(f"served trained model: view {pose} {ds['H']}x{W} ladder 128 in "
+    print(f"served trained {trainer.model_name} model: view {pose} "
+          f"{ds['H']}x{W} ladder {samples} in "
           f"{resp['wall_s']} s ({resp['rays_per_sec']} rays/s), PSNR "
           f"{psnr:.2f} dB against the ground truth {tag}")
     check(np.isfinite(img).all() and psnr > 12.0, ("served PSNR", psnr))
+
+
+def entry(name, source, replaces, launches, err, ms, plain_ms, library_ms,
+          bnd) -> dict:
+    """One kernel's record of the JSON line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": library_ms}
+
+
+def train_hash_grid(run_dir: str, ds, device: torch.device, tag: str):
+    """``train_hash --stochastic --hw_rng`` at full width through the port's
+    CLI objects, on the dataset rendered for the flagship run.  Returns
+    (trainer, launches during the timed run)."""
+    from human_body_reconstruction_tpu_torch.cli import train_hash
+    from human_body_reconstruction_tpu_torch.ops import hash_kernel, rng_kernel
+    from human_body_reconstruction_tpu_torch.train.trainer import Trainer
+
+    args = train_hash.build_parser().parse_args([
+        "--synthetic", "--synthetic_subject", "textured", "--stochastic",
+        "--hw_rng", "--device", "cuda", "--steps", str(HASH_STEPS),
+        "--out_dir", run_dir, "--model_name", "hash"])
+    cfg = train_hash.make_config(args)
+    train_hash.check_supported(args, cfg)
+    h, r = cfg.hash, cfg.render
+    check((h.variant, h.num_levels, h.features_per_level, h.table_size,
+           h.n_max, h.dense_levels, h.stochastic_train, h.hw_rng,
+           r.num_samples, r.occupancy, cfg.train.ray_batch)
+          == ("corner", 16, 2, 2 ** 16, 2048, 0, True, True, 64, False, 16000),
+          "--stochastic --hw_rng resolves to the reference hash grid")
+    trainer = Trainer(cfg=cfg, ds=ds, out_dir=run_dir, model_name="hash",
+                      total_steps=HASH_STEPS, log_fn=print)
+    warm = 5                         # first-use costs, and the first log
+    trainer.run(warm, log_every=warm)
+    kernels = [("uniform_bits", rng_kernel.uniform_kernel),
+               ("hash_forward", hash_kernel.hash_encode_kernel),
+               ("hash_backward", hash_kernel.hash_encode_backward_kernel)]
+    for _, kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run(HASH_STEPS - warm, log_every=29)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {nm: kern.launches for nm, kern in kernels}
+    n = HASH_STEPS - warm
+    hist = trainer.history
+    print(f"hash train: {n} steps, {1e3 * sec / n:.2f} ms/step, "
+          f"{n * cfg.train.ray_batch / sec:.1f} rays/s {tag}")
+    print(f"hash train: PSNR {hist[0]['psnr']:.2f} dB (step "
+          f"{hist[0]['step']}) -> {hist[-1]['psnr']:.2f} dB (step "
+          f"{hist[-1]['step']})")
+    print(f"launches while training the hash grid: {launches}")
+    check(trainer.state.step == HASH_STEPS, "trained every step")
+    check(all(math.isfinite(r["loss"]) for r in hist), "finite losses")
+    check(hist[-1]["psnr"] >= hist[0]["psnr"] + 1.0, "hash train PSNR rose")
+    check(all(v > 0 for v in launches.values()), launches)
+    return trainer, launches
+
+
+def hash_kernel_checks(trainer, device, tag):
+    """The Philox kernel bit for bit, and the hash forward and backward
+    kernels in both modes, against their plain versions at the path's
+    shapes.  Returns one report entry per kernel (times of the stochastic
+    mode, which the training path runs; the error over both modes)."""
+    from human_body_reconstruction_tpu_torch.ops import (
+        cuda_lib, hash_kernel, rng_kernel)
+
+    h, scene = trainer.cfg.hash, trainer.scene
+    table = trainer.state.field.table.detach()
+    L, F, n = h.num_hashed_levels, h.features_per_level, HASH_POINTS
+    gen = torch.Generator(device).manual_seed(SEED + 5)
+    xn = torch.rand((n, 3), generator=gen, device=device) * 1.5 - 0.25
+    pts = scene["mu"] + xn * scene["sigma"]
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=device,
+                         dtype=torch.int32)
+    shape = (3, L, n)
+    out = {}
+    with torch.no_grad():
+        bits = rng_kernel.uniform_bits(seed, shape)
+        u = rng_kernel.uniform(seed, shape)
+        same = (torch.equal(bits, rng_kernel.uniform_plain(seed, shape, False))
+                and torch.equal(u, rng_kernel.uniform_plain(seed, shape)))
+        m = u.numel()
+        mean = float(u.double().mean())
+        counts = torch.bincount((u * 256).long().reshape(-1),
+                                minlength=256).double()
+        chi2 = float(((counts - m / 256) ** 2 / (m / 256)).sum())
+        ms = time_ms(lambda: rng_kernel.uniform(seed, shape))
+        plain_ms = time_ms(lambda: rng_kernel.uniform_plain(seed, shape),
+                           reps=5)
+        lib_ms = time_ms(lambda: torch.rand(shape, device=device))
+    bnd = bound(nbytes(seed, u), m * 28, INT32_OPS_PER_S)
+    print(f"kernel uniform_bits: {m} values, bit for bit {same}, mean "
+          f"{mean:.6f} (|mean - 0.5| bound {6 / math.sqrt(12 * m):.2e}), "
+          f"chi2 {chi2:.1f} (256 bins, bound {255 + 6 * math.sqrt(510):.1f}), "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, torch.rand {lib_ms:.4f} "
+          f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}) {tag}")
+    check(same, "Philox kernel equals its plain version bit for bit")
+    check(abs(mean - 0.5) < 6 / math.sqrt(12 * m)
+          and chi2 < 255 + 6 * math.sqrt(510), ("Philox mean, chi2", mean, chi2))
+    out["uniform_bits"] = (0.0, ms, plain_ms, lib_ms, bnd)
+
+    g = torch.randn((n, L * F + 3), generator=gen, device=device)[:, 3:]
+    a = (table, pts, scene["mu"], scene["sigma"], h)
+    res = {}
+    for mode, uu in (("exact", None), ("stochastic", u)):
+        ops_f = n * L * (15 + (8 * (10 + 2 * F) if uu is None else 11))
+        with torch.no_grad():
+            got = hash_kernel.hash_encode_kernel(*a, u=uu)
+            want = hash_kernel.hash_encode_plain(*a, u=uu)
+            torch.cuda.synchronize()
+            err_f = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+                  "hash forward output finite, of the plain version's shape")
+            ms_f = time_ms(lambda: hash_kernel.hash_encode_kernel(*a, u=uu))
+            plain_f = time_ms(lambda: hash_kernel.hash_encode_plain(*a, u=uu),
+                              reps=5)
+            ins = (pts, table) + (() if uu is None else (uu,))
+            bnd_f = bound(nbytes(*ins, got), ops_f)
+            gb = hash_kernel.hash_encode_backward_kernel(*a, g, u=uu)
+            want_b = hash_kernel.hash_encode_plain_backward(*a, g, u=uu)
+            abs_sum = hash_kernel.hash_encode_plain_backward(*a, g.abs(), u=uu)
+            torch.cuda.synchronize()
+            err_b = float((gb - want_b).abs().max())
+            ratio = float(((gb - want_b).abs() / cuda_lib.sum_order_tolerance(
+                want_b, abs_sum, False)).max())
+            ms_b = time_ms(lambda: hash_kernel.hash_encode_backward_kernel(
+                *a, g, u=uu))
+            plain_b = time_ms(lambda: hash_kernel.hash_encode_plain_backward(
+                *a, g, u=uu), reps=5)
+            bnd_b = bound(nbytes(pts, g, gb, *ins[2:]), ops_f + n * L * F)
+        print(f"kernel hash_forward ({mode}): {n} points, out "
+              f"{tuple(got.shape)}, max_abs_err {err_f:.3e} (tol "
+              f"{HASH_TOL:g}), {ms_f:.4f} ms vs plain {plain_f:.4f} ms, bound "
+              f"{bnd_f[0]:.4f} ms ({bnd_f[1]}) {tag}")
+        print(f"kernel hash_backward ({mode}): {n} points, max_abs_err "
+              f"{err_b:.3e}, worst |err| / tolerance {ratio:.3f} (tol 1), "
+              f"{ms_b:.4f} ms vs plain {plain_b:.4f} ms, bound {bnd_b[0]:.4f} "
+              f"ms ({bnd_b[1]}) {tag}")
+        check(err_f <= HASH_TOL, ("hash_forward", mode, err_f))
+        check(bool(torch.isfinite(gb).all()) and ratio <= 1.0,
+              ("hash_backward", mode, err_b, ratio))
+        res[mode] = ((err_f, ms_f, plain_f, None, bnd_f),
+                     (err_b, ms_b, plain_b, None, bnd_b))
+    for i, nm in enumerate(("hash_forward", "hash_backward")):
+        err = max(r[i][0] for r in res.values())
+        out[nm] = (err,) + res["stochastic"][i][1:]
+    return out
+
+
+def hash_step_on_card_vs_cpu(trainer, ds, device):
+    """One stochastic training step's loss and gradients from the same
+    params, batch, ladder t and encoder uniforms: kernels on the card,
+    plain versions on the CPU."""
+    from human_body_reconstruction_tpu_torch.ops import hash_encoding, sampling
+    from human_body_reconstruction_tpu_torch.train import step
+
+    cfg, st, r = trainer.cfg, trainer.state, trainer.cfg.render
+    gen = torch.Generator(device).manual_seed(SEED + 6)
+    batch = step.sample_ray_batch(ds["images"], ds["c2ws"], ds["K"],
+                                  cfg.train.ray_batch, gen)
+    t = sampling.stratified_ts((cfg.train.ray_batch,), r.near, r.far,
+                               r.num_samples, r.log_sampling, device,
+                               jitter=True, per_ray_jitter=r.per_ray_jitter,
+                               generator=gen)
+    enc_u = hash_encoding.stoch_uniform(
+        (3, cfg.hash.num_hashed_levels, t.numel()), cfg.hash, device, gen)
+
+    def loss_and_grads(field, dev):
+        move = (lambda v: v.to(dev))
+        field.zero_grad(set_to_none=True)
+        loss, _ = step.loss_fn(
+            field, {k: move(v) for k, v in trainer.scene.items()},
+            [move(v) for v in batch], cfg, None, torch.bfloat16,
+            step=st.step, draws={"enc_u": move(enc_u)},
+            placement=(move(t), None))
+        loss.backward()
+        grads = {"table": field.table.grad.reshape(-1).cpu(),
+                 "mlp": torch.cat([p.grad.reshape(-1)
+                                   for p in field.mlp.parameters()]).cpu()}
+        field.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    card_loss, card = loss_and_grads(st.field, device)
+    cpu = torch.device("cpu")
+    cpu_loss, ref = loss_and_grads(copy.deepcopy(st.field).to(cpu), cpu)
+    rel = {k: float(torch.linalg.vector_norm(card[k] - ref[k])
+                    / torch.linalg.vector_norm(ref[k])) for k in ref}
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"hash step {st.step} card vs CPU ({cfg.train.ray_batch} rays x "
+          f"{r.num_samples} samples, stochastic corners): loss "
+          f"{card_loss:.7f} vs {cpu_loss:.7f} (rel {loss_rel:.2e}, tol "
+          f"{STEP_LOSS_RTOL:g}); gradient rel norm "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (tol {STEP_GRAD_RTOL:g})")
+    check(loss_rel <= STEP_LOSS_RTOL, ("hash step loss", card_loss, cpu_loss))
+    check(all(v <= STEP_GRAD_RTOL for v in rel.values()),
+          ("hash step grads", rel))
 
 
 def main() -> int:
@@ -425,8 +672,16 @@ def main() -> int:
         trainer, ds, train_launches = train(train_dir, device, tag)
         bwd = backward_checks(trainer, device, tag)
         step_on_card_vs_cpu(trainer, ds, device)
-        profile_step(trainer, tag)
-        serve_trained(trainer, ds, train_dir, tag)
+        profile_step(trainer, "guided", tag)
+        serve_trained(trainer, ds, train_dir, 128, tag)
+        del trainer
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as hash_dir:
+        trainer, hash_launches = train_hash_grid(hash_dir, ds, device, tag)
+        hash_report = hash_kernel_checks(trainer, device, tag)
+        hash_step_on_card_vs_cpu(trainer, ds, device)
+        profile_step(trainer, "stochastic hash", tag)
+        serve_trained(trainer, ds, hash_dir, 64, tag)
         del trainer, ds
     torch.cuda.empty_cache()
 
@@ -491,6 +746,11 @@ def main() -> int:
     pts = scene["mu"] + xn * scene["sigma"]
     outside = float(((xn < 0) | (xn > 1)).any(-1).float().mean())
     report = []
+    h = cfg.hash
+    fwd_ops = {"cp_forward": N_POINTS * len(field.lines)
+               * (h.cp_rank * 11 + 3 * 6),
+               "dense_forward": N_POINTS * h.dense_levels
+               * (28 + 17 * h.features_per_level)}
     for nm, kern, plain, attr, replaces, tol in kernels:
         tables = list(getattr(field, attr))
         a = (tables, pts, scene["mu"], scene["sigma"], cfg.hash)
@@ -502,21 +762,32 @@ def main() -> int:
                   f"{nm} output finite, of the plain version's shape")
             ms = time_ms(lambda: kern(*a))
             plain_ms = time_ms(lambda: plain(*a))
+        bnd = bound(nbytes(pts, got, *tables), fwd_ops[nm])
         print(f"kernel {nm}: {N_POINTS} points ({outside:.3f} outside the "
               f"box), out {tuple(got.shape)}, max_abs_err {err:.3e} (tol "
-              f"{tol:g}), {ms:.4f} ms vs plain {plain_ms:.4f} ms {tag}")
+              f"{tol:g}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}) {tag}")
         check(err <= tol, (nm, err))
-        report.append({"name": nm, "route": "cuda", "source": SOURCE,
-                       "replaces": replaces, "launches": train_launches[nm],
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        report.append(entry(nm, SOURCE, replaces, train_launches[nm], err, ms,
+                            plain_ms, None, bnd))
     for nm, replaces in (
             ("cp_backward", "human_body_reconstruction_tpu/ops/cp_pallas.py:173"),
             ("dense_backward",
              "human_body_reconstruction_tpu/ops/dense_pallas.py:152")):
-        err, ms, plain_ms = bwd[nm]
-        report.append({"name": nm, "route": "cuda", "source": SOURCE,
-                       "replaces": replaces, "launches": train_launches[nm],
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        err, ms, plain_ms, bnd = bwd[nm]
+        report.append(entry(nm, SOURCE, replaces, train_launches[nm], err, ms,
+                            plain_ms, None, bnd))
+    for nm, source, replaces in (
+            ("uniform_bits", "human_body_reconstruction_tpu_torch/csrc/rng.cu",
+             "human_body_reconstruction_tpu/ops/pallas_rng.py:30"),
+            ("hash_forward", "human_body_reconstruction_tpu_torch/csrc/hash.cu",
+             "none (no TPU kernel: human_body_reconstruction_tpu/ops/"
+             "hash_encoding.py:232,259 gather in jnp)"),
+            ("hash_backward", "human_body_reconstruction_tpu_torch/csrc/hash.cu",
+             "none (no TPU kernel: the autodiff scatter of human_body_"
+             "reconstruction_tpu/ops/hash_encoding.py:232,259)")):
+        report.append(entry(nm, source, replaces, hash_launches[nm],
+                            *hash_report[nm]))
 
     # a whole frame through the kernels (card) vs the plain versions (CPU)
     K = torch.tensor([[185.0, 0, 64.0], [0, 185.0, 64.0], [0, 0, 1]])

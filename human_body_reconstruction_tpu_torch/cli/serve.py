@@ -19,6 +19,9 @@ Requests and responses are the JAX server's:
 Response: {"ok": true, "wall_s", "rays_per_sec", "H", "W", ...} or
 {"ok": false, "error": "..."}; a bad request never stops the server.
 
+The server runs on the card (``--device cuda``, the default) unless given
+``--device cpu``; without a card and without that flag it exits.
+
 Run:  python -m human_body_reconstruction_tpu_torch.cli.serve \\
           --ckpt_dir results --model_name flagship --use_occ --eval_guided 48
 """
@@ -39,6 +42,7 @@ import zlib
 import numpy as np
 import torch
 
+from human_body_reconstruction_tpu_torch.cli import device_from_flag
 from human_body_reconstruction_tpu_torch.data import synthetic
 from human_body_reconstruction_tpu_torch.pipeline import restore
 from human_body_reconstruction_tpu_torch.train import step as step_lib
@@ -74,9 +78,8 @@ def build_parser():
     p.add_argument("--fp32", action="store_true",
                    help="run the MLP in float32 compute (default bfloat16 "
                         "with f32 accumulation, as in training)")
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda when available, "
-                        "else cpu)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; without a CUDA card pass --device cpu")
     p.add_argument("--warmup", action="store_true",
                    help="render one default-size view at startup")
     p.add_argument("--port", type=int, default=0,
@@ -109,8 +112,7 @@ class RenderServer:
 
     def __init__(self, args):
         self.args = args
-        self.device = torch.device(
-            args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = device_from_flag(args.device)
         res = restore.restore(
             args.ckpt_dir, args.model_name, device=self.device,
             bound_pth=args.bound_pth, ckpt_name=args.ckpt_name,

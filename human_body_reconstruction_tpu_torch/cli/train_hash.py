@@ -1,40 +1,353 @@
 """Hash-NeRF training CLI of the port (counterpart of the JAX
 cli/train_hash.py).
 
-The flag surface and the preset resolution are the JAX module's own
-(``build_parser`` and ``resolve_preset``, which import no JAX), plus
-``--device``.  The zero-flag run is the flagship: CP factor lines at rank
-25 over 7 levels up to n_max 1448 with two dense coarse grids, a
-256^3 occupancy grid engaged after 256 warmup steps, then guided mass-dt
-stratified placement of 48 samples from 32 probes, and factor-line TV 1e-2
-from step 320.  What the port does not run yet is refused with a message:
-the hashed encoders, SDF mode, hierarchical sampling, data/level
-parallelism, fused multi-step dispatches, the compiled-executable cache,
-resume, gradient-norm logging, the live preview and the humanoid/tangle
-synthetic subjects.
+The flag surface (``build_parser``) and the preset resolution
+(``resolve_preset``) are copies of the JAX module's (tests hold them equal),
+plus ``--device``, which defaults to ``cuda``: without a card the CLI exits
+unless given ``--device cpu``.  The zero-flag run is the flagship: CP
+factor lines at rank 25 over 7 levels up to n_max 1448 with two dense
+coarse grids, a 256^3 occupancy grid engaged after 256 warmup steps, then
+guided mass-dt stratified placement of 48 samples from 32 probes, and
+factor-line TV 1e-2 from step 320.  Any hash-path flag (``--stochastic``,
+``--hw_rng``, ...) switches the preset to the reference's ``corner`` hash
+grid (L 16, F 2, T 2^16, n_max 2048, 64 samples, no culling); the port runs
+it exact or with ``--stochastic`` (single-corner training, exact eval),
+with or without ``--hw_rng``.  What the port does not run yet is refused
+with a message: the ``cell`` variant, packed/int8 gathers and the gradient
+subsampling and scatter options, SDF mode, hierarchical sampling,
+data/level parallelism, fused multi-step dispatches, the
+compiled-executable cache, resume, gradient-norm logging, the live preview
+and the humanoid/tangle synthetic subjects.
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.train_hash \\
-          --synthetic --synthetic_subject textured --steps 500 --device cuda
+          --synthetic --synthetic_subject textured --stochastic --hw_rng
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 
-import torch
-
-from human_body_reconstruction_tpu.cli.train_hash import (
-    build_parser as _jax_parser, resolve_preset)
-
 
 def build_parser():
-    p = _jax_parser()
-    p.description = "Train Hashing (PyTorch port)"
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device (default: cuda when available, "
-                        "else cpu)")
+    p = argparse.ArgumentParser(description="Train Hashing (PyTorch port)")
+    # -- reference flag surface (train_hash2.py:20-42) --
+    p.add_argument("--display", action="store_true",
+                   help="live preview: overwrite <model>_preview.png each "
+                        "eval render and show a cv2 window when a display "
+                        "is available (reference train_hash2.py:247-268)")
+    p.add_argument("--compile", action="store_true",
+                   help="accepted for parity; everything is jit-compiled")
+    p.add_argument("--load", action="store_true", help="Continue from checkpoint")
+    p.add_argument("--update_rate", type=int, default=15,
+                   help="Update rate for Occupancy grid")
+    p.add_argument("--write", action="store_true", help="Write the output")
+    p.add_argument("--num_epochs", type=int, default=1000, help="Number of epochs")
+    p.add_argument("--num_batch", type=int, default=16000, help="Ray batch size")
+    p.add_argument("--num_imgs", type=int, default=2,
+                   help="accepted for parity (images per host batch)")
+    p.add_argument("--num_samples", type=int, default=None,
+                   help="Number of samples along ray (default 128 "
+                        "flagship / 64 reference)")
+    p.add_argument("--near", type=float, default=2.0, help="Near point")
+    p.add_argument("--far", type=float, default=6.0, help="Far point")
+    p.add_argument("--plot_grads", action="store_true",
+                   help="Log gradient norms each log interval")
+    p.add_argument("--use_sdf", action="store_true",
+                   help="Use sdf formulation while training")
+    p.add_argument("--eikonal_subsample", type=int, default=None,
+                   help="eikonal point budget per step (0 = all B*S "
+                        "points, reference semantics; flagship preset "
+                        "default 16384 — the full-points SDF HLO is "
+                        "~100x larger and crashes the remote compile "
+                        "helper on TPU)")
+    p.add_argument("--hierarchical", action="store_true",
+                   help="Use hierarchical sampling")
+    p.add_argument("--max_res", type=float, default=None,
+                   help="Max resolution of the grid (default: 1448 "
+                        "under the flagship preset — the round-5 "
+                        "sum-G-cut ladder; 2048 reference)")
+    p.add_argument("--hash_size", type=float, default=16,
+                   help="Log Size of the hash table")
+    p.add_argument("--model_name", type=str, default="default",
+                   help="Name of saved model")
+    p.add_argument("--data_path", type=str, default=None, help="Path to data")
+    p.add_argument("--ckpt_name", type=str, default="N_2048_T_16",
+                   help="Name of checkpoint")
+    # -- TPU-rebuild extensions --
+    p.add_argument("--steps", type=int, default=None,
+                   help="explicit total step count (overrides epochs)")
+    p.add_argument("--out_dir", type=str, default="results")
+    p.add_argument("--log_every", type=int, default=100)
+    p.add_argument("--eval_every", type=int, default=0,
+                   help="steps between eval renders (0: only with --write)")
+    p.add_argument("--preset", type=str, default="flagship",
+                   choices=["flagship", "reference"],
+                   help="defaults for flags you do NOT pass: 'flagship' "
+                        "is the quality/speed operating point from the "
+                        "quality matrix (CP rank-21 factor lines, dense "
+                        "coarse levels, occupancy-guided mass-dt "
+                        "stratified placement, TV 1e-2 after warmup, "
+                        "128 samples); 'reference' matches "
+                        "the reference repo's hash defaults (corner "
+                        "hash, L=16/F=2, 64 samples, no culling).  Any "
+                        "explicit flag overrides its preset value, and "
+                        "hash-path flags (--stochastic/--packed/...) "
+                        "imply the hash encoder")
+    p.add_argument("--occupancy", action="store_true",
+                   help="enable occupancy-grid culling")
+    p.add_argument("--no_occupancy", action="store_true",
+                   help="force culling OFF (overrides the flagship "
+                        "preset's default-on occupancy)")
+    p.add_argument("--encoder_variant", type=str, default=None,
+                   choices=["corner", "cell", "cp"],
+                   help="encoder: reference-exact 'corner' hash, TPU-fast "
+                        "'cell' hash, or 'cp' rank-decomposed factor "
+                        "lines (no hash table; all-MXU, zero gathers/"
+                        "scatters — ops/lowrank.py).  Default: preset")
+    p.add_argument("--cp_rank", type=int, default=None,
+                   help="with --encoder_variant cp: features per level "
+                        "(rank of each level's CP factorisation); "
+                        "default 21 (flagship; pad-free — costs rank "
+                        "16's FLOPs) / 16")
+    p.add_argument("--cp_tv", type=float, default=None,
+                   help="with --encoder_variant cp: 1-D total-variation "
+                        "weight on the factor lines (TensoRF-style "
+                        "smoothness; elementwise, no gathers; 0 = off). "
+                        "Default 1e-2 under the flagship preset — TV is "
+                        "what makes CP generalise OFF the training orbit "
+                        "(+6.9 dB on the 4-pose holdout mean, "
+                        "qm_r3_textured2.json)")
+    p.add_argument("--cp_tv_warmup", type=int, default=None,
+                   help="steps to hold --cp_tv at zero before enabling "
+                        "it (flagship default: --occ_warmup + 64).  TV "
+                        "smoothing during the early fit flattens the "
+                        "density the occupancy warmup refresh reads, "
+                        "wrongly culls the subject and starves guided "
+                        "placement (qm_r3_humanoid3.json)")
+    p.add_argument("--stochastic", action="store_true",
+                   help="unbiased single-corner hash sampling during "
+                        "training (8x fewer gathers)")
+    p.add_argument("--packed", action="store_true",
+                   help="with --stochastic: packed bf16-pair gathers "
+                        "(one lookup per point-level)")
+    p.add_argument("--pack_format", type=str, default="bf16",
+                   choices=["bf16", "int8"],
+                   help="with --packed: bf16 pairs (F=2) or dynamically "
+                        "quantised int8 (up to 4 features per lookup)")
+    p.add_argument("--packed_exact", action="store_true",
+                   help="train the EXACT (non-stochastic) trilerp "
+                        "through packed word reads — exact 8-corner "
+                        "interpolation + exact scatter backward over "
+                        "bf16/int8-rounded features (the reference's "
+                        "fp16-autocast analog; the fastest exact-"
+                        "semantics trainable mode, bench 'exact_packed'"
+                        "); implies --packed")
+    p.add_argument("--num_levels", type=int, default=None,
+                   help="resolution levels L (reference hard-codes 16, "
+                        "train_hash2.py:46; flagship CP uses 8)")
+    p.add_argument("--features_per_level", type=int, default=2,
+                   help="features per level F (reference hard-codes 2); "
+                        "L=8/F=4 --packed --pack_format int8 halves "
+                        "lookups twice at the same 32-dim output")
+    p.add_argument("--dense_levels", type=int, default=None,
+                   help="store the first D coarse levels as DENSE grids "
+                        "evaluated by MXU matmuls (collision-free, no "
+                        "gather/scatter); -1 picks D automatically "
+                        "(default: auto flagship / 0 reference)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard the ray batch over all visible devices")
+    p.add_argument("--level_parallel", type=int, default=0,
+                   help="shard the hash table's level axis over this many "
+                        "chips (tensor parallelism; per-chip lookups "
+                        "divide by the extent); composes with "
+                        "--data_parallel on a 2-D (data, level) mesh")
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="fuse this many optimizer steps into one device "
+                        "dispatch (lax.scan): amortizes per-dispatch/sync "
+                        "overhead; semantics identical to sequential steps")
+    p.add_argument("--aot_cache", type=str, default="",
+                   help="directory for the disk-backed compiled-executable "
+                        "cache (utils/aot.py): re-runs with an identical "
+                        "HLO skip the minutes-long remote TPU compile")
+    p.add_argument("--grad_level_subsample", action="store_true",
+                   help="with --grad_subsample + int8: also route each "
+                        "point's gradient to one random level (scaled Lx, "
+                        "unbiased) — one scatter contribution per point")
+    p.add_argument("--grad_level_pair", action="store_true",
+                   help="with --grad_subsample + int8: route each point's "
+                        "gradient to one random level of every consecutive "
+                        "level pair (scaled 2x, unbiased) — halves the "
+                        "backward scatter, gentler than "
+                        "--grad_level_subsample")
+    p.add_argument("--grad_subsample", action="store_true",
+                   help="with --packed: unbiased single-feature gradient "
+                        "scatter (halves backward scatter volume)")
+    p.add_argument("--hw_rng", action="store_true",
+                   help="stochastic-corner uniforms from the Philox "
+                        "kernel (ops/rng_kernel.py) instead of torch.rand")
+    p.add_argument("--scatter_strategy", type=str, default="random",
+                   choices=["random", "sorted", "segsum"],
+                   help="backward table-gradient scatter: plain random "
+                        "scatter-add, pre-sorted scatter, or sort + "
+                        "segment-sum (exact in all cases)")
+    p.add_argument("--compact", type=int, default=None,
+                   help="with --occupancy: keep only this many occupied "
+                        "samples per ray (static compaction; flagship "
+                        "default 48 guided)")
+    p.add_argument("--occ_guided", action="store_true",
+                   help="with --occupancy: inverse-CDF sample placement "
+                        "over occupied intervals instead of top-K "
+                        "truncation (budget = --compact or --num_samples)")
+    p.add_argument("--occ_warmup", type=int, default=256,
+                   help="steps trained WITHOUT culling before the "
+                        "occupancy grid engages (premature culling from "
+                        "a near-random field is self-reinforcing)")
+    p.add_argument("--occ_explore", type=float, default=0.05,
+                   help="with --occ_guided: fraction of sample mass "
+                        "routed to empty-marked intervals so "
+                        "wrongly-culled cells can recover")
+    p.add_argument("--occ_probes", type=int, default=None,
+                   help="with --occ_guided: probe-interval count "
+                        "(0 = --num_samples); fewer probes cut the "
+                        "per-step occupancy-lookup cost (flagship "
+                        "default 64)")
+    p.add_argument("--occ_threshold", type=float, default=0.01,
+                   help="density threshold below which occupancy cells "
+                        "are culled (RenderConfig.occ_threshold)")
+    p.add_argument("--sigma_l1", type=float, default=0.0,
+                   help="L1 sparsity weight on sampled densities "
+                        "(TensoRF-style fog suppression; lets the "
+                        "occupancy grid converge on CP fields)")
+    p.add_argument("--occ_probe_jitter", action="store_true",
+                   help="with --occ_guided: randomise each probe's "
+                        "position within its interval per step (fixed "
+                        "midpoints repeat the same classification "
+                        "misses every step)")
+    p.add_argument("--eval_guided", type=int, default=0,
+                   help="with --occupancy: render in-training evals with "
+                        "deterministic occupancy-guided placement at this "
+                        "sample budget (2.5x cheaper at 48, -0.09 dB; "
+                        "serving A/B in docs/PERF_NOTES.md); 0 = exact "
+                        "full ladder")
+    p.add_argument("--occ_dt", type=str, default="mass",
+                   choices=["clip", "mass"],
+                   help="with --occ_guided: dt estimator — 'clip' at "
+                        "probe-interval ends (biased low when samples "
+                        "are sparser than probe intervals) or 'mass' "
+                        "(unbiased importance weights)")
+    p.add_argument("--occ_stratified", action="store_true", default=None,
+                   help="with --occ_guided: stratified (one jittered "
+                        "draw per 1/K CDF stratum) instead of iid "
+                        "inverse-CDF u's — lower-variance placement "
+                        "(+1.5 dB, qm_r3_textured4.json) and skips the "
+                        "per-ray sample sort.  Default ON under the "
+                        "flagship preset")
+    p.add_argument("--no_occ_stratified", dest="occ_stratified",
+                   action="store_false",
+                   help="force iid inverse-CDF placement (overrides the "
+                        "flagship preset's default-on stratification)")
+    p.add_argument("--normalization", type=str, default="diagonal",
+                   choices=["diagonal", "unit_box"],
+                   help="scene->hash normalisation: reference 'diagonal' "
+                        "or per-axis 'unit_box' (full table utilisation)")
+    p.add_argument("--rgb_elu", action="store_true",
+                   help="reference-parity ELU colour activation")
+    p.add_argument("--white_bg", action="store_true")
+    p.add_argument("--downscale", type=int, default=1)
+    p.add_argument("--synthetic", action="store_true",
+                   help="procedural demo scene instead of a dataset dir")
+    p.add_argument("--synthetic_subject", type=str, default="blobs",
+                   choices=["blobs", "human", "textured", "tangle"],
+                   help="procedural subject for --synthetic ('tangle' "
+                        "is the seed-randomized held-back family; "
+                        "geometry/texture derive from --seed)")
+    p.add_argument("--seed", type=int, default=0)
+    # -- the port's own --
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; without a CUDA card pass --device cpu")
     return p
+
+
+def resolve_preset(args):
+    """Fill unset flags from the preset (VERDICT r2 item 4).
+
+    Explicit flags always win.  Hash-path flags (--stochastic/--packed/
+    --grad_*/--hw_rng) without --encoder_variant imply the 'corner'
+    hash encoder so every reference-style invocation keeps its
+    semantics; the bare zero-flag run gets the quality-matrix flagship
+    (CP rank-32, dense coarse levels, occupancy-guided mass-dt).
+    """
+    hash_flags = (args.stochastic or args.packed or args.grad_subsample
+                  or args.grad_level_subsample or args.grad_level_pair
+                  or args.hw_rng or args.packed_exact)
+    variant = args.encoder_variant
+    if variant is None:
+        variant = ("cp" if args.preset == "flagship" and not hash_flags
+                   else "corner")
+    flagship = args.preset == "flagship" and variant == "cp"
+    out = dict(
+        variant=variant,
+        # round-5 flagship ladder: the CP kernel anatomy probe showed
+        # the encode cost is the contraction width sum_G (the W build
+        # has no rank dependence and the matmul pays a 128-lane floor),
+        # so a 7-level n_max=1448 ladder (-33% sum_G, finest line 1450)
+        # at rank 25 (C=125, pad-free) is +16% rate AND the quality
+        # record: 33.84 dB textured / 42.10 humanoid 4-pose holdout,
+        # 251.5k rays/s bench (qm_r5_n1448*.json, BENCH_local_r5.json)
+        num_levels=(args.num_levels if args.num_levels is not None
+                    else (7 if flagship else 16)),
+        max_res=(args.max_res if args.max_res is not None
+                 else (1448 if flagship else 2048)),
+        cp_rank=(args.cp_rank if args.cp_rank is not None
+                 else (25 if flagship else 16)),
+        dense_levels=(args.dense_levels if args.dense_levels is not None
+                      else (-1 if flagship else 0)),
+        num_samples=(args.num_samples if args.num_samples is not None
+                     else (128 if flagship else 64)),
+        occupancy=(args.occupancy or flagship) and not args.no_occupancy,
+        compact=(args.compact if args.compact is not None
+                 else (48 if flagship else 0)),
+        # 32 probes match 64's quality (33.58 dB mean 4-pose textured
+        # holdout at p32/K=32, qm_r4_kprobe.json, vs the p64 record's
+        # 33.43) and save ~7 ms/step of tile-priced occupancy gathers
+        # (step_ablate_r4.json) — round-4 flip
+        occ_probes=(args.occ_probes if args.occ_probes is not None
+                    else (32 if flagship else 0)),
+        # factor-line TV: the off-orbit generalisation fix for CP
+        # (separable factor ripple in never-sampled space collapses
+        # exterior/steep holdout poses by 7-13 dB without it —
+        # qm_r3_textured2.json)
+        cp_tv=(args.cp_tv if args.cp_tv is not None
+               else (1e-2 if flagship else 0.0)),
+        # TV sits out until culling locks onto the subject — smoothing
+        # the early fit flattens the density the warmup-end occupancy
+        # refresh reads, wrongly culls the subject, and guided
+        # placement starves (the humanoid collapse,
+        # qm_r3_humanoid3.json).  occ_warmup + one update cadence.
+        cp_tv_warmup=(args.cp_tv_warmup if args.cp_tv_warmup is not None
+                      else (args.occ_warmup + 64 if flagship else 0)),
+        # subsampled eikonal (ADVICE r4): variant-qualified like every
+        # other flagship default — a reference-leaning config (hash
+        # flags set) keeps the all-points reference semantics
+        eikonal_subsample=(args.eikonal_subsample
+                           if args.eikonal_subsample is not None
+                           else (16384 if flagship else 0)),
+    )
+    if out["eikonal_subsample"] < 0:
+        raise SystemExit("--eikonal_subsample must be >= 0 "
+                         "(0 = all points, reference semantics)")
+    out["occ_guided"] = (args.occ_guided or flagship) and out["occupancy"]
+    # stratified inverse-CDF placement: lower-variance, makes mass-dt's
+    # 1/K assumption structural, and skips the per-ray sort — +1.5 dB
+    # AND +10% rate on the textured gate (qm_r3_textured4.json)
+    out["occ_stratified"] = (args.occ_stratified
+                             if args.occ_stratified is not None
+                             else flagship)
+    if not out["occupancy"]:
+        out["compact"] = args.compact or 0
+    return out
 
 
 def make_config(args):
@@ -97,15 +410,17 @@ _NOT_PORTED = (("load", "resume"), ("data_parallel", "--data_parallel"),
 
 def check_supported(args, cfg):
     """Refuse what the port cannot run yet, before any work starts."""
+    from human_body_reconstruction_tpu_torch.ops import hash_encoding
+
     for flag, what in _NOT_PORTED:
         if getattr(args, flag):
             raise SystemExit(f"{what} is not ported to the PyTorch trainer yet")
     if args.steps_per_call != 1:
         raise SystemExit("--steps_per_call is not ported (PyTorch runs "
                          "eagerly, one step per call)")
-    if cfg.hash.variant != "cp":
-        raise SystemExit(f"encoder variant {cfg.hash.variant!r} is not ported; "
-                         "only 'cp' (the flagship preset) is")
+    unported = hash_encoding.unported(cfg.hash)
+    if unported:
+        raise SystemExit(unported)
     if cfg.render.occupancy and not cfg.render.occ_guided and \
             0 < cfg.render.compact_samples < cfg.render.num_samples:
         raise SystemExit("top-K sample compaction (--occupancy --compact "
@@ -149,12 +464,12 @@ def load_dataset(args, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from human_body_reconstruction_tpu_torch.cli import device_from_flag
     from human_body_reconstruction_tpu_torch.train.trainer import Trainer
 
     cfg = make_config(args)
     check_supported(args, cfg)
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = device_from_flag(args.device)
     ds, eval_ds = load_dataset(args, device)
 
     n_pixels = int(ds["images"].shape[0]) * ds["H"] * ds["W"]

@@ -41,15 +41,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define HBR_MAX_LEVELS 16
-
-struct HbrLevels {
-  int n_levels;
-  int size[HBR_MAX_LEVELS];    // G_l: line length (CP) or grid side (dense)
-  int offset[HBR_MAX_LEVELS];  // CP: first row of level l in the packed lines;
-                               // dense: first element of grid l
-  float scale[HBR_MAX_LEVELS];  // level resolution N_l, as f32
-};
+#include "levels.cuh"
 
 template <typename T>
 __device__ __forceinline__ float load_f32(const T* p);

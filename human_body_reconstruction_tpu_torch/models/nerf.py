@@ -2,8 +2,8 @@
 models/nerf.py), density mode.
 
 The model is a ``Field`` module holding the encoder tables (dense coarse
-grids, CP factor lines) and the MLP head; it plays the role of the JAX
-params pytree.  ``scene`` is {"mu": (3,), "sigma": scalar or (3,),
+grids, CP factor lines or the hash table) and the MLP head; it plays the
+role of the JAX params pytree.  ``scene`` is {"mu": (3,), "sigma": scalar or (3,),
 "min_bound", "max_bound"} as tensors on the field's device.
 
 ``render_rays`` has the eval branch (no jitter, the occupancy mask applied,
@@ -11,8 +11,11 @@ guided placement when ``cfg.render.eval_guided`` > 0 with a grid, else the
 ladder) and the training branch (``jitter=True``): the jittered ladder
 while no grid is attached, then occupancy-guided placement with
 exploration, computed under ``no_grad`` and with no mask lookup (masking
-would zero the gradient of every exploration sample).  Not ported yet, and
-raising: top-K compaction (training with a grid but without guided
+would zero the gradient of every exploration sample).  With
+``cfg.hash.stochastic_train`` the training branch encodes the hashed levels
+with the single-corner estimator, as JAX ``render_rays`` does; the eval
+branch, ``density_only`` and serving always encode exactly.  Not ported
+yet, and raising: top-K compaction (training with a grid but without guided
 placement), SDF mode and the hierarchical second pass.
 """
 
@@ -35,33 +38,43 @@ class Field(nn.Module):
     """Encoder tables plus MLP head of one model.
 
     With a ``generator`` the tables and MLP are initialised as the JAX
-    package does (U(-init_scale, init_scale) grids, U(-cp_init_scale,
-    cp_init_scale) lines, torch-default linears) on the generator's device
-    and then moved to ``device``; without one they are zeros, to be
-    loaded from a checkpoint.
+    package does (U(-init_scale, init_scale) grids and hash table,
+    U(-cp_init_scale, cp_init_scale) lines, torch-default linears) on the
+    generator's device and then moved to ``device``; without one they are
+    zeros, to be loaded from a checkpoint.  ``table`` is None unless the
+    variant hashes its fine levels.
     """
 
     def __init__(self, cfg: PipelineConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         h = cfg.hash
-        if h.variant != "cp" and h.num_hashed_levels > 0:
-            raise NotImplementedError(
-                f"encoder variant {h.variant!r} is not ported; only 'cp'")
+        msg = hash_encoding.unported(h)
+        if msg:
+            raise NotImplementedError(msg)
         if cfg.render.use_sdf:
             raise NotImplementedError("SDF mode is not ported yet")
+        cp = h.variant == "cp" and h.num_hashed_levels > 0
+        hashed = h.variant != "cp" and h.num_hashed_levels > 0
+        lines, table = [], None
         if generator is not None:
             dense = dense_grid.init_dense(h, generator)
-            lines = lowrank.init_lines(h, generator) \
-                if h.num_hashed_levels else []
+            if cp:
+                lines = lowrank.init_lines(h, generator)
+            if hashed:
+                table = hash_encoding.init_table(h, generator)
         else:
             dense = [torch.zeros((g, g, g, h.features_per_level))
                      for g in dense_grid.dense_grid_sizes(h)]
-            lines = [torch.zeros((h.dim, g, h.cp_rank))
-                     for g in lowrank.cp_line_sizes(h)] \
-                if h.num_hashed_levels else []
+            if cp:
+                lines = [torch.zeros((h.dim, g, h.cp_rank))
+                         for g in lowrank.cp_line_sizes(h)]
+            if hashed:
+                table = torch.zeros((h.num_hashed_levels, h.table_size,
+                                     h.payload))
         self.dense = nn.ParameterList(nn.Parameter(g) for g in dense)
         self.lines = nn.ParameterList(nn.Parameter(ln) for ln in lines)
+        self.table = None if table is None else nn.Parameter(table)
         self.mlp = MLP3D(cfg.mlp, h.out_dim, cfg.dir_enc.out_dim,
                          generator=generator)
         if device is not None:
@@ -80,17 +93,23 @@ def scene_from_bounds(lo, hi, normalization: str = "diagonal", device=None):
     return {"mu": lo, "sigma": sigma, "min_bound": lo, "max_bound": hi}
 
 
-def encode_points(field: Field, scene, pts, cfg: PipelineConfig):
-    """(N, 3) world points -> (N, cfg.hash.out_dim) features."""
-    enc = {"dense": list(field.dense), "lines": list(field.lines)}
-    return hash_encoding.encode_params(enc, pts, scene["mu"], scene["sigma"],
-                                       cfg.hash)
+def encode_points(field: Field, scene, pts, cfg: PipelineConfig, *,
+                  stochastic: bool = False, generator=None, enc_u=None):
+    """(N, 3) world points -> (N, cfg.hash.out_dim) features; ``stochastic``
+    (training) uses the single-corner estimator of the hashed levels, on
+    uniforms ``enc_u`` (3, L, N) or ones drawn from ``generator``."""
+    enc = {"dense": list(field.dense), "lines": list(field.lines),
+           "table": field.table}
+    return hash_encoding.encode_params(
+        enc, pts, scene["mu"], scene["sigma"], cfg.hash,
+        stochastic=stochastic, generator=generator, u=enc_u)
 
 
 def field_forward(field: Field, scene, pts, dirs_enc, cfg: PipelineConfig,
-                  compute_dtype=None):
-    """(rgb (N, 3), density (N,)) at world points with encoded view dirs."""
-    feats = encode_points(field, scene, pts, cfg)
+                  compute_dtype=None, **encode):
+    """(rgb (N, 3), density (N,)) at world points with encoded view dirs;
+    ``encode`` goes to ``encode_points``."""
+    feats = encode_points(field, scene, pts, cfg, **encode)
     return field.mlp(feats, dirs_enc, compute_dtype)
 
 
@@ -105,9 +124,10 @@ def density_only(field: Field, scene, pts, cfg: PipelineConfig,
 
 def _render_pass(field, scene, rays_o, rays_d, dir_norm, t,
                  cfg: PipelineConfig, occ, compute_dtype, dt_override=None,
-                 apply_mask=True):
+                 apply_mask=True, **encode):
     """One encode -> MLP -> composite pass at samples t (B, S), with the
-    occupancy mask applied when a grid is given and ``apply_mask``."""
+    occupancy mask applied when a grid is given and ``apply_mask``;
+    ``encode`` goes to ``encode_points``."""
     B, S = t.shape
     pts = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]    # (B,S,3)
     mask = None
@@ -118,7 +138,7 @@ def _render_pass(field, scene, rays_o, rays_d, dir_norm, t,
     dirs_rep = dirs_enc[:, None, :].expand(B, S, dirs_enc.shape[-1])
     rgb, density = field_forward(field, scene, pts.reshape(B * S, 3),
                                  dirs_rep.reshape(B * S, -1), cfg,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype, **encode)
     rgb = rgb.reshape(B, S, 3)
     density = density.reshape(B, S)
     if mask is not None:
@@ -141,7 +161,8 @@ def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
     ``jitter`` selects the training branch, whose random draws come from
     ``generator``; ``draws`` may replace them: "u" (the ladder jitter, or
     the iid quantiles of guided placement), "xi" (its stratified draw),
-    "probe_u" (its probe jitter).  ``placement`` (t (B, S), dt (B, S) or
+    "probe_u" (its probe jitter), "enc_u" (the stochastic encoder's
+    uniforms, (3, L_hashed, B * S)).  ``placement`` (t (B, S), dt (B, S) or
     None) replaces the sampler's output altogether: a step's gradient moves
     measurably when t moves by a few f32 ulps, so comparisons of one step
     across devices hand both the same samples."""
@@ -180,6 +201,8 @@ def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
                 generator=generator, u=draws.get("u"))
     color, weights, density = _render_pass(
         field, scene, rays_o, rays_d, dir_norm, t, cfg, occ, compute_dtype,
-        dt_override=dt_guided, apply_mask=not guided_train)
+        dt_override=dt_guided, apply_mask=not guided_train,
+        stochastic=jitter and cfg.hash.stochastic_train, generator=generator,
+        enc_u=draws.get("enc_u"))
     return {"coarse": color, "fine": color, "weights": weights, "t": t,
             "density": density}

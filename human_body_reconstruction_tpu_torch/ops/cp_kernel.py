@@ -31,9 +31,8 @@ import torch
 from human_body_reconstruction_tpu_torch.ops import cuda_lib
 from human_body_reconstruction_tpu_torch.ops.dense_grid import (
     axis_coords, normalise, round_bf16)
-from human_body_reconstruction_tpu_torch.ops.lowrank import (
-    _check, cp_line_sizes, cp_scales)
-from human_body_reconstruction_tpu_torch.utils.config import HashConfig
+from human_body_reconstruction_tpu_torch.ops.lowrank import _check, cp_line_sizes
+from human_body_reconstruction_tpu_torch.utils.config import HashConfig, fine_scales
 
 
 def _lerps(ln, x0, frac, rnd):
@@ -52,7 +51,7 @@ def cp_encode_plain(lines, x, mu, sigma, cfg: HashConfig):
     rnd = round_bf16 if cfg.dense_bf16 else (lambda v: v)
     xn = normalise(x, mu, sigma)
     outs = []
-    for ln, g, scale in zip(lines, cp_line_sizes(cfg), cp_scales(cfg)):
+    for ln, g, scale in zip(lines, cp_line_sizes(cfg), fine_scales(cfg)):
         x0, frac = axis_coords(xn * float(scale), g)                # (N, 3)
         (_, _, t0), (_, _, t1), (_, _, t2) = _lerps(
             rnd(ln.to(torch.float32)), x0, frac, rnd)
@@ -70,7 +69,7 @@ def cp_encode_plain_backward(lines, x, mu, sigma, cfg: HashConfig, grad):
     rank = lines[0].shape[-1]
     out = []
     for l, (ln, g, scale) in enumerate(zip(lines, cp_line_sizes(cfg),
-                                           cp_scales(cfg))):
+                                           fine_scales(cfg))):
         x0, frac = axis_coords(xn * float(scale), g)
         (wl0, wh0, t0), (wl1, wh1, t1), (wl2, wh2, t2) = _lerps(
             rnd(ln.detach().to(torch.float32)), x0, frac, rnd)
@@ -111,7 +110,7 @@ def _kernel_inputs(lines, x, mu, sigma, cfg: HashConfig):
     store = torch.bfloat16 if cfg.dense_bf16 else torch.float32
     packed = torch.cat([ln.detach() for ln in lines], dim=1).to(store)
     offsets = np.concatenate([[0], np.cumsum(sizes)])
-    lv = cuda_lib.make_levels(sizes, offsets[:-1], cp_scales(cfg))
+    lv = cuda_lib.make_levels(sizes, offsets[:-1], fine_scales(cfg))
     return (normalise(x, mu, sigma).contiguous(), packed.contiguous(), lv,
             int(offsets[-1]))
 

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
-The sources are compiled by hand with ``nvcc`` for Hopper (``sm_90a``) into a
-library with a plain C interface, loaded with ``ctypes``.  The build happens at
-first use, into ``human_body_reconstruction_tpu_torch/build/`` (which git
-ignores), under a name keyed on a hash of the sources, so a checkout builds
+The sources are compiled by hand with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc -c`` per source, all started together, then linked into one library
+with a plain C interface, loaded with ``ctypes``.  The build happens at first
+use, into ``human_body_reconstruction_tpu_torch/build/`` (which git ignores),
+under a name keyed on a hash of the sources and headers, so a checkout builds
 exactly what it holds.  Nothing here runs at import time: the CPU tests
 import every module on machines with no CUDA toolkit.  The last two
 functions are the tolerance the backward kernels are held to against their
@@ -24,17 +25,18 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-MAX_LEVELS = 16            # HBR_MAX_LEVELS in csrc/encoders.cu
+MAX_LEVELS = 16            # HBR_MAX_LEVELS in csrc/levels.cuh
 # Shared-memory accumulator of a backward kernel's coarse levels, per block:
 # at the flagship width the two coarsest CP levels (68 KB) or the coarsest
 # dense grid (47 KB), so that two blocks fit on one SM.
 BWD_SHARED_BYTES = 96 * 1024
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 class HbrLevels(ctypes.Structure):
-    """Mirror of ``struct HbrLevels`` in csrc/encoders.cu."""
+    """Mirror of ``struct HbrLevels`` in csrc/levels.cuh."""
 
     _fields_ = [("n_levels", ctypes.c_int),
                 ("size", ctypes.c_int * MAX_LEVELS),
@@ -59,7 +61,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libhbr_kernels_{h.hexdigest()[:16]}.so"
@@ -84,15 +86,31 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    link = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+            *[str(o) for o in objs]]
+    try:
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return out, "".join(logs)
 
 
 @functools.cache
@@ -113,12 +131,20 @@ def library() -> ctypes.CDLL:
     lib.hbr_dense_backward.argtypes = [p, i, p, ll, ll, i,
                                        ctypes.POINTER(HbrLevels), i, p, p]
     lib.hbr_dense_backward.restype = i
+    lib.hbr_hash_forward.argtypes = [p, p, p, p, p, ll, i, i,
+                                     ctypes.POINTER(HbrLevels), p, ll, p]
+    lib.hbr_hash_forward.restype = i
+    lib.hbr_hash_backward.argtypes = [p, p, p, p, p, ll, ll, i, i,
+                                      ctypes.POINTER(HbrLevels), p, p]
+    lib.hbr_hash_backward.restype = i
+    lib.hbr_uniform_bits.argtypes = [p, ll, i, p, p]
+    lib.hbr_uniform_bits.restype = i
     lib.hbr_error_string.argtypes = [i]
     lib.hbr_error_string.restype = ctypes.c_char_p
     lib.hbr_max_levels.argtypes = []
     lib.hbr_max_levels.restype = i
     if lib.hbr_max_levels() != MAX_LEVELS:
-        raise RuntimeError("csrc/encoders.cu HBR_MAX_LEVELS != cuda_lib.MAX_LEVELS")
+        raise RuntimeError("csrc/levels.cuh HBR_MAX_LEVELS != cuda_lib.MAX_LEVELS")
     return lib
 
 

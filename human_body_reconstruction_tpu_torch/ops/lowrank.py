@@ -22,7 +22,8 @@ import torch
 
 from human_body_reconstruction_tpu_torch.ops.dense_grid import (
     axis_coords, normalise, round_bf16)
-from human_body_reconstruction_tpu_torch.utils.config import HashConfig, level_scales
+from human_body_reconstruction_tpu_torch.utils.config import (
+    HashConfig, fine_scales, level_scales)
 
 
 def cp_line_sizes(cfg: HashConfig) -> list:
@@ -30,11 +31,6 @@ def cp_line_sizes(cfg: HashConfig) -> list:
     scales = level_scales(cfg)
     return [int(np.floor(float(scales[l]))) + 2
             for l in range(cfg.dense_levels, cfg.num_levels)]
-
-
-def cp_scales(cfg: HashConfig) -> np.ndarray:
-    """The CP levels' resolutions, cast to f32 as every encoder uses them."""
-    return np.asarray(level_scales(cfg)[cfg.dense_levels:], np.float32)
 
 
 def init_lines(cfg: HashConfig, generator: torch.Generator):
@@ -65,7 +61,7 @@ def cp_encode(lines, x, mu, sigma, cfg: HashConfig, block: int = 4096):
     for l, ln in enumerate(lines):
         mat[:, offs[l]:offs[l + 1], l * rank:(l + 1) * rank] = rnd(
             ln.to(torch.float32))
-    scales = cp_scales(cfg)
+    scales = fine_scales(cfg)
     xn = normalise(x, mu, sigma)
     outs = []
     for s in range(0, xn.shape[0], block):
@@ -92,7 +88,7 @@ def cp_encode_reference(lines, x, mu, sigma, cfg: HashConfig):
     _check(lines, cfg)
     xn = normalise(x, mu, sigma)
     outs = []
-    for ln, g, scale in zip(lines, cp_line_sizes(cfg), cp_scales(cfg)):
+    for ln, g, scale in zip(lines, cp_line_sizes(cfg), fine_scales(cfg)):
         x0, frac = axis_coords(xn * float(scale), g)
         feat = 1.0
         for d in range(3):

@@ -3,9 +3,9 @@ train/checkpoint.py).
 
 A JAX checkpoint stores the params pytree positionally, ``leaf_i`` in
 ``jax.tree_util`` flatten order, with extras as ``extra_<name>``.  Dict keys
-flatten sorted, so a CP model's leaves are the dense grids, then the factor
+flatten sorted, so a model's leaves are the dense grids, then the factor
 lines, then ``mlp.col[*]``, then ``mlp.sig[*]``, each layer ``b`` before
-``w``; JAX stores ``w`` as (d_in, d_out), the transpose of
+``w``, and last the hash table (``"mlp" < "table"``); JAX stores ``w`` as (d_in, d_out), the transpose of
 ``nn.Linear.weight``.  A full train-state checkpoint stores (params,
 opt_state), so its params are a positional prefix and load the same way.
 The occupancy grid rides along as ``extra_occ_{density,mask,threshold}``.
@@ -37,6 +37,8 @@ def _slots(field: Field):
     for branch in (field.mlp.col, field.mlp.sig):
         for layer in branch:
             slots += [(layer.bias, False), (layer.weight, True)]
+    if field.table is not None:
+        slots.append((field.table, False))
     return slots
 
 
@@ -71,11 +73,14 @@ def to_jax_params(field: Field) -> dict:
         return [{"b": l.bias.detach().cpu().numpy(),
                  "w": l.weight.detach().t().cpu().numpy()} for l in branch]
 
-    tree = {"lines": tuple(p.detach().cpu().numpy() for p in field.lines),
-            "mlp": {"col": layers(field.mlp.col),
+    tree = {"mlp": {"col": layers(field.mlp.col),
                     "sig": layers(field.mlp.sig)}}
+    if len(field.lines):
+        tree["lines"] = tuple(p.detach().cpu().numpy() for p in field.lines)
     if len(field.dense):
         tree["dense"] = tuple(p.detach().cpu().numpy() for p in field.dense)
+    if field.table is not None:
+        tree["table"] = field.table.detach().cpu().numpy()
     return tree
 
 
@@ -85,8 +90,9 @@ def from_jax_params(tree, cfg: PipelineConfig, device=None) -> Field:
     def layers(branch):
         return [v for layer in branch for v in (layer["b"], layer["w"])]
 
-    leaves = (list(tree.get("dense", ())) + list(tree["lines"])
-              + layers(tree["mlp"]["col"]) + layers(tree["mlp"]["sig"]))
+    leaves = (list(tree.get("dense", ())) + list(tree.get("lines", ()))
+              + layers(tree["mlp"]["col"]) + layers(tree["mlp"]["sig"])
+              + ([tree["table"]] if "table" in tree else []))
     return load_leaves(Field(cfg), leaves).to(device)
 
 

@@ -2,15 +2,14 @@
 the JAX train/state.py).
 
 The JAX package drives one ``optax.multi_transform`` over the params
-pytree: Adam (eps 1e-15) on the embedding-like groups ``dense`` and
-``lines``, AdamW (weight decay ``cfg.weight_decay``) on ``mlp``, each on
+pytree: Adam (eps 1e-15) on the embedding-like groups ``dense``,
+``lines`` and ``table``, AdamW (weight decay ``cfg.weight_decay``) on ``mlp``, each on
 ``cosine_to_floor`` of its own base rate.  Here the groups are two
 ``torch.optim`` optimizers whose learning rate is set from the closed-form
 schedule before every step, evaluated at the count of updates taken so far
 (optax's ``scale_by_schedule`` reads its count before incrementing it).
 torch's recursive ``CosineAnnealingLR`` is not used: it drifts from the
-closed form.  Only the "cosine" schedule and the CP/dense encoder groups
-are ported.
+closed form.  Only the "cosine" schedule is ported.
 """
 
 from __future__ import annotations
@@ -42,6 +41,8 @@ class GroupedOptimizer:
             raise NotImplementedError(
                 f"schedule {cfg.schedule!r} is not ported; only 'cosine'")
         tables = list(field.dense) + list(field.lines)
+        if field.table is not None:
+            tables.append(field.table)
         self.groups = [
             (torch.optim.Adam(tables, lr=cfg.lr_hash, eps=1e-15),
              cosine_to_floor(cfg.lr_hash, cfg.lr_final, total_steps)),

@@ -1,0 +1,230 @@
+"""The port stands alone: it imports nothing of the JAX package, and what it
+copied from there (the config dataclasses and their JSON round trip, the
+trainer's flag surface and preset resolution, the dataset reader) agrees
+with the original.  Its entry points run on the card unless given
+``--device cpu``.  Test names avoid the words that tests/conftest.py marks
+slow.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from human_body_reconstruction_tpu.cli import train_hash as jcli
+from human_body_reconstruction_tpu.data import datasets as jdatasets
+from human_body_reconstruction_tpu.utils import config as jC
+from human_body_reconstruction_tpu_torch.cli import serve, train_hash
+from human_body_reconstruction_tpu_torch.data import datasets
+from human_body_reconstruction_tpu_torch.utils import config as C
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SECTIONS = ("HashConfig", "PosEncConfig", "MLPConfig", "RenderConfig",
+            "TrainConfig", "ClassicNeRFConfig", "PipelineConfig")
+HASH_ARGV = ["--stochastic", "--hw_rng"]
+PRESET_ARGVS = [[], ["--stochastic"], HASH_ARGV,
+                ["--encoder_variant", "corner"], ["--preset", "reference"],
+                ["--num_levels", "8", "--max_res", "512", "--num_samples", "32",
+                 "--occupancy", "--compact", "16", "--cp_rank", "4",
+                 "--dense_levels", "2", "--occ_probes", "8", "--cp_tv", "0.1",
+                 "--cp_tv_warmup", "7", "--eikonal_subsample", "9",
+                 "--no_occ_stratified"]]
+
+
+def _props(obj) -> dict:
+    return {name: getattr(obj, name) for name, v in vars(type(obj)).items()
+            if isinstance(v, property)}
+
+
+@pytest.mark.parametrize("name", SECTIONS)
+def test_config_dataclasses_match_jax(name):
+    """Field names, types and defaults, and every property's value, of each
+    dataclass at its defaults (and the flagship's sections)."""
+    port, ref = getattr(C, name), getattr(jC, name)
+    assert [(f.name, str(f.type)) for f in dataclasses.fields(port)] == \
+        [(f.name, str(f.type)) for f in dataclasses.fields(ref)]
+    assert dataclasses.asdict(port()) == dataclasses.asdict(ref())
+    assert _props(port()) == _props(ref())
+    assert port.__dataclass_params__.frozen and ref.__dataclass_params__.frozen
+    if name == "PipelineConfig":
+        flag = C.flagship_config()
+        jflag = jcli.make_config(jcli.build_parser().parse_args([]))
+        assert dataclasses.asdict(flag) == dataclasses.asdict(jflag)
+        assert _props(flag.hash) == _props(jflag.hash)
+
+
+@pytest.mark.parametrize("argv", [[], HASH_ARGV], ids=["flagship", "hash"])
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_config_json_round_trips_across_packages(argv, writer, tmp_path):
+    """A config JSON written by either package reads back equal in the
+    other (and in itself)."""
+    path = str(tmp_path / "c.json")
+    port_cfg = train_hash.make_config(train_hash.build_parser().parse_args(argv))
+    jax_cfg = jcli.make_config(jcli.build_parser().parse_args(argv))
+    (C if writer == "port" else jC).to_json(
+        port_cfg if writer == "port" else jax_cfg, path)
+    for mod, cfg in ((C, port_cfg), (jC, jax_cfg)):
+        back = mod.from_json(path)
+        assert type(back) is type(cfg) and back == cfg
+    with open(path) as f:
+        assert set(json.load(f)) == {"hash", "dir_enc", "mlp", "render",
+                                     "train"}
+
+
+@pytest.mark.parametrize("bad", [
+    dict(hash=dict(variant="cp", stochastic_train=True)),
+    dict(hash=dict(variant="cp", packed=True)),
+    dict(hash=dict(grad_level_subsample=True)),
+    dict(hash=dict(packed=True, pack_format="int8", grad_subsample=True,
+                   grad_level_pair=True, num_levels=5)),
+    dict(hash=dict(packed=True, pack_format="int8", grad_subsample=True,
+                   grad_level_pair=True, grad_level_subsample=True)),
+    dict(hash=dict(grad_level_pair=True)),
+    dict(hash=dict(packed_exact_train=True)),
+    dict(hash=dict(scatter_strategy="bitonic")),
+    dict(train=dict(cp_tv_weight=0.1))])
+def test_config_post_init_errors_match_jax(bad):
+    """The same ValueError (message and all) from ``__post_init__``."""
+    def build(mod):
+        h = mod.HashConfig(**bad.get("hash", {}))
+        return mod.PipelineConfig(hash=h,
+                                  train=mod.TrainConfig(**bad.get("train", {})))
+
+    with pytest.raises(ValueError) as ref:
+        build(jC)
+    with pytest.raises(ValueError) as port:
+        build(C)
+    assert str(port.value) == str(ref.value)
+
+
+def test_parsers_match_jax():
+    """Every flag of the JAX trainer, with the same default, type, choices
+    and action; the port adds only --device (default cuda)."""
+    def flags(p):
+        return {a.dest: (tuple(a.option_strings), a.default, a.type,
+                         tuple(a.choices or ()), type(a).__name__, a.nargs)
+                for a in p._actions}
+
+    port, ref = flags(train_hash.build_parser()), flags(jcli.build_parser())
+    assert set(port) - set(ref) == {"device"}
+    assert {k: port[k] for k in ref} == ref
+    assert port["device"][1] == "cuda"
+
+
+@pytest.mark.parametrize("argv", PRESET_ARGVS,
+                         ids=["zero", "stochastic", "stochastic_hw_rng",
+                              "corner", "reference", "overrides"])
+def test_resolve_preset_matches_jax(argv):
+    port = train_hash.resolve_preset(train_hash.build_parser().parse_args(argv))
+    ref = jcli.resolve_preset(jcli.build_parser().parse_args(argv))
+    assert port == ref
+
+
+def test_hash_flags_resolve_to_reference_hash_grid():
+    """``--stochastic --hw_rng`` trains the reference repo's own model: the
+    corner hash grid, L 16, F 2, T 2^16, n_max 2048, no dense levels, 64
+    samples, no occupancy grid, 16,000 rays a step."""
+    args = train_hash.build_parser().parse_args(HASH_ARGV)
+    cfg = train_hash.make_config(args)
+    h = cfg.hash
+    assert (h.variant, h.num_levels, h.features_per_level, h.table_size,
+            h.n_max, h.dense_levels, h.stochastic_train, h.hw_rng) == \
+        ("corner", 16, 2, 2 ** 16, 2048, 0, True, True)
+    assert (cfg.render.num_samples, cfg.render.occupancy,
+            cfg.train.ray_batch, cfg.train.cp_tv_weight) == (64, False, 16000, 0.0)
+    train_hash.check_supported(args, cfg)
+
+
+def _write_dataset(root, fmt: str):
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    frames = []
+    os.makedirs(os.path.join(root, "train"), exist_ok=True)
+    for i in range(3):
+        img = (rng.uniform(size=(6, 8, 4)) * 255).astype(np.uint8)
+        Image.fromarray(img, "RGBA").save(os.path.join(root, "train",
+                                                       f"r_{i}.png"))
+        frames.append({"file_path": f"./train/r_{i}" if fmt == "blender"
+                       else f"train/r_{i}.png",
+                       "transform_matrix": rng.normal(size=(4, 4)).tolist(),
+                       "rotation": 0.1 * i})
+    meta = {"frames": frames}
+    if fmt == "blender":
+        meta["camera_angle_x"] = 0.69
+    else:
+        meta.update(fl_x=5.0, fl_y=6.0, cx=4.0, cy=3.0, w=8, h=6)
+    path = os.path.join(root, "transforms.json")
+    with open(path, "w") as f:
+        json.dump(meta, f)
+    return path
+
+
+@pytest.mark.parametrize("fmt", ["blender", "ngp"])
+@pytest.mark.parametrize("white,down", [(False, 1), (True, 2)])
+def test_load_nerf_json_matches_jax(tmp_path, fmt, white, down):
+    path = _write_dataset(str(tmp_path), fmt)
+    port = datasets.load_nerf_json(path, white_background=white,
+                                   downscale=down, max_frames=2)
+    ref = jdatasets.load_nerf_json(path, white_background=white,
+                                   downscale=down, max_frames=2)
+    assert set(port) == set(ref)
+    for k in port:
+        np.testing.assert_array_equal(np.asarray(port[k]), np.asarray(ref[k]))
+    dev = datasets.to_device(port, "cpu")
+    assert dev["images"].dtype == torch.float32 and dev["K"].shape == (3, 3)
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch, tmp_path):
+    """Without a card, train_hash and serve exit with a message naming
+    --device cpu; with it they run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        train_hash.main(["--synthetic", "--steps", "1"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        serve.RenderServer(serve.build_parser().parse_args(
+            ["--ckpt_dir", str(tmp_path)]))
+    assert serve.build_parser().parse_args([]).device == "cuda"
+    assert train_hash.build_parser().parse_args([]).device == "cuda"
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """In a fresh interpreter whose import system refuses jax, jaxlib and
+    human_body_reconstruction_tpu (and their submodules), every module of
+    the port and chip_smoke.py import."""
+    code = textwrap.dedent(f"""
+        import importlib, importlib.util, pkgutil, sys
+
+        BANNED = ("jax", "jaxlib", "human_body_reconstruction_tpu")
+
+        class Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BANNED):
+                    raise ImportError(f"the port imported {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        for b in BANNED:
+            assert not any(m == b or m.startswith(b + ".") for m in sys.modules)
+        import human_body_reconstruction_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                       pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        print("imported", len(names), "modules and chip_smoke")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n = int(proc.stdout.split()[1])
+    assert n >= 25, proc.stdout

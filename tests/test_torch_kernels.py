@@ -27,7 +27,8 @@ import pytest
 import torch
 
 from human_body_reconstruction_tpu_torch.ops import (
-    cp_kernel, cuda_lib, dense_grid, dense_kernel, hash_encoding, lowrank)
+    cp_kernel, cuda_lib, dense_grid, dense_kernel, hash_encoding, hash_kernel,
+    lowrank, rng_kernel)
 from human_body_reconstruction_tpu_torch.utils import config as C
 
 TOL = 1e-6
@@ -297,4 +298,136 @@ def test_encode_params_gives_every_table_a_gradient(cuda_device):
                for p in params)
     assert (cp_kernel.cp_encode_backward_kernel.launches,
             dense_kernel.dense_encode_backward_kernel.launches) == tuple(
+                n + 1 for n in launches)
+
+
+def hash_inputs(device, n=2000, levels=4, log2_t=10, seed=0):
+    """A corner-variant config, a U(-1, 1) table, world points with a
+    quarter outside the unit box of normalised coordinates, and uniforms."""
+    cfg = C.HashConfig(num_levels=levels, log2_table_size=log2_t, n_max=512,
+                       variant="corner", stochastic_train=True)
+    rng = np.random.default_rng(seed)
+    table = torch.tensor(rng.uniform(-1, 1, (levels, 2 ** log2_t, 2)),
+                         dtype=torch.float32, device=device)
+    xn = rng.uniform(0, 1, (n, 3))
+    xn[: n // 4, 0] = rng.uniform(-0.5, 0.0, n // 4)
+    mu = torch.tensor([-1.0, -2.0, -0.5], device=device)
+    sigma = torch.tensor([3.0, 2.5, 4.0], device=device)
+    x = mu + torch.tensor(xn, dtype=torch.float32, device=device) * sigma
+    u = torch.tensor(rng.uniform(0, 1, (3, levels, n)), dtype=torch.float32,
+                     device=device)
+    return table, (x, mu, sigma, cfg), u
+
+
+def test_hash_wrappers_on_cpu_run_plain():
+    """On CPU tensors the wrappers are the plain versions (no launch), and
+    refuse what the kernels would read out of bounds."""
+    table, args, u = hash_inputs(torch.device("cpu"))
+    n = (hash_kernel.hash_encode_kernel.launches,
+         hash_kernel.hash_encode_backward_kernel.launches,
+         rng_kernel.uniform_kernel.launches)
+    for uu in (None, u):
+        assert torch.equal(hash_kernel.hash_encode_kernel(table, *args, u=uu),
+                           hash_kernel.hash_encode_plain(table, *args, u=uu))
+        g = cotangent(2000, 8, "cpu")
+        assert torch.equal(
+            hash_kernel.hash_encode_backward_kernel(table, *args, g, u=uu),
+            hash_kernel.hash_encode_plain_backward(table, *args, g, u=uu))
+    seed = torch.tensor([4], dtype=torch.int32)
+    assert torch.equal(rng_kernel.uniform(seed, (3, 5)),
+                       rng_kernel.uniform_plain(seed, (3, 5)))
+    assert n == (hash_kernel.hash_encode_kernel.launches,
+                 hash_kernel.hash_encode_backward_kernel.launches,
+                 rng_kernel.uniform_kernel.launches)
+    for bad in (lambda: hash_kernel.hash_encode_kernel(table[:3], *args),
+                lambda: hash_kernel.hash_encode_kernel(table.double(), *args),
+                lambda: hash_kernel.hash_encode_kernel(table, *args, u=u[:, :, 1:]),
+                lambda: rng_kernel.uniform(seed.long(), (3,)),
+                lambda: rng_kernel.uniform(torch.zeros(2, dtype=torch.int32),
+                                           (3,))):
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.cuda
+def test_uniform_kernel_matches_plain_bit_for_bit(cuda_device):
+    """Every length mod 4 (the ragged last counter), both outputs."""
+    seed = torch.tensor([987654321], dtype=torch.int32, device=cuda_device)
+    n0 = rng_kernel.uniform_kernel.launches
+    for shape in ((1,), (2, 3), (7, 5, 3), (3, 16, 4097)):
+        for as_float in (False, True):
+            got = rng_kernel.uniform_kernel(seed, shape, as_float)
+            want = rng_kernel.uniform_plain(seed, shape, as_float)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want)
+    assert rng_kernel.uniform_kernel.launches == n0 + 8
+    empty = rng_kernel.uniform(seed, (0, 4))
+    assert empty.shape == (0, 4) and rng_kernel.uniform_kernel.launches == n0 + 8
+    u = rng_kernel.uniform(seed, (1 << 20,)).double()
+    assert abs(float(u.mean()) - 0.5) < 6 / np.sqrt(12 * (1 << 20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [False, True], ids=["exact", "stoch"])
+def test_hash_kernels_match_plain(cuda_device, stochastic):
+    table, args, u = hash_inputs(cuda_device)
+    u = u if stochastic else None
+    n_f = hash_kernel.hash_encode_kernel.launches
+    n_b = hash_kernel.hash_encode_backward_kernel.launches
+    got = hash_kernel.hash_encode_kernel(table, *args, u=u)
+    torch.cuda.synchronize()
+    assert max_err(got, hash_kernel.hash_encode_plain(table, *args, u=u)) <= TOL
+    g = cotangent(2000, 8, cuda_device)
+    assert grads_close(
+        lambda tb, *a: [hash_kernel.hash_encode_backward_kernel(tb[0], *a, u=u)],
+        lambda tb, *a: [hash_kernel.hash_encode_plain_backward(tb[0], *a, u=u)],
+        [table], args, g, False)
+    assert hash_kernel.hash_encode_kernel.launches == n_f + 1
+    assert hash_kernel.hash_encode_backward_kernel.launches == n_b + 1
+
+
+@pytest.mark.cuda
+def test_hash_kernels_full_width_and_strided_out(cuda_device):
+    """The reference preset's table (16 levels, T 2^16) writing a column
+    block of a wider matrix and reading a strided gradient; an empty batch
+    launches nothing."""
+    table, args, u = hash_inputs(cuda_device, n=100_003, levels=16, log2_t=16)
+    out = torch.full((100_003, 40), float("nan"), device=cuda_device)
+    for uu in (None, u):
+        hash_kernel.hash_encode_kernel(table, *args, u=uu, out=out[:, 4:36])
+        torch.cuda.synchronize()
+        assert max_err(out[:, 4:36],
+                       hash_kernel.hash_encode_plain(table, *args, u=uu)) <= TOL
+        assert torch.isnan(out[:, :4]).all() and torch.isnan(out[:, 36:]).all()
+        g = cotangent(100_003, 32, cuda_device, extra=7)
+        assert grads_close(
+            lambda tb, *a: [hash_kernel.hash_encode_backward_kernel(tb[0], *a,
+                                                                    u=uu)],
+            lambda tb, *a: [hash_kernel.hash_encode_plain_backward(tb[0], *a,
+                                                                   u=uu)],
+            [table], args, g, False)
+    n = hash_kernel.hash_encode_kernel.launches
+    empty = (args[0][:0],) + args[1:]
+    assert hash_kernel.hash_encode_kernel(table, *empty).shape == (0, 32)
+    assert hash_kernel.hash_encode_kernel.launches == n
+
+
+@pytest.mark.cuda
+def test_stochastic_encode_gives_the_table_a_gradient(cuda_device):
+    """Through encode_params on the card with the Philox uniforms: the table
+    gets a gradient, through all three kernels."""
+    table, (x, mu, sigma, cfg), _ = hash_inputs(cuda_device)
+    cfg = dataclasses.replace(cfg, hw_rng=True)
+    table.requires_grad_()
+    launches = (rng_kernel.uniform_kernel.launches,
+                hash_kernel.hash_encode_kernel.launches,
+                hash_kernel.hash_encode_backward_kernel.launches)
+    feats = hash_encoding.encode_params(
+        {"table": table}, x, mu, sigma, cfg, stochastic=True,
+        generator=torch.Generator(cuda_device).manual_seed(0))
+    (feats * cotangent(2000, 8, cuda_device)).sum().backward()
+    assert table.grad is not None and bool(table.grad.abs().sum() > 0)
+    assert (rng_kernel.uniform_kernel.launches,
+            hash_kernel.hash_encode_kernel.launches,
+            hash_kernel.hash_encode_backward_kernel.launches) == tuple(
                 n + 1 for n in launches)

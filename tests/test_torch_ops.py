@@ -225,7 +225,7 @@ def test_level_geometry_full_width():
 
     jcfg = train_hash.make_config(train_hash.build_parser().parse_args([]))
     cfg = C.flagship_config()
-    assert cfg == jcfg
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     h = cfg.hash
     np.testing.assert_array_equal(C.level_scales(h), jhe.level_scales(h))
     assert lowrank.cp_line_sizes(h) == jlowrank.cp_line_sizes(h)

@@ -381,7 +381,7 @@ def test_fit_loop_checkpoint_renders_same_in_jax(fitted):
     jres = jrestore.restore(d, "m", with_occ=True, log_fn=lambda s: None)
     pres = restore.restore(d, "m", device="cpu", with_occ=True,
                            log_fn=lambda s: None)
-    assert jres.cfg == pres.cfg
+    assert dataclasses.asdict(jres.cfg) == dataclasses.asdict(pres.cfg)
     np.testing.assert_array_equal(np.asarray(jres.occ.mask),
                                   pres.occ.mask.numpy())
     for a, b in zip(jax.tree_util.tree_leaves(jres.params),
@@ -405,15 +405,17 @@ def test_fit_loop_checkpoint_renders_same_in_jax(fitted):
     ["--max_res", "512", "--dense_levels", "1"]])
 def test_cli_config_matches_jax(argv):
     args = train_hash.build_parser().parse_args(argv)
-    assert train_hash.make_config(args) == jcli.make_config(
-        jcli.build_parser().parse_args(argv))
+    assert dataclasses.asdict(train_hash.make_config(args)) == \
+        dataclasses.asdict(jcli.make_config(jcli.build_parser().parse_args(argv)))
     train_hash.check_supported(args, train_hash.make_config(args))
 
 
 @pytest.mark.parametrize("argv", [
-    ["--use_sdf"], ["--hierarchical"], ["--encoder_variant", "corner"],
+    ["--use_sdf"], ["--hierarchical"], ["--encoder_variant", "cell"],
     ["--data_parallel"], ["--steps_per_call", "4"], ["--load"],
-    ["--occupancy", "--preset", "reference", "--compact", "8"]])
+    ["--occupancy", "--preset", "reference", "--compact", "8"],
+    ["--stochastic", "--packed"], ["--packed_exact"],
+    ["--stochastic", "--scatter_strategy", "sorted"]])
 def test_cli_refuses_what_is_not_ported(argv):
     args = train_hash.build_parser().parse_args(argv)
     with pytest.raises(SystemExit):
