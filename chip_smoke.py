@@ -7,12 +7,15 @@
    synthetic textured dataset (20 views, 400x400, 384 GT samples), train it
    through the port's CLI objects for TRAIN_STEPS steps with the occupancy
    warmup cut to OCC_WARMUP (the TV warmup follows it), every kernel's
-   launch count reset just before; print step time and rays/s of the
-   unculled and the guided phase, occupied fraction and train PSNR.  Then
-   hold each backward kernel to its plain version at the two training
-   shapes (768,000 and 2,048,000 points), one training step's loss and
-   gradients on the card to the same step on the CPU (plain versions),
-   profile one guided step, and save, restore and serve the trained model.
+   launch count reset just before and counted per phase; print step time
+   and rays/s of the unculled and the guided phase, occupied fraction and
+   train PSNR.  Then hold each backward kernel to its plain version at the
+   two training shapes (768,000 and 2,048,000 points) on uniform random
+   points, and the CP backward also on the path's own points (a seeded ray
+   batch's occupancy-guided placement and unculled 128-sample ladder, each
+   ray's samples consecutive); one training step's loss and gradients on
+   the card to the same step on the CPU (plain versions); profile one
+   guided step; save, restore and serve the trained model.
 3. Hash-grid training (``--stochastic --hw_rng``, the reference repo's own
    model at full width: corner hash grid, L 16, T 2^16, n_max 2048, 64
    samples, 16,000 rays, no occupancy grid) on the same dataset for
@@ -31,9 +34,11 @@
    128-sample ladder, one at eval_guided 64, a 4-pose orbit batch and a
    health request, with every kernel's launch count reset just before.
 5. Hold each forward kernel against its plain PyTorch version on the card
-   at the serving shapes (2,097,152 points, about 70% of them outside the unit
-   box of normalised coordinates), and a whole frame rendered through the
-   kernels against the same frame through the plain versions (on the CPU).
+   at the serving shape (2,097,152 uniform random points, about 70% of them
+   outside the unit box of normalised coordinates; the CP kernel also on a
+   16384-ray chunk of a 400x400 frame's 128-sample ladder), and a whole
+   frame rendered through the kernels against the same frame through the
+   plain versions (on the CPU).
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
@@ -45,8 +50,12 @@ the encoders).
 
 Any failure ends the run with a nonzero exit.  Output: the card's name and
 power limit, per-phase, per-request and per-kernel lines, then one JSON line
-listing the seven kernels (launches counted on the path that runs each), and
-last ``{"ok": true, "device": {...}}``.
+listing the seven kernels (launches counted on the path that runs each; the
+CP kernels once per shape, named for it and with a "shape" key:
+cp_forward/serving_path and cp_forward/random, cp_backward/guided_path,
+guided_random, unculled_path and unculled_random, with the launches of the
+phase that runs each shape), and last
+``{"ok": true, "device": {...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
 """
@@ -176,7 +185,9 @@ def all_kernels():
 
 def train(run_dir: str, device: torch.device, tag: str):
     """The zero-flag flagship training run through the port's CLI objects.
-    Returns (trainer, dataset, launches during training)."""
+    Returns (trainer, dataset, launches during training, launches during the
+    unculled steps (warm-up included) and the guided ones (the install
+    steps included))."""
     from human_body_reconstruction_tpu_torch.cli import train_hash
     from human_body_reconstruction_tpu_torch.ops import occupancy
     from human_body_reconstruction_tpu_torch.train.trainer import Trainer
@@ -205,13 +216,19 @@ def train(run_dir: str, device: torch.device, tag: str):
     for _, kern in kernels:
         kern.launches = 0
     torch.cuda.synchronize()
-    phases = {}
-    for name, n in (("warm", 4), ("unculled", OCC_WARMUP - 4),
-                    ("install", 4), ("guided", TRAIN_STEPS - OCC_WARMUP - 4)):
+    phases, by_phase = {}, {"unculled": {}, "guided": {}}
+    for name, n, kind in (("warm", 4, "unculled"),
+                          ("unculled", OCC_WARMUP - 4, "unculled"),
+                          ("install", 4, "guided"),
+                          ("guided", TRAIN_STEPS - OCC_WARMUP - 4, "guided")):
+        before = {nm: kern.launches for nm, kern in kernels}
         t0 = time.perf_counter()
         trainer.run(n, log_every=16)
         torch.cuda.synchronize()
         phases[name] = (n, time.perf_counter() - t0)
+        for nm, kern in kernels:
+            by_phase[kind][nm] = (by_phase[kind].get(nm, 0) + kern.launches
+                                  - before[nm])
     launches = {nm: kern.launches for nm, kern in kernels}
     for name in ("unculled", "guided"):
         n, sec = phases[name]
@@ -223,42 +240,97 @@ def train(run_dir: str, device: torch.device, tag: str):
           f"{occ_frac:.4f}, PSNR {hist[0]['psnr']:.2f} dB (step "
           f"{hist[0]['step']}) -> {hist[-1]['psnr']:.2f} dB (step "
           f"{hist[-1]['step']})")
-    print(f"launches while training: {launches}")
+    print(f"launches while training: {launches}; by phase: {by_phase}")
     check(trainer.state.step == TRAIN_STEPS and trainer.state.occ is not None,
           "trained past the occupancy warmup")
     check(all(math.isfinite(r["loss"]) for r in hist), "finite losses")
     check(hist[-1]["psnr"] > hist[0]["psnr"] + 1.0, "train PSNR rose")
     check(0.0 < occ_frac < 1.0, "the grid culls some cells and keeps some")
     check(all(n > 0 for n in launches.values()), launches)
-    return trainer, ds, launches
+    return trainer, ds, launches, by_phase
 
 
-def backward_checks(trainer, device, tag):
+def training_path_points(trainer, device):
+    """The points a training step encodes, ray-major as ``render_rays``
+    flattens them (a ray's samples consecutive), from one seeded ray batch
+    of the trained model: {"guided": the occupancy-guided placement (16000
+    rays x 48), "unculled": the jittered 128-sample ladder (16000 x 128)}."""
+    from human_body_reconstruction_tpu_torch.ops import sampling
+    from human_body_reconstruction_tpu_torch.train import step
+
+    cfg, st, r, ds = trainer.cfg, trainer.state, trainer.cfg.render, trainer.ds
+    gen = torch.Generator(device).manual_seed(SEED + 7)
+    o, d = step.sample_ray_batch(ds["images"], ds["c2ws"], ds["K"],
+                                 cfg.train.ray_batch, gen)[:2]
+    guided, _ = sampling.occupancy_guided_ts(
+        o, d, st.occ, trainer.scene["mu"], trainer.scene["sigma"], r.near,
+        r.far, r.compact_samples, num_probe=r.occ_probes, dt_mode=r.occ_dt,
+        jitter=True, explore_frac=r.occ_explore,
+        probe_jitter=r.occ_probe_jitter, stratified=r.occ_stratified,
+        generator=gen)
+    ladder = sampling.stratified_ts(
+        (o.shape[0],), r.near, r.far, r.num_samples, r.log_sampling, device,
+        jitter=True, per_ray_jitter=r.per_ray_jitter, generator=gen)
+    return {name: (o[:, None, :] + d[:, None, :] * t[..., None]).reshape(-1, 3)
+            for name, t in (("guided", guided), ("unculled", ladder))}
+
+
+def serving_chunk_points(server, device, samples: int = 128):
+    """The points of one 16384-ray chunk of a 400x400 frame on the
+    ``samples`` ladder (the frame's fifth chunk, through its middle rows),
+    ray-major, as the server encodes them."""
+    from human_body_reconstruction_tpu_torch.data.synthetic import orbit_poses
+    from human_body_reconstruction_tpu_torch.ops import rays, sampling
+
+    r = server.base_cfg.render
+    K = torch.tensor([[400.0, 0, 200.0], [0, 400.0, 200.0], [0, 0, 1]],
+                     device=device)
+    o, d, _ = rays.full_image_rays(400, 400, K, torch.as_tensor(
+        orbit_poses(4)[0], device=device))
+    o, d = o[4 * 16384:5 * 16384], d[4 * 16384:5 * 16384]
+    t = sampling.stratified_ts((o.shape[0],), r.near, r.far, samples,
+                               r.log_sampling, device)
+    return (o[:, None, :] + d[:, None, :] * t[..., None]).reshape(-1, 3)
+
+
+def backward_checks(trainer, device, tag, paths):
     """Each backward kernel against its plain version at both training
-    shapes, from a seeded (N, 129) cotangent read through a row stride."""
+    shapes, from a seeded (N, 129) cotangent read through a row stride: on
+    uniform random points, and the CP kernel also on the path's own points
+    (``paths``, from ``training_path_points``).  Returns {"cp_backward":
+    {(phase, points kind): record}, "dense_backward": record}, a record
+    being (max_abs_err, ms, plain_ms, bound)."""
     from human_body_reconstruction_tpu_torch.ops import (
         cp_kernel, cuda_lib, dense_kernel)
 
     field, scene, h = trainer.state.field, trainer.scene, trainer.cfg.hash
     d = h.dense_levels * h.features_per_level
     gen = torch.Generator(device).manual_seed(SEED + 3)
-    out = {}
-    for n in TRAIN_POINTS:
+    out = {"cp_backward": {}}
+    for n, (phase, path_pts) in zip(TRAIN_POINTS, (("guided", paths["guided"]),
+                                                   ("unculled",
+                                                    paths["unculled"]))):
+        check(path_pts.shape == (n, 3), ("path points", phase, path_pts.shape))
         xn = torch.rand((n, 3), generator=gen, device=device) * 1.5 - 0.25
         pts = scene["mu"] + xn * scene["sigma"]
         g = torch.randn((n, h.out_dim + 3), generator=gen, device=device)
         g = g[:, 3:]
         n_cp, rank = len(field.lines), h.cp_rank
-        for nm, kern, plain, tables, cols, ops in (
-                ("cp_backward", cp_kernel.cp_encode_backward_kernel,
+        cp_ops = n * n_cp * (rank * 26 + 3 * 6)
+        for nm, kind, kern, plain, tables, cols, ops, at in (
+                ("cp_backward", "path", cp_kernel.cp_encode_backward_kernel,
                  cp_kernel.cp_encode_plain_backward, list(field.lines),
-                 g[:, d:], n * n_cp * (rank * 26 + 3 * 6)),
-                ("dense_backward", dense_kernel.dense_encode_backward_kernel,
+                 g[:, d:], cp_ops, path_pts),
+                ("cp_backward", "random", cp_kernel.cp_encode_backward_kernel,
+                 cp_kernel.cp_encode_plain_backward, list(field.lines),
+                 g[:, d:], cp_ops, pts),
+                ("dense_backward", "random",
+                 dense_kernel.dense_encode_backward_kernel,
                  dense_kernel.dense_encode_plain_backward, list(field.dense),
                  g[:, :d], n * h.dense_levels
-                 * (28 + 18 * h.features_per_level))):
-            a = (tables, pts, scene["mu"], scene["sigma"], h, cols)
-            bnd = bound(nbytes(pts, cols, *tables, *tables), ops)
+                 * (28 + 18 * h.features_per_level), pts)):
+            a = (tables, at, scene["mu"], scene["sigma"], h, cols)
+            bnd = bound(nbytes(at, cols, *tables, *tables), ops)
             with torch.no_grad():
                 got, want = kern(*a), plain(*a)
                 abs_sum = plain([t.abs() for t in tables], *a[1:-1],
@@ -275,12 +347,15 @@ def backward_checks(trainer, device, tag):
                       f"{nm} gradients finite, of the plain version's shapes")
                 ms = time_ms(lambda: kern(*a))
                 plain_ms = time_ms(lambda: plain(*a), reps=5)
-            print(f"kernel {nm}: {n} points, max_abs_err {err:.3e}, worst "
+            print(f"kernel {nm}: {n} {kind} points ({phase}), max_abs_err "
+                  f"{err:.3e}, worst "
                   f"|err| / tolerance {ratio:.3f} (tol 1; / (bf16 ulp + 1e-6)"
                   f" {ulps:.3f}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
                   f"bound {bnd[0]:.4f} ms ({bnd[1]}) {tag}")
-            check(ratio <= 1.0, (nm, n, err, ratio))
-            if n == TRAIN_POINTS[0]:
+            check(ratio <= 1.0, (nm, kind, n, err, ratio))
+            if nm == "cp_backward":
+                out[nm][(phase, kind)] = (err, ms, plain_ms, bnd)
+            elif n == TRAIN_POINTS[0]:
                 out[nm] = (err, ms, plain_ms, bnd)
             else:
                 out[nm] = (max(err, out[nm][0]),) + out[nm][1:]
@@ -443,12 +518,14 @@ def serve_trained(trainer, ds, run_dir, samples, tag):
 
 
 def entry(name, source, replaces, launches, err, ms, plain_ms, library_ms,
-          bnd) -> dict:
-    """One kernel's record of the JSON line."""
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": library_ms}
+          bnd, shape=None) -> dict:
+    """One kernel's record of the JSON line (``shape``: which points, for
+    the kernels timed at more than one)."""
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+           "bound_by": bnd[1], "library_ms": library_ms}
+    return rec if shape is None else {**rec, "shape": shape}
 
 
 def train_hash_grid(run_dir: str, ds, device: torch.device, tag: str):
@@ -669,8 +746,10 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     with tempfile.TemporaryDirectory() as train_dir:
-        trainer, ds, train_launches = train(train_dir, device, tag)
-        bwd = backward_checks(trainer, device, tag)
+        trainer, ds, train_launches, phase_launches = train(train_dir, device,
+                                                            tag)
+        bwd = backward_checks(trainer, device, tag,
+                              training_path_points(trainer, device))
         step_on_card_vs_cpu(trainer, ds, device)
         profile_step(trainer, "guided", tag)
         serve_trained(trainer, ds, train_dir, 128, tag)
@@ -739,12 +818,14 @@ def main() -> int:
     print(f"launches while serving (forward kernels): {launches}")
     check(all(n > 0 for n in launches.values()), launches)
 
-    # each kernel against its plain version at the serving shapes
+    # each kernel against its plain version at the serving shapes: uniform
+    # random points, and for the CP kernel also a chunk of a frame's ladder
     field, scene = server.field, server.scene
     gen = torch.Generator(device).manual_seed(SEED + 2)
     xn = torch.rand((N_POINTS, 3), generator=gen, device=device) * 1.5 - 0.25
     pts = scene["mu"] + xn * scene["sigma"]
-    outside = float(((xn < 0) | (xn > 1)).any(-1).float().mean())
+    chunk = serving_chunk_points(server, device)
+    check(chunk.shape == (N_POINTS, 3), ("serving chunk", chunk.shape))
     report = []
     h = cfg.hash
     fwd_ops = {"cp_forward": N_POINTS * len(field.lines)
@@ -753,30 +834,53 @@ def main() -> int:
                * (28 + 17 * h.features_per_level)}
     for nm, kern, plain, attr, replaces, tol in kernels:
         tables = list(getattr(field, attr))
-        a = (tables, pts, scene["mu"], scene["sigma"], cfg.hash)
-        with torch.no_grad():
-            got, want = kern(*a), plain(*a)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
-                  f"{nm} output finite, of the plain version's shape")
-            ms = time_ms(lambda: kern(*a))
-            plain_ms = time_ms(lambda: plain(*a))
-        bnd = bound(nbytes(pts, got, *tables), fwd_ops[nm])
-        print(f"kernel {nm}: {N_POINTS} points ({outside:.3f} outside the "
-              f"box), out {tuple(got.shape)}, max_abs_err {err:.3e} (tol "
-              f"{tol:g}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}) {tag}")
-        check(err <= tol, (nm, err))
-        report.append(entry(nm, SOURCE, replaces, train_launches[nm], err, ms,
-                            plain_ms, None, bnd))
-    for nm, replaces in (
-            ("cp_backward", "human_body_reconstruction_tpu/ops/cp_pallas.py:173"),
-            ("dense_backward",
-             "human_body_reconstruction_tpu/ops/dense_pallas.py:152")):
-        err, ms, plain_ms, bnd = bwd[nm]
-        report.append(entry(nm, SOURCE, replaces, train_launches[nm], err, ms,
-                            plain_ms, None, bnd))
+        sets = [("random", pts, train_launches[nm])]
+        if nm == "cp_forward":
+            sets.insert(0, ("path", chunk, launches[nm]))
+        for kind, at, n_launch in sets:
+            a = (tables, at, scene["mu"], scene["sigma"], cfg.hash)
+            xa = (at - scene["mu"]) / scene["sigma"]
+            outside = float(((xa < 0) | (xa > 1)).any(-1).float().mean())
+            with torch.no_grad():
+                got, want = kern(*a), plain(*a)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                check(bool(torch.isfinite(got).all())
+                      and got.shape == want.shape,
+                      f"{nm} output finite, of the plain version's shape")
+                ms = time_ms(lambda: kern(*a))
+                plain_ms = time_ms(lambda: plain(*a))
+            bnd = bound(nbytes(at, got, *tables), fwd_ops[nm])
+            print(f"kernel {nm}: {N_POINTS} {kind} points ({outside:.3f} "
+                  f"outside the box), out {tuple(got.shape)}, max_abs_err "
+                  f"{err:.3e} (tol {tol:g}), {ms:.4f} ms vs plain "
+                  f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) {tag}")
+            check(err <= tol, (nm, kind, err))
+            if nm != "cp_forward":
+                shape = None
+            elif kind == "path":
+                shape = (f"{N_POINTS} points: a 16384-ray chunk of a 400x400 "
+                         "frame's 128-sample ladder; launches while serving")
+            else:
+                shape = (f"{N_POINTS} uniform random points; launches while "
+                         "training")
+            rec_name = nm if nm != "cp_forward" else (
+                f"{nm}/serving_path" if kind == "path" else f"{nm}/random")
+            report.append(entry(rec_name, SOURCE, replaces, n_launch, err, ms,
+                                plain_ms, None, bnd, shape))
+    cp_bwd = "human_body_reconstruction_tpu/ops/cp_pallas.py:173"
+    for (phase, kind), (err, ms, plain_ms, bnd) in bwd["cp_backward"].items():
+        n = TRAIN_POINTS[0] if phase == "guided" else TRAIN_POINTS[1]
+        report.append(entry(
+            f"cp_backward/{phase}_{kind}", SOURCE, cp_bwd,
+            phase_launches[phase]["cp_backward"], err, ms, plain_ms, None, bnd,
+            f"{n} {'path' if kind == 'path' else 'uniform random'} points of "
+            f"a {phase} step; launches in the {phase} training steps"))
+    err, ms, plain_ms, bnd = bwd["dense_backward"]
+    report.append(entry("dense_backward", SOURCE,
+                        "human_body_reconstruction_tpu/ops/dense_pallas.py:152",
+                        train_launches["dense_backward"], err, ms, plain_ms,
+                        None, bnd))
     for nm, source, replaces in (
             ("uniform_bits", "human_body_reconstruction_tpu_torch/csrc/rng.cu",
              "human_body_reconstruction_tpu/ops/pallas_rng.py:30"),
@@ -816,7 +920,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -1,45 +1,91 @@
 // Forward and backward kernels of the two encoders, for Hopper (sm_90a).  The
-// forward kernels are described first; the backward ones, with their own
-// note, follow them.
+// CP factor-line kernels come first, with their note; the dense coarse-grid
+// kernels, with theirs, follow.
+//
+// ------------------------------------------------------------ CP encoder
 //
 // hbr_cp_forward replaces human_body_reconstruction_tpu/ops/cp_pallas.py
-// _fwd_kernel (and _fwd_kernel_axis, its per-axis split for high ranks):
-// every CP level's three factor lines are linearly interpolated at the point
-// and multiplied across the axes, giving features (N, L*R) in f32.
+// _fwd_kernel (and _fwd_kernel_axis, its per-axis split for high ranks);
+// hbr_cp_backward replaces cp_pallas.py _bwd_kernel (the VJP _cp_matmul_bwd).
+// Every CP level's three factor lines (3, G_l, R) are linearly interpolated
+// at the point and multiplied across the axes, giving features (N, L*R) in
+// f32; the backward scatters dT_d = g * T_e * T_f into rows x0 and x0+1 of
+// each line.  The TPU kernels form both as two-hot matrix products, because
+// every random read there costs a whole memory tile: 3 * sum_G * C_pad * 2 =
+// 2.2 MFLOP a point at the flagship ladder (5 levels, G = 73, 154, 324, 685,
+// 1449, sum_G = 2685, R = 25, C = 125).  On this card the lines (0.4 MB in
+// bf16) stay in the 50 MB L2, and a gather-and-lerp does the same with about
+// 1 kFLOP a point.
 //
-// hbr_dense_forward replaces human_body_reconstruction_tpu/ops/dense_pallas.py
-// _fwd_kernel: trilinear interpolation of each dense coarse grid (G, G, G, F),
-// giving features (N, D*F) in f32.
+// Both kernels read the lines as the wrapper packs them, (3, sum_G, RPf) in
+// the stored dtype with RPf = R rounded up to 8 and zero columns after R, so
+// that every row starts 16-byte aligned and rows x0 and x0+1 are one aligned
+// span.
 //
-// The TPU kernels evaluate both as two-hot matrix products because every
-// random read there costs a whole memory tile.  That costs about
-// 3 * sum_G * C_pad * 2 = 2.2 MFLOP per point for CP at the flagship
-// ladder.  On this card the bf16 factor lines (3 * 2685 * 25 * 2 B, about
-// 0.4 MB) and grids (about 0.2 MB) stay resident in the 50 MB L2, so a direct
-// gather-and-lerp computes the same function with about 1 kFLOP per point.
-// What bounds it is the L2 reads of the gathered rows (1.5 KB per point for
-// CP) and the HBM writes of the (N, C) f32 output (500 B per point for CP).
-// The design answers that as follows:
-//  * the CP kernel gives each block a tile of points.  It first computes every
-//    (point, level, axis) cell and lerp weight once, into shared memory.  Then
-//    consecutive threads take consecutive output columns, so the output rows
-//    of the tile are written as one contiguous, coalesced span and
-//    neighbouring threads read neighbouring entries of the same line rows;
-//  * the dense kernel gives one thread to a point (D*F is 4 at the flagship);
-//  * both write into a caller-given row stride, so that the encoder's dense and
-//    CP features land side by side in one (N, D*F + L*R) matrix with no
-//    concatenation pass.
+// hbr_cp_forward.  What it must move: the points and the (N, C) f32 output,
+// 500 B a point (1.05 GB, 0.31 ms of HBM at a 2,097,152-point serving
+// chunk).  It also gathers 5 levels x 3 axes x 2 rows a point from L2, 1.5 KB
+// of bf16, which one 2-byte column a thread reads in 150 loads.  The design:
+//  * persistent blocks of CP_FWD_THREADS threads, two an SM, walk tiles of
+//    points;
+//  * one thread takes a (point, level, group of 8 columns), computes its
+//    cells and weights in registers (no shared coordinate phase), and asks
+//    for its 6 rows at once, each with one 16-byte load: 24 loads a point and
+//    level;
+//  * the products go to a double-buffered shared tile, which a warp a row
+//    writes out, consecutive lanes on consecutive columns of the tile's
+//    contiguous output span, in the caller's row stride: one barrier a tile.
+// What binds it, measured on an H100: not HBM (0.94 ms against a 0.32 ms
+// bound), not the gathers (the same points all in one cell take as long);
+// by our count the instructions a point (about 4,400) are dispatched at a
+// third of the card's peak rate while they wait on L2.  So the lines are read from L2:
+// the coarse levels' lines copied into shared memory once a block (48 or
+// 112 KB) were measured slower at every budget (PERF.md).
 //
-// Numerics follow the TPU kernels: factor lines and grids are bf16 (with
-// bf16 = 1); the CP lerp weights 1-frac and frac and the dense pair weights
-// wy*wz are computed in f32 and then rounded to bf16; accumulation is f32.
-// With bf16 = 0 nothing is rounded.  Every multiply and add is written with
-// the _rn intrinsics so the compiler cannot contract it into an FMA: the plain
-// PyTorch versions (ops/cp_kernel.py, ops/dense_kernel.py) do the same
-// operations in the same order, and the two agree bit for bit.
+// hbr_cp_backward.  What it must move: the (N, C) gradient, 384 MB at 768,000
+// points (0.118 ms).  What binds it is L2's atomic units: every (point, level,
+// column) adds into 6 line rows, 576M terms at 768,000 points, and L2 applies
+// about 230G f32 additions a second, whether they come one or four a request
+// (measured: the time follows the rows added).  The design adds fewer of
+// them:
+//  * one thread walks a run of CP_RUN consecutive points for one (level,
+//    group of 4 columns) and keeps, per axis, the two row partials of the
+//    current cell in registers.  It adds them only when the cell changes
+//    (carrying the shared row along when the cell moves by one) or the run
+//    ends.  The trainer's points are a ray's samples in order, so on the
+//    coarse levels and the minor axes a cell holds for many points: a
+//    guided step's points add 15.1 rows a point where random points add 28.2
+//    (1.0 on the coarsest level, 5.1 on the finest);
+//  * the f32 accumulator is (3, sum_G, RP), RP = R rounded up to 4, so a
+//    group of 4 columns of a row is 16-byte aligned and goes to L2 as one
+//    vector reduction (atomicAdd on float4, REDG.E.ADD.F32 on 4 lanes): 7
+//    requests a row at R = 25 where there were 25, and the last group's one
+//    real column goes alone (no padding is added).
+// Every add goes to L2: a block-private shared accumulator of the coarse
+// levels (96 or 190 KB) was measured slower on the trainer's points
+// (PERF.md), because shared f32 atomics are compare-and-swap loops on this
+// card (ATOMS.CAST.SPIN) and a run's merged adds leave them little to save.
+// The caller zeroes the accumulator, folds it to (3, sum_G, R) and rounds it
+// to bf16 (the .astype(bfloat16) of the Pallas VJP).
+//
+// Numerics follow the TPU kernels: lines are bf16 (bf16 = 1); the lerp
+// weights 1-frac and frac are computed in f32 and rounded to bf16; T_d =
+// w_lo * line[x0] + w_hi * line[x0+1]; out = (T_0 * T_1) * T_2; dT_d in the
+// product-rule order of XLA's (T_0*T_1)*T_2 (dT_0 = (g*T_2)*T_1, dT_1 =
+// T_0*(g*T_2), dT_2 = (T_0*T_1)*g), rounded to bf16; the terms w_lo * dT_d
+// and w_hi * dT_d.  With bf16 = 0 nothing is rounded.  Every multiply and add
+// is an _rn intrinsic, which the compiler cannot contract into an FMA, and
+// the plain PyTorch versions (ops/cp_kernel.py) do the same operations in the
+// same order: the forward agrees with them bit for bit, and every term of the
+// backward is the same f32 value as theirs (with bf16 = 1 a product of two
+// bf16 values, exact in f32).  Only the order in which the backward sums its
+// terms differs (the register partials of a run, then L2's atomics, against
+// index_add_): that is an f32 sum of the same terms in another
+// order, which ops/cuda_lib.sum_order_tolerance bounds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "levels.cuh"
 
@@ -77,54 +123,314 @@ __device__ __forceinline__ void axis_coord(float xn, float scale, int g,
   *x0 = (int)fminf(fmaxf(x0f, 0.0f), (float)(g - 2));
 }
 
-constexpr int CP_POINTS = 32;    // points per block
-constexpr int CP_THREADS = 256;
+// Two bf16 in one 32-bit word (the lower address in the low half), exactly.
+__device__ __forceinline__ void bf16x2(uint32_t w, float* v) {
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xffff0000u);
+}
 
-// lines: (3, total_rows, rank), level l in rows [offset[l], offset[l] + size[l]).
-// out[p, l*rank + r] = prod_d lerp(lines[d, offset[l] + x0_d], lines[d, ... + 1]).
+// Four consecutive columns of a packed line row, as f32 (the row pointer is
+// 8-byte (bf16) or 16-byte (f32) aligned).
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  bf16x2(raw.x, v);
+  bf16x2(raw.y, v + 2);
+}
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 raw = *reinterpret_cast<const float4*>(p);
+  v[0] = raw.x;
+  v[1] = raw.y;
+  v[2] = raw.z;
+  v[3] = raw.w;
+}
+
+// Eight consecutive columns of a packed line row (16-byte aligned), held as
+// loaded (one 16-byte load in bf16, two in f32) and read as f32.
 template <typename T>
-__global__ void __launch_bounds__(CP_THREADS)
-cp_forward_kernel(const float* __restrict__ xn, const T* __restrict__ lines,
-                  long long n, int total_rows, int rank, HbrLevels lv,
-                  float* __restrict__ out, long long out_stride) {
-  __shared__ int s_row[CP_POINTS * HBR_MAX_LEVELS * 3];
-  __shared__ float s_lo[CP_POINTS * HBR_MAX_LEVELS * 3];
-  __shared__ float s_hi[CP_POINTS * HBR_MAX_LEVELS * 3];
-  const int L = lv.n_levels;
-  const long long p0 = (long long)blockIdx.x * CP_POINTS;
-  const int np = (int)min((long long)CP_POINTS, n - p0);
-
-  // Phase 1: one (point, level, axis) cell and its two weights per entry.
-  for (int t = threadIdx.x; t < np * L * 3; t += blockDim.x) {
-    const int p = t / (L * 3);
-    const int l = (t / 3) % L;
-    const int d = t % 3;
-    int x0;
-    float frac;
-    axis_coord(xn[(p0 + p) * 3 + d], lv.scale[l], lv.size[l], &x0, &frac);
-    s_row[t] = d * total_rows + lv.offset[l] + x0;
-    s_lo[t] = round_w<T>(__fsub_rn(1.0f, frac));
-    s_hi[t] = round_w<T>(frac);
+struct Row8;
+template <>
+struct Row8<__nv_bfloat16> {
+  uint4 raw;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    raw = *reinterpret_cast<const uint4*>(p);
   }
-  __syncthreads();
+  __device__ __forceinline__ float operator[](int k) const {
+    const uint32_t w = k < 2 ? raw.x : k < 4 ? raw.y : k < 6 ? raw.z : raw.w;
+    return __uint_as_float(k & 1 ? w & 0xffff0000u : w << 16);
+  }
+};
+template <>
+struct Row8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = reinterpret_cast<const float4*>(p)[0];
+    b = reinterpret_cast<const float4*>(p)[1];
+  }
+  __device__ __forceinline__ float operator[](int k) const {
+    const float4& h = k < 4 ? a : b;
+    const int i = k & 3;
+    return i == 0 ? h.x : i == 1 ? h.y : i == 2 ? h.z : h.w;
+  }
+};
 
-  // Phase 2: consecutive threads take consecutive output columns.
+constexpr int CP_FWD_THREADS = 512;                    // 64 registers a thread
+constexpr int CP_FWD_TILE_ITEMS = 2 * CP_FWD_THREADS;  // work items a tile
+constexpr long long CP_FWD_STAGE_BYTES = 104 * 1024;   // both output tiles
+
+// lines: (3, total_rows, rpf), level l in rows [offset[l], offset[l] +
+// size[l]).  out[p, l*rank + r] = prod_d lerp(lines[d, offset[l] + x0_d],
+// lines[d, offset[l] + x0_d + 1]) in column r.  Dynamic shared memory: two
+// (tile_points, L*rank) f32 tiles.
+template <typename T>
+__global__ void __launch_bounds__(CP_FWD_THREADS, 2)
+cp_forward_kernel(const float* __restrict__ xn, const T* __restrict__ lines,
+                  long long n, int total_rows, int rank, int rpf, HbrLevels lv,
+                  int tile_points, float* __restrict__ out, long long out_stride) {
+  extern __shared__ float s_tiles[];
+  const int L = lv.n_levels;
   const int C = L * rank;
-  for (int t = threadIdx.x; t < np * C; t += blockDim.x) {
-    const int p = t / C;
-    const int c = t - p * C;
-    const int l = c / rank;
-    const int r = c - l * rank;
-    const int base = (p * L + l) * 3;
-    float f = 0.0f;
+  const int groups = rpf / 8;
+  const int W = L * groups;
+
+  const long long tiles = (n + tile_points - 1) / tile_points;
+  int buf = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, buf ^= 1) {
+    const long long p0 = t * tile_points;
+    const int np = (int)min((long long)tile_points, n - p0);
+    float* tile = s_tiles + (size_t)buf * tile_points * C;
+    for (int i = threadIdx.x; i < np * W; i += blockDim.x) {
+      const int p = i / W;
+      const int lg = i - p * W;
+      const int l = lg / groups;
+      const int c0 = (lg - l * groups) * 8;
+      const int off = lv.offset[l];
+      const float* x = xn + (p0 + p) * 3;
+      int x0[3];
+      float w_lo[3], w_hi[3];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const T* row = lines + (long long)s_row[base + d] * rank + r;
-      const float td = __fadd_rn(__fmul_rn(s_lo[base + d], load_f32(row)),
-                                 __fmul_rn(s_hi[base + d], load_f32(row + rank)));
-      f = d == 0 ? td : __fmul_rn(f, td);
+      for (int d = 0; d < 3; ++d) {
+        float frac;
+        axis_coord(__ldg(x + d), lv.scale[l], lv.size[l], &x0[d], &frac);
+        w_lo[d] = round_w<T>(__fsub_rn(1.0f, frac));
+        w_hi[d] = round_w<T>(frac);
+      }
+      // all six rows are requested before any is used
+      Row8<T> a[3], b[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const T* row = lines + ((size_t)d * total_rows + off + x0[d]) * rpf + c0;
+        a[d].load(row);
+        b[d].load(row + rpf);
+      }
+      float f[8];
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float td = __fadd_rn(__fmul_rn(w_lo[d], a[d][k]), __fmul_rn(w_hi[d], b[d][k]));
+          f[k] = d == 0 ? td : __fmul_rn(f[k], td);
+        }
+      float* dst = tile + p * C + l * rank + c0;
+      const int nc = min(8, rank - c0);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < nc) dst[k] = f[k];
     }
-    out[(p0 + p) * out_stride + c] = f;
+    __syncthreads();
+    // a warp a row, consecutive lanes on consecutive columns; the other
+    // buffer is written next, so no second barrier is needed
+    for (int p = threadIdx.x / 32; p < np; p += blockDim.x / 32) {
+      float* row = out + (p0 + p) * out_stride;
+      for (int c = threadIdx.x % 32; c < C; c += 32) row[c] = tile[p * C + c];
+    }
+  }
+}
+
+constexpr int CP_BWD_THREADS = 512;
+constexpr int CP_RUN = 16;  // consecutive points a thread walks
+
+// Adds the partials v of the nc real columns of a group of 4 into the
+// accumulator at idx, to L2: one vector reduction of 4 (idx is a multiple of
+// 4: 16-byte aligned), of 2, or one scalar (the group past R's last multiple
+// of 4 sends no padding).
+__device__ __forceinline__ void add_group(float* acc, size_t idx, const float* v, int nc) {
+  if (v[0] == 0.0f && v[1] == 0.0f && v[2] == 0.0f && v[3] == 0.0f) return;
+  if (nc == 4) {
+    atomicAdd(reinterpret_cast<float4*>(acc + idx), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    if (nc >= 2) atomicAdd(reinterpret_cast<float2*>(acc + idx), make_float2(v[0], v[1]));
+    else atomicAdd(acc + idx, v[0]);
+    if (nc == 3) atomicAdd(acc + idx + 2, v[2]);
+  }
+}
+
+// lines: (3, total_rows, rpf) as in the forward.  dacc: (3, total_rows, rp)
+// f32, zeroed by the caller.  g: (n, L*rank) with row stride g_stride.  A
+// unit is one (run of CP_RUN points, level, group of 4 columns); consecutive
+// threads take consecutive units, so a warp reads a point's gradient row in
+// order.
+template <typename T>
+__global__ void __launch_bounds__(CP_BWD_THREADS, 1)
+cp_backward_kernel(const float* __restrict__ xn, const T* __restrict__ lines,
+                   const float* __restrict__ g, long long g_stride, long long n,
+                   int total_rows, int rank, int rpf, int rp, HbrLevels lv,
+                   float* __restrict__ dacc) {
+  const int groups = rp / 4;
+  const int W = lv.n_levels * groups;
+  const long long units = (n + CP_RUN - 1) / CP_RUN * W;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x; u < units;
+       u += (long long)gridDim.x * blockDim.x) {
+    const long long run = u / W;
+    const int lg = (int)(u - run * W);
+    const int l = lg / groups;
+    const int c0 = (lg - l * groups) * 4;
+    const int nc = min(4, rank - c0);
+    const int size = lv.size[l];
+    const int off = lv.offset[l];
+    const float scale = lv.scale[l];
+    // per axis: the current cell (-1: none yet) and its two rows' partials
+    int cell[3] = {-1, -1, -1};
+    float lo[3][4], hi[3][4];
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) lo[d][k] = hi[d][k] = 0.0f;
+
+    // one pass past the run's last point adds what is left
+    const long long p_end = min(n, (run + 1) * CP_RUN);
+    for (long long p = run * CP_RUN; p <= p_end; ++p) {
+      int x0[3] = {-1, -1, -1};
+      float w_lo[3], w_hi[3], dt[3][4];
+      if (p < p_end) {
+        float t[3][4];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          float frac;
+          axis_coord(__ldg(xn + p * 3 + d), scale, size, &x0[d], &frac);
+          w_lo[d] = round_w<T>(__fsub_rn(1.0f, frac));
+          w_hi[d] = round_w<T>(frac);
+          const T* row = lines + ((size_t)d * total_rows + off + x0[d]) * rpf + c0;
+          float a[4], b[4];
+          load4(row, a);
+          load4(row + rpf, b);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            t[d][k] = __fadd_rn(__fmul_rn(w_lo[d], a[k]), __fmul_rn(w_hi[d], b[k]));
+        }
+        const float* gp = g + p * g_stride + l * rank + c0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float gv = k < nc ? __ldg(gp + k) : 0.0f;
+          const float dp = __fmul_rn(gv, t[2][k]);
+          dt[0][k] = round_w<T>(__fmul_rn(dp, t[1][k]));
+          dt[1][k] = round_w<T>(__fmul_rn(t[0][k], dp));
+          dt[2][k] = round_w<T>(__fmul_rn(__fmul_rn(t[0][k], t[1][k]), gv));
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        if (x0[d] != cell[d]) {
+          if (cell[d] >= 0) {
+            const size_t at = ((size_t)d * total_rows + off + cell[d]) * rp + c0;
+            if (x0[d] == cell[d] + 1) {  // row cell+1 stays: carry hi
+              add_group(dacc, at, lo[d], nc);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                lo[d][k] = hi[d][k];
+                hi[d][k] = 0.0f;
+              }
+            } else if (x0[d] >= 0 && x0[d] == cell[d] - 1) {  // row cell stays: carry lo
+              add_group(dacc, at + rp, hi[d], nc);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                hi[d][k] = lo[d][k];
+                lo[d][k] = 0.0f;
+              }
+            } else {
+              add_group(dacc, at, lo[d], nc);
+              add_group(dacc, at + rp, hi[d], nc);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) lo[d][k] = hi[d][k] = 0.0f;
+            }
+          }
+          cell[d] = x0[d];
+        }
+        if (p < p_end) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            lo[d][k] = __fadd_rn(lo[d][k], __fmul_rn(w_lo[d], dt[d][k]));
+            hi[d][k] = __fadd_rn(hi[d][k], __fmul_rn(w_hi[d], dt[d][k]));
+          }
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ dense grids
+//
+// hbr_dense_forward replaces human_body_reconstruction_tpu/ops/dense_pallas.py
+// _fwd_kernel: trilinear interpolation of each dense coarse grid (G, G, G, F),
+// giving features (N, D*F) in f32.  hbr_dense_backward replaces
+// dense_pallas.py _bwd_kernel (the VJP _dense_matmul_bwd): dmat = sum W_yz^T
+// @ bf16((dOut @ S^T) * hat_x).  The TPU kernels evaluate both as two-hot
+// matrix products; here the grids (about 0.2 MB) stay resident in L2 and a
+// direct gather-and-lerp, and a scatter of the eight trilinear corners, do
+// the same.  The forward gives one thread to a point (D*F is 4 at the
+// flagship) and writes into a caller-given row stride, so that the encoder's
+// dense and CP features land side by side in one (N, D*F + L*R) matrix with
+// no concatenation pass.  The backward is bound by f32 atomics and, on the
+// coarse levels, by address contention (2M points fold into the coarsest
+// grid's 18^3 x 2 entries): blocks are persistent (as many as fit on the
+// card, each walking a strided range of points), add the leading levels that
+// fit a byte budget the caller chooses into a block-private shared-memory
+// accumulator, and flush it once at the end with one global atomicAdd per
+// non-zero entry; the finer levels go straight to global atomics.  The caller
+// zeroes the f32 output and rounds it to bf16 afterwards.
+//
+// Numerics follow the Pallas kernels term by term (with bf16 = 1): the pair
+// weights wy*wz are computed in f32 and rounded to bf16, the forward sums
+// round(T_a * wx_a) over the x corners, and the backward's terms are
+// bf16(bf16(dout_f) * wx_a) * bf16(wy_b * wz_c), each exact in f32; only the
+// order of the backward's f32 sums differs from the plain version's
+// (index_add_).  Every multiply and add is an _rn intrinsic.  With bf16 = 0
+// nothing is rounded.
+
+constexpr int BWD_THREADS = 256;
+
+template <typename K>
+static int persistent_blocks(K kernel, int threads, size_t smem,
+                             long long work_blocks, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long cap = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  *blocks = (int)(work_blocks < cap ? work_blocks : cap);
+  return 0;
+}
+
+__device__ __forceinline__ void add_f32(float* shared_acc, float* global_acc,
+                                        bool in_shared, long long idx, float v) {
+  if (in_shared) {
+    atomicAdd(shared_acc + idx, v);
+  } else {
+    atomicAdd(global_acc + idx, v);
+  }
+}
+
+__device__ __forceinline__ void flush_shared(const float* s_acc, int n,
+                                             float* out) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float v = s_acc[i];
+    if (v != 0.0f) atomicAdd(out + i, v);
   }
 }
 
@@ -180,150 +486,6 @@ dense_forward_kernel(const float* __restrict__ xn, const T* __restrict__ grids,
   }
 }
 
-// ---------------------------------------------------------------- backward
-//
-// hbr_cp_backward replaces cp_pallas.py _bwd_kernel (the VJP
-// _cp_matmul_bwd): dM_d = W(x_d)^T @ bf16(dT_d), summed over every point.
-// hbr_dense_backward replaces dense_pallas.py _bwd_kernel (the VJP
-// _dense_matmul_bwd): dmat = sum W_yz^T @ bf16((dOut @ S^T) * hat_x).
-//
-// On the TPU both are two-hot matrix products whose (rows, C) accumulator
-// stays resident over a sequential sweep of point tiles.  Here each point
-// scatters its few non-zero terms directly: per (point, CP level, rank
-// column) two rows of each of the three axis lines, per (point, dense level,
-// feature) the eight trilinear corners.  Blocks run concurrently, so the
-// cross-block sum is f32 atomicAdd (not a split-K partial-then-reduce).  What
-// bounds these kernels is atomic throughput and, on the coarse levels,
-// address contention: 2M points fold into a few thousand addresses (the
-// coarsest CP level is 73 rows x 25 columns x 3 axes, the coarsest dense grid
-// 18^3 x 2).  The design answers that with a block-private shared-memory
-// accumulator for the leading (coarsest) levels that fit a byte budget the
-// caller chooses: blocks are persistent (as many as fit on the card, each
-// walking a strided range of point tiles), add into shared memory, and flush
-// once at the end with one global atomicAdd per non-zero entry.  The finer
-// levels (whose addresses spread the contention anyway) go straight to
-// global atomics.  The caller zeroes the f32 output and rounds it to bf16
-// afterwards (the .astype(bfloat16) of the Pallas VJP).
-//
-// Numerics follow the Pallas kernels term by term (with bf16 = 1):
-//  * CP: T_d is recomputed by the forward's gather-and-lerp; dT_d = g*T_e*T_f
-//    in f32 in the product-rule order of XLA's (T_0*T_1)*T_2 (dT_0 =
-//    (g*T_2)*T_1, dT_1 = T_0*(g*T_2), dT_2 = (T_0*T_1)*g), rounded to bf16;
-//    rows x0 and x0+1 receive bf16(1-frac)*dT_d and bf16(frac)*dT_d.
-//  * dense: bf16(bf16(dout_f) * wx_a) * bf16(wy_b * wz_c) per corner.
-// Each term is exact in f32 (a product of two bf16 values); only the order of
-// the f32 sums differs from the TPU's and from the plain PyTorch versions'
-// (which use index_add_), so results agree to one bf16 ulp after rounding.
-// With bf16 = 0 nothing is rounded.
-
-constexpr int BWD_THREADS = 256;
-
-template <typename K>
-static int persistent_blocks(K kernel, size_t smem, long long work_blocks,
-                             int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      BWD_THREADS, smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long cap = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  *blocks = (int)(work_blocks < cap ? work_blocks : cap);
-  return 0;
-}
-
-__device__ __forceinline__ void add_f32(float* shared_acc, float* global_acc,
-                                        bool in_shared, long long idx, float v) {
-  if (in_shared) {
-    atomicAdd(shared_acc + idx, v);
-  } else {
-    atomicAdd(global_acc + idx, v);
-  }
-}
-
-__device__ __forceinline__ void flush_shared(const float* s_acc, int n,
-                                             float* out) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float v = s_acc[i];
-    if (v != 0.0f) atomicAdd(out + i, v);
-  }
-}
-
-// dlines: (3, total_rows, rank) f32, zeroed by the caller.  Rows below
-// shared_rows (the leading levels) accumulate in shared memory, laid out as
-// (3, shared_rows, rank).  g: (n, L*rank) with row stride g_stride.
-template <typename T>
-__global__ void __launch_bounds__(BWD_THREADS)
-cp_backward_kernel(const float* __restrict__ xn, const T* __restrict__ lines,
-                   const float* __restrict__ g, long long g_stride, long long n,
-                   int total_rows, int rank, HbrLevels lv, int shared_rows,
-                   float* __restrict__ dlines) {
-  extern __shared__ float s_acc[];
-  __shared__ int s_row[CP_POINTS * HBR_MAX_LEVELS * 3];
-  __shared__ float s_lo[CP_POINTS * HBR_MAX_LEVELS * 3];
-  __shared__ float s_hi[CP_POINTS * HBR_MAX_LEVELS * 3];
-  const int L = lv.n_levels;
-  const int C = L * rank;
-  const int acc_n = 3 * shared_rows * rank;
-  for (int i = threadIdx.x; i < acc_n; i += blockDim.x) s_acc[i] = 0.0f;
-
-  for (long long p0 = (long long)blockIdx.x * CP_POINTS; p0 < n;
-       p0 += (long long)gridDim.x * CP_POINTS) {
-    const int np = (int)min((long long)CP_POINTS, n - p0);
-    __syncthreads();  // the previous tile's phase 2 is done with s_row
-    for (int t = threadIdx.x; t < np * L * 3; t += blockDim.x) {
-      const int p = t / (L * 3);
-      const int l = (t / 3) % L;
-      const int d = t % 3;
-      int x0;
-      float frac;
-      axis_coord(xn[(p0 + p) * 3 + d], lv.scale[l], lv.size[l], &x0, &frac);
-      s_row[t] = lv.offset[l] + x0;  // row within the axis
-      s_lo[t] = round_w<T>(__fsub_rn(1.0f, frac));
-      s_hi[t] = round_w<T>(frac);
-    }
-    __syncthreads();
-
-    for (int t = threadIdx.x; t < np * C; t += blockDim.x) {
-      const int p = t / C;
-      const int c = t - p * C;
-      const int l = c / rank;
-      const int r = c - l * rank;
-      const int base = (p * L + l) * 3;
-      float td[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const T* row = lines + ((long long)d * total_rows + s_row[base + d]) * rank + r;
-        td[d] = __fadd_rn(__fmul_rn(s_lo[base + d], load_f32(row)),
-                          __fmul_rn(s_hi[base + d], load_f32(row + rank)));
-      }
-      const float gv = g[(p0 + p) * g_stride + c];
-      const float dp = __fmul_rn(gv, td[2]);
-      const float dtd[3] = {__fmul_rn(dp, td[1]), __fmul_rn(td[0], dp),
-                            __fmul_rn(__fmul_rn(td[0], td[1]), gv)};
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float dt = round_w<T>(dtd[d]);
-        const int row = s_row[base + d];
-        const bool sh = row < shared_rows;  // a level is wholly in or out
-        const long long idx = sh ? ((long long)d * shared_rows + row) * rank + r
-                                 : ((long long)d * total_rows + row) * rank + r;
-        add_f32(s_acc, dlines, sh, idx, __fmul_rn(s_lo[base + d], dt));
-        add_f32(s_acc, dlines, sh, idx + rank, __fmul_rn(s_hi[base + d], dt));
-      }
-    }
-  }
-  __syncthreads();
-  for (int d = 0; d < 3; ++d)
-    flush_shared(s_acc + (long long)d * shared_rows * rank, shared_rows * rank,
-                 dlines + (long long)d * total_rows * rank);
-}
-
 // dgrids: every level's (G, G, G, F) grid flattened, level l from offset[l],
 // zeroed by the caller.  Elements below shared_elems (the leading levels)
 // accumulate in shared memory.  g: (n, D*F) with row stride g_stride.
@@ -376,23 +538,59 @@ dense_backward_kernel(const float* __restrict__ xn, const float* __restrict__ g,
   flush_shared(s_acc, shared_elems, dgrids);
 }
 
+template <typename T>
+static int launch_cp_forward(const float* xn, const T* lines, long long n,
+                             int total_rows, int rank, int rpf, const HbrLevels& lv,
+                             float* out, long long out_stride, cudaStream_t s) {
+  const int c = lv.n_levels * rank;
+  const int work = lv.n_levels * (rpf / 8);
+  long long tile = CP_FWD_TILE_ITEMS / work;
+  if (tile > CP_FWD_STAGE_BYTES / (8LL * c)) tile = CP_FWD_STAGE_BYTES / (8LL * c);
+  if (tile < 1) tile = 1;
+  const size_t smem = 2 * tile * c * sizeof(float);
+  int blocks = 0;
+  const int err = persistent_blocks(cp_forward_kernel<T>, CP_FWD_THREADS, smem,
+                                    (n + tile - 1) / tile, &blocks);
+  if (err) return err;
+  cp_forward_kernel<T><<<blocks, CP_FWD_THREADS, smem, s>>>(
+      xn, lines, n, total_rows, rank, rpf, lv, (int)tile, out, out_stride);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_cp_backward(const float* xn, const T* lines, const float* g,
+                              long long g_stride, long long n, int total_rows,
+                              int rank, int rpf, int rp, const HbrLevels& lv,
+                              float* dacc, cudaStream_t s) {
+  const long long units = (n + CP_RUN - 1) / CP_RUN * lv.n_levels * (rp / 4);
+  int blocks = 0;
+  const int err = persistent_blocks(cp_backward_kernel<T>, CP_BWD_THREADS, 0,
+                                    (units + CP_BWD_THREADS - 1) / CP_BWD_THREADS,
+                                    &blocks);
+  if (err) return err;
+  cp_backward_kernel<T><<<blocks, CP_BWD_THREADS, 0, s>>>(
+      xn, lines, g, g_stride, n, total_rows, rank, rpf, rp, lv, dacc);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
-// Each launcher returns cudaGetLastError() right after the launch (0 = ok).
+// Each launcher returns cudaGetLastError() right after the launch (0 = ok),
+// or the error of its set-up (cudaErrorInvalidValue for arguments the kernel
+// does not take).
+
+// lines: (3, total_rows, rpf), rpf a multiple of 8 and at least rank.
 int hbr_cp_forward(const float* xn, const void* lines, int bf16, long long n,
-                   int total_rows, int rank, const HbrLevels* lv, float* out,
-                   long long out_stride, void* stream) {
+                   int total_rows, int rank, int rpf, const HbrLevels* lv,
+                   float* out, long long out_stride, void* stream) {
   if (n <= 0) return 0;
-  const unsigned int blocks = (unsigned int)((n + CP_POINTS - 1) / CP_POINTS);
+  if (rpf % 8 != 0 || rpf < rank) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    cp_forward_kernel<__nv_bfloat16><<<blocks, CP_THREADS, 0, s>>>(
-        xn, (const __nv_bfloat16*)lines, n, total_rows, rank, *lv, out, out_stride);
-  } else {
-    cp_forward_kernel<float><<<blocks, CP_THREADS, 0, s>>>(
-        xn, (const float*)lines, n, total_rows, rank, *lv, out, out_stride);
-  }
-  return (int)cudaGetLastError();
+  if (bf16)
+    return launch_cp_forward(xn, (const __nv_bfloat16*)lines, n, total_rows, rank,
+                             rpf, *lv, out, out_stride, s);
+  return launch_cp_forward(xn, (const float*)lines, n, total_rows, rank, rpf, *lv,
+                           out, out_stride, s);
 }
 
 int hbr_dense_forward(const float* xn, const void* grids, int bf16, long long n,
@@ -411,31 +609,20 @@ int hbr_dense_forward(const float* xn, const void* grids, int bf16, long long n,
   return (int)cudaGetLastError();
 }
 
-// dlines (3, total_rows, rank) f32 must be zeroed; shared_rows rows of each
-// axis (whole leading levels) accumulate in shared memory first.
+// lines as in hbr_cp_forward; dacc (3, total_rows, rp) f32 must be zeroed, rp
+// a multiple of 4 and at least rank.
 int hbr_cp_backward(const float* xn, const void* lines, int bf16, const float* g,
                     long long g_stride, long long n, int total_rows, int rank,
-                    const HbrLevels* lv, int shared_rows, float* dlines,
-                    void* stream) {
+                    int rpf, int rp, const HbrLevels* lv, float* dacc, void* stream) {
   if (n <= 0) return 0;
-  const size_t smem = (size_t)3 * shared_rows * rank * sizeof(float);
-  const long long tiles = (n + CP_POINTS - 1) / CP_POINTS;
+  if (rpf % 8 != 0 || rpf < rank || rp % 4 != 0 || rp < rank)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int blocks = 0, err = 0;
-  if (bf16) {
-    err = persistent_blocks(cp_backward_kernel<__nv_bfloat16>, smem, tiles, &blocks);
-    if (err) return err;
-    cp_backward_kernel<__nv_bfloat16><<<blocks, BWD_THREADS, smem, s>>>(
-        xn, (const __nv_bfloat16*)lines, g, g_stride, n, total_rows, rank, *lv,
-        shared_rows, dlines);
-  } else {
-    err = persistent_blocks(cp_backward_kernel<float>, smem, tiles, &blocks);
-    if (err) return err;
-    cp_backward_kernel<float><<<blocks, BWD_THREADS, smem, s>>>(
-        xn, (const float*)lines, g, g_stride, n, total_rows, rank, *lv,
-        shared_rows, dlines);
-  }
-  return (int)cudaGetLastError();
+  if (bf16)
+    return launch_cp_backward(xn, (const __nv_bfloat16*)lines, g, g_stride, n,
+                              total_rows, rank, rpf, rp, *lv, dacc, s);
+  return launch_cp_backward(xn, (const float*)lines, g, g_stride, n, total_rows,
+                            rank, rpf, rp, *lv, dacc, s);
 }
 
 // dgrids (sum of G^3 * F) f32 must be zeroed; its first shared_elems
@@ -450,12 +637,14 @@ int hbr_dense_backward(const float* xn, int bf16, const float* g,
   cudaStream_t s = (cudaStream_t)stream;
   int blocks = 0, err = 0;
   if (bf16) {
-    err = persistent_blocks(dense_backward_kernel<__nv_bfloat16>, smem, tiles, &blocks);
+    err = persistent_blocks(dense_backward_kernel<__nv_bfloat16>, BWD_THREADS, smem,
+                            tiles, &blocks);
     if (err) return err;
     dense_backward_kernel<__nv_bfloat16><<<blocks, BWD_THREADS, smem, s>>>(
         xn, g, g_stride, n, features, *lv, shared_elems, dgrids);
   } else {
-    err = persistent_blocks(dense_backward_kernel<float>, smem, tiles, &blocks);
+    err = persistent_blocks(dense_backward_kernel<float>, BWD_THREADS, smem, tiles,
+                            &blocks);
     if (err) return err;
     dense_backward_kernel<float><<<blocks, BWD_THREADS, smem, s>>>(
         xn, g, g_stride, n, features, *lv, shared_elems, dgrids);

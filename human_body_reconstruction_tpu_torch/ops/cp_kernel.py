@@ -20,7 +20,9 @@ with the weights computed in f32 before rounding, and nothing rounded when
 stop-gradients the fractions).  ``cp_encode_kernel`` and
 ``cp_encode_backward_kernel`` are the wrappers: for tensors on the CPU they
 run ``cp_encode_plain`` and ``cp_encode_plain_backward``; for tensors on a
-CUDA device they launch the kernel or raise.
+CUDA device they launch the kernel or raise.  Around a launch they pack the
+lines into the kernels' padded layout (``pack_lines``), and size the
+backward's padded accumulator and fold it back.
 """
 
 from __future__ import annotations
@@ -103,16 +105,36 @@ def _check_args(lines, x, cfg: HashConfig):
     return n, rank, len(lines) * rank
 
 
-def _kernel_inputs(lines, x, mu, sigma, cfg: HashConfig):
-    """(normalised points, packed (3, sum_G, R) lines in the stored dtype,
-    level struct, total rows) for a launch."""
-    sizes = cp_line_sizes(cfg)
+def padded(rank: int, multiple: int) -> int:
+    """``rank`` rounded up to a multiple of ``multiple``."""
+    return -(-rank // multiple) * multiple
+
+
+LINE_COLS = 8      # packed line rows: 8 columns a 16-byte bf16 load
+ACC_COLS = 4       # backward accumulator rows: 4 f32 columns a reduction
+
+
+def pack_lines(lines, cfg: HashConfig):
+    """The kernels' line layout: every level's (3, G_l, R) lines stacked as
+    (3, sum_G, RPf) in the stored dtype (bf16 when ``cfg.dense_bf16``), RPf
+    = R rounded up to ``LINE_COLS``, zero after column R, so that each row
+    starts 16-byte aligned.  Made once a call (0.5 MB at the flagship)."""
+    rank = lines[0].shape[-1]
     store = torch.bfloat16 if cfg.dense_bf16 else torch.float32
-    packed = torch.cat([ln.detach() for ln in lines], dim=1).to(store)
+    packed = torch.zeros((3, sum(cp_line_sizes(cfg)), padded(rank, LINE_COLS)),
+                         dtype=store, device=lines[0].device)
+    packed[..., :rank] = torch.cat([ln.detach() for ln in lines], dim=1)
+    return packed
+
+
+def _kernel_inputs(lines, x, mu, sigma, cfg: HashConfig):
+    """(normalised points, packed lines, level struct, level sizes) for a
+    launch."""
+    sizes = cp_line_sizes(cfg)
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     lv = cuda_lib.make_levels(sizes, offsets[:-1], fine_scales(cfg))
-    return (normalise(x, mu, sigma).contiguous(), packed.contiguous(), lv,
-            int(offsets[-1]))
+    return (normalise(x, mu, sigma).contiguous(), pack_lines(lines, cfg), lv,
+            sizes)
 
 
 def cp_encode_kernel(lines, x, mu, sigma, cfg: HashConfig, out=None):
@@ -132,11 +154,11 @@ def cp_encode_kernel(lines, x, mu, sigma, cfg: HashConfig, out=None):
         out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    xn, packed, lv, total = _kernel_inputs(lines, x, mu, sigma, cfg)
+    xn, packed, lv, _ = _kernel_inputs(lines, x, mu, sigma, cfg)
     code = cuda_lib.library().hbr_cp_forward(
-        xn.data_ptr(), packed.data_ptr(), int(cfg.dense_bf16), n, total,
-        rank, lv, out.data_ptr(), out.stride(0),
-        cuda_lib.stream_handle(x.device))
+        xn.data_ptr(), packed.data_ptr(), int(cfg.dense_bf16), n,
+        packed.shape[1], rank, packed.shape[2], lv, out.data_ptr(),
+        out.stride(0), cuda_lib.stream_handle(x.device))
     cp_encode_kernel.launches += 1
     cuda_lib.check(code, "hbr_cp_forward")
     return out
@@ -146,28 +168,28 @@ def cp_encode_backward_kernel(lines, x, mu, sigma, cfg: HashConfig, grad):
     """Backward wrapper: the gradient of the lines given ``grad``, the
     (N, n_cp_levels * R) f32 gradient of the features (any row stride, unit
     column stride: a column block of the encoder's gradient).  CPU tensors
-    -> ``cp_encode_plain_backward``; CUDA tensors -> ``hbr_cp_backward``.
-    Returns a list of f32 (3, G_l, R) tensors."""
+    -> ``cp_encode_plain_backward``; CUDA tensors -> ``hbr_cp_backward``,
+    which accumulates into (3, sum_G, R rounded up to ``ACC_COLS``) f32,
+    folded back to R columns here.  Returns a list of f32 (3, G_l, R)
+    tensors."""
     n, rank, c = _check_args(lines, x, cfg)
     cuda_lib.check_out(grad, n, c, x.device, name="grad")
     if x.device.type == "cpu":
         return cp_encode_plain_backward(lines, x, mu, sigma, cfg, grad)
-    sizes = cp_line_sizes(cfg)
-    xn, packed, lv, total = _kernel_inputs(lines, x, mu, sigma, cfg)
-    dlines = torch.zeros((3, total, rank), dtype=torch.float32,
-                         device=x.device)
+    rp = padded(rank, ACC_COLS)
+    xn, packed, lv, sizes = _kernel_inputs(lines, x, mu, sigma, cfg)
+    dacc = torch.zeros((3, packed.shape[1], rp), dtype=torch.float32,
+                       device=x.device)
     if n > 0:
-        k = cuda_lib.shared_prefix([3 * g * rank * 4 for g in sizes],
-                                   cuda_lib.BWD_SHARED_BYTES)
         code = cuda_lib.library().hbr_cp_backward(
             xn.data_ptr(), packed.data_ptr(), int(cfg.dense_bf16),
-            grad.data_ptr(), grad.stride(0), n, total, rank, lv,
-            int(sum(sizes[:k])), dlines.data_ptr(),
+            grad.data_ptr(), grad.stride(0), n, packed.shape[1], rank,
+            packed.shape[2], rp, lv, dacc.data_ptr(),
             cuda_lib.stream_handle(x.device))
         cp_encode_backward_kernel.launches += 1
         cuda_lib.check(code, "hbr_cp_backward")
-    if cfg.dense_bf16:
-        dlines = round_bf16(dlines)
+    dlines = dacc[..., :rank]
+    dlines = round_bf16(dlines) if cfg.dense_bf16 else dlines.contiguous()
     return list(torch.split(dlines, sizes, dim=1))
 
 

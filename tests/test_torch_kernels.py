@@ -431,3 +431,132 @@ def test_stochastic_encode_gives_the_table_a_gradient(cuda_device):
             hash_kernel.hash_encode_kernel.launches,
             hash_kernel.hash_encode_backward_kernel.launches) == tuple(
                 n + 1 for n in launches)
+
+
+def ray_points(n, samples, device, seed=3):
+    """(world points, mu, sigma) of seeded rays through the scene box, each
+    ray's samples consecutive (ray-major, as the renderer flattens them),
+    cut to n points; some samples fall outside the unit box of normalised
+    coordinates."""
+    rng = np.random.default_rng(seed)
+    rays = -(-n // samples)
+    o = rng.uniform(-0.3, 1.3, (rays, 1, 3))
+    d = rng.uniform(0.3, 0.7, (rays, 1, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = (np.linspace(0.0, 1.5, samples)[None, :, None]
+         + rng.uniform(0.0, 1.5 / samples, (rays, samples, 1)))
+    xn = torch.tensor((o + d * t).reshape(-1, 3)[:n], dtype=torch.float32,
+                      device=device)
+    mu = torch.tensor([-1.0, -2.0, -0.5], device=device)
+    sigma = torch.tensor(3.0, device=device)
+    return mu + xn * sigma, mu, sigma
+
+
+def cp_cfg(rank: int, bf16: bool) -> C.HashConfig:
+    return dataclasses.replace(small_cfg(bf16), cp_rank=rank)
+
+
+def test_cp_pack_lines_pads_with_zeros():
+    """The kernels' line layout: each level's lines stacked on the real
+    columns, in the stored dtype, zero after column R, rows 16-byte
+    aligned."""
+    for rank, bf16 in ((25, True), (7, False), (48, True), (8, True)):
+        cfg = cp_cfg(rank, bf16)
+        _, lines, _ = tables(cfg, "cpu", n=4)
+        packed = cp_kernel.pack_lines(lines, cfg)
+        rpf = cp_kernel.padded(rank, cp_kernel.LINE_COLS)
+        assert packed.shape == (3, sum(lowrank.cp_line_sizes(cfg)), rpf)
+        assert packed.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert rpf % 8 == 0 and rpf - 8 < rank <= rpf
+        assert (rpf * packed.element_size()) % 16 == 0
+        stacked = torch.cat(lines, dim=1)
+        want = dense_grid.round_bf16(stacked) if bf16 else stacked
+        assert torch.equal(packed[..., :rank].float(), want)
+        assert not packed[..., rank:].any()
+
+
+def test_cp_kernel_inputs_at_preset_width():
+    """What a launch is handed at the preset's width: normalised points,
+    the (3, sum_G, 32) packed lines, each level's offset into them, and a
+    backward accumulator of 28 f32 columns (16-byte rows)."""
+    h = C.flagship_config().hash
+    _, lines, (x, mu, sigma, _) = tables(h, "cpu", n=4)
+    xn, packed, lv, sizes = cp_kernel._kernel_inputs(lines, x, mu, sigma, h)
+    assert sizes == [73, 154, 324, 685, 1449]
+    assert packed.shape == (3, 2685, 32) and packed.dtype == torch.bfloat16
+    assert torch.equal(xn, dense_grid.normalise(x, mu, sigma))
+    assert lv.n_levels == 5 and list(lv.size[:5]) == sizes
+    assert list(lv.offset[:5]) == [0, 73, 227, 551, 1236]
+    rp = cp_kernel.padded(25, cp_kernel.ACC_COLS)
+    assert rp == 28 and (4 * rp) % 16 == 0
+
+
+def test_cp_wrappers_refuse_unit_stride_breaks():
+    """What the kernels would misread is refused on every device: a
+    gradient or output without unit column stride, a row stride below the
+    width, another dtype."""
+    cfg = cp_cfg(7, True)
+    _, lines, args = tables(cfg, "cpu", n=50)
+    c = len(lines) * 7
+    wide = torch.zeros((50, 2 * c + 3))
+    overlapping = torch.as_strided(wide, (50, c), (c - 1, 1))
+    for bad in (wide[:, 1:2 * c + 1:2], overlapping, wide[:, :c].double(),
+                wide[:49, :c]):
+        with pytest.raises(ValueError):
+            cp_kernel.cp_encode_backward_kernel(lines, *args, bad)
+        with pytest.raises(ValueError):
+            cp_kernel.cp_encode_kernel(lines, *args, out=bad)
+    cp_kernel.cp_encode_backward_kernel(lines, *args, wide[:, 3:3 + c])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["rays", "random"])
+@pytest.mark.parametrize("rank", [25, 7, 48])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cp_kernels_match_plain_on_rays_and_random(cuda_device, bf16, rank,
+                                                   order):
+    """Both CP kernels against their plain versions on ray-ordered points
+    (runs of a ray's samples, so cells repeat and the backward merges its
+    adds) and on random ones; N below one run, not a multiple of a run or a
+    tile; the forward into a column block of a wider matrix, the backward
+    from a column-offset, row-strided gradient."""
+    cfg = cp_cfg(rank, bf16)
+    _, lines, _ = tables(cfg, cuda_device, n=4)
+    c = len(lines) * rank
+    for n in (5, 1000, 20_011):
+        if order == "rays":
+            args = ray_points(n, 48, cuda_device) + (cfg,)
+        else:
+            args = tables(cfg, cuda_device, n=n, seed=n)[2]
+        g = cotangent(n, c, cuda_device, seed=n, extra=5)
+        out = torch.full((n, c + 6), float("nan"), device=cuda_device)
+        cp_kernel.cp_encode_kernel(lines, *args, out=out[:, 2:2 + c])
+        torch.cuda.synchronize()
+        assert max_err(out[:, 2:2 + c],
+                       cp_kernel.cp_encode_plain(lines, *args)) <= TOL
+        assert torch.isnan(out[:, :2]).all()
+        assert torch.isnan(out[:, 2 + c:]).all()
+        assert grads_close(cp_kernel.cp_encode_backward_kernel,
+                           cp_kernel.cp_encode_plain_backward, lines, args, g,
+                           bf16)
+
+
+@pytest.mark.cuda
+def test_cp_kernels_full_width_on_ray_samples(cuda_device):
+    """The preset's lines on 128-sample rays: the forward bit for bit, the
+    backward within the sum-order tolerance from the encoder's strided
+    gradient block."""
+    h = C.flagship_config().hash
+    _, lines, _ = tables(h, cuda_device, n=4)
+    n = 100_003
+    args = ray_points(n, 128, cuda_device, seed=11) + (h,)
+    d = h.dense_levels * h.features_per_level
+    g = cotangent(n, h.out_dim, cuda_device, seed=5, extra=0)
+    out = torch.full((n, h.out_dim), float("nan"), device=cuda_device)
+    cp_kernel.cp_encode_kernel(lines, *args, out=out[:, d:])
+    torch.cuda.synchronize()
+    assert max_err(out[:, d:], cp_kernel.cp_encode_plain(lines, *args)) <= TOL
+    assert torch.isnan(out[:, :d]).all()
+    assert grads_close(cp_kernel.cp_encode_backward_kernel,
+                       cp_kernel.cp_encode_plain_backward, lines, args,
+                       g[:, d:], True)
