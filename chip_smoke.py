@@ -10,12 +10,12 @@
    launch count reset just before and counted per phase; print step time
    and rays/s of the unculled and the guided phase, occupied fraction and
    train PSNR.  Then hold each backward kernel to its plain version at the
-   two training shapes (768,000 and 2,048,000 points) on uniform random
-   points, and the CP backward also on the path's own points (a seeded ray
-   batch's occupancy-guided placement and unculled 128-sample ladder, each
-   ray's samples consecutive); one training step's loss and gradients on
-   the card to the same step on the CPU (plain versions); profile one
-   guided step; save, restore and serve the trained model.
+   two training shapes (768,000 and 2,048,000 points) on the path's own
+   points (a seeded ray batch's occupancy-guided placement and unculled
+   128-sample ladder, each ray's samples consecutive) and on uniform random
+   points; one training step's loss and gradients on the card to the same
+   step on the CPU (plain versions); profile one guided step; save,
+   restore and serve the trained model.
 3. Hash-grid training (``--stochastic --hw_rng``, the reference repo's own
    model at full width: corner hash grid, L 16, T 2^16, n_max 2048, 64
    samples, 16,000 rays, no occupancy grid) on the same dataset for
@@ -34,27 +34,34 @@
    128-sample ladder, one at eval_guided 64, a 4-pose orbit batch and a
    health request, with every kernel's launch count reset just before.
 5. Hold each forward kernel against its plain PyTorch version on the card
-   at the serving shape (2,097,152 uniform random points, about 70% of them
-   outside the unit box of normalised coordinates; the CP kernel also on a
-   16384-ray chunk of a 400x400 frame's 128-sample ladder), and a whole
-   frame rendered through the kernels against the same frame through the
-   plain versions (on the CPU).
+   at the serving shape, on a 16384-ray chunk of a 400x400 frame's
+   128-sample ladder (2,097,152 points; the dense kernel writing the
+   column block of the encoder's (N, 129) matrix, as the encoder does) and
+   on as many uniform random points (about 70% of them outside the unit
+   box of normalised coordinates), and a whole frame rendered through the
+   kernels against the same frame through the plain versions (on the
+   CPU).
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
 operations over the card's rate for them (67 TFLOP/s f32; 33.5 TOP/s for
 the integer Philox rounds, which an H100 SM issues on 64 of its 128 lanes a
 clock), from this run's shapes.  ``library_ms`` is one PyTorch call that
-computes the same function (``torch.rand`` for the Philox kernel; none for
-the encoders).
+computes the same function: ``torch.rand`` for the Philox kernel;
+``F.grid_sample`` (trilinear, ``align_corners=True``, f32, one call a
+level) for the dense forward and its ``grid_sampler_3d_backward`` (the
+volume's gradient) for the dense backward; none for the CP and hash
+encoders.  Kernel times are CUDA events over a run of launches queued
+behind a device sleep, so they are the device's time, not the host's
+enqueue.
 
 Any failure ends the run with a nonzero exit.  Output: the card's name and
 power limit, per-phase, per-request and per-kernel lines, then one JSON line
 listing the seven kernels (launches counted on the path that runs each; the
-CP kernels once per shape, named for it and with a "shape" key:
-cp_forward/serving_path and cp_forward/random, cp_backward/guided_path,
-guided_random, unculled_path and unculled_random, with the launches of the
-phase that runs each shape), and last
+CP and dense kernels once per shape, named for it and with a "shape" key:
+{cp,dense}_forward/serving_path and /random, {cp,dense}_backward/
+guided_path, guided_random, unculled_path and unculled_random, with the
+launches of the phase that runs each shape), and last
 ``{"ok": true, "device": {...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
@@ -109,10 +116,15 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of fn: CUDA events around reps calls, queued
+    behind a device sleep (about 25 ms) so that the host's enqueue of short
+    calls is not what is timed."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -293,20 +305,58 @@ def serving_chunk_points(server, device, samples: int = 128):
     return (o[:, None, :] + d[:, None, :] * t[..., None]).reshape(-1, 3)
 
 
+def grid_sample_inputs(grids, x, mu, sigma, cfg):
+    """The dense levels as ``F.grid_sample`` takes them, the yardstick of
+    the dense kernels (never called by the port): per level the (1, F, G,
+    G, G) f32 volume and the (1, 1, 1, N, 3) coordinates, in grid_sample's
+    (z, y, x) order, u = 2 x_l / (G - 1) - 1 with x_l = xn * scale, which
+    ``align_corners=True`` maps back to x_l."""
+    from human_body_reconstruction_tpu_torch.ops.dense_grid import normalise
+    from human_body_reconstruction_tpu_torch.utils.config import level_scales
+
+    xn = normalise(x, mu, sigma)
+    scales = np.float32(level_scales(cfg)[:cfg.dense_levels])
+    return [(grid.detach().to(torch.float32).permute(3, 0, 1, 2)[None]
+             .contiguous(),
+             (2.0 * (xn * float(s)) / (grid.shape[0] - 1) - 1.0)
+             .flip(-1).reshape(1, 1, 1, -1, 3))
+            for grid, s in zip(grids, scales)]
+
+
+def grid_sample_levels(inputs):
+    """One ``F.grid_sample`` call a level (trilinear): (1, F, 1, 1, N)
+    each."""
+    return [torch.nn.functional.grid_sample(vol, u, mode="bilinear",
+                                            align_corners=True)
+            for vol, u in inputs]
+
+
+def grid_sample_backward_levels(inputs, grad):
+    """The volumes' gradients of ``grid_sample_levels`` given the (N, D*F)
+    gradient of the features: one ``grid_sampler_3d_backward`` a level, from
+    its (1, F, 1, 1, N) gradient (made before the call)."""
+    f = inputs[0][0].shape[1]
+    gos = [grad[:, l * f:(l + 1) * f].t().contiguous().reshape(1, f, 1, 1, -1)
+           for l in range(len(inputs))]
+    return lambda: [torch.ops.aten.grid_sampler_3d_backward(
+        go, vol, u, 0, 0, True, [True, False])[0]
+        for go, (vol, u) in zip(gos, inputs)]
+
+
 def backward_checks(trainer, device, tag, paths):
     """Each backward kernel against its plain version at both training
-    shapes, from a seeded (N, 129) cotangent read through a row stride: on
-    uniform random points, and the CP kernel also on the path's own points
-    (``paths``, from ``training_path_points``).  Returns {"cp_backward":
-    {(phase, points kind): record}, "dense_backward": record}, a record
-    being (max_abs_err, ms, plain_ms, bound)."""
+    shapes, from a seeded (N, 129) cotangent read through a row stride, on
+    the path's own points (``paths``, from ``training_path_points``) and on
+    uniform random points.  Returns {kernel name: {(phase, points kind):
+    record}}, a record being (max_abs_err, ms, plain_ms, library_ms,
+    bound)."""
     from human_body_reconstruction_tpu_torch.ops import (
         cp_kernel, cuda_lib, dense_kernel)
 
     field, scene, h = trainer.state.field, trainer.scene, trainer.cfg.hash
     d = h.dense_levels * h.features_per_level
     gen = torch.Generator(device).manual_seed(SEED + 3)
-    out = {"cp_backward": {}}
+    out = {"cp_backward": {}, "dense_backward": {}}
     for n, (phase, path_pts) in zip(TRAIN_POINTS, (("guided", paths["guided"]),
                                                    ("unculled",
                                                     paths["unculled"]))):
@@ -317,48 +367,52 @@ def backward_checks(trainer, device, tag, paths):
         g = g[:, 3:]
         n_cp, rank = len(field.lines), h.cp_rank
         cp_ops = n * n_cp * (rank * 26 + 3 * 6)
-        for nm, kind, kern, plain, tables, cols, ops, at in (
-                ("cp_backward", "path", cp_kernel.cp_encode_backward_kernel,
+        dense_ops = n * h.dense_levels * (28 + 18 * h.features_per_level)
+        for nm, kern, plain, tables, cols, ops in (
+                ("cp_backward", cp_kernel.cp_encode_backward_kernel,
                  cp_kernel.cp_encode_plain_backward, list(field.lines),
-                 g[:, d:], cp_ops, path_pts),
-                ("cp_backward", "random", cp_kernel.cp_encode_backward_kernel,
-                 cp_kernel.cp_encode_plain_backward, list(field.lines),
-                 g[:, d:], cp_ops, pts),
-                ("dense_backward", "random",
-                 dense_kernel.dense_encode_backward_kernel,
+                 g[:, d:], cp_ops),
+                ("dense_backward", dense_kernel.dense_encode_backward_kernel,
                  dense_kernel.dense_encode_plain_backward, list(field.dense),
-                 g[:, :d], n * h.dense_levels
-                 * (28 + 18 * h.features_per_level), pts)):
-            a = (tables, at, scene["mu"], scene["sigma"], h, cols)
-            bnd = bound(nbytes(at, cols, *tables, *tables), ops)
-            with torch.no_grad():
-                got, want = kern(*a), plain(*a)
-                abs_sum = plain([t.abs() for t in tables], *a[1:-1],
-                                cols.abs())
-                torch.cuda.synchronize()
-                err = max(float((x - y).abs().max()) for x, y in zip(got, want))
-                ulps = max(float(((x - y).abs() / (cuda_lib.bf16_ulp(y)
-                                                   + 1e-6)).max())
-                           for x, y in zip(got, want))
-                ratio = max(float(((x - y).abs() / cuda_lib.sum_order_tolerance(
-                    y, s, True)).max()) for x, y, s in zip(got, want, abs_sum))
-                check(all(x.shape == y.shape and bool(torch.isfinite(x).all())
-                          for x, y in zip(got, want)),
-                      f"{nm} gradients finite, of the plain version's shapes")
-                ms = time_ms(lambda: kern(*a))
-                plain_ms = time_ms(lambda: plain(*a), reps=5)
-            print(f"kernel {nm}: {n} {kind} points ({phase}), max_abs_err "
-                  f"{err:.3e}, worst "
-                  f"|err| / tolerance {ratio:.3f} (tol 1; / (bf16 ulp + 1e-6)"
-                  f" {ulps:.3f}), {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-                  f"bound {bnd[0]:.4f} ms ({bnd[1]}) {tag}")
-            check(ratio <= 1.0, (nm, kind, n, err, ratio))
-            if nm == "cp_backward":
-                out[nm][(phase, kind)] = (err, ms, plain_ms, bnd)
-            elif n == TRAIN_POINTS[0]:
-                out[nm] = (err, ms, plain_ms, bnd)
-            else:
-                out[nm] = (max(err, out[nm][0]),) + out[nm][1:]
+                 g[:, :d], dense_ops)):
+            for kind, at in (("path", path_pts), ("random", pts)):
+                a = (tables, at, scene["mu"], scene["sigma"], h, cols)
+                bnd = bound(nbytes(at, cols, *tables, *tables), ops)
+                with torch.no_grad():
+                    got, want = kern(*a), plain(*a)
+                    abs_sum = plain([t.abs() for t in tables], *a[1:-1],
+                                    cols.abs())
+                    torch.cuda.synchronize()
+                    err = max(float((x - y).abs().max())
+                              for x, y in zip(got, want))
+                    ulps = max(float(((x - y).abs() / (cuda_lib.bf16_ulp(y)
+                                                       + 1e-6)).max())
+                               for x, y in zip(got, want))
+                    ratio = max(float(((x - y).abs()
+                                       / cuda_lib.sum_order_tolerance(
+                                           y, s, True)).max())
+                                for x, y, s in zip(got, want, abs_sum))
+                    check(all(x.shape == y.shape
+                              and bool(torch.isfinite(x).all())
+                              for x, y in zip(got, want)),
+                          f"{nm} gradients finite, of the plain version's "
+                          "shapes")
+                    ms = time_ms(lambda: kern(*a))
+                    plain_ms = time_ms(lambda: plain(*a), reps=5)
+                    lib_ms = None
+                    if nm == "dense_backward":
+                        lib_ms = time_ms(grid_sample_backward_levels(
+                            grid_sample_inputs(tables, at, scene["mu"],
+                                               scene["sigma"], h), cols))
+                lib = "" if lib_ms is None else (
+                    f", grid_sampler_3d_backward {lib_ms:.4f} ms")
+                print(f"kernel {nm}: {n} {kind} points ({phase}), max_abs_err "
+                      f"{err:.3e}, worst |err| / tolerance {ratio:.3f} (tol 1;"
+                      f" / (bf16 ulp + 1e-6) {ulps:.3f}), {ms:.4f} ms vs plain "
+                      f"{plain_ms:.4f} ms{lib}, bound {bnd[0]:.4f} ms "
+                      f"({bnd[1]}) {tag}")
+                check(ratio <= 1.0, (nm, kind, n, err, ratio))
+                out[nm][(phase, kind)] = (err, ms, plain_ms, lib_ms, bnd)
     return out
 
 
@@ -818,8 +872,8 @@ def main() -> int:
     print(f"launches while serving (forward kernels): {launches}")
     check(all(n > 0 for n in launches.values()), launches)
 
-    # each kernel against its plain version at the serving shapes: uniform
-    # random points, and for the CP kernel also a chunk of a frame's ladder
+    # each kernel against its plain version at the serving shape, on a chunk
+    # of a frame's ladder and on uniform random points
     field, scene = server.field, server.scene
     gen = torch.Generator(device).manual_seed(SEED + 2)
     xn = torch.rand((N_POINTS, 3), generator=gen, device=device) * 1.5 - 0.25
@@ -828,59 +882,76 @@ def main() -> int:
     check(chunk.shape == (N_POINTS, 3), ("serving chunk", chunk.shape))
     report = []
     h = cfg.hash
+    d = h.dense_levels * h.features_per_level
     fwd_ops = {"cp_forward": N_POINTS * len(field.lines)
                * (h.cp_rank * 11 + 3 * 6),
                "dense_forward": N_POINTS * h.dense_levels
                * (28 + 17 * h.features_per_level)}
     for nm, kern, plain, attr, replaces, tol in kernels:
         tables = list(getattr(field, attr))
-        sets = [("random", pts, train_launches[nm])]
-        if nm == "cp_forward":
-            sets.insert(0, ("path", chunk, launches[nm]))
-        for kind, at, n_launch in sets:
+        for kind, at in (("path", chunk), ("random", pts)):
             a = (tables, at, scene["mu"], scene["sigma"], cfg.hash)
             xa = (at - scene["mu"]) / scene["sigma"]
             outside = float(((xa < 0) | (xa > 1)).any(-1).float().mean())
+            # the dense kernel on the path writes its columns of the
+            # encoder's (N, 129) matrix, as encode_params hands it them
+            kw, where = {}, ""
+            if nm == "dense_forward" and kind == "path":
+                mat = torch.full((N_POINTS, h.out_dim), float("nan"),
+                                 device=device)
+                kw = {"out": mat[:, :d]}
+                where = "into the (N, 129) matrix's first columns"
+            lib = ""
             with torch.no_grad():
-                got, want = kern(*a), plain(*a)
+                got, want = kern(*a, **kw), plain(*a)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 check(bool(torch.isfinite(got).all())
                       and got.shape == want.shape,
                       f"{nm} output finite, of the plain version's shape")
-                ms = time_ms(lambda: kern(*a))
+                if kw:
+                    check(bool(mat[:, d:].isnan().all()),
+                          "the matrix's other columns untouched")
+                ms = time_ms(lambda: kern(*a, **kw))
                 plain_ms = time_ms(lambda: plain(*a))
+                lib_ms = None
+                if nm == "dense_forward":
+                    lib_ms = time_ms(lambda gs=grid_sample_inputs(
+                        tables, at, scene["mu"], scene["sigma"], h):
+                        grid_sample_levels(gs))
+                    lib = f", grid_sample {lib_ms:.4f} ms"
+                if kw:
+                    lib += (f", contiguous (N, {d}) "
+                            f"{time_ms(lambda: kern(*a)):.4f} ms")
             bnd = bound(nbytes(at, got, *tables), fwd_ops[nm])
             print(f"kernel {nm}: {N_POINTS} {kind} points ({outside:.3f} "
-                  f"outside the box), out {tuple(got.shape)}, max_abs_err "
-                  f"{err:.3e} (tol {tol:g}), {ms:.4f} ms vs plain "
-                  f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) {tag}")
+                  f"outside the box) {where}, out {tuple(got.shape)}, "
+                  f"max_abs_err {err:.3e} (tol {tol:g}), {ms:.4f} ms vs plain "
+                  f"{plain_ms:.4f} ms{lib}, bound {bnd[0]:.4f} ms ({bnd[1]}) "
+                  f"{tag}")
             check(err <= tol, (nm, kind, err))
-            if nm != "cp_forward":
-                shape = None
-            elif kind == "path":
+            if kind == "path":
                 shape = (f"{N_POINTS} points: a 16384-ray chunk of a 400x400 "
-                         "frame's 128-sample ladder; launches while serving")
+                         f"frame's 128-sample ladder{', ' + where if kw else ''}"
+                         "; launches while serving")
+                rec = (f"{nm}/serving_path", launches[nm])
             else:
                 shape = (f"{N_POINTS} uniform random points; launches while "
                          "training")
-            rec_name = nm if nm != "cp_forward" else (
-                f"{nm}/serving_path" if kind == "path" else f"{nm}/random")
-            report.append(entry(rec_name, SOURCE, replaces, n_launch, err, ms,
-                                plain_ms, None, bnd, shape))
-    cp_bwd = "human_body_reconstruction_tpu/ops/cp_pallas.py:173"
-    for (phase, kind), (err, ms, plain_ms, bnd) in bwd["cp_backward"].items():
-        n = TRAIN_POINTS[0] if phase == "guided" else TRAIN_POINTS[1]
-        report.append(entry(
-            f"cp_backward/{phase}_{kind}", SOURCE, cp_bwd,
-            phase_launches[phase]["cp_backward"], err, ms, plain_ms, None, bnd,
-            f"{n} {'path' if kind == 'path' else 'uniform random'} points of "
-            f"a {phase} step; launches in the {phase} training steps"))
-    err, ms, plain_ms, bnd = bwd["dense_backward"]
-    report.append(entry("dense_backward", SOURCE,
-                        "human_body_reconstruction_tpu/ops/dense_pallas.py:152",
-                        train_launches["dense_backward"], err, ms, plain_ms,
-                        None, bnd))
+                rec = (f"{nm}/random", train_launches[nm])
+            report.append(entry(rec[0], SOURCE, replaces, rec[1], err, ms,
+                                plain_ms, lib_ms, bnd, shape))
+    for nm, replaces in (
+            ("cp_backward", "human_body_reconstruction_tpu/ops/cp_pallas.py:173"),
+            ("dense_backward",
+             "human_body_reconstruction_tpu/ops/dense_pallas.py:152")):
+        for (phase, kind), (err, ms, plain_ms, lib_ms, bnd) in bwd[nm].items():
+            n = TRAIN_POINTS[0] if phase == "guided" else TRAIN_POINTS[1]
+            report.append(entry(
+                f"{nm}/{phase}_{kind}", SOURCE, replaces,
+                phase_launches[phase][nm], err, ms, plain_ms, lib_ms, bnd,
+                f"{n} {'path' if kind == 'path' else 'uniform random'} points "
+                f"of a {phase} step; launches in the {phase} training steps"))
     for nm, source, replaces in (
             ("uniform_bits", "human_body_reconstruction_tpu_torch/csrc/rng.cu",
              "human_body_reconstruction_tpu/ops/pallas_rng.py:30"),

@@ -87,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "levels.cuh"
 
 template <typename T>
@@ -374,19 +376,53 @@ cp_backward_kernel(const float* __restrict__ xn, const T* __restrict__ lines,
 // giving features (N, D*F) in f32.  hbr_dense_backward replaces
 // dense_pallas.py _bwd_kernel (the VJP _dense_matmul_bwd): dmat = sum W_yz^T
 // @ bf16((dOut @ S^T) * hat_x).  The TPU kernels evaluate both as two-hot
-// matrix products; here the grids (about 0.2 MB) stay resident in L2 and a
-// direct gather-and-lerp, and a scatter of the eight trilinear corners, do
-// the same.  The forward gives one thread to a point (D*F is 4 at the
-// flagship) and writes into a caller-given row stride, so that the encoder's
-// dense and CP features land side by side in one (N, D*F + L*R) matrix with
-// no concatenation pass.  The backward is bound by f32 atomics and, on the
-// coarse levels, by address contention (2M points fold into the coarsest
-// grid's 18^3 x 2 entries): blocks are persistent (as many as fit on the
-// card, each walking a strided range of points), add the leading levels that
-// fit a byte budget the caller chooses into a block-private shared-memory
-// accumulator, and flush it once at the end with one global atomicAdd per
-// non-zero entry; the finer levels go straight to global atomics.  The caller
-// zeroes the f32 output and rounds it to bf16 afterwards.
+// matrix products; here the grids (0.2 MB in bf16 at the flagship, G = 18
+// and 35, F = 2) stay resident in L2 and a direct gather-and-lerp, and a
+// scatter of the eight trilinear corners, do the same.
+//
+// Both kernels take the world points and normalise them themselves, with the
+// two rounded operations of ops/dense_grid.normalise, so that the wrapper
+// launches no normalising pass over the points.  The wrapper lays the grids
+// out flat, each level from an offset that is a multiple of 4 elements
+// (16-byte aligned), so that the z-pair of an (x, y) corner row, the 2F
+// features of corners z0 and z0+1 side by side, is read or added with the
+// widest aligned vector the offset allows: at F = 2 one 8-byte (bf16) or
+// 16-byte (f32) access when the pair starts on a multiple of 4 elements,
+// else two of half the width.
+//
+// hbr_dense_forward.  What it must move: the points and the (N, D*F) output,
+// 28 B a point (0.018 ms at a 2,097,152-point chunk); the grids' reads are L1
+// and L2 hits.  One thread takes a point and both levels: per level it asks
+// for its four corner rows' z-pairs at once (4 to 8 loads where one 2-byte
+// load a feature and corner took 16).  What binds it, measured on an H100:
+// the write.  The encoder puts the D*F = 4 dense columns in its (N, 129)
+// feature matrix, a 16-byte block on a 516-byte row stride, so each row is a
+// partial sector.  Written as each thread's per-level float2 or scalar
+// stores, 2 to 4 requests to the same sector, a serving chunk took 0.39 ms
+// against 0.038 ms into a contiguous (N, 4).  So a block stages its rows in
+// shared memory and writes them with consecutive threads on consecutive
+// columns, one request a row: 0.16 ms in the matrix (0.048 contiguous).
+//
+// hbr_dense_backward.  What it must move: the points and the (N, D*F)
+// gradient, plus one write of the grids' gradient.  What binds it is the
+// f32 adds: 2^3 * F terms a point and level, 32 at the flagship.  The
+// design adds fewer of them, and spreads those that hit the same words:
+//  * one thread walks a run of DENSE_RUN consecutive points for one level
+//    and keeps the current cell's 8 corners x F partials in registers; it
+//    adds them only when the cell changes or the run ends.  The trainer's
+//    points are a ray's samples in order: on a guided step's points a run
+//    visits 3.2 cells of the 18^3 grid and 5.4 of the 35^3 one, so about 8
+//    adds a point remain of 32;
+//  * the coarsest levels that fit BWD_SHARED_BYTES (the 18^3 x 2 grid, 47
+//    KB) add into a block-private shared-memory copy, flushed once at the
+//    block's end; the finer ones add each corner row's z-pair to the f32
+//    accumulator in L2 as one float4 reduction where 16-byte aligned, else
+//    two float2.  Measured at 768,000 guided path points: 0.147 ms with
+//    every level in L2, 0.037 ms with no adds at all.  The coarsest grid's
+//    words, hit from every block, serialise in L2; its shared copy takes
+//    the kernel to 0.091 ms, though shared f32 atomics are compare-and-swap
+//    loops on this card (ATOMS.CAST.SPIN): the merged adds leave few.
+// The caller zeroes the f32 accumulator and rounds it to bf16 afterwards.
 //
 // Numerics follow the Pallas kernels term by term (with bf16 = 1): the pair
 // weights wy*wz are computed in f32 and rounded to bf16, the forward sums
@@ -395,8 +431,6 @@ cp_backward_kernel(const float* __restrict__ xn, const T* __restrict__ lines,
 // order of the backward's f32 sums differs from the plain version's
 // (index_add_).  Every multiply and add is an _rn intrinsic.  With bf16 = 0
 // nothing is rounded.
-
-constexpr int BWD_THREADS = 256;
 
 template <typename K>
 static int persistent_blocks(K kernel, int threads, size_t smem,
@@ -417,125 +451,313 @@ static int persistent_blocks(K kernel, int threads, size_t smem,
   return 0;
 }
 
-__device__ __forceinline__ void add_f32(float* shared_acc, float* global_acc,
-                                        bool in_shared, long long idx, float v) {
-  if (in_shared) {
-    atomicAdd(shared_acc + idx, v);
-  } else {
-    atomicAdd(global_acc + idx, v);
-  }
+constexpr int DENSE_FWD_THREADS = 256;
+constexpr int DENSE_BWD_THREADS = 256;
+constexpr int DENSE_RUN = 16;    // consecutive points a backward thread walks
+constexpr int DENSE_MAX_F = 8;   // features a level the kernels are built for
+
+// Two consecutive elements as f32 (4-byte (bf16) or 8-byte (f32) aligned).
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float* v) {
+  bf16x2(*reinterpret_cast<const uint32_t*>(p), v);
+}
+__device__ __forceinline__ void load2(const float* p, float* v) {
+  const float2 raw = *reinterpret_cast<const float2*>(p);
+  v[0] = raw.x;
+  v[1] = raw.y;
 }
 
-__device__ __forceinline__ void flush_shared(const float* s_acc, int n,
-                                             float* out) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float v = s_acc[i];
-    if (v != 0.0f) atomicAdd(out + i, v);
-  }
-}
-
-constexpr int DENSE_THREADS = 128;
-
-// grids: each level's (G, G, G, F) grid flattened, level l from offset[l].
-// For each x corner a: T_a = sum over the four (y, z) corners of
-// round(wy*wz) * grid, then out = round(T_0*wx_0) + round(T_1*wx_1), which is
-// dense_pallas.py's pair-weight product followed by its fold over x.
-template <typename T>
-__global__ void __launch_bounds__(DENSE_THREADS)
-dense_forward_kernel(const float* __restrict__ xn, const T* __restrict__ grids,
-                     long long n, int F, HbrLevels lv, float* __restrict__ out,
-                     long long out_stride) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const float pos[3] = {xn[p * 3], xn[p * 3 + 1], xn[p * 3 + 2]};
-  for (int l = 0; l < lv.n_levels; ++l) {
-    const int g = lv.size[l];
-    int i0[3];
-    float fr[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) axis_coord(pos[d], lv.scale[l], g, &i0[d], &fr[d]);
-    const float wx[2] = {__fsub_rn(1.0f, fr[0]), fr[0]};
-    const float wy[2] = {__fsub_rn(1.0f, fr[1]), fr[1]};
-    const float wz[2] = {__fsub_rn(1.0f, fr[2]), fr[2]};
-    float pair[2][2];
-#pragma unroll
-    for (int b = 0; b < 2; ++b)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) pair[b][c] = round_w<T>(__fmul_rn(wy[b], wz[c]));
-    const T* grid = grids + lv.offset[l];
-    for (int f = 0; f < F; ++f) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const long long xrow = (long long)(i0[0] + a) * g;
-        float t = 0.0f;
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const long long idx = ((xrow + i0[1] + b) * g + i0[2] + c) * F + f;
-            const float term = __fmul_rn(pair[b][c], load_f32(grid + idx));
-            t = (b == 0 && c == 0) ? term : __fadd_rn(t, term);
-          }
-        }
-        const float folded = round_w<T>(__fmul_rn(t, wx[a]));
-        acc = a == 0 ? folded : __fadd_rn(acc, folded);
-      }
-      out[p * out_stride + l * F + f] = acc;
+// Spans of N consecutive elements in the widest aligned accesses.  A is the
+// span's first element index mod 4, from a 16-byte aligned base; N and A
+// are compile-time, so v stays in registers.
+template <int N, int A, typename T>
+__device__ __forceinline__ void load_run(const T* p, float* v) {
+  if constexpr (N > 0) {
+    if constexpr (A == 0 && N >= 4) {
+      load4(p, v);
+      load_run<N - 4, 0>(p + 4, v + 4);
+    } else if constexpr (A % 2 == 0 && N >= 2) {
+      load2(p, v);
+      load_run<N - 2, (A + 2) % 4>(p + 2, v + 2);
+    } else {
+      v[0] = load_f32(p);
+      load_run<N - 1, (A + 1) % 4>(p + 1, v + 1);
     }
   }
 }
 
-// dgrids: every level's (G, G, G, F) grid flattened, level l from offset[l],
-// zeroed by the caller.  Elements below shared_elems (the leading levels)
-// accumulate in shared memory.  g: (n, D*F) with row stride g_stride.
+// Atomic adds into L2; all-zero pieces are skipped (adding +-0 to a sum that
+// starts at +0 changes nothing).
+template <int N, int A>
+__device__ __forceinline__ void add_run(float* p, const float* v) {
+  if constexpr (N > 0) {
+    if constexpr (A == 0 && N >= 4) {
+      if (v[0] != 0.0f || v[1] != 0.0f || v[2] != 0.0f || v[3] != 0.0f)
+        atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+      add_run<N - 4, 0>(p + 4, v + 4);
+    } else if constexpr (A % 2 == 0 && N >= 2) {
+      if (v[0] != 0.0f || v[1] != 0.0f)
+        atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+      add_run<N - 2, (A + 2) % 4>(p + 2, v + 2);
+    } else {
+      if (v[0] != 0.0f) atomicAdd(p, v[0]);
+      add_run<N - 1, (A + 1) % 4>(p + 1, v + 1);
+    }
+  }
+}
+
+// The N elements from base[e] (e's residue mod 4 picks the access pattern).
+template <int N, typename T>
+__device__ __forceinline__ void load_span(const T* base, long long e, float* v) {
+  switch ((int)(e & 3)) {
+    case 0: load_run<N, 0>(base + e, v); break;
+    case 1: load_run<N, 1>(base + e, v); break;
+    case 2: load_run<N, 2>(base + e, v); break;
+    default: load_run<N, 3>(base + e, v); break;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void add_span(float* base, long long e, const float* v) {
+  switch ((int)(e & 3)) {
+    case 0: add_run<N, 0>(base + e, v); break;
+    case 1: add_run<N, 1>(base + e, v); break;
+    case 2: add_run<N, 2>(base + e, v); break;
+    default: add_run<N, 3>(base + e, v); break;
+  }
+}
+
+// World points and the box that normalises them, xn = (x - mu) / sigma per
+// axis with the same two rounded operations as ops/dense_grid.normalise
+// (sigma_step 0: one sigma for every axis).
+struct DensePoints {
+  const float* x;      // (n, 3)
+  const float* mu;     // (3,)
+  const float* sigma;  // (1,) or (3,)
+  int sigma_step;
+  __device__ __forceinline__ void at(long long p, float* pos) const {
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      pos[d] = __fdiv_rn(__fsub_rn(__ldg(x + p * 3 + d), __ldg(mu + d)),
+                         __ldg(sigma + d * sigma_step));
+  }
+};
+
+// Cell and trilinear weights of a point on one dense level: the flat index
+// of corner (x0, y0, z0), wx, and pair[b][c] = round(wy_b * wz_c).
 template <typename T>
-__global__ void __launch_bounds__(BWD_THREADS)
-dense_backward_kernel(const float* __restrict__ xn, const float* __restrict__ g,
-                      long long g_stride, long long n, int F, HbrLevels lv,
+__device__ __forceinline__ long long dense_weights(const float* pos, float scale,
+                                                  int g, float* wx,
+                                                  float (*pair)[2]) {
+  int i0[3];
+  float fr[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) axis_coord(pos[d], scale, g, &i0[d], &fr[d]);
+  wx[0] = __fsub_rn(1.0f, fr[0]);
+  wx[1] = fr[0];
+  const float wy[2] = {__fsub_rn(1.0f, fr[1]), fr[1]};
+  const float wz[2] = {__fsub_rn(1.0f, fr[2]), fr[2]};
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) pair[b][c] = round_w<T>(__fmul_rn(wy[b], wz[c]));
+  return ((long long)i0[0] * g + i0[1]) * g + i0[2];
+}
+
+// grids: each level's (G, G, G, F) grid flattened, level l from offset[l] (a
+// multiple of 4).  For each x corner a: T_a = sum over the four (y, z)
+// corners, in the order (0,0), (0,1), (1,0), (1,1), of round(wy*wz) * grid,
+// then out = round(T_0*wx_0) + round(T_1*wx_1), which is dense_pallas.py's
+// pair-weight product followed by its fold over x.  A block's rows are
+// staged in shared memory (dynamic: blockDim x D*F floats) and written by
+// consecutive threads on consecutive columns, so that each row's D*F
+// columns leave in one request.
+template <typename T, int F>
+__global__ void __launch_bounds__(DENSE_FWD_THREADS)
+dense_forward_kernel(DensePoints pts, const T* __restrict__ grids,
+                     long long n, HbrLevels lv, float* __restrict__ out,
+                     long long out_stride) {
+  extern __shared__ float s_rows[];
+  const int C = lv.n_levels * F;
+  const long long p0 = (long long)blockIdx.x * blockDim.x;
+  const long long p = p0 + threadIdx.x;
+  if (p < n) {
+    float pos[3];
+    pts.at(p, pos);
+    for (int l = 0; l < lv.n_levels; ++l) {
+      const int g = lv.size[l];
+      float wx[2], pair[2][2];
+      const long long cell = dense_weights<T>(pos, lv.scale[l], g, wx, pair);
+      const T* grid = grids + lv.offset[l];
+      // the four (x, y) rows' z-pairs, all requested before any is used:
+      // v[a][b][c * F + f] is corner (x0 + a, y0 + b, z0 + c), feature f
+      float v[2][2][2 * F];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          load_span<2 * F>(grid, (cell + ((long long)a * g + b) * g) * F, v[a][b]);
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        float o = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          float t = __fmul_rn(pair[0][0], v[a][0][f]);
+          t = __fadd_rn(t, __fmul_rn(pair[0][1], v[a][0][F + f]));
+          t = __fadd_rn(t, __fmul_rn(pair[1][0], v[a][1][f]));
+          t = __fadd_rn(t, __fmul_rn(pair[1][1], v[a][1][F + f]));
+          const float folded = round_w<T>(__fmul_rn(t, wx[a]));
+          o = a == 0 ? folded : __fadd_rn(o, folded);
+        }
+        s_rows[threadIdx.x * C + l * F + f] = o;
+      }
+    }
+  }
+  __syncthreads();
+  const int np = (int)min((long long)blockDim.x, n - p0);
+  for (int i = threadIdx.x; i < np * C; i += blockDim.x)
+    out[(p0 + i / C) * out_stride + i % C] = s_rows[i];
+}
+
+// dgrids: every level's (G, G, G, F) grid flattened as in the forward,
+// zeroed by the caller.  Elements below shared_elems (whole leading levels)
+// accumulate in a block-private shared-memory copy, added to dgrids once at
+// the block's end.  g: (n, D*F) with row stride g_stride.  A unit is one
+// (run of DENSE_RUN points, level); consecutive threads take consecutive
+// units, so a warp covers 16 runs of 2 levels.
+template <typename T, int F>
+__global__ void __launch_bounds__(DENSE_BWD_THREADS)
+dense_backward_kernel(DensePoints pts, const float* __restrict__ g,
+                      long long g_stride, long long n, HbrLevels lv,
                       int shared_elems, float* __restrict__ dgrids) {
   extern __shared__ float s_acc[];
   for (int i = threadIdx.x; i < shared_elems; i += blockDim.x) s_acc[i] = 0.0f;
   __syncthreads();
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += (long long)gridDim.x * blockDim.x) {
-    const float pos[3] = {xn[p * 3], xn[p * 3 + 1], xn[p * 3 + 2]};
-    for (int l = 0; l < lv.n_levels; ++l) {
-      const int gs = lv.size[l];
-      int i0[3];
-      float fr[3];
+  const int D = lv.n_levels;
+  const long long units = (n + DENSE_RUN - 1) / DENSE_RUN * D;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x; u < units;
+       u += (long long)gridDim.x * blockDim.x) {
+    const long long run = u / D;
+    const int l = (int)(u - run * D);
+    const int gs = lv.size[l];
+    const float scale = lv.scale[l];
+    const bool sh = lv.offset[l] < shared_elems;  // a level is wholly in or out
+    float* grid = (sh ? s_acc : dgrids) + lv.offset[l];
+    // the current cell (-1: none yet) and its corners' partials, laid out
+    // as the forward's v: acc[a][b][c * F + f]
+    long long cell = -1;
+    float acc[2][2][2 * F];
 #pragma unroll
-      for (int d = 0; d < 3; ++d) axis_coord(pos[d], lv.scale[l], gs, &i0[d], &fr[d]);
-      const float wx[2] = {__fsub_rn(1.0f, fr[0]), fr[0]};
-      const float wy[2] = {__fsub_rn(1.0f, fr[1]), fr[1]};
-      const float wz[2] = {__fsub_rn(1.0f, fr[2]), fr[2]};
-      float pair[2][2];
+    for (int a = 0; a < 2; ++a)
 #pragma unroll
       for (int b = 0; b < 2; ++b)
 #pragma unroll
-        for (int c = 0; c < 2; ++c) pair[b][c] = round_w<T>(__fmul_rn(wy[b], wz[c]));
-      const long long off = lv.offset[l];
-      const bool sh = off < shared_elems;  // a level is wholly in or out
-      for (int f = 0; f < F; ++f) {
-        const float gf = round_w<T>(g[p * g_stride + l * F + f]);
+        for (int k = 0; k < 2 * F; ++k) acc[a][b][k] = 0.0f;
+
+    // one pass past the run's last point adds what is left
+    const long long p_end = min(n, (run + 1) * DENSE_RUN);
+    for (long long p = run * DENSE_RUN; p <= p_end; ++p) {
+      long long c = -1;
+      float wx[2], pair[2][2], gf[F];
+      if (p < p_end) {
+        float pos[3];
+        pts.at(p, pos);
+        c = dense_weights<T>(pos, scale, gs, wx, pair);
+        const float* gp = g + p * g_stride + l * F;
 #pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          const float da = round_w<T>(__fmul_rn(gf, wx[a]));
-          const long long xrow = (long long)(i0[0] + a) * gs;
+        for (int f = 0; f < F; ++f) gf[f] = round_w<T>(__ldg(gp + f));
+      }
+      if (c != cell) {
+        if (cell >= 0) {
 #pragma unroll
-          for (int b = 0; b < 2; ++b) {
+          for (int a = 0; a < 2; ++a)
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const long long idx = off + ((xrow + i0[1] + b) * gs + i0[2] + c) * F + f;
-              add_f32(s_acc, dgrids, sh, idx, __fmul_rn(da, pair[b][c]));
+            for (int b = 0; b < 2; ++b) {
+              const long long e = (cell + ((long long)a * gs + b) * gs) * F;
+              if (sh) {
+#pragma unroll
+                for (int k = 0; k < 2 * F; ++k)
+                  if (acc[a][b][k] != 0.0f) atomicAdd(grid + e + k, acc[a][b][k]);
+              } else {
+                add_span<2 * F>(grid, e, acc[a][b]);
+              }
+#pragma unroll
+              for (int k = 0; k < 2 * F; ++k) acc[a][b][k] = 0.0f;
             }
-          }
         }
+        cell = c;
+      }
+      if (p < p_end) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            const float da = round_w<T>(__fmul_rn(gf[f], wx[a]));
+#pragma unroll
+            for (int b = 0; b < 2; ++b)
+#pragma unroll
+              for (int k = 0; k < 2; ++k)
+                acc[a][b][k * F + f] =
+                    __fadd_rn(acc[a][b][k * F + f], __fmul_rn(da, pair[b][k]));
+          }
       }
     }
   }
   __syncthreads();
-  flush_shared(s_acc, shared_elems, dgrids);
+  for (int i = threadIdx.x; i < shared_elems; i += blockDim.x) {
+    const float v = s_acc[i];
+    if (v != 0.0f) atomicAdd(dgrids + i, v);
+  }
+}
+
+template <typename T, int F>
+static int launch_dense_forward(const DensePoints& pts, const T* grids, long long n,
+                                const HbrLevels& lv, float* out,
+                                long long out_stride, cudaStream_t s) {
+  const size_t smem = (size_t)DENSE_FWD_THREADS * lv.n_levels * F * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dense_forward_kernel<T, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned int blocks =
+      (unsigned int)((n + DENSE_FWD_THREADS - 1) / DENSE_FWD_THREADS);
+  dense_forward_kernel<T, F><<<blocks, DENSE_FWD_THREADS, smem, s>>>(
+      pts, grids, n, lv, out, out_stride);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int F>
+static int launch_dense_backward(const DensePoints& pts, const float* g,
+                                 long long g_stride, long long n,
+                                 const HbrLevels& lv, int shared_elems,
+                                 float* dgrids, cudaStream_t s) {
+  const long long units = (n + DENSE_RUN - 1) / DENSE_RUN * lv.n_levels;
+  const size_t smem = (size_t)shared_elems * sizeof(float);
+  int blocks = 0;
+  const int err = persistent_blocks(dense_backward_kernel<T, F>, DENSE_BWD_THREADS,
+                                    smem, (units + DENSE_BWD_THREADS - 1) / DENSE_BWD_THREADS,
+                                    &blocks);
+  if (err) return err;
+  dense_backward_kernel<T, F><<<blocks, DENSE_BWD_THREADS, smem, s>>>(
+      pts, g, g_stride, n, lv, shared_elems, dgrids);
+  return (int)cudaGetLastError();
+}
+
+// fn(std::integral_constant<int, F>()) for F = features, 1 to DENSE_MAX_F.
+template <typename Fn>
+static int with_features(int features, Fn fn) {
+  switch (features) {
+    case 1: return fn(std::integral_constant<int, 1>());
+    case 2: return fn(std::integral_constant<int, 2>());
+    case 3: return fn(std::integral_constant<int, 3>());
+    case 4: return fn(std::integral_constant<int, 4>());
+    case 5: return fn(std::integral_constant<int, 5>());
+    case 6: return fn(std::integral_constant<int, 6>());
+    case 7: return fn(std::integral_constant<int, 7>());
+    case 8: return fn(std::integral_constant<int, 8>());
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -593,20 +815,26 @@ int hbr_cp_forward(const float* xn, const void* lines, int bf16, long long n,
                            out, out_stride, s);
 }
 
-int hbr_dense_forward(const float* xn, const void* grids, int bf16, long long n,
+// x: (n, 3) world points, normalised in the kernel by mu (3,) and sigma
+// (one, or three with sigma_step 1).  grids: every level's (G, G, G, F) grid
+// flattened, each level from an offset that is a multiple of 4 elements; F
+// (features) from 1 to DENSE_MAX_F.  out: (n, D*F) with row stride
+// out_stride.
+int hbr_dense_forward(const float* x, const float* mu, const float* sigma,
+                      int sigma_step, const void* grids, int bf16, long long n,
                       int features, const HbrLevels* lv, float* out,
                       long long out_stride, void* stream) {
   if (n <= 0) return 0;
-  const unsigned int blocks = (unsigned int)((n + DENSE_THREADS - 1) / DENSE_THREADS);
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    dense_forward_kernel<__nv_bfloat16><<<blocks, DENSE_THREADS, 0, s>>>(
-        xn, (const __nv_bfloat16*)grids, n, features, *lv, out, out_stride);
-  } else {
-    dense_forward_kernel<float><<<blocks, DENSE_THREADS, 0, s>>>(
-        xn, (const float*)grids, n, features, *lv, out, out_stride);
-  }
-  return (int)cudaGetLastError();
+  const DensePoints pts{x, mu, sigma, sigma_step};
+  return with_features(features, [&](auto f) {
+    constexpr int F = decltype(f)::value;
+    if (bf16)
+      return launch_dense_forward<__nv_bfloat16, F>(
+          pts, (const __nv_bfloat16*)grids, n, *lv, out, out_stride, s);
+    return launch_dense_forward<float, F>(pts, (const float*)grids, n, *lv, out,
+                                          out_stride, s);
+  });
 }
 
 // lines as in hbr_cp_forward; dacc (3, total_rows, rp) f32 must be zeroed, rp
@@ -625,31 +853,26 @@ int hbr_cp_backward(const float* xn, const void* lines, int bf16, const float* g
                             rank, rpf, rp, *lv, dacc, s);
 }
 
-// dgrids (sum of G^3 * F) f32 must be zeroed; its first shared_elems
-// elements (whole leading levels) accumulate in shared memory first.
-int hbr_dense_backward(const float* xn, int bf16, const float* g,
+// x, mu, sigma as in hbr_dense_forward.  dgrids: the f32 gradient of the
+// grids in the forward's layout, zeroed by the caller; its first
+// shared_elems elements (whole leading levels) accumulate in shared memory
+// first.  g: (n, D*F) with row stride g_stride.
+int hbr_dense_backward(const float* x, const float* mu, const float* sigma,
+                       int sigma_step, int bf16, const float* g,
                        long long g_stride, long long n, int features,
                        const HbrLevels* lv, int shared_elems, float* dgrids,
                        void* stream) {
   if (n <= 0) return 0;
-  const size_t smem = (size_t)shared_elems * sizeof(float);
-  const long long tiles = (n + BWD_THREADS - 1) / BWD_THREADS;
   cudaStream_t s = (cudaStream_t)stream;
-  int blocks = 0, err = 0;
-  if (bf16) {
-    err = persistent_blocks(dense_backward_kernel<__nv_bfloat16>, BWD_THREADS, smem,
-                            tiles, &blocks);
-    if (err) return err;
-    dense_backward_kernel<__nv_bfloat16><<<blocks, BWD_THREADS, smem, s>>>(
-        xn, g, g_stride, n, features, *lv, shared_elems, dgrids);
-  } else {
-    err = persistent_blocks(dense_backward_kernel<float>, BWD_THREADS, smem, tiles,
-                            &blocks);
-    if (err) return err;
-    dense_backward_kernel<float><<<blocks, BWD_THREADS, smem, s>>>(
-        xn, g, g_stride, n, features, *lv, shared_elems, dgrids);
-  }
-  return (int)cudaGetLastError();
+  const DensePoints pts{x, mu, sigma, sigma_step};
+  return with_features(features, [&](auto f) {
+    constexpr int F = decltype(f)::value;
+    if (bf16)
+      return launch_dense_backward<__nv_bfloat16, F>(pts, g, g_stride, n, *lv,
+                                                     shared_elems, dgrids, s);
+    return launch_dense_backward<float, F>(pts, g, g_stride, n, *lv, shared_elems,
+                                           dgrids, s);
+  });
 }
 
 const char* hbr_error_string(int code) {

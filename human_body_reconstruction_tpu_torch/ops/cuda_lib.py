@@ -26,9 +26,10 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 MAX_LEVELS = 16            # HBR_MAX_LEVELS in csrc/levels.cuh
-# Shared-memory accumulator of the dense backward's coarse levels, per block:
-# at the flagship width the coarsest dense grid (47 KB), so that two blocks
-# fit on one SM.
+# Budget of the dense backward's block-private shared-memory accumulator of
+# its leading levels: at the flagship width the coarsest dense grid (47 KB,
+# four blocks an SM), where a ray's samples from every block would otherwise
+# contend for the same few L2 words.
 BWD_SHARED_BYTES = 96 * 1024
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -122,13 +123,13 @@ def library() -> ctypes.CDLL:
     lib.hbr_cp_forward.argtypes = [p, p, i, ll, i, i, i,
                                    ctypes.POINTER(HbrLevels), p, ll, p]
     lib.hbr_cp_forward.restype = i
-    lib.hbr_dense_forward.argtypes = [p, p, i, ll, i,
+    lib.hbr_dense_forward.argtypes = [p, p, p, i, p, i, ll, i,
                                       ctypes.POINTER(HbrLevels), p, ll, p]
     lib.hbr_dense_forward.restype = i
     lib.hbr_cp_backward.argtypes = [p, p, i, p, ll, ll, i, i, i, i,
                                     ctypes.POINTER(HbrLevels), p, p]
     lib.hbr_cp_backward.restype = i
-    lib.hbr_dense_backward.argtypes = [p, i, p, ll, ll, i,
+    lib.hbr_dense_backward.argtypes = [p, p, p, i, i, p, ll, ll, i,
                                        ctypes.POINTER(HbrLevels), i, p, p]
     lib.hbr_dense_backward.restype = i
     lib.hbr_hash_forward.argtypes = [p, p, p, p, p, ll, i, i,

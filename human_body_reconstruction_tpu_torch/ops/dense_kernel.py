@@ -20,7 +20,11 @@ layout (the Pallas kernel's transposed (G^2, G*F) operand is a layout of
 the TPU's matrix unit).  ``dense_encode_kernel`` and
 ``dense_encode_backward_kernel`` are the wrappers: for tensors on the CPU
 they run ``dense_encode_plain`` and ``dense_encode_plain_backward``; for
-tensors on a CUDA device they launch the kernel or raise.
+tensors on a CUDA device they launch the kernel or raise.  The kernels take
+the world points with mu and sigma and normalise them as ``normalise``
+does, and read the grids flat, each level from a multiple of
+``LEVEL_ALIGN`` elements (``_levels``, ``_flat_grids``); the backward keeps
+the leading levels that fit ``cuda_lib.BWD_SHARED_BYTES`` in shared memory.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ from human_body_reconstruction_tpu_torch.ops import cuda_lib
 from human_body_reconstruction_tpu_torch.ops.dense_grid import (
     axis_coords, corner_values, dense_grid_sizes, normalise, round_bf16)
 from human_body_reconstruction_tpu_torch.utils.config import HashConfig, level_scales
+
+LEVEL_ALIGN = 4     # elements: a grid starts 16-byte aligned in f32 and bf16
+MAX_FEATURES = 8    # DENSE_MAX_F in csrc/encoders.cu
 
 
 def _scales(cfg: HashConfig):
@@ -111,16 +118,48 @@ def _check_args(grids, x, cfg: HashConfig):
             raise ValueError(f"grids must be ({g}, {g}, {g}, {f}) on the "
                              f"points' device, got {tuple(grid.shape)} on "
                              f"{grid.device}")
+    if not 1 <= f <= MAX_FEATURES:
+        raise ValueError(f"the dense kernels take 1 to {MAX_FEATURES} "
+                         f"features a level, got {f}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dense encoder kernels: unsupported device {x.device}")
     return x.shape[0], f, cfg.dense_levels * f
 
 
 def _levels(grids, cfg: HashConfig):
-    """(level struct, element offset of each grid, total elements)."""
-    offsets = np.concatenate([[0], np.cumsum([g.numel() for g in grids])])
+    """(level struct, element offset of each grid and of the end).  Each
+    level starts on a multiple of ``LEVEL_ALIGN`` elements, so that the
+    kernels' vector loads and adds of a corner row are aligned."""
+    offsets = [0]
+    for g in grids:
+        offsets.append(offsets[-1] + -(-g.numel() // LEVEL_ALIGN) * LEVEL_ALIGN)
     lv = cuda_lib.make_levels(dense_grid_sizes(cfg), offsets[:-1], _scales(cfg))
     return lv, offsets
+
+
+def _flat_grids(grids, offsets, dtype):
+    """The grids in the kernels' flat layout (``_levels``), zeros between
+    levels, as ``dtype``."""
+    pieces = []
+    for l, g in enumerate(grids):
+        pieces.append(g.detach().reshape(-1))
+        pad = offsets[l + 1] - offsets[l] - g.numel()
+        if pad:
+            pieces.append(g.new_zeros(pad))
+    return torch.cat(pieces).to(dtype)
+
+
+def _points(x, mu, sigma):
+    """What the kernels normalise in place of ``normalise``: (x (N, 3) f32
+    contiguous, mu (3,), sigma (1,) or (3,), sigma's step between axes)."""
+    if mu.device != x.device or sigma.device != x.device:
+        raise ValueError("mu and sigma must lie on the points' device")
+    mu = mu.to(torch.float32).reshape(-1).expand(3).contiguous()
+    sigma = sigma.to(torch.float32).reshape(-1).contiguous()
+    if sigma.numel() not in (1, 3):
+        raise ValueError(f"sigma must hold 1 or 3 values, got {sigma.numel()}")
+    return (x.to(torch.float32).contiguous(), mu, sigma,
+            int(sigma.numel() == 3))
 
 
 def dense_encode_kernel(grids, x, mu, sigma, cfg: HashConfig, out=None):
@@ -140,13 +179,14 @@ def dense_encode_kernel(grids, x, mu, sigma, cfg: HashConfig, out=None):
         out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    store = torch.bfloat16 if cfg.dense_bf16 else torch.float32
-    flat = torch.cat([g.detach().reshape(-1) for g in grids]).to(store)
-    xn = normalise(x, mu, sigma).contiguous()
-    lv, _ = _levels(grids, cfg)
+    lv, offsets = _levels(grids, cfg)
+    flat = _flat_grids(grids, offsets,
+                       torch.bfloat16 if cfg.dense_bf16 else torch.float32)
+    xf, mu, sigma, step = _points(x, mu, sigma)
     code = cuda_lib.library().hbr_dense_forward(
-        xn.data_ptr(), flat.data_ptr(), int(cfg.dense_bf16), n, f,
-        lv, out.data_ptr(), out.stride(0), cuda_lib.stream_handle(x.device))
+        xf.data_ptr(), mu.data_ptr(), sigma.data_ptr(), step, flat.data_ptr(),
+        int(cfg.dense_bf16), n, f, lv, out.data_ptr(), out.stride(0),
+        cuda_lib.stream_handle(x.device))
     dense_encode_kernel.launches += 1
     cuda_lib.check(code, "hbr_dense_forward")
     return out
@@ -165,21 +205,22 @@ def dense_encode_backward_kernel(grids, x, mu, sigma, cfg: HashConfig, grad):
     if x.device.type == "cpu":
         return dense_encode_plain_backward(grids, x, mu, sigma, cfg, grad)
     lv, offsets = _levels(grids, cfg)
-    dflat = torch.zeros(int(offsets[-1]), dtype=torch.float32,
-                        device=x.device)
+    dflat = torch.zeros(offsets[-1], dtype=torch.float32, device=x.device)
     if n > 0:
-        k = cuda_lib.shared_prefix([g.numel() * 4 for g in grids],
-                                   cuda_lib.BWD_SHARED_BYTES)
-        xn = normalise(x, mu, sigma).contiguous()
+        k = cuda_lib.shared_prefix(
+            [4 * (b - a) for a, b in zip(offsets, offsets[1:])],
+            cuda_lib.BWD_SHARED_BYTES)
+        xf, mu, sigma, step = _points(x, mu, sigma)
         code = cuda_lib.library().hbr_dense_backward(
-            xn.data_ptr(), int(cfg.dense_bf16), grad.data_ptr(),
-            grad.stride(0), n, f, lv, int(offsets[k]), dflat.data_ptr(),
+            xf.data_ptr(), mu.data_ptr(), sigma.data_ptr(), step,
+            int(cfg.dense_bf16), grad.data_ptr(),
+            grad.stride(0), n, f, lv, offsets[k], dflat.data_ptr(),
             cuda_lib.stream_handle(x.device))
         dense_encode_backward_kernel.launches += 1
         cuda_lib.check(code, "hbr_dense_backward")
     if cfg.dense_bf16:
         dflat = round_bf16(dflat)
-    return [dflat[offsets[l]:offsets[l + 1]].view(g.shape)
+    return [dflat[offsets[l]:offsets[l] + g.numel()].view(g.shape)
             for l, g in enumerate(grids)]
 
 

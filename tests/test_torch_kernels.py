@@ -21,6 +21,8 @@ faults.
 """
 
 import dataclasses
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -243,8 +245,8 @@ def test_backward_kernels_match_plain(cuda_device, bf16):
 
 @pytest.mark.cuda
 def test_backward_kernels_full_width(cuda_device):
-    """The preset's tables (two CP levels and one dense grid in shared
-    memory, the rest through global atomics) and a strided gradient."""
+    """The preset's tables (the coarsest dense grid accumulating in shared
+    memory, every other add going to L2) and a strided gradient."""
     h = C.flagship_config().hash
     grids, lines, args = tables(h, cuda_device, n=200_003)
     d = h.dense_levels * h.features_per_level
@@ -560,3 +562,136 @@ def test_cp_kernels_full_width_on_ray_samples(cuda_device):
     assert grads_close(cp_kernel.cp_encode_backward_kernel,
                        cp_kernel.cp_encode_plain_backward, lines, args,
                        g[:, d:], True)
+
+
+def dense_cfg(bf16: bool, features: int = 2) -> C.HashConfig:
+    return dataclasses.replace(small_cfg(bf16), features_per_level=features)
+
+
+def test_dense_kernel_layout_pads_levels():
+    """The kernels' flat grid layout: each level from a multiple of 4
+    elements, zeros between levels; at the preset's width no padding within
+    and only the 18^3 grid in the backward's shared-memory budget; more
+    than 8 features a level refused on every device."""
+    cfg = dense_cfg(False, features=3)
+    grids, _, (x, mu, sigma, _) = tables(cfg, "cpu", n=4)
+    lv, offsets = dense_kernel._levels(grids, cfg)
+    flat = dense_kernel._flat_grids(grids, offsets, torch.float32)
+    assert all(o % dense_kernel.LEVEL_ALIGN == 0 for o in offsets)
+    assert flat.numel() == offsets[-1] and lv.n_levels == len(grids)
+    for l, g in enumerate(grids):
+        assert lv.offset[l] == offsets[l] and lv.size[l] == g.shape[0]
+        assert torch.equal(flat[offsets[l]:offsets[l] + g.numel()],
+                           g.reshape(-1))
+        assert not flat[offsets[l] + g.numel():offsets[l + 1]].any()
+    h = C.flagship_config().hash
+    grids, _, _ = tables(h, "cpu", n=4)
+    _, offsets = dense_kernel._levels(grids, h)
+    assert offsets == [0, 18 ** 3 * 2, 18 ** 3 * 2 + 35 ** 3 * 2 + 2]
+    k = cuda_lib.shared_prefix([4 * (b - a) for a, b in zip(offsets, offsets[1:])],
+                               cuda_lib.BWD_SHARED_BYTES)
+    assert k == 1
+    cfg9 = dense_cfg(False, features=9)
+    grids9, _, args9 = tables(cfg9, "cpu", n=4)
+    with pytest.raises(ValueError):
+        dense_kernel.dense_encode_kernel(grids9, *args9)
+
+
+def load_chip_smoke():
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_grid_sample_yardstick_computes_the_dense_encoding(direction):
+    """chip_smoke.py's library yardstick of the dense kernels,
+    F.grid_sample on each level's permuted volume, computes the dense
+    encoding of dense_encode_plain in f32 (dense_bf16 off) on points inside
+    the box (outside it the encoder clamps the cell and grid_sample pads
+    with zeros), and grid_sampler_3d_backward its grids' gradient: the
+    yardstick times the same work.  Tolerance 1e-5 (forward) and 1e-5 of
+    the gradient's largest entry (backward): the coordinates go through
+    u = 2 x_l / (G - 1) - 1 and back, a few f32 ulps of x_l."""
+    cs = load_chip_smoke()
+    h = dataclasses.replace(C.flagship_config().hash, dense_bf16=False)
+    n = 5000
+    grids, _, (_, mu, sigma, _) = tables(h, "cpu", n=4)
+    rng = np.random.default_rng(7)
+    xn = torch.tensor(rng.uniform(0.01, 0.99, (n, 3)), dtype=torch.float32)
+    x = mu + xn * sigma
+    if direction == "forward":
+        got = torch.cat([o.reshape(o.shape[1], -1).t() for o in
+                         cs.grid_sample_levels(cs.grid_sample_inputs(
+                             grids, x, mu, sigma, h))], 1)
+        want = dense_kernel.dense_encode_plain(grids, x, mu, sigma, h)
+        assert got.shape == want.shape == (n, 4)
+        assert max_err(got, want) <= 1e-5
+    else:
+        d = h.dense_levels * h.features_per_level
+        g = cotangent(n, h.out_dim, "cpu")[:, :d]
+        got = cs.grid_sample_backward_levels(
+            cs.grid_sample_inputs(grids, x, mu, sigma, h), g)()
+        want = dense_kernel.dense_encode_plain_backward(grids, x, mu, sigma,
+                                                        h, g)
+        for vol, w in zip(got, want):
+            vol = vol[0].permute(1, 2, 3, 0)
+            assert vol.shape == w.shape
+            assert max_err(vol, w) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["rays", "random"])
+@pytest.mark.parametrize("features", [2, 3])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dense_kernels_match_plain_on_rays_and_random(cuda_device, bf16,
+                                                      features, order):
+    """Both dense kernels against their plain versions on ray-ordered points
+    (runs of a ray's samples, so cells repeat and the backward merges its
+    adds) and on random ones; N below one run, not a multiple of a run or a
+    block; the forward into a column block of a NaN-filled wider matrix
+    (its neighbours stay NaN), the backward from a column-offset,
+    row-strided gradient.  F = 3 takes the kernels' unaligned spans."""
+    cfg = dense_cfg(bf16, features)
+    grids, _, _ = tables(cfg, cuda_device, n=4)
+    c = cfg.dense_levels * features
+    for n in (5, 1000, 20_011):
+        if order == "rays":
+            args = ray_points(n, 48, cuda_device) + (cfg,)
+        else:
+            args = tables(cfg, cuda_device, n=n, seed=n)[2]
+        g = cotangent(n, c, cuda_device, seed=n, extra=5)
+        out = torch.full((n, c + 6), float("nan"), device=cuda_device)
+        dense_kernel.dense_encode_kernel(grids, *args, out=out[:, 3:3 + c])
+        torch.cuda.synchronize()
+        assert max_err(out[:, 3:3 + c],
+                       dense_kernel.dense_encode_plain(grids, *args)) <= TOL
+        assert torch.isnan(out[:, :3]).all()
+        assert torch.isnan(out[:, 3 + c:]).all()
+        assert grads_close(dense_kernel.dense_encode_backward_kernel,
+                           dense_kernel.dense_encode_plain_backward, grids,
+                           args, g, bf16)
+
+
+@pytest.mark.cuda
+def test_dense_kernels_full_width_on_ray_samples(cuda_device):
+    """The preset's grids on 128-sample rays: the forward bit for bit into
+    the encoder's first columns, the backward within the sum-order
+    tolerance from the encoder's strided gradient block."""
+    h = C.flagship_config().hash
+    grids, _, _ = tables(h, cuda_device, n=4)
+    n = 100_003
+    args = ray_points(n, 128, cuda_device, seed=11) + (h,)
+    d = h.dense_levels * h.features_per_level
+    g = cotangent(n, h.out_dim, cuda_device, seed=5, extra=0)
+    out = torch.full((n, h.out_dim), float("nan"), device=cuda_device)
+    dense_kernel.dense_encode_kernel(grids, *args, out=out[:, :d])
+    torch.cuda.synchronize()
+    assert max_err(out[:, :d],
+                   dense_kernel.dense_encode_plain(grids, *args)) <= TOL
+    assert torch.isnan(out[:, d:]).all()
+    assert grads_close(dense_kernel.dense_encode_backward_kernel,
+                       dense_kernel.dense_encode_plain_backward, grids, args,
+                       g[:, :d], True)
