@@ -22,11 +22,15 @@
    HASH_STEPS steps, the three hash-path kernels' launch counts reset just
    before; print ms/step, rays/s, PSNR and launches.  Hold the Philox kernel
    to its plain version bit for bit (and its mean and chi^2 on the card) and
-   the hash forward and backward kernels, in both modes, to theirs at the
-   path's shapes (1,024,000 points, u of (3, 16, 1,024,000)); one stochastic
-   step on the card against the CPU from the same batch, ladder and encoder
-   uniforms; profile one step; serve the trained model exact on a 64-sample
-   ladder.
+   the hash forward (with its stochastic corner bits) and backward kernels,
+   in both modes, to theirs on the path's own points (a seeded ray batch on
+   the jittered 64-sample ladder, 1,024,000 points, each ray's samples
+   consecutive, u of (3, 16, 1,024,000)) and on as many uniform random
+   points, and the exact forward on a 16384-ray chunk of a served frame's
+   64-sample ladder; print the cells a point visits per level on the path;
+   one stochastic step on the card against the CPU from the same batch,
+   ladder and encoder uniforms; profile one step; serve the trained model
+   exact on a 64-sample ladder, the forward's launches counted.
 4. Serving: write a full-width (flagship preset) run directory in the JAX
    layout: seeded random weights, config JSON, bounds, and an occupancy
    grid whose mask is a seeded ball around the subject.  Restore it
@@ -58,11 +62,12 @@ enqueue.
 Any failure ends the run with a nonzero exit.  Output: the card's name and
 power limit, per-phase, per-request and per-kernel lines, then one JSON line
 listing the seven kernels (launches counted on the path that runs each; the
-CP and dense kernels once per shape, named for it and with a "shape" key:
+encoder kernels once per shape, named for it and with a "shape" key:
 {cp,dense}_forward/serving_path and /random, {cp,dense}_backward/
-guided_path, guided_random, unculled_path and unculled_random, with the
-launches of the phase that runs each shape), and last
-``{"ok": true, "device": {...}}``.
+guided_path, guided_random, unculled_path and unculled_random,
+hash_forward/train_path, /random and /serving_path (exact),
+hash_backward/train_path and /random, with the launches of the phase that
+runs each shape), and last ``{"ok": true, "device": {...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
 """
@@ -98,7 +103,7 @@ STEP_GRAD_RTOL = 1e-2           # per group, ||card - cpu|| / ||cpu||
 SOURCE = "human_body_reconstruction_tpu_torch/csrc/encoders.cu"
 HASH_STEPS = 150
 HASH_POINTS = 16000 * 64        # one step of the hash path: rays x samples
-HASH_TOL = 1e-6                 # hash forward vs plain (both modes)
+HASH_RUN = 16                   # points a hash backward thread merges (csrc/hash.cu)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak
 F32_OPS_PER_S = 67e12           # non-tensor f32
 INT32_OPS_PER_S = F32_OPS_PER_S / 2
@@ -287,22 +292,51 @@ def training_path_points(trainer, device):
             for name, t in (("guided", guided), ("unculled", ladder))}
 
 
-def serving_chunk_points(server, device, samples: int = 128):
-    """The points of one 16384-ray chunk of a 400x400 frame on the
-    ``samples`` ladder (the frame's fifth chunk, through its middle rows),
-    ray-major, as the server encodes them."""
-    from human_body_reconstruction_tpu_torch.data.synthetic import orbit_poses
+def serving_chunk_points(r, K, c2w, device, samples: int):
+    """The points of one 16384-ray chunk of a 400x400 frame seen through K
+    from c2w on the ``samples`` ladder of render config ``r`` (the frame's
+    fifth chunk, through its middle rows), ray-major, as the server encodes
+    them."""
     from human_body_reconstruction_tpu_torch.ops import rays, sampling
 
-    r = server.base_cfg.render
-    K = torch.tensor([[400.0, 0, 200.0], [0, 400.0, 200.0], [0, 0, 1]],
-                     device=device)
-    o, d, _ = rays.full_image_rays(400, 400, K, torch.as_tensor(
-        orbit_poses(4)[0], device=device))
+    o, d, _ = rays.full_image_rays(400, 400, torch.as_tensor(K, device=device),
+                                   torch.as_tensor(c2w, device=device))
     o, d = o[4 * 16384:5 * 16384], d[4 * 16384:5 * 16384]
     t = sampling.stratified_ts((o.shape[0],), r.near, r.far, samples,
                                r.log_sampling, device)
     return (o[:, None, :] + d[:, None, :] * t[..., None]).reshape(-1, 3)
+
+
+def hash_path_points(trainer, device):
+    """The points a hash-grid training step encodes: one seeded ray batch
+    (16000 rays) on the jittered 64-sample ladder, ray-major as
+    ``render_rays`` flattens them (a ray's samples consecutive)."""
+    from human_body_reconstruction_tpu_torch.ops import sampling
+    from human_body_reconstruction_tpu_torch.train import step
+
+    cfg, r, ds = trainer.cfg, trainer.cfg.render, trainer.ds
+    gen = torch.Generator(device).manual_seed(SEED + 8)
+    o, d = step.sample_ray_batch(ds["images"], ds["c2ws"], ds["K"],
+                                 cfg.train.ray_batch, gen)[:2]
+    t = sampling.stratified_ts((o.shape[0],), r.near, r.far, r.num_samples,
+                               r.log_sampling, device, jitter=True,
+                               per_ray_jitter=r.per_ray_jitter, generator=gen)
+    return (o[:, None, :] + d[:, None, :] * t[..., None]).reshape(-1, 3)
+
+
+def cells_per_point(pts, scene, scales, run: int):
+    """Per level, the cells that the backward's runs of ``run`` consecutive
+    points visit, per point: 1.0 when every point enters a new cell; run
+    merging leaves this share of the corner adds."""
+    xn = (pts - scene["mu"]) / scene["sigma"]
+    first = torch.arange(pts.shape[0], device=pts.device) % run == 0
+    out = []
+    for s in scales:
+        c = torch.floor(xn * float(s))
+        new = first.clone()
+        new[1:] |= (c[1:] != c[:-1]).any(-1)
+        out.append(float(new.float().mean()))
+    return out
 
 
 def grid_sample_inputs(grids, x, mu, sigma, cfg):
@@ -632,13 +666,20 @@ def train_hash_grid(run_dir: str, ds, device: torch.device, tag: str):
     return trainer, launches
 
 
-def hash_kernel_checks(trainer, device, tag):
+def hash_kernel_checks(trainer, device, tag, train_pts, serve_pts):
     """The Philox kernel bit for bit, and the hash forward and backward
-    kernels in both modes, against their plain versions at the path's
-    shapes.  Returns one report entry per kernel (times of the stochastic
-    mode, which the training path runs; the error over both modes)."""
+    kernels against their plain versions on three point sets: the training
+    path's (``hash_path_points``), as many uniform random points, and a
+    served frame's chunk (exact forward only, the serving path's one
+    kernel).  The forward and the stochastic corner bits bit for bit, the
+    backward (stochastic from the kernel's bits) within the sum-order
+    tolerance.  Returns {record name: (max_abs_err, ms, plain_ms, library_ms,
+    bound)}: uniform_bits, and the hash kernels per point set in the path's
+    mode (stochastic on training and random points, exact serving), the
+    error over both modes."""
     from human_body_reconstruction_tpu_torch.ops import (
         cuda_lib, hash_kernel, rng_kernel)
+    from human_body_reconstruction_tpu_torch.utils.config import fine_scales
 
     h, scene = trainer.cfg.hash, trainer.scene
     table = trainer.state.field.table.detach()
@@ -664,6 +705,7 @@ def hash_kernel_checks(trainer, device, tag):
         plain_ms = time_ms(lambda: rng_kernel.uniform_plain(seed, shape),
                            reps=5)
         lib_ms = time_ms(lambda: torch.rand(shape, device=device))
+        del bits
     bnd = bound(nbytes(seed, u), m * 28, INT32_OPS_PER_S)
     print(f"kernel uniform_bits: {m} values, bit for bit {same}, mean "
           f"{mean:.6f} (|mean - 0.5| bound {6 / math.sqrt(12 * m):.2e}), "
@@ -675,51 +717,81 @@ def hash_kernel_checks(trainer, device, tag):
           and chi2 < 255 + 6 * math.sqrt(510), ("Philox mean, chi2", mean, chi2))
     out["uniform_bits"] = (0.0, ms, plain_ms, lib_ms, bnd)
 
+    check(train_pts.shape == (n, 3), ("hash train path", train_pts.shape))
+    visits = cells_per_point(train_pts, scene, fine_scales(h), HASH_RUN)
+    print("hash train path: cells a point visits per level (runs of "
+          f"{HASH_RUN}), levels 0-{L - 1}: "
+          + " ".join(f"{v:.3f}" for v in visits)
+          + f"; mean {sum(visits) / L:.3f}")
     g = torch.randn((n, L * F + 3), generator=gen, device=device)[:, 3:]
-    a = (table, pts, scene["mu"], scene["sigma"], h)
-    res = {}
-    for mode, uu in (("exact", None), ("stochastic", u)):
-        ops_f = n * L * (15 + (8 * (10 + 2 * F) if uu is None else 11))
-        with torch.no_grad():
-            got = hash_kernel.hash_encode_kernel(*a, u=uu)
-            want = hash_kernel.hash_encode_plain(*a, u=uu)
-            torch.cuda.synchronize()
-            err_f = float((got - want).abs().max())
-            check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
-                  "hash forward output finite, of the plain version's shape")
-            ms_f = time_ms(lambda: hash_kernel.hash_encode_kernel(*a, u=uu))
-            plain_f = time_ms(lambda: hash_kernel.hash_encode_plain(*a, u=uu),
-                              reps=5)
-            ins = (pts, table) + (() if uu is None else (uu,))
-            bnd_f = bound(nbytes(*ins, got), ops_f)
-            gb = hash_kernel.hash_encode_backward_kernel(*a, g, u=uu)
-            want_b = hash_kernel.hash_encode_plain_backward(*a, g, u=uu)
-            abs_sum = hash_kernel.hash_encode_plain_backward(*a, g.abs(), u=uu)
-            torch.cuda.synchronize()
-            err_b = float((gb - want_b).abs().max())
-            ratio = float(((gb - want_b).abs() / cuda_lib.sum_order_tolerance(
-                want_b, abs_sum, False)).max())
-            ms_b = time_ms(lambda: hash_kernel.hash_encode_backward_kernel(
-                *a, g, u=uu))
-            plain_b = time_ms(lambda: hash_kernel.hash_encode_plain_backward(
-                *a, g, u=uu), reps=5)
-            bnd_b = bound(nbytes(pts, g, gb, *ins[2:]), ops_f + n * L * F)
-        print(f"kernel hash_forward ({mode}): {n} points, out "
-              f"{tuple(got.shape)}, max_abs_err {err_f:.3e} (tol "
-              f"{HASH_TOL:g}), {ms_f:.4f} ms vs plain {plain_f:.4f} ms, bound "
-              f"{bnd_f[0]:.4f} ms ({bnd_f[1]}) {tag}")
-        print(f"kernel hash_backward ({mode}): {n} points, max_abs_err "
-              f"{err_b:.3e}, worst |err| / tolerance {ratio:.3f} (tol 1), "
-              f"{ms_b:.4f} ms vs plain {plain_b:.4f} ms, bound {bnd_b[0]:.4f} "
-              f"ms ({bnd_b[1]}) {tag}")
-        check(err_f <= HASH_TOL, ("hash_forward", mode, err_f))
-        check(bool(torch.isfinite(gb).all()) and ratio <= 1.0,
-              ("hash_backward", mode, err_b, ratio))
-        res[mode] = ((err_f, ms_f, plain_f, None, bnd_f),
-                     (err_b, ms_b, plain_b, None, bnd_b))
-    for i, nm in enumerate(("hash_forward", "hash_backward")):
-        err = max(r[i][0] for r in res.values())
-        out[nm] = (err,) + res["stochastic"][i][1:]
+    for kind, at in (("train_path", train_pts), ("random", pts),
+                     ("serving_path", serve_pts)):
+        a = (table, at, scene["mu"], scene["sigma"], h)
+        xa = (at - scene["mu"]) / scene["sigma"]
+        outside = float(((xa < 0) | (xa > 1)).any(-1).float().mean())
+        errs, rec = [], {}
+        for mode in (("exact",) if kind == "serving_path"
+                     else ("exact", "stochastic")):
+            stoch = mode == "stochastic"
+            uu = u if stoch else None
+            ops_f = at.shape[0] * L * (15 + (11 if stoch else 8 * (10 + 2 * F)))
+            with torch.no_grad():
+                got = hash_kernel.hash_encode_kernel(*a, u=uu)
+                want = hash_kernel.hash_encode_plain(*a, u=uu)
+                torch.cuda.synchronize()
+                (feats, cb), (wf, wb) = ((got, want) if stoch
+                                         else ((got, None), (want, None)))
+                same = torch.equal(feats, wf) and (not stoch
+                                                   or torch.equal(cb, wb))
+                err_f = float((feats - wf).abs().max())
+                check(bool(torch.isfinite(feats).all()),
+                      "hash forward output finite")
+                ms_f = time_ms(lambda: hash_kernel.hash_encode_kernel(*a, u=uu))
+                plain_f = time_ms(lambda: hash_kernel.hash_encode_plain(*a, u=uu),
+                                  reps=3)
+                bnd_f = bound(nbytes(at, table, feats, *((uu, cb) if stoch
+                                                         else ())), ops_f)
+            print(f"kernel hash_forward ({mode}): {at.shape[0]} {kind} points "
+                  f"({outside:.3f} outside the box), out {tuple(feats.shape)}"
+                  f"{', bits ' + str(tuple(cb.shape)) if stoch else ''}, bit "
+                  f"for bit {same} (max_abs_err {err_f:.3e}), {ms_f:.4f} ms vs "
+                  f"plain {plain_f:.4f} ms, bound {bnd_f[0]:.4f} ms "
+                  f"({bnd_f[1]}) {tag}")
+            check(same, ("hash_forward bit for bit", kind, mode, err_f))
+            errs.append(err_f)
+            rec["hash_forward"] = (max(errs), ms_f, plain_f, None, bnd_f)
+            if kind == "serving_path":
+                continue
+            with torch.no_grad():
+                gb = hash_kernel.hash_encode_backward_kernel(*a, g, bits=cb)
+                want_b = hash_kernel.hash_encode_plain_backward(*a, g,
+                                                                bits=wb)
+                abs_sum = hash_kernel.hash_encode_plain_backward(
+                    *a, g.abs(), bits=wb)
+                torch.cuda.synchronize()
+                err_b = float((gb - want_b).abs().max())
+                ratio = float(((gb - want_b).abs()
+                               / cuda_lib.sum_order_tolerance(
+                                   want_b, abs_sum, False)).max())
+                ms_b = time_ms(lambda: hash_kernel.hash_encode_backward_kernel(
+                    *a, g, bits=cb))
+                plain_b = time_ms(
+                    lambda: hash_kernel.hash_encode_plain_backward(
+                        *a, g, bits=wb), reps=3)
+                bnd_b = bound(nbytes(at, g, gb, *((cb,) if stoch else ())),
+                              ops_f + at.shape[0] * L * F)
+            print(f"kernel hash_backward ({mode}): {at.shape[0]} {kind} "
+                  f"points{', from the bits' if stoch else ''}, max_abs_err "
+                  f"{err_b:.3e}, worst |err| / tolerance {ratio:.3f} (tol 1), "
+                  f"{ms_b:.4f} ms vs plain {plain_b:.4f} ms, bound "
+                  f"{bnd_b[0]:.4f} ms ({bnd_b[1]}) {tag}")
+            check(bool(torch.isfinite(gb).all()) and ratio <= 1.0,
+                  ("hash_backward", kind, mode, err_b, ratio))
+            prev = rec.get("hash_backward", (0.0,))[0]
+            rec["hash_backward"] = (max(prev, err_b), ms_b, plain_b, None,
+                                    bnd_b)
+        for nm, r in rec.items():
+            out[f"{nm}/{kind}"] = r
     return out
 
 
@@ -779,8 +851,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from human_body_reconstruction_tpu_torch.cli import serve
+    from human_body_reconstruction_tpu_torch.data.synthetic import orbit_poses
     from human_body_reconstruction_tpu_torch.ops import (
-        cp_kernel, cuda_lib, dense_kernel)
+        cp_kernel, cuda_lib, dense_kernel, hash_kernel)
     from human_body_reconstruction_tpu_torch.train import step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -811,10 +884,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as hash_dir:
         trainer, hash_launches = train_hash_grid(hash_dir, ds, device, tag)
-        hash_report = hash_kernel_checks(trainer, device, tag)
+        hash_report = hash_kernel_checks(
+            trainer, device, tag, hash_path_points(trainer, device),
+            serving_chunk_points(trainer.cfg.render, ds["K"], ds["c2ws"][1],
+                                 device, 64))
         hash_step_on_card_vs_cpu(trainer, ds, device)
         profile_step(trainer, "stochastic hash", tag)
+        hash_kernel.hash_encode_kernel.launches = 0
+        torch.cuda.synchronize()
         serve_trained(trainer, ds, hash_dir, 64, tag)
+        torch.cuda.synchronize()
+        hash_launches["hash_forward/serving_path"] = (
+            hash_kernel.hash_encode_kernel.launches)
+        print("launches while serving the trained hash model (exact "
+              f"forward): {hash_launches['hash_forward/serving_path']}")
+        check(hash_launches["hash_forward/serving_path"] > 0,
+              "the served hash frames went through the forward kernel")
         del trainer, ds
     torch.cuda.empty_cache()
 
@@ -878,7 +963,9 @@ def main() -> int:
     gen = torch.Generator(device).manual_seed(SEED + 2)
     xn = torch.rand((N_POINTS, 3), generator=gen, device=device) * 1.5 - 0.25
     pts = scene["mu"] + xn * scene["sigma"]
-    chunk = serving_chunk_points(server, device)
+    chunk = serving_chunk_points(
+        cfg.render, [[400.0, 0, 200.0], [0, 400.0, 200.0], [0, 0, 1]],
+        orbit_poses(4)[0], device, 128)
     check(chunk.shape == (N_POINTS, 3), ("serving chunk", chunk.shape))
     report = []
     h = cfg.hash
@@ -952,21 +1039,35 @@ def main() -> int:
                 phase_launches[phase][nm], err, ms, plain_ms, lib_ms, bnd,
                 f"{n} {'path' if kind == 'path' else 'uniform random'} points "
                 f"of a {phase} step; launches in the {phase} training steps"))
-    for nm, source, replaces in (
-            ("uniform_bits", "human_body_reconstruction_tpu_torch/csrc/rng.cu",
-             "human_body_reconstruction_tpu/ops/pallas_rng.py:30"),
-            ("hash_forward", "human_body_reconstruction_tpu_torch/csrc/hash.cu",
-             "none (no TPU kernel: human_body_reconstruction_tpu/ops/"
-             "hash_encoding.py:232,259 gather in jnp)"),
-            ("hash_backward", "human_body_reconstruction_tpu_torch/csrc/hash.cu",
-             "none (no TPU kernel: the autodiff scatter of human_body_"
-             "reconstruction_tpu/ops/hash_encoding.py:232,259)")):
-        report.append(entry(nm, source, replaces, hash_launches[nm],
-                            *hash_report[nm]))
+    report.append(entry(
+        "uniform_bits", "human_body_reconstruction_tpu_torch/csrc/rng.cu",
+        "human_body_reconstruction_tpu/ops/pallas_rng.py:30",
+        hash_launches["uniform_bits"], *hash_report["uniform_bits"]))
+    hash_src = "human_body_reconstruction_tpu_torch/csrc/hash.cu"
+    shapes = {"train_path": f"{HASH_POINTS} points of a hash-grid training "
+                            "step's ray batch, stochastic; launches in the "
+                            "timed hash training steps",
+              "random": f"{HASH_POINTS} uniform random points, stochastic; "
+                        "launches in the timed hash training steps",
+              "serving_path": f"{16384 * 64} points: a 16384-ray chunk of a "
+                              "served 400x400 frame's 64-sample ladder, "
+                              "exact; launches while serving the trained "
+                              "hash model"}
+    for nm, replaces in (
+            ("hash_forward", "none (no TPU kernel: human_body_reconstruction_"
+             "tpu/ops/hash_encoding.py:232,259 gather in jnp)"),
+            ("hash_backward", "none (no TPU kernel: the autodiff scatter of "
+             "human_body_reconstruction_tpu/ops/hash_encoding.py:232,259)")):
+        for kind, shape in shapes.items():
+            key = f"{nm}/{kind}"
+            if key in hash_report:
+                report.append(entry(
+                    key, hash_src, replaces,
+                    hash_launches.get(key, hash_launches[nm]),
+                    *hash_report[key], shape))
 
     # a whole frame through the kernels (card) vs the plain versions (CPU)
     K = torch.tensor([[185.0, 0, 64.0], [0, 185.0, 64.0], [0, 0, 1]])
-    from human_body_reconstruction_tpu_torch.data.synthetic import orbit_poses
 
     c2w = torch.as_tensor(orbit_poses(4)[3])
     frame_cfg = server._cfg_for(64)

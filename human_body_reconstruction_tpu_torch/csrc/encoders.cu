@@ -432,25 +432,6 @@ cp_backward_kernel(const float* __restrict__ xn, const T* __restrict__ lines,
 // (index_add_).  Every multiply and add is an _rn intrinsic.  With bf16 = 0
 // nothing is rounded.
 
-template <typename K>
-static int persistent_blocks(K kernel, int threads, size_t smem,
-                             long long work_blocks, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                      smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long cap = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  *blocks = (int)(work_blocks < cap ? work_blocks : cap);
-  return 0;
-}
-
 constexpr int DENSE_FWD_THREADS = 256;
 constexpr int DENSE_BWD_THREADS = 256;
 constexpr int DENSE_RUN = 16;    // consecutive points a backward thread walks
@@ -526,22 +507,6 @@ __device__ __forceinline__ void add_span(float* base, long long e, const float* 
   }
 }
 
-// World points and the box that normalises them, xn = (x - mu) / sigma per
-// axis with the same two rounded operations as ops/dense_grid.normalise
-// (sigma_step 0: one sigma for every axis).
-struct DensePoints {
-  const float* x;      // (n, 3)
-  const float* mu;     // (3,)
-  const float* sigma;  // (1,) or (3,)
-  int sigma_step;
-  __device__ __forceinline__ void at(long long p, float* pos) const {
-#pragma unroll
-    for (int d = 0; d < 3; ++d)
-      pos[d] = __fdiv_rn(__fsub_rn(__ldg(x + p * 3 + d), __ldg(mu + d)),
-                         __ldg(sigma + d * sigma_step));
-  }
-};
-
 // Cell and trilinear weights of a point on one dense level: the flat index
 // of corner (x0, y0, z0), wx, and pair[b][c] = round(wy_b * wz_c).
 template <typename T>
@@ -573,7 +538,7 @@ __device__ __forceinline__ long long dense_weights(const float* pos, float scale
 // columns leave in one request.
 template <typename T, int F>
 __global__ void __launch_bounds__(DENSE_FWD_THREADS)
-dense_forward_kernel(DensePoints pts, const T* __restrict__ grids,
+dense_forward_kernel(WorldPoints pts, const T* __restrict__ grids,
                      long long n, HbrLevels lv, float* __restrict__ out,
                      long long out_stride) {
   extern __shared__ float s_rows[];
@@ -626,7 +591,7 @@ dense_forward_kernel(DensePoints pts, const T* __restrict__ grids,
 // units, so a warp covers 16 runs of 2 levels.
 template <typename T, int F>
 __global__ void __launch_bounds__(DENSE_BWD_THREADS)
-dense_backward_kernel(DensePoints pts, const float* __restrict__ g,
+dense_backward_kernel(WorldPoints pts, const float* __restrict__ g,
                       long long g_stride, long long n, HbrLevels lv,
                       int shared_elems, float* __restrict__ dgrids) {
   extern __shared__ float s_acc[];
@@ -710,7 +675,7 @@ dense_backward_kernel(DensePoints pts, const float* __restrict__ g,
 }
 
 template <typename T, int F>
-static int launch_dense_forward(const DensePoints& pts, const T* grids, long long n,
+static int launch_dense_forward(const WorldPoints& pts, const T* grids, long long n,
                                 const HbrLevels& lv, float* out,
                                 long long out_stride, cudaStream_t s) {
   const size_t smem = (size_t)DENSE_FWD_THREADS * lv.n_levels * F * sizeof(float);
@@ -728,7 +693,7 @@ static int launch_dense_forward(const DensePoints& pts, const T* grids, long lon
 }
 
 template <typename T, int F>
-static int launch_dense_backward(const DensePoints& pts, const float* g,
+static int launch_dense_backward(const WorldPoints& pts, const float* g,
                                  long long g_stride, long long n,
                                  const HbrLevels& lv, int shared_elems,
                                  float* dgrids, cudaStream_t s) {
@@ -742,22 +707,6 @@ static int launch_dense_backward(const DensePoints& pts, const float* g,
   dense_backward_kernel<T, F><<<blocks, DENSE_BWD_THREADS, smem, s>>>(
       pts, g, g_stride, n, lv, shared_elems, dgrids);
   return (int)cudaGetLastError();
-}
-
-// fn(std::integral_constant<int, F>()) for F = features, 1 to DENSE_MAX_F.
-template <typename Fn>
-static int with_features(int features, Fn fn) {
-  switch (features) {
-    case 1: return fn(std::integral_constant<int, 1>());
-    case 2: return fn(std::integral_constant<int, 2>());
-    case 3: return fn(std::integral_constant<int, 3>());
-    case 4: return fn(std::integral_constant<int, 4>());
-    case 5: return fn(std::integral_constant<int, 5>());
-    case 6: return fn(std::integral_constant<int, 6>());
-    case 7: return fn(std::integral_constant<int, 7>());
-    case 8: return fn(std::integral_constant<int, 8>());
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 template <typename T>
@@ -826,7 +775,7 @@ int hbr_dense_forward(const float* x, const float* mu, const float* sigma,
                       long long out_stride, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const DensePoints pts{x, mu, sigma, sigma_step};
+  const WorldPoints pts{x, mu, sigma, sigma_step};
   return with_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
     if (bf16)
@@ -864,7 +813,7 @@ int hbr_dense_backward(const float* x, const float* mu, const float* sigma,
                        void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const DensePoints pts{x, mu, sigma, sigma_step};
+  const WorldPoints pts{x, mu, sigma, sigma_step};
   return with_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
     if (bf16)

@@ -133,7 +133,7 @@ def library() -> ctypes.CDLL:
                                        ctypes.POINTER(HbrLevels), i, p, p]
     lib.hbr_dense_backward.restype = i
     lib.hbr_hash_forward.argtypes = [p, p, p, p, p, ll, i, i,
-                                     ctypes.POINTER(HbrLevels), p, ll, p]
+                                     ctypes.POINTER(HbrLevels), p, ll, p, p]
     lib.hbr_hash_forward.restype = i
     lib.hbr_hash_backward.argtypes = [p, p, p, p, p, ll, ll, i, i,
                                       ctypes.POINTER(HbrLevels), p, p]

@@ -11,10 +11,12 @@ feature matrix, and its backward hands the matching column blocks of the
 incoming gradient to the backward kernel wrappers.  The wrappers run the
 plain versions for tensors on the CPU and launch the CUDA kernels for
 tensors on a CUDA device.  The forward saves only the points, the scene
-normalisation, the tables and, in stochastic mode, the uniforms; the
-backward recomputes the per-axis lerps and the picked rows instead of
-keeping them (the (3, N, C) CP products are 1.15 GB at 768k points).
-Positions get no gradient.
+normalisation, the tables and, in stochastic mode, the picked corners'
+offset bits, uint8 (L, N), which the hash forward writes beside its
+features; the uniforms are not kept (197 MB against the bits' 16 MB at the
+hash path's 1,024,000 points).  The backward recomputes the per-axis lerps
+and the cells instead of keeping them (the (3, N, C) CP products are 1.15
+GB at 768k points).  Positions get no gradient.
 
 The hashed levels run exact (8 corners, ops/hash_kernel.py) or, when
 training with ``stochastic``, the single-corner estimator driven by
@@ -107,16 +109,18 @@ class _Encode(torch.autograd.Function):
         if lines:
             cp_kernel.cp_encode_kernel(lines, x, mu, sigma, cfg,
                                        out=out[:, d_dense:])
+        bits = None
         if table:
-            hash_kernel.hash_encode_kernel(table[0], x, mu, sigma, cfg, u,
-                                           out=out[:, d_dense:])
-        ctx.save_for_backward(x, mu, sigma, u, *tables)
+            res = hash_kernel.hash_encode_kernel(table[0], x, mu, sigma, cfg,
+                                                 u, out=out[:, d_dense:])
+            bits = None if u is None else res[1]
+        ctx.save_for_backward(x, mu, sigma, bits, *tables)
         ctx.cfg, ctx.n_dense, ctx.n_lines = cfg, n_dense, n_lines
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        x, mu, sigma, u, *tables = ctx.saved_tensors
+        x, mu, sigma, bits, *tables = ctx.saved_tensors
         cfg, n_dense, n_lines = ctx.cfg, ctx.n_dense, ctx.n_lines
         d_dense = n_dense * cfg.features_per_level
         grids = tables[:n_dense]
@@ -135,7 +139,7 @@ class _Encode(torch.autograd.Function):
                 lines, x, mu, sigma, cfg, grad[:, d_dense:])
         if table and need[-1]:
             g_rest = [hash_kernel.hash_encode_backward_kernel(
-                table[0], x, mu, sigma, cfg, grad[:, d_dense:], u)]
+                table[0], x, mu, sigma, cfg, grad[:, d_dense:], bits)]
         return (None,) * 7 + (*g_grids, *g_rest)
 
 

@@ -25,8 +25,11 @@ int64; only its low 32 bits matter.  Positions get no gradient.
 ``hash_encode_kernel`` and ``hash_encode_backward_kernel`` are the wrappers:
 for tensors on the CPU they run ``hash_encode_plain`` and
 ``hash_encode_plain_backward``; for tensors on a CUDA device they launch the
-kernel or raise.  The stochastic backward recomputes the picked rows from u
-instead of saving an (L, N) index.
+kernel or raise.  The stochastic forward also returns the picked corners'
+offset bits, a uint8 (L, N) array with bit d of ``bits[l, n]`` set when
+``u[d, l, n] < frac_d``; the stochastic backward reads those bits (16 MB at
+the hash path's 1,024,000 points) instead of u (197 MB), so the autograd
+Function keeps the bits and lets u go after the forward.
 """
 
 from __future__ import annotations
@@ -40,10 +43,9 @@ from human_body_reconstruction_tpu_torch.utils.config import HashConfig, fine_sc
 # Instant-NGP spatial-hash primes (JAX ops/hash_encoding.py PRIMES).
 PRIMES = (1, 2654435761, 805459861)
 MASK32 = 0xFFFFFFFF
-# A block's shared-memory tile is 64 points x (L*F + 1) f32 (csrc/hash.cu
-# HASH_POINTS); 48 KB holds L*F up to 191.  The exact sum keeps up to
-# HASH_MAX_F features a level in registers.
-MAX_COLUMNS = 191
+# The kernels are built for 1 to 8 features a level (csrc/levels.cuh
+# with_features); a forward block stages 128 points x (L*F + 1) f32 rows,
+# at most 66 KB at 16 levels of 8.
 MAX_FEATURES = 8
 
 
@@ -78,59 +80,73 @@ def _corner_weight(frac, off):
 _OFFSETS = [tuple((c >> d) & 1 for d in range(3)) for c in range(8)]
 
 
-def _level_terms(xn, cfg: HashConfig, u=None):
-    """Per level: [(flat row index into (L*T) (N,), weight (N,) or None)],
-    one entry per corner (exact) or the picked corner (stochastic)."""
+def _level_terms(xn, cfg: HashConfig, u=None, bits=None):
+    """Per level: ([(flat row index into (L*T) (N,), weight (N,) or None)],
+    picked offset bits (N,) int64 or None): one term per corner (exact) or
+    the picked corner's (stochastic: from ``bits`` (L, N) when given, else
+    from u (3, L, N))."""
     T = cfg.table_size
     out = []
     for l, scale in enumerate(fine_scales(cfg)):
         x0, frac = level_coords(xn, float(scale))
-        if u is None:
+        if u is None and bits is None:
             terms = []
             for off in _OFFSETS:
                 rows = hash_rows(x0 + torch.tensor(off, device=xn.device), T)
                 terms.append((rows + l * T, _corner_weight(frac, off)))
+            out.append((terms, None))
+            continue
+        if bits is None:
+            up = (u[:, l, :].t() < frac).long()                 # (N, 3)
+            picked = up[:, 0] | (up[:, 1] << 1) | (up[:, 2] << 2)
         else:
-            bits = (u[:, l, :].t() < frac).long()
-            terms = [(hash_rows(x0 + bits, T) + l * T, None)]
-        out.append(terms)
+            picked = bits[l].long()
+            up = torch.stack([(picked >> d) & 1 for d in range(3)], dim=-1)
+        out.append(([(hash_rows(x0 + up, T) + l * T, None)], picked))
     return out
 
 
 def hash_encode_plain(table, x, mu, sigma, cfg: HashConfig, u=None):
-    """(N, 3) world points -> (N, L*F) f32 features of the hashed levels;
-    exact, or stochastic given u (3, L, N)."""
+    """(N, 3) world points -> (N, L*F) f32 features of the hashed levels
+    (exact), or, given u (3, L, N), (features, the picked corners' offset
+    bits, uint8 (L, N)) (stochastic)."""
     L, T, F = table.shape
     flat = table.reshape(L * T, F).to(torch.float32)
-    cols = []
-    for terms in _level_terms(normalise(x, mu, sigma), cfg, u):
+    cols, picked = [], []
+    for terms, bits in _level_terms(normalise(x, mu, sigma), cfg, u):
         if u is not None:
             cols.append(flat[terms[0][0]])
+            picked.append(bits)
             continue
         acc = torch.zeros((x.shape[0], F), dtype=torch.float32,
                           device=x.device)
         for rows, w in terms:
             acc = acc + flat[rows] * w[:, None]
         cols.append(acc)
-    return torch.cat(cols, dim=-1)
+    feats = torch.cat(cols, dim=-1)
+    if u is None:
+        return feats
+    return feats, torch.stack(picked).to(torch.uint8)
 
 
 def hash_encode_plain_backward(table, x, mu, sigma, cfg: HashConfig, grad,
-                               u=None):
+                               u=None, bits=None):
     """Gradient of ``hash_encode_plain`` w.r.t. the table, given the
-    gradient ``grad`` (N, L*F) of its output.  Returns an f32 (L, T, F)
-    tensor.  The table's values are not read (the encoding is linear in
-    them); only its shape is."""
+    gradient ``grad`` (N, L*F) of its output; stochastic given the picked
+    corners' ``bits`` (L, N) or the uniforms u they came from.  Returns an
+    f32 (L, T, F) tensor.  The table's values are not read (the encoding is
+    linear in them); only its shape is."""
     L, T, F = table.shape
     dflat = torch.zeros((L * T, F), dtype=torch.float32, device=x.device)
-    for l, terms in enumerate(_level_terms(normalise(x, mu, sigma), cfg, u)):
+    for l, (terms, _) in enumerate(_level_terms(normalise(x, mu, sigma), cfg,
+                                                u, bits)):
         gl = grad[:, l * F:(l + 1) * F]
         for rows, w in terms:
             dflat.index_add_(0, rows, gl if w is None else gl * w[:, None])
     return dflat.reshape(L, T, F)
 
 
-def _check_args(table, x, cfg: HashConfig, u):
+def _check_args(table, x, cfg: HashConfig, u=None, bits=None):
     """Shapes and devices the kernels rely on; returns (n, L*F)."""
     want = (cfg.num_hashed_levels, cfg.table_size, cfg.features_per_level)
     if cfg.dim != 3 or tuple(table.shape) != want:
@@ -142,24 +158,26 @@ def _check_args(table, x, cfg: HashConfig, u):
         raise ValueError(f"the table must be float32 on the points' device, "
                          f"got {table.dtype} on {table.device}")
     n, c = x.shape[0], want[0] * want[2]
-    if u is not None and (tuple(u.shape) != (3, want[0], n)
-                          or u.device != x.device or u.dtype != torch.float32):
-        raise ValueError(f"u must be float32 (3, {want[0]}, {n}) on the "
-                         f"points' device, got {u.dtype} {tuple(u.shape)} on "
-                         f"{u.device}")
-    if (want[0] > cuda_lib.MAX_LEVELS or want[2] > MAX_FEATURES
-            or c > MAX_COLUMNS):
+    for name, v, dtype, shape in (("u", u, torch.float32, (3, want[0], n)),
+                                  ("bits", bits, torch.uint8, (want[0], n))):
+        if v is not None and (tuple(v.shape) != shape or v.device != x.device
+                              or v.dtype != dtype):
+            raise ValueError(f"{name} must be {dtype} {shape} on the points' "
+                             f"device, got {v.dtype} {tuple(v.shape)} on "
+                             f"{v.device}")
+    if want[0] > cuda_lib.MAX_LEVELS or want[2] > MAX_FEATURES:
         raise ValueError(f"{want[0]} hashed levels of {want[2]} features; the "
-                         f"kernels take at most {cuda_lib.MAX_LEVELS} levels, "
-                         f"{MAX_FEATURES} features and {MAX_COLUMNS} columns")
+                         f"kernels take at most {cuda_lib.MAX_LEVELS} levels "
+                         f"and {MAX_FEATURES} features")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hash encoder kernels: unsupported device {x.device}")
     return n, c
 
 
-def _launch_args(x, mu, sigma, cfg: HashConfig, u):
-    """(points, mu (3,), sigma (3,), u or None, level struct) for a launch:
-    f32, contiguous, on the points' device (no host synchronisation)."""
+def _launch_args(table, x, mu, sigma, cfg: HashConfig):
+    """(table from a 16-byte aligned address, points, mu (3,), sigma (3,),
+    level struct) for a launch: f32, contiguous, on the points' device (no
+    host synchronisation)."""
     def vec3(v):
         return torch.as_tensor(v, dtype=torch.float32,
                                device=x.device).expand(3).contiguous()
@@ -168,59 +186,72 @@ def _launch_args(x, mu, sigma, cfg: HashConfig, u):
     L = cfg.num_hashed_levels
     lv = cuda_lib.make_levels([T] * L, [l * T for l in range(L)],
                               fine_scales(cfg))
-    return (x.to(torch.float32).contiguous(), vec3(mu), vec3(sigma),
-            None if u is None else u.contiguous(), lv)
+    tc = table.detach().contiguous()
+    if tc.data_ptr() % 16:
+        tc = tc.clone()
+    return tc, x.to(torch.float32).contiguous(), vec3(mu), vec3(sigma), lv
 
 
 def hash_encode_kernel(table, x, mu, sigma, cfg: HashConfig, u=None,
                        out=None):
     """Forward wrapper: CPU tensors -> ``hash_encode_plain``; CUDA tensors ->
-    ``hbr_hash_forward``; exact, or stochastic given u (3, L, N).  ``out``
-    (optional) is an (N, L*F) f32 view with unit column stride to write
-    into (a column block of the encoder's feature matrix).  Returns the
-    features."""
-    n, c = _check_args(table, x, cfg, u)
+    ``hbr_hash_forward``.  ``out`` (optional) is an (N, L*F) f32 view with
+    unit column stride to write into (a column block of the encoder's
+    feature matrix).  Returns the features (exact), or, given u (3, L, N),
+    (features, the picked corners' offset bits, uint8 (L, N))
+    (stochastic)."""
+    n, c = _check_args(table, x, cfg, u=u)
     if out is not None:
         cuda_lib.check_out(out, n, c, x.device)
     if x.device.type == "cpu":
         res = hash_encode_plain(table, x, mu, sigma, cfg, u)
-        return res if out is None else out.copy_(res)
+        feats, bits = (res, None) if u is None else res
+        if out is not None:
+            feats = out.copy_(feats)
+        return feats if u is None else (feats, bits)
     if out is None:
         out = torch.empty((n, c), dtype=torch.float32, device=x.device)
-    if n == 0:
-        return out
-    xc, mu3, sigma3, uc, lv = _launch_args(x, mu, sigma, cfg, u)
-    tc = table.detach().contiguous()
-    code = cuda_lib.library().hbr_hash_forward(
-        xc.data_ptr(), mu3.data_ptr(), sigma3.data_ptr(), tc.data_ptr(),
-        None if uc is None else uc.data_ptr(), n, cfg.table_size,
-        cfg.features_per_level, lv, out.data_ptr(), out.stride(0),
-        cuda_lib.stream_handle(x.device))
-    hash_encode_kernel.launches += 1
-    cuda_lib.check(code, "hbr_hash_forward")
-    return out
+    bits = (None if u is None else
+            torch.empty((cfg.num_hashed_levels, n), dtype=torch.uint8,
+                        device=x.device))
+    if n > 0:
+        tc, xc, mu3, sigma3, lv = _launch_args(table, x, mu, sigma, cfg)
+        uc = None if u is None else u.contiguous()
+        code = cuda_lib.library().hbr_hash_forward(
+            xc.data_ptr(), mu3.data_ptr(), sigma3.data_ptr(), tc.data_ptr(),
+            None if uc is None else uc.data_ptr(), n, cfg.table_size,
+            cfg.features_per_level, lv, out.data_ptr(), out.stride(0),
+            None if bits is None else bits.data_ptr(),
+            cuda_lib.stream_handle(x.device))
+        hash_encode_kernel.launches += 1
+        cuda_lib.check(code, "hbr_hash_forward")
+    return out if u is None else (out, bits)
 
 
 def hash_encode_backward_kernel(table, x, mu, sigma, cfg: HashConfig, grad,
-                                u=None):
+                                bits=None):
     """Backward wrapper: the table gradient given ``grad``, the (N, L*F) f32
     gradient of the features (any row stride, unit column stride: a column
-    block of the encoder's gradient).  CPU tensors ->
+    block of the encoder's gradient), exact, or stochastic given the picked
+    corners' ``bits`` (L, N) from the forward.  CPU tensors ->
     ``hash_encode_plain_backward``; CUDA tensors -> ``hbr_hash_backward``.
     Returns an f32 (L, T, F) tensor."""
-    n, c = _check_args(table, x, cfg, u)
+    n, c = _check_args(table, x, cfg, bits=bits)
     cuda_lib.check_out(grad, n, c, x.device, name="grad")
     if x.device.type == "cpu":
-        return hash_encode_plain_backward(table, x, mu, sigma, cfg, grad, u)
+        return hash_encode_plain_backward(table, x, mu, sigma, cfg, grad,
+                                          bits=bits)
     dtable = torch.zeros(tuple(table.shape), dtype=torch.float32,
                          device=x.device)
     if n > 0:
-        xc, mu3, sigma3, uc, lv = _launch_args(x, mu, sigma, cfg, u)
+        _, xc, mu3, sigma3, lv = _launch_args(table, x, mu, sigma, cfg)
+        bc = None if bits is None else bits.contiguous()
         code = cuda_lib.library().hbr_hash_backward(
             xc.data_ptr(), mu3.data_ptr(), sigma3.data_ptr(),
-            None if uc is None else uc.data_ptr(), grad.data_ptr(),
+            None if bc is None else bc.data_ptr(), grad.data_ptr(),
             grad.stride(0), n, cfg.table_size, cfg.features_per_level, lv,
-            dtable.data_ptr(), cuda_lib.stream_handle(x.device))
+            dtable.data_ptr(),
+            cuda_lib.stream_handle(x.device))
         hash_encode_backward_kernel.launches += 1
         cuda_lib.check(code, "hbr_hash_backward")
     return dtable

@@ -89,12 +89,20 @@ def occupied_fraction(grid: OccupancyGrid):
 
 @torch.no_grad()
 def update_from_field(grid: OccupancyGrid, field, scene, cfg, *,
+                      num_cells: int = 2 ** 18, decay: float = 0.95,
                       generator=None, flat_idx=None,
                       jitter=None) -> OccupancyGrid:
-    """One culling round against the model's own density field (f32), at
-    ``update``'s defaults: 2^18 cells, decay 0.95."""
+    """One culling round against the model's own density field (f32):
+    ``update`` of ``num_cells`` cells with ``decay``, the JAX function's
+    defaults (callers that need a large grid to converge on a short budget
+    pass a scaled count).  A given ``flat_idx`` must hold ``num_cells``
+    cells."""
     from human_body_reconstruction_tpu_torch.models import nerf
 
+    if flat_idx is not None and flat_idx.shape[0] != num_cells:
+        raise ValueError(f"flat_idx holds {flat_idx.shape[0]} cells, "
+                         f"num_cells is {num_cells}")
     return update(grid, lambda p: nerf.density_only(field, scene, p, cfg),
-                  scene["mu"], scene["sigma"], generator=generator,
-                  flat_idx=flat_idx, jitter=jitter)
+                  scene["mu"], scene["sigma"], num_cells=num_cells,
+                  decay=decay, generator=generator, flat_idx=flat_idx,
+                  jitter=jitter)

@@ -4,10 +4,12 @@ The hashed levels (L 4, T 2^10, F 2; tables lifted to U(-1, 1) so that the
 tolerances mean something) encode points drawn with numpy, a quarter of
 them outside the unit box of normalised coordinates, exactly (8 corners)
 and with the single-corner estimator on the same uniforms u (JAX draws them
-from its key; the port is handed them).  Then the table gradients, the full
-encoder with a dense level before the table, one training step against the
-JAX ``loss_fn`` (the ladder jitter and the encoder's uniforms drawn from the
-JAX keys as its ``render_rays`` draws them), the plain Philox generator, and
+from its key; the port is handed them).  Then the stochastic corner bits that
+the encoder keeps in place of u, the table gradients, the full encoder with
+a dense level before the table, one training step against the JAX
+``loss_fn`` (the ladder jitter and the encoder's uniforms drawn from the
+JAX keys as its ``render_rays`` draws them), an occupancy refresh from the
+trained field at a scaled count and decay, the plain Philox generator, and
 run directories written by one package restored and rendered by the other.
 Test names avoid the words that tests/conftest.py marks slow.
 """
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from human_body_reconstruction_tpu.ops import hash_encoding as jhe
+from human_body_reconstruction_tpu.ops import occupancy as jocc
 from human_body_reconstruction_tpu.pipeline import restore as jrestore
 from human_body_reconstruction_tpu.train import checkpoint as jckpt
 from human_body_reconstruction_tpu.train import step as jstep
@@ -29,7 +32,7 @@ from human_body_reconstruction_tpu.train import trainer as jtrainer
 from human_body_reconstruction_tpu_torch.cli import serve, train_hash
 from human_body_reconstruction_tpu_torch.data.synthetic import orbit_poses
 from human_body_reconstruction_tpu_torch.ops import (
-    hash_encoding, hash_kernel, rng_kernel)
+    hash_encoding, hash_kernel, occupancy, rng_kernel)
 from human_body_reconstruction_tpu_torch.pipeline import restore
 from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt
 from human_body_reconstruction_tpu_torch.train import step
@@ -115,6 +118,123 @@ def test_hash_encode_stochastic_matches_jax():
     np.testing.assert_array_equal(port.numpy(), ref)
     exact = encode(t(table), t(x), t(mu), t(sigma), cfg)
     assert not torch.equal(port, exact)
+
+
+def test_stochastic_corner_bits_match_jax():
+    """The picked corners' offset bits that the plain forward returns (and
+    the CPU wrapper with it) are (u < frac) of JAX ``_level_coords`` on the
+    same u, bit d of bits[l, n]; the plain backward from those bits equals
+    the one from u bit for bit, and the features are the stochastic
+    encoder's."""
+    cfg = hash_cfg(stochastic_train=True)
+    table, x, mu, sigma = inputs(cfg, sigma_vec=True, seed=5)
+    u = jax_u(cfg, jax.random.PRNGKey(9))
+    _, frac = jhe._level_coords(jnp.asarray(x), jnp.asarray(mu),
+                                jnp.asarray(sigma), cfg)
+    up = np.asarray(jnp.asarray(u) < frac).astype(np.uint8)      # (3, L, N)
+    want = up[0] | (up[1] << 1) | (up[2] << 2)
+    assert set(np.unique(want)) == set(range(8))
+    feats, bits = hash_kernel.hash_encode_plain(
+        t(table), t(x), t(mu), t(sigma), cfg, t(u))
+    assert bits.dtype == torch.uint8 and tuple(bits.shape) == (4, N)
+    np.testing.assert_array_equal(bits.numpy(), want)
+    wf, wb = hash_kernel.hash_encode_kernel(t(table), t(x), t(mu), t(sigma),
+                                            cfg, u=t(u))
+    assert torch.equal(wf, feats) and torch.equal(wb, bits)
+    port = encode(t(table), t(x), t(mu), t(sigma), cfg, stochastic=True,
+                  u=t(u))
+    assert torch.equal(port, feats)
+    g = t(np.random.default_rng(8).normal(size=(N, 8)).astype(np.float32))
+    from_u = hash_kernel.hash_encode_plain_backward(
+        t(table), t(x), t(mu), t(sigma), cfg, g, u=t(u))
+    from_bits = hash_kernel.hash_encode_plain_backward(
+        t(table), t(x), t(mu), t(sigma), cfg, g, bits=bits)
+    assert torch.equal(from_u, from_bits) and float(from_u.abs().max()) > 0.1
+
+
+def test_hash_x_neighbours_share_an_aligned_pair():
+    """``hash_rows`` equals JAX ``_hash_levels`` on uint32 corners
+    (negative cells wrap), and for even x0 the corner x0 + 1 hashes to the
+    row's neighbour, h ^ 1: the two rows share one 16-byte slot of an
+    (L, T, 2) f32 table, which the kernels read and add as one float4.  For
+    odd x0 that does not hold in general."""
+    rng = np.random.default_rng(12)
+    c = rng.integers(-2 ** 31, 2 ** 31, (4000, 3), dtype=np.int64)
+    c[:1000] = rng.integers(-40, 2100, (1000, 3))
+    step = np.array([1, 0, 0], np.int64)
+    for log2_t in (10, 16, 19):
+        T = 2 ** log2_t
+        cfg = dataclasses.replace(hash_cfg(), log2_table_size=log2_t)
+        ref = np.asarray(jhe._hash_levels(
+            jnp.asarray((c & 0xFFFFFFFF).astype(np.uint32).T[:, None, :]),
+            cfg))[0]
+        rows = hash_kernel.hash_rows(torch.tensor(c), T).numpy()
+        np.testing.assert_array_equal(rows, ref.astype(np.int64))
+        even = c.copy()
+        even[:, 0] &= ~1
+        h0 = hash_kernel.hash_rows(torch.tensor(even), T)
+        h1 = hash_kernel.hash_rows(torch.tensor(even + step), T)
+        assert torch.equal(h1, h0 ^ 1)
+        odd = even + step
+        h2 = hash_kernel.hash_rows(torch.tensor(odd + step), T)
+        assert bool(((hash_kernel.hash_rows(torch.tensor(odd), T) ^ h2)
+                     > 1).any())
+
+
+def test_occupancy_refresh_count_and_decay_match_jax():
+    """One refresh of a grid with finite densities at a count and decay
+    other than the defaults.  JAX ``update_from_field`` draws its cells and
+    jitter from one key; the port gets the same draws, made as JAX
+    ``update`` makes them (split, randint, uniform).  Densities within atol
+    1e-5 (the same f32 field, sums in other orders) except at cells drawn
+    twice (JAX keeps an unspecified candidate there, the port the largest);
+    cells not drawn hold density * decay; a flat_idx of another length than
+    num_cells is refused."""
+    cfg = step_cfg(False)
+    params = jax.tree.map(np.array, jtrainer.init_params(
+        jax.random.PRNGKey(0), cfg))
+    params["mlp"]["sig"][-1]["b"][0] += 1.0
+    field = ckpt.from_jax_params(params, cfg)
+    g, k, decay = 16, 300, 0.8
+    rng = np.random.default_rng(8)
+    dens = rng.uniform(0.0, 0.05, (g, g, g)).astype(np.float32)
+    dens[rng.random((g, g, g)) < 0.5] = 100.0    # kept over the fresh value
+    key = jax.random.PRNGKey(11)
+    k1, k2 = jax.random.split(key)
+    cells = np.asarray(jax.random.randint(k1, (k,), 0, g ** 3))
+    jit = np.asarray(jax.random.uniform(k2, (k, 3)))
+    ref = jocc.update_from_field(
+        jocc.OccupancyGrid(density=jnp.asarray(dens),
+                           mask=jnp.ones((g, g, g)),
+                           threshold=jnp.float32(0.01)),
+        jax.tree.map(jnp.asarray, params), jrestore.scene_from_bounds(LO, HI),
+        key, cfg, num_cells=k, decay=decay)
+    grid = occupancy.OccupancyGrid(torch.tensor(dens), torch.ones(g, g, g),
+                                   torch.tensor(0.01))
+    scene = restore.scene_from_bounds(LO, HI)
+    port = occupancy.update_from_field(
+        grid, field, scene, cfg, num_cells=k, decay=decay,
+        flat_idx=torch.tensor(cells, dtype=torch.long),
+        jitter=torch.tensor(jit))
+    idx, counts = np.unique(cells, return_counts=True)
+    keep = np.ones(g ** 3, bool)
+    keep[idx[counts > 1]] = False
+    assert (counts > 1).sum() < k // 10
+    got = port.density.numpy().reshape(-1)
+    want = np.asarray(ref.density).reshape(-1)
+    np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(port.mask.numpy().reshape(-1)[keep],
+                                  np.asarray(ref.mask).reshape(-1)[keep])
+    untouched = np.setdiff1d(np.arange(g ** 3), cells)
+    np.testing.assert_allclose(got[untouched],
+                               dens.reshape(-1)[untouched] * decay, rtol=1e-6)
+    fresh = got[idx[counts == 1]] > dens.reshape(-1)[idx[counts == 1]] * decay
+    assert fresh.any() and not fresh.all()
+    with pytest.raises(ValueError, match="num_cells"):
+        occupancy.update_from_field(
+            grid, field, scene, cfg, num_cells=k,
+            flat_idx=torch.tensor(cells[:-1], dtype=torch.long),
+            jitter=torch.tensor(jit[:-1]))
 
 
 # Table gradients: the same terms (w * g, or g) summed in other orders

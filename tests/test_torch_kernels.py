@@ -303,13 +303,14 @@ def test_encode_params_gives_every_table_a_gradient(cuda_device):
                 n + 1 for n in launches)
 
 
-def hash_inputs(device, n=2000, levels=4, log2_t=10, seed=0):
+def hash_inputs(device, n=2000, levels=4, log2_t=10, seed=0, features=2):
     """A corner-variant config, a U(-1, 1) table, world points with a
     quarter outside the unit box of normalised coordinates, and uniforms."""
     cfg = C.HashConfig(num_levels=levels, log2_table_size=log2_t, n_max=512,
-                       variant="corner", stochastic_train=True)
+                       features_per_level=features, variant="corner",
+                       stochastic_train=True)
     rng = np.random.default_rng(seed)
-    table = torch.tensor(rng.uniform(-1, 1, (levels, 2 ** log2_t, 2)),
+    table = torch.tensor(rng.uniform(-1, 1, (levels, 2 ** log2_t, features)),
                          dtype=torch.float32, device=device)
     xn = rng.uniform(0, 1, (n, 3))
     xn[: n // 4, 0] = rng.uniform(-0.5, 0.0, n // 4)
@@ -328,12 +329,17 @@ def test_hash_wrappers_on_cpu_run_plain():
     n = (hash_kernel.hash_encode_kernel.launches,
          hash_kernel.hash_encode_backward_kernel.launches,
          rng_kernel.uniform_kernel.launches)
+    g = cotangent(2000, 8, "cpu")
     for uu in (None, u):
-        assert torch.equal(hash_kernel.hash_encode_kernel(table, *args, u=uu),
-                           hash_kernel.hash_encode_plain(table, *args, u=uu))
-        g = cotangent(2000, 8, "cpu")
+        got = hash_kernel.hash_encode_kernel(table, *args, u=uu)
+        want = hash_kernel.hash_encode_plain(table, *args, u=uu)
+        bits = None
+        if uu is not None:
+            (got, bits), (want, want_bits) = got, want
+            assert torch.equal(bits, want_bits)
+        assert torch.equal(got, want)
         assert torch.equal(
-            hash_kernel.hash_encode_backward_kernel(table, *args, g, u=uu),
+            hash_kernel.hash_encode_backward_kernel(table, *args, g, bits=bits),
             hash_kernel.hash_encode_plain_backward(table, *args, g, u=uu))
     seed = torch.tensor([4], dtype=torch.int32)
     assert torch.equal(rng_kernel.uniform(seed, (3, 5)),
@@ -344,6 +350,11 @@ def test_hash_wrappers_on_cpu_run_plain():
     for bad in (lambda: hash_kernel.hash_encode_kernel(table[:3], *args),
                 lambda: hash_kernel.hash_encode_kernel(table.double(), *args),
                 lambda: hash_kernel.hash_encode_kernel(table, *args, u=u[:, :, 1:]),
+                lambda: hash_kernel.hash_encode_backward_kernel(
+                    table, *args, g, bits=torch.zeros((4, 2000))),
+                lambda: hash_kernel.hash_encode_backward_kernel(
+                    table, *args, g, bits=torch.zeros((4, 1999),
+                                                      dtype=torch.uint8)),
                 lambda: rng_kernel.uniform(seed.long(), (3,)),
                 lambda: rng_kernel.uniform(torch.zeros(2, dtype=torch.int32),
                                            (3,))):
@@ -370,25 +381,6 @@ def test_uniform_kernel_matches_plain_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stochastic", [False, True], ids=["exact", "stoch"])
-def test_hash_kernels_match_plain(cuda_device, stochastic):
-    table, args, u = hash_inputs(cuda_device)
-    u = u if stochastic else None
-    n_f = hash_kernel.hash_encode_kernel.launches
-    n_b = hash_kernel.hash_encode_backward_kernel.launches
-    got = hash_kernel.hash_encode_kernel(table, *args, u=u)
-    torch.cuda.synchronize()
-    assert max_err(got, hash_kernel.hash_encode_plain(table, *args, u=u)) <= TOL
-    g = cotangent(2000, 8, cuda_device)
-    assert grads_close(
-        lambda tb, *a: [hash_kernel.hash_encode_backward_kernel(tb[0], *a, u=u)],
-        lambda tb, *a: [hash_kernel.hash_encode_plain_backward(tb[0], *a, u=u)],
-        [table], args, g, False)
-    assert hash_kernel.hash_encode_kernel.launches == n_f + 1
-    assert hash_kernel.hash_encode_backward_kernel.launches == n_b + 1
-
-
-@pytest.mark.cuda
 def test_hash_kernels_full_width_and_strided_out(cuda_device):
     """The reference preset's table (16 levels, T 2^16) writing a column
     block of a wider matrix and reading a strided gradient; an empty batch
@@ -396,17 +388,23 @@ def test_hash_kernels_full_width_and_strided_out(cuda_device):
     table, args, u = hash_inputs(cuda_device, n=100_003, levels=16, log2_t=16)
     out = torch.full((100_003, 40), float("nan"), device=cuda_device)
     for uu in (None, u):
-        hash_kernel.hash_encode_kernel(table, *args, u=uu, out=out[:, 4:36])
+        bits = want_bits = None
+        got = hash_kernel.hash_encode_kernel(table, *args, u=uu,
+                                             out=out[:, 4:36])
+        want = hash_kernel.hash_encode_plain(table, *args, u=uu)
+        if uu is not None:
+            (_, bits), (want, want_bits) = got, want
         torch.cuda.synchronize()
-        assert max_err(out[:, 4:36],
-                       hash_kernel.hash_encode_plain(table, *args, u=uu)) <= TOL
+        assert max_err(out[:, 4:36], want) <= TOL
+        if uu is not None:
+            assert torch.equal(bits, want_bits)
         assert torch.isnan(out[:, :4]).all() and torch.isnan(out[:, 36:]).all()
         g = cotangent(100_003, 32, cuda_device, extra=7)
         assert grads_close(
-            lambda tb, *a: [hash_kernel.hash_encode_backward_kernel(tb[0], *a,
-                                                                    u=uu)],
-            lambda tb, *a: [hash_kernel.hash_encode_plain_backward(tb[0], *a,
-                                                                   u=uu)],
+            lambda tb, *a: [hash_kernel.hash_encode_backward_kernel(
+                tb[0], *a, bits=bits)],
+            lambda tb, *a: [hash_kernel.hash_encode_plain_backward(
+                tb[0], *a, u=uu)],
             [table], args, g, False)
     n = hash_kernel.hash_encode_kernel.launches
     empty = (args[0][:0],) + args[1:]
@@ -452,6 +450,77 @@ def ray_points(n, samples, device, seed=3):
     mu = torch.tensor([-1.0, -2.0, -0.5], device=device)
     sigma = torch.tensor(3.0, device=device)
     return mu + xn * sigma, mu, sigma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features", [2, 4])
+@pytest.mark.parametrize("order", ["rays", "random"])
+@pytest.mark.parametrize("mode", ["exact", "stoch"])
+def test_hash_kernels_match_plain_on_rays_and_random(cuda_device, mode, order,
+                                                     features):
+    """Both hash kernels against their plain versions on ray-ordered points
+    (a ray's 64 samples consecutive, so the backward merges its adds) and
+    on random ones (a quarter outside the
+    unit box); N below one run, not a multiple of a run or a block.  The
+    forward bit for bit into a column block of a NaN-filled wider matrix
+    (its neighbours stay NaN), with the stochastic bits bit for bit; the
+    backward within the sum-order tolerance from a row-strided gradient,
+    the stochastic one from the kernel's own bits."""
+    stoch = mode == "stoch"
+    n_f = hash_kernel.hash_encode_kernel.launches
+    n_b = hash_kernel.hash_encode_backward_kernel.launches
+    for n in (5, 1000, 20_011):
+        table, args, u = hash_inputs(cuda_device, n=n, seed=n,
+                                     features=features)
+        if order == "rays":
+            args = ray_points(n, 64, cuda_device) + args[3:]
+        uu = u if stoch else None
+        c = 4 * features
+        out = torch.full((n, c + 6), float("nan"), device=cuda_device)
+        got = hash_kernel.hash_encode_kernel(table, *args, u=uu,
+                                             out=out[:, 2:2 + c])
+        want = hash_kernel.hash_encode_plain(table, *args, u=uu)
+        torch.cuda.synchronize()
+        bits, want_bits = (got[1], want[1]) if stoch else (None, None)
+        assert torch.equal(out[:, 2:2 + c], want[0] if stoch else want)
+        assert torch.isnan(out[:, :2]).all() and torch.isnan(out[:, 2 + c:]).all()
+        if stoch:
+            assert bits.dtype == torch.uint8 and torch.equal(bits, want_bits)
+        g = cotangent(n, c, cuda_device, seed=n, extra=5)
+        assert grads_close(
+            lambda tb, *a: [hash_kernel.hash_encode_backward_kernel(
+                tb[0], *a, bits=bits)],
+            lambda tb, *a: [hash_kernel.hash_encode_plain_backward(
+                tb[0], *a, bits=want_bits)],
+            [table], args, g, False)
+    assert hash_kernel.hash_encode_kernel.launches == n_f + 3
+    assert hash_kernel.hash_encode_backward_kernel.launches == n_b + 3
+
+
+def test_stochastic_encoder_keeps_the_bits_not_u():
+    """What the encoder's autograd Function keeps for the backward in
+    stochastic mode: the picked corners' offset bits, uint8 (L, N), and no
+    tensor of u's (3, L, N); exact mode keeps neither.  The table gradient
+    through the kept bits equals the plain backward from u."""
+    table, (x, mu, sigma, cfg), u = hash_inputs(torch.device("cpu"))
+    g = cotangent(2000, 8, "cpu")
+    for uu in (None, u):
+        tb = table.clone().requires_grad_()
+        feats = hash_encoding.encode_params({"table": tb}, x, mu, sigma, cfg,
+                                            stochastic=uu is not None, u=uu)
+        kept = [t for t in feats.grad_fn.saved_tensors if t is not None]
+        assert not any(tuple(t.shape) == (3, 4, 2000) for t in kept)
+        small = [t for t in kept if t.dtype == torch.uint8]
+        if uu is None:
+            assert small == []
+        else:
+            (bits,) = small
+            assert tuple(bits.shape) == (4, 2000)
+            assert torch.equal(bits, hash_kernel.hash_encode_plain(
+                table, x, mu, sigma, cfg, u=uu)[1])
+        (feats * g).sum().backward()
+        assert torch.equal(tb.grad, hash_kernel.hash_encode_plain_backward(
+            table, x, mu, sigma, cfg, g, u=uu))
 
 
 def cp_cfg(rank: int, bf16: bool) -> C.HashConfig:

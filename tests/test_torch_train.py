@@ -288,8 +288,8 @@ def test_density_only_and_refresh_match_jax():
     jit = rng.uniform(size=(100, 3)).astype(np.float32)
     grid = occupancy.init_grid(g, 0.01)
     out = occupancy.update_from_field(
-        grid, field, port_scene(), cfg, flat_idx=torch.tensor(cells),
-        jitter=torch.tensor(jit))
+        grid, field, port_scene(), cfg, num_cells=100,
+        flat_idx=torch.tensor(cells), jitter=torch.tensor(jit))
     c = np.stack([cells // (g * g), (cells // g) % g, cells % g], -1)
     wpts = ((c + jit) / g * float(scene_j["sigma"]) + LO).astype(np.float32)
     want = np.maximum(np.asarray(jnerf.density_only(
