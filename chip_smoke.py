@@ -2,7 +2,8 @@
 """Drive the PyTorch port's training and serving paths once on one CUDA card.
 
 1. Build the port's CUDA kernels from csrc/ with nvcc (one process per
-   source, all started together).
+   source, all started together) and the marching-cubes extension from
+   native/ with g++.
 2. Flagship training (the zero-flag run, at full width): render the
    synthetic textured dataset (20 views, 400x400, 384 GT samples), train it
    through the port's CLI objects for TRAIN_STEPS steps with the occupancy
@@ -46,6 +47,26 @@
    kernels against the same frame through the plain versions (on the
    CPU).
 
+6. The quality protocol, cut in depth: ``cli/quality_holdout.py`` on the
+   textured scene (20 + 4 views at 400x400, 384 ground-truth samples), the
+   n1448 mode at horizon 6000 for QUALITY_STEPS steps (the grid installed
+   after 256, refreshed at 320): time per step, rays/s, occupied fraction
+   and each holdout pose's dB, the mean held above QUALITY_FLOOR_DB.
+7. The render CLI: ``cli/render.py --orbit 4 --use_occ --eval_guided 64``
+   on the flagship run directory trained in 2; the PNGs decode, frame 0
+   equals ``render_image`` of the same pose and config bit for bit, the
+   forward kernels' launches counted.
+8. Mesh export: ``cli/nerf2mesh.py`` on the flagship run directory at 256^3
+   and on the hash-grid run directory of 3 at 128^3, at iso 30 and again
+   (from the density cache the first export wrote) at half the sweep's
+   99.9th percentile of sigma, since these short runs stay below 30: sweep
+   and marching seconds, vertex and face counts, each forward kernel's
+   launches during the sweep (64 at 256^3, 8 at 128^3, none from the
+   cache), a non-empty mesh inside the scene bounds; one sweep chunk
+   (262,144 lattice points, k fastest) through the kernels held to the
+   same chunk through the plain versions on the card, the encoder outputs
+   and the quantised rgb8 and sigma16 bit for bit.
+
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
 operations over the card's rate for them (67 TFLOP/s f32; 33.5 TOP/s for
@@ -66,8 +87,9 @@ encoder kernels once per shape, named for it and with a "shape" key:
 {cp,dense}_forward/serving_path and /random, {cp,dense}_backward/
 guided_path, guided_random, unculled_path and unculled_random,
 hash_forward/train_path, /random and /serving_path (exact),
-hash_backward/train_path and /random, with the launches of the phase that
-runs each shape), and last ``{"ok": true, "device": {...}}``.
+hash_backward/train_path and /random, {cp,dense,hash}_forward/sweep_chunk,
+with the launches of the phase that runs each shape), and last
+``{"ok": true, "device": {...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
 """
@@ -76,21 +98,22 @@ from __future__ import annotations
 
 import base64
 import copy
+import dataclasses
 import json
 import math
-import subprocess
 import sys
 import tempfile
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 SEED = 0
 N_POINTS = 16384 * 128          # one ladder chunk: 16384 rays x 128 samples
-CP_TOL = 1e-6                   # kernel vs plain: same operations, same order
-DENSE_TOL = 1e-6
+FWD_TOL = {"cp_forward": 1e-6,  # kernel vs plain: same operations, order
+           "dense_forward": 1e-6}
 FRAME_TOL = 1e-3                # card vs CPU: f32 math on two devices, bf16 MLP
 TRAIN_STEPS = 200
 OCC_WARMUP = 64                 # the preset's 256, cut to fit the time limit
@@ -101,23 +124,31 @@ TRAIN_POINTS = (16000 * 48, 16000 * 128)   # guided and unculled steps
 STEP_LOSS_RTOL = 1e-4           # one step, card vs CPU
 STEP_GRAD_RTOL = 1e-2           # per group, ||card - cpu|| / ||cpu||
 SOURCE = "human_body_reconstruction_tpu_torch/csrc/encoders.cu"
+REPLACES = {    # the TPU kernel (or jnp code) each forward kernel stands for
+    "cp_forward": "human_body_reconstruction_tpu/ops/cp_pallas.py:143",
+    "dense_forward": "human_body_reconstruction_tpu/ops/dense_pallas.py:125",
+    "hash_forward": "none (no TPU kernel: human_body_reconstruction_tpu/ops/"
+                    "hash_encoding.py:259 gathers in jnp)"}
 HASH_STEPS = 150
 HASH_POINTS = 16000 * 64        # one step of the hash path: rays x samples
 HASH_RUN = 16                   # points a hash backward thread merges (csrc/hash.cu)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak
 F32_OPS_PER_S = 67e12           # non-tensor f32
 INT32_OPS_PER_S = F32_OPS_PER_S / 2
+QUALITY_STEPS = 320             # the protocol's 6000-step horizon, cut in depth
+# the holdout mean of the first card run (28.80 dB; H100 80GB HBM3, 700 W)
+# less 2 dB for the nondeterministic sums of the backward kernels
+QUALITY_FLOOR_DB = 26.8
+SWEEP_CHUNK = 262144            # points a mesh-sweep chunk (cli/nerf2mesh.py)
+MESH_RES = {"flagship": 256, "hash": 128}   # the sweeps' lattice sides
+JAX_ROW_KEYS = ("mode", "steps", "rays_per_sec", "train_psnr", "holdout_psnr",
+                "holdout_std", "holdout_min", "holdout_per_pose", "scene",
+                "budget_s", "occ_frac")
 
 
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
-
-
-def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -190,14 +221,23 @@ def write_run_dir(path: str, device: torch.device):
     return float(mask.mean())
 
 
-def all_kernels():
-    """(name, wrapper) of every kernel of the training path."""
-    from human_body_reconstruction_tpu_torch.ops import cp_kernel, dense_kernel
+def wrappers(*names):
+    """(name, wrapper) of the named kernels, in the order given."""
+    from human_body_reconstruction_tpu_torch.ops import (
+        cp_kernel, dense_kernel, hash_kernel, rng_kernel)
 
-    return [("cp_forward", cp_kernel.cp_encode_kernel),
-            ("dense_forward", dense_kernel.dense_encode_kernel),
-            ("cp_backward", cp_kernel.cp_encode_backward_kernel),
-            ("dense_backward", dense_kernel.dense_encode_backward_kernel)]
+    table = {"cp_forward": cp_kernel.cp_encode_kernel,
+             "dense_forward": dense_kernel.dense_encode_kernel,
+             "cp_backward": cp_kernel.cp_encode_backward_kernel,
+             "dense_backward": dense_kernel.dense_encode_backward_kernel,
+             "hash_forward": hash_kernel.hash_encode_kernel,
+             "hash_backward": hash_kernel.hash_encode_backward_kernel,
+             "uniform_bits": rng_kernel.uniform_kernel}
+    return [(nm, table[nm]) for nm in names]
+
+
+TRAIN_KERNELS = ("cp_forward", "dense_forward", "cp_backward",
+                 "dense_backward")
 
 
 def train(run_dir: str, device: torch.device, tag: str):
@@ -229,7 +269,7 @@ def train(run_dir: str, device: torch.device, tag: str):
           f"the card in {time.perf_counter() - t0:.2f} s")
     trainer = Trainer(cfg=cfg, ds=ds, out_dir=run_dir, model_name="flagship",
                       total_steps=TRAIN_STEPS, log_fn=print)
-    kernels = all_kernels()
+    kernels = wrappers(*TRAIN_KERNELS)
     for _, kern in kernels:
         kern.launches = 0
     torch.cuda.synchronize()
@@ -621,7 +661,6 @@ def train_hash_grid(run_dir: str, ds, device: torch.device, tag: str):
     CLI objects, on the dataset rendered for the flagship run.  Returns
     (trainer, launches during the timed run)."""
     from human_body_reconstruction_tpu_torch.cli import train_hash
-    from human_body_reconstruction_tpu_torch.ops import hash_kernel, rng_kernel
     from human_body_reconstruction_tpu_torch.train.trainer import Trainer
 
     args = train_hash.build_parser().parse_args([
@@ -640,9 +679,7 @@ def train_hash_grid(run_dir: str, ds, device: torch.device, tag: str):
                       total_steps=HASH_STEPS, log_fn=print)
     warm = 5                         # first-use costs, and the first log
     trainer.run(warm, log_every=warm)
-    kernels = [("uniform_bits", rng_kernel.uniform_kernel),
-               ("hash_forward", hash_kernel.hash_encode_kernel),
-               ("hash_backward", hash_kernel.hash_encode_backward_kernel)]
+    kernels = wrappers("uniform_bits", "hash_forward", "hash_backward")
     for _, kern in kernels:
         kern.launches = 0
     torch.cuda.synchronize()
@@ -734,7 +771,7 @@ def hash_kernel_checks(trainer, device, tag, train_pts, serve_pts):
                      else ("exact", "stochastic")):
             stoch = mode == "stochastic"
             uu = u if stoch else None
-            ops_f = at.shape[0] * L * (15 + (11 if stoch else 8 * (10 + 2 * F)))
+            ops_f = forward_ops("hash_forward", table, h, at.shape[0], stoch)
             with torch.no_grad():
                 got = hash_kernel.hash_encode_kernel(*a, u=uu)
                 want = hash_kernel.hash_encode_plain(*a, u=uu)
@@ -845,71 +882,377 @@ def hash_step_on_card_vs_cpu(trainer, ds, device):
           ("hash step grads", rel))
 
 
+def forward_ops(nm: str, tables, h, n: int, stochastic: bool = False):
+    """Scalar operations of the forward kernel ``nm`` on n points (the CP
+    forward over its len(tables) levels)."""
+    F = h.features_per_level
+    per_point = {"cp_forward": len(tables) * (h.cp_rank * 11 + 3 * 6),
+                 "dense_forward": h.dense_levels * (28 + 17 * F),
+                 "hash_forward": h.num_hashed_levels * (
+                     15 + (11 if stochastic else 8 * (10 + 2 * F)))}[nm]
+    return n * per_point
+
+
+def written_bytes(out) -> int:
+    """Bytes a kernel must write for the 2-D output view ``out``: its own
+    when contiguous; the whole 32-byte sectors each row covers when it is a
+    column slice of a wider matrix (the DRAM's least unit of a write)."""
+    if out.is_contiguous():
+        return nbytes(out)
+    size = out.element_size()
+    first = (out.data_ptr()
+             + torch.arange(out.shape[0], dtype=torch.int64)
+             * out.stride(0) * size)
+    last = first + out.shape[1] * size - 1
+    return int(((last // 32) - (first // 32) + 1).sum()) * 32
+
+
+def plain_forward(nm: str):
+    """The plain PyTorch version of the forward kernel ``nm``."""
+    from human_body_reconstruction_tpu_torch.ops import (
+        cp_kernel, dense_kernel, hash_kernel)
+
+    return {"cp_forward": cp_kernel.cp_encode_plain,
+            "dense_forward": dense_kernel.dense_encode_plain,
+            "hash_forward": hash_kernel.hash_encode_plain}[nm]
+
+
+def encoder_parts(field):
+    """(forward kernel's name, tables) of the field's encoders in the
+    columns' order of the encoder's (N, out_dim) matrix: dense, then the CP
+    lines or the hash table."""
+    parts = []
+    if len(field.dense):
+        parts.append(("dense_forward", list(field.dense)))
+    if len(field.lines):
+        parts.append(("cp_forward", list(field.lines)))
+    if field.table is not None:
+        parts.append(("hash_forward", field.table.detach()))
+    return parts
+
+
+def forward_check(nm, tables, pts, scene, h, *, matrix: bool, tol: float,
+                  label: str, tag: str, plain_reps: int = 20):
+    """The forward kernel ``nm`` against its plain version on ``pts``.
+    With ``matrix`` the kernel writes its columns of a NaN-filled (N,
+    out_dim) matrix, as the encoder hands them to it on every path (dense
+    first, then the CP or hash columns), and the other columns must stay
+    NaN; without, it writes a contiguous output.  The bound counts the
+    output as that layout writes it.  Returns (max_abs_err, ms, plain_ms,
+    library_ms, bound)."""
+    kern, plain = dict(wrappers(nm))[nm], plain_forward(nm)
+    a = (tables, pts, scene["mu"], scene["sigma"], h)
+    n = pts.shape[0]
+    d = h.dense_levels * h.features_per_level
+    xa = (pts - scene["mu"]) / scene["sigma"]
+    outside = float(((xa < 0) | (xa > 1)).any(-1).float().mean())
+    kw, where = {}, "contiguous"
+    if matrix:
+        mat = torch.full((n, h.out_dim), float("nan"), device=pts.device)
+        cols = slice(0, d) if nm == "dense_forward" else slice(d, h.out_dim)
+        kw = {"out": mat[:, cols]}
+        where = (f"into columns {cols.start}:{cols.stop} of the (N, "
+                 f"{h.out_dim}) matrix")
+    extra = ""
+    with torch.no_grad():
+        got, want = kern(*a, **kw), plain(*a)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        same = torch.equal(got, want)
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"{nm} output finite, of the plain version's shape")
+        if matrix:
+            rest = torch.ones(h.out_dim, dtype=torch.bool)
+            rest[cols] = False
+            check(bool(mat[:, rest.to(mat.device)].isnan().all()),
+                  (nm, "the matrix's other columns untouched"))
+        ms = time_ms(lambda: kern(*a, **kw))
+        plain_ms = time_ms(lambda: plain(*a), reps=plain_reps)
+        lib_ms = None
+        if nm == "dense_forward":
+            lib_ms = time_ms(lambda gs=grid_sample_inputs(*a): (
+                grid_sample_levels(gs)))
+            extra += f", grid_sample {lib_ms:.4f} ms"
+        if matrix and not kw["out"].is_contiguous():
+            extra += f", contiguous {time_ms(lambda: kern(*a)):.4f} ms"
+    bnd = bound(nbytes(pts, *(tables if isinstance(tables, list)
+                              else [tables])) + written_bytes(got),
+                forward_ops(nm, tables, h, n))
+    print(f"kernel {nm}: {n} {label} ({outside:.3f} outside the box) "
+          f"{where}, bit for bit {same} (max_abs_err {err:.3e}, tol "
+          f"{tol:g}), {ms:.4f} ms vs plain {plain_ms:.4f} ms{extra}, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}) {tag}")
+    check(err <= tol, (nm, label, err))
+    return err, ms, plain_ms, lib_ms, bnd
+
+
+def counted(kernels, fn):
+    """fn() with every kernel's launch count set to 0 just before it; returns
+    (fn's result, launches of each kernel during it)."""
+    for _, kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {nm: kern.launches for nm, kern in kernels}
+
+
+def quality_phase(work: str, device: torch.device, tag: str):
+    """The 4-pose holdout protocol through its CLI, cut to QUALITY_STEPS
+    steps at the 6000-step horizon."""
+    from human_body_reconstruction_tpu_torch.cli import quality_holdout
+
+    t0 = time.perf_counter()
+    argv = ["--scene", "textured", "--steps", str(QUALITY_STEPS), "--device",
+            str(device), "--out", f"{work}/quality.json"]
+    row, launches = counted(wrappers(*TRAIN_KERNELS),
+                            lambda: quality_holdout.main(argv))
+    wall = time.perf_counter() - t0
+    print(f"quality protocol ({row['mode']}, {row['scene']}, horizon 6000): "
+          f"{row['steps']} steps, {1e3 * 16384 / row['rays_per_sec']:.2f} "
+          f"ms/step and {row['rays_per_sec']} rays/s on the protocol's clock "
+          f"({row['budget_s']} s), occ_frac {row['occ_frac']} (by refresh "
+          f"{row['occ_trace']}), train PSNR "
+          f"{row['train_psnr']} dB; holdout "
+          + ", ".join(f"{k} {v}" for k, v in row["holdout_per_pose"].items())
+          + f" dB, mean {row['holdout_psnr']}, min {row['holdout_min']} "
+          f"(floor {QUALITY_FLOOR_DB}); {wall:.1f} s with the ground truth "
+          f"{tag}")
+    print(f"launches in the quality protocol: {launches}")
+    vals = [row[k] for k in JAX_ROW_KEYS if k not in ("mode", "scene",
+                                                     "holdout_per_pose")]
+    check(all(k in row for k in JAX_ROW_KEYS)
+          and all(math.isfinite(v) for v in vals + list(
+              row["holdout_per_pose"].values())), ("quality row", row))
+    check(row["steps"] == QUALITY_STEPS, ("quality steps", row["steps"]))
+    check(0.0 < row["occ_frac"] < 1.0, ("occ_frac", row["occ_frac"]))
+    check(row["holdout_psnr"] > QUALITY_FLOOR_DB, ("holdout mean",
+                                                   row["holdout_psnr"]))
+    check(all(n > 0 for n in launches.values()), launches)
+
+
+def render_phase(train_dir: str, work: str, device: torch.device, tag: str):
+    """cli/render.py over the trained flagship run: four orbit frames,
+    guided by the saved grid; frame 0 against render_image."""
+    from human_body_reconstruction_tpu_torch.cli import render
+    from human_body_reconstruction_tpu_torch.pipeline import restore
+    from human_body_reconstruction_tpu_torch.train import step
+
+    argv = ["--ckpt_dir", train_dir, "--model_name", "flagship", "--orbit",
+            "4", "--use_occ", "--eval_guided", "64", "--out_dir",
+            f"{work}/renders", "--device", str(device)]
+    summary, launches = counted(wrappers("cp_forward", "dense_forward"),
+                                lambda: render.main(argv))
+    n = summary["num_views"]
+    print(f"render CLI: {n} x {summary['H']}x{summary['W']}, eval_guided "
+          f"{summary['eval_guided']} of {summary['num_samples']} probes, "
+          f"{summary['wall_s']} s ({summary['wall_s'] / n:.3f} s a frame), "
+          f"{summary['rays_per_sec']} rays/s {tag}")
+    print(f"launches in the render CLI: {launches}")
+    frames = []
+    for v in summary["views"]:
+        with open(v["path"], "rb") as f:
+            frames.append(decode_png(f.read()))
+    check(n == 4 and all(f.shape == (summary["H"], summary["W"], 3)
+                         for f in frames), "the render CLI's PNGs decode")
+    args = render.build_parser().parse_args(argv)
+    c2ws, K, H, W, _ = render.cameras_from_args(args)
+    res = restore.restore(train_dir, "flagship", device=device,
+                          with_occ=True, log_fn=lambda s: None)
+    cfg = dataclasses.replace(res.cfg, render=dataclasses.replace(
+        res.cfg.render, eval_guided=64))
+    img = step.render_image(res.field, res.scene, H, W,
+                            torch.as_tensor(K, device=device),
+                            torch.as_tensor(c2ws[0], device=device), cfg,
+                            occ=res.occ, num_samples=args.num_samples)
+    want = (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+    same = np.array_equal(frames[0], want)
+    print(f"render CLI frame 0 equals render_image bit for bit: {same}; "
+          f"frames std {float(np.std(frames[0])):.2f}")
+    check(same and np.std(frames[0]) > 1.0, "render CLI frame 0")
+    check(all(n > 0 for n in launches.values()), launches)
+
+
+def plain_sweep_grid(res, R: int) -> np.ndarray:
+    """The sweep's (R, R, R, 4) grid as ``density_rgb_grid`` lays it out,
+    every chunk through the plain encoders instead of the kernels."""
+    from human_body_reconstruction_tpu_torch.pipeline import mesh_export
+
+    field, scene, cfg = res.field, res.scene, res.cfg
+    lo = scene["min_bound"]
+    dirs = mesh_export.view_encoding(cfg, lo.device).expand(SWEEP_CHUNK, -1)
+    rgb8, sig16 = [], []
+    with torch.no_grad():
+        for start in range(0, R ** 3, SWEEP_CHUNK):
+            pts = mesh_export.sweep_points(start, R, SWEEP_CHUNK, lo,
+                                           scene["max_bound"] - lo)
+            feats = torch.cat([plain_forward(nm)(
+                tables, pts, scene["mu"], scene["sigma"], cfg.hash)
+                for nm, tables in encoder_parts(field)], -1)
+            r, s = mesh_export.quantise(*field.mlp(feats, dirs,
+                                                   torch.bfloat16))
+            rgb8.append(r.cpu())
+            sig16.append(s.cpu())
+    rgb = torch.cat(rgb8)[:R ** 3].numpy().astype(np.float32) / 255.0
+    sigma = torch.cat(sig16)[:R ** 3].numpy().astype(np.float32)
+    return np.concatenate([rgb, sigma[:, None]], axis=-1).reshape(R, R, R, 4)
+
+
+def mesh_phase(train_dir: str, hash_dir: str, work: str, device: torch.device,
+               tag: str):
+    """cli/nerf2mesh.py on both trained run directories; the sweep's grid
+    and mesh against the same sweep through the plain encoders, and one
+    chunk of each sweep through each forward kernel, into its columns of
+    the encoder's matrix, against the plain version.  Returns {record name:
+    (record, launches during the sweep, R)}."""
+    from human_body_reconstruction_tpu_torch.cli import nerf2mesh
+    from human_body_reconstruction_tpu_torch.pipeline import mesh_export, restore
+
+    report = {}
+    for model, run_dir in (("flagship", train_dir), ("hash", hash_dir)):
+        R = MESH_RES[model]
+        res = restore.restore(run_dir, model, device=device,
+                              log_fn=lambda s: None)
+        kerns = wrappers(*(nm for nm, _ in encoder_parts(res.field)))
+        cache = f"{work}/{model}_grid.npy"
+        argv = ["--ckpt_dir", run_dir, "--model_name", model, "--resolution",
+                str(R), "--cache", cache, "--out", f"{work}/{model}.ply",
+                "--device", str(device)]
+        stats, launches = counted(kerns, lambda: nerf2mesh.main(
+            argv + ["--iso", "30"]))
+        sigma = np.load(cache, mmap_mode="r")[..., 3]
+        q = np.percentile(sigma, [50, 99, 99.9, 100])
+        # the smoke's models are trained 200 and 150 steps: their density
+        # stays below the reference's iso 30 (max 19.8 and 5.5 in the
+        # first card runs), so the mesh is also cut at half the sweep's
+        # 99.9th percentile, from the cache the first export wrote
+        level = round(0.5 * float(q[2]), 3)
+        low, relaunch = counted(kerns, lambda: nerf2mesh.main(
+            argv + ["--iso", str(level)]))
+        lo, hi = (res.scene[k].cpu().numpy() for k in ("min_bound",
+                                                        "max_bound"))
+        chunks = R ** 3 // SWEEP_CHUNK
+        t0 = time.perf_counter()         # the chunks alone: no host copies
+        for start in range(0, R ** 3, SWEEP_CHUNK):
+            mesh_export.sweep_chunk(res.field, res.scene, res.cfg, start, R,
+                                    SWEEP_CHUNK)
+        torch.cuda.synchronize()
+        chunks_s = time.perf_counter() - t0
+        print(f"mesh export {model} {R}^3: sweep {stats['sweep_seconds']:.3f}"
+              f" s ({chunks} chunks; {chunks_s:.3f} s of them computing the "
+              f"chunks, the rest copies and host arrays); sigma median "
+              f"{q[0]:.3f}, 99% {q[1]:.3f}, 99.9% {q[2]:.3f}, max {q[3]:.3f}; "
+              f"launches in the sweep: {launches}; from the cache: "
+              f"{relaunch} {tag}")
+        for iso, st in ((30.0, stats), (level, low)):
+            v = st["verts"]
+            inside = bool((v.min(0) >= lo - 1e-4).all()
+                          and (v.max(0) <= hi + 1e-4).all()) if len(v) else None
+            print(f"mesh export {model} {R}^3 iso {iso:g}: marching "
+                  f"{st['marching_seconds']:.3f} s, {st['num_verts']} verts, "
+                  f"{st['num_faces']} faces, inside the scene bounds "
+                  f"{inside} {tag}")
+            check(inside is not False, (model, iso, "mesh outside the bounds"))
+        check(low["num_faces"] > 0, (model, "mesh", level, low["num_faces"]))
+        check(all(n == chunks for n in launches.values())
+              and not any(relaunch.values()),
+              (model, "sweep launches", launches, relaunch, chunks))
+
+        # the reference: the same sweep through the plain encoders, meshed
+        # at the same level by the same extractor
+        plain_cache = f"{work}/{model}_plain_grid.npy"
+        grid = plain_sweep_grid(res, R)
+        same_grid = np.array_equal(grid, np.load(cache))
+        np.save(plain_cache, grid)
+        ref = mesh_export.export_mesh(
+            res.field, res.scene, res.cfg, resolution=R, iso=level,
+            cache_path=plain_cache, out_path=f"{work}/{model}_plain.ply",
+            verbose=False)
+        same_mesh = all(np.array_equal(low[k], ref[k])
+                        for k in ("verts", "faces", "colors"))
+        print(f"mesh export {model} {R}^3: the sweep's rgb8 and sigma16 grid "
+              f"equals the plain encoders' bit for bit: {same_grid}; its iso "
+              f"{level:g} mesh equals theirs ({ref['num_verts']} verts, "
+              f"{ref['num_faces']} faces): {same_mesh}")
+        check(same_grid and same_mesh, (model, "sweep against plain"))
+
+        start = (chunks // 2) * SWEEP_CHUNK
+        pts = mesh_export.sweep_points(start, R, SWEEP_CHUNK, res.scene[
+            "min_bound"], res.scene["max_bound"] - res.scene["min_bound"])
+        for nm, tables in encoder_parts(res.field):
+            rec = forward_check(
+                nm, tables, pts, res.scene, res.cfg.hash, matrix=True,
+                tol=0.0, label=f"lattice points of a sweep chunk from {start}"
+                f" of {R}^3", tag=tag, plain_reps=5)
+            report[f"{nm}/sweep_chunk"] = (rec, launches[nm], R)
+        del res
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
     from human_body_reconstruction_tpu_torch.cli import serve
+    from human_body_reconstruction_tpu_torch.cli import card_line
     from human_body_reconstruction_tpu_torch.data.synthetic import orbit_poses
     from human_body_reconstruction_tpu_torch.ops import (
-        cp_kernel, cuda_lib, dense_kernel, hash_kernel)
+        cuda_lib, hash_kernel, marching_cubes)
     from human_body_reconstruction_tpu_torch.train import step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    gpu = gpu_line()
+    gpu = card_line(device)
     print(gpu)
     name = torch.cuda.get_device_name(0)
     tag = f"[{gpu}]"
 
     t0 = time.perf_counter()
-    lib_path, log = cuda_lib.build()
+    with ThreadPoolExecutor(1) as pool:     # g++ beside the nvcc processes
+        mc_build = pool.submit(marching_cubes.build)
+        lib_path, log = cuda_lib.build()
+        mc_path = mc_build.result()
     cuda_lib.library()
-    print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    marching_cubes.library()
+    print(f"build: {lib_path.name} and {mc_path.name} in "
+          f"{time.perf_counter() - t0:.2f} s")
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    with tempfile.TemporaryDirectory() as train_dir:
-        trainer, ds, train_launches, phase_launches = train(train_dir, device,
-                                                            tag)
-        bwd = backward_checks(trainer, device, tag,
-                              training_path_points(trainer, device))
-        step_on_card_vs_cpu(trainer, ds, device)
-        profile_step(trainer, "guided", tag)
-        serve_trained(trainer, ds, train_dir, 128, tag)
-        del trainer
+    work = tempfile.TemporaryDirectory()
+    train_dir, hash_dir = f"{work.name}/flagship", f"{work.name}/hash"
+    trainer, ds, train_launches, phase_launches = train(train_dir, device, tag)
+    bwd = backward_checks(trainer, device, tag,
+                          training_path_points(trainer, device))
+    step_on_card_vs_cpu(trainer, ds, device)
+    profile_step(trainer, "guided", tag)
+    serve_trained(trainer, ds, train_dir, 128, tag)
+    del trainer
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as hash_dir:
-        trainer, hash_launches = train_hash_grid(hash_dir, ds, device, tag)
-        hash_report = hash_kernel_checks(
-            trainer, device, tag, hash_path_points(trainer, device),
-            serving_chunk_points(trainer.cfg.render, ds["K"], ds["c2ws"][1],
-                                 device, 64))
-        hash_step_on_card_vs_cpu(trainer, ds, device)
-        profile_step(trainer, "stochastic hash", tag)
-        hash_kernel.hash_encode_kernel.launches = 0
-        torch.cuda.synchronize()
-        serve_trained(trainer, ds, hash_dir, 64, tag)
-        torch.cuda.synchronize()
-        hash_launches["hash_forward/serving_path"] = (
-            hash_kernel.hash_encode_kernel.launches)
-        print("launches while serving the trained hash model (exact "
-              f"forward): {hash_launches['hash_forward/serving_path']}")
-        check(hash_launches["hash_forward/serving_path"] > 0,
-              "the served hash frames went through the forward kernel")
-        del trainer, ds
+    trainer, hash_launches = train_hash_grid(hash_dir, ds, device, tag)
+    hash_report = hash_kernel_checks(
+        trainer, device, tag, hash_path_points(trainer, device),
+        serving_chunk_points(trainer.cfg.render, ds["K"], ds["c2ws"][1],
+                             device, 64))
+    hash_step_on_card_vs_cpu(trainer, ds, device)
+    profile_step(trainer, "stochastic hash", tag)
+    hash_kernel.hash_encode_kernel.launches = 0
+    torch.cuda.synchronize()
+    serve_trained(trainer, ds, hash_dir, 64, tag)
+    torch.cuda.synchronize()
+    hash_launches["hash_forward/serving_path"] = (
+        hash_kernel.hash_encode_kernel.launches)
+    print("launches while serving the trained hash model (exact "
+          f"forward): {hash_launches['hash_forward/serving_path']}")
+    check(hash_launches["hash_forward/serving_path"] > 0,
+          "the served hash frames went through the forward kernel")
+    del trainer, ds
     torch.cuda.empty_cache()
 
-    kernels = [
-        ("cp_forward", cp_kernel.cp_encode_kernel, cp_kernel.cp_encode_plain,
-         "lines", "human_body_reconstruction_tpu/ops/cp_pallas.py:143", CP_TOL),
-        ("dense_forward", dense_kernel.dense_encode_kernel,
-         dense_kernel.dense_encode_plain, "dense",
-         "human_body_reconstruction_tpu/ops/dense_pallas.py:125", DENSE_TOL),
-    ]
+    kernels = wrappers("cp_forward", "dense_forward")
     with tempfile.TemporaryDirectory() as run_dir:
         occ_frac = write_run_dir(run_dir, device)
         args = serve.build_parser().parse_args([
@@ -937,12 +1280,8 @@ def main() -> int:
          "num_samples": 128, "eval_guided": 64},
         {"id": "health", "cmd": "health"},
     ]
-    for _, kern, *_ in kernels:
-        kern.launches = 0
-    torch.cuda.synchronize()
-    responses = [server.handle(r) for r in requests]
-    torch.cuda.synchronize()
-    launches = {nm: kern.launches for nm, kern, *_ in kernels}
+    responses, launches = counted(kernels, lambda: [server.handle(r)
+                                                    for r in requests])
     for req, resp in zip(requests, responses):
         check(resp["ok"], resp)
         if "wall_s" in resp:
@@ -968,66 +1307,22 @@ def main() -> int:
         orbit_poses(4)[0], device, 128)
     check(chunk.shape == (N_POINTS, 3), ("serving chunk", chunk.shape))
     report = []
-    h = cfg.hash
-    d = h.dense_levels * h.features_per_level
-    fwd_ops = {"cp_forward": N_POINTS * len(field.lines)
-               * (h.cp_rank * 11 + 3 * 6),
-               "dense_forward": N_POINTS * h.dense_levels
-               * (28 + 17 * h.features_per_level)}
-    for nm, kern, plain, attr, replaces, tol in kernels:
-        tables = list(getattr(field, attr))
+    for nm, tables in reversed(encoder_parts(field)):    # CP, then dense
         for kind, at in (("path", chunk), ("random", pts)):
-            a = (tables, at, scene["mu"], scene["sigma"], cfg.hash)
-            xa = (at - scene["mu"]) / scene["sigma"]
-            outside = float(((xa < 0) | (xa > 1)).any(-1).float().mean())
-            # the dense kernel on the path writes its columns of the
-            # encoder's (N, 129) matrix, as encode_params hands it them
-            kw, where = {}, ""
-            if nm == "dense_forward" and kind == "path":
-                mat = torch.full((N_POINTS, h.out_dim), float("nan"),
-                                 device=device)
-                kw = {"out": mat[:, :d]}
-                where = "into the (N, 129) matrix's first columns"
-            lib = ""
-            with torch.no_grad():
-                got, want = kern(*a, **kw), plain(*a)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                check(bool(torch.isfinite(got).all())
-                      and got.shape == want.shape,
-                      f"{nm} output finite, of the plain version's shape")
-                if kw:
-                    check(bool(mat[:, d:].isnan().all()),
-                          "the matrix's other columns untouched")
-                ms = time_ms(lambda: kern(*a, **kw))
-                plain_ms = time_ms(lambda: plain(*a))
-                lib_ms = None
-                if nm == "dense_forward":
-                    lib_ms = time_ms(lambda gs=grid_sample_inputs(
-                        tables, at, scene["mu"], scene["sigma"], h):
-                        grid_sample_levels(gs))
-                    lib = f", grid_sample {lib_ms:.4f} ms"
-                if kw:
-                    lib += (f", contiguous (N, {d}) "
-                            f"{time_ms(lambda: kern(*a)):.4f} ms")
-            bnd = bound(nbytes(at, got, *tables), fwd_ops[nm])
-            print(f"kernel {nm}: {N_POINTS} {kind} points ({outside:.3f} "
-                  f"outside the box) {where}, out {tuple(got.shape)}, "
-                  f"max_abs_err {err:.3e} (tol {tol:g}), {ms:.4f} ms vs plain "
-                  f"{plain_ms:.4f} ms{lib}, bound {bnd[0]:.4f} ms ({bnd[1]}) "
-                  f"{tag}")
-            check(err <= tol, (nm, kind, err))
-            if kind == "path":
+            path = kind == "path"
+            rec = forward_check(
+                nm, tables, at, scene, cfg.hash, matrix=path,
+                tol=FWD_TOL[nm], label=f"{kind} points", tag=tag)
+            if path:
                 shape = (f"{N_POINTS} points: a 16384-ray chunk of a 400x400 "
-                         f"frame's 128-sample ladder{', ' + where if kw else ''}"
-                         "; launches while serving")
-                rec = (f"{nm}/serving_path", launches[nm])
+                         "frame's 128-sample ladder, into the encoder's (N, "
+                         f"{cfg.hash.out_dim}) matrix; launches while serving")
+                name, n = f"{nm}/serving_path", launches[nm]
             else:
-                shape = (f"{N_POINTS} uniform random points; launches while "
-                         "training")
-                rec = (f"{nm}/random", train_launches[nm])
-            report.append(entry(rec[0], SOURCE, replaces, rec[1], err, ms,
-                                plain_ms, lib_ms, bnd, shape))
+                shape = (f"{N_POINTS} uniform random points, contiguous; "
+                         "launches while training")
+                name, n = f"{nm}/random", train_launches[nm]
+            report.append(entry(name, SOURCE, REPLACES[nm], n, *rec, shape))
     for nm, replaces in (
             ("cp_backward", "human_body_reconstruction_tpu/ops/cp_pallas.py:173"),
             ("dense_backward",
@@ -1089,6 +1384,22 @@ def main() -> int:
           "frame finite and (128, 128, 3)")
     check(float(img.std()) > 1e-3, "frame not blank")
     check(frame_err <= FRAME_TOL, ("frame", frame_err))
+
+    # the new paths: the quality protocol, the render CLI, mesh export
+    del server, field, field_cpu
+    torch.cuda.empty_cache()
+    quality_phase(work.name, device, tag)
+    render_phase(train_dir, work.name, device, tag)
+    sweep = mesh_phase(train_dir, hash_dir, work.name, device, tag)
+    work.cleanup()
+    for key, (rec, launches, R) in sweep.items():
+        nm = key.split("/")[0]
+        report.append(entry(
+            key, hash_src if nm == "hash_forward" else SOURCE, REPLACES[nm],
+            launches, *rec,
+            f"{SWEEP_CHUNK} lattice points (k fastest) of a {R}^3 mesh sweep"
+            f"{', exact' if nm == 'hash_forward' else ''}; launches in the "
+            "sweep"))
 
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

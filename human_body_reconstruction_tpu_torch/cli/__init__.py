@@ -1,7 +1,12 @@
-"""Command-line entry points of the port: ``train_hash`` and ``serve``."""
+"""Command-line entry points of the port: ``train_hash``, ``serve``,
+``quality_holdout``, ``render`` and ``nerf2mesh``, and their shared
+helpers."""
 
 from __future__ import annotations
 
+import subprocess
+
+import numpy as np
 import torch
 
 
@@ -14,3 +19,20 @@ def device_from_flag(name: str) -> torch.device:
         raise SystemExit(f"--device {name}: no CUDA device is available; "
                          "pass --device cpu to run on the CPU")
     return device
+
+
+def card_line(device: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi gives them ("cpu" on
+    the CPU)."""
+    if device.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         f"--id={device.index or 0}"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def psnr(img, ref) -> float:
+    """10·log10(1 / mse) of two numpy images in [0, 1]."""
+    mse = float(np.mean((img - ref) ** 2))
+    return 10 * np.log10(1.0 / max(mse, 1e-12))

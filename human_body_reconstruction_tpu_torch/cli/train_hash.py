@@ -17,7 +17,7 @@ with a message: the ``cell`` variant, packed/int8 gathers and the gradient
 subsampling and scatter options, SDF mode, hierarchical sampling,
 data/level parallelism, fused multi-step dispatches, the
 compiled-executable cache, resume, gradient-norm logging, the live preview
-and the humanoid/tangle synthetic subjects.
+and the tangle synthetic subject (``data/synthetic.TANGLE_REFUSAL``).
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.train_hash \\
           --synthetic --synthetic_subject textured --stochastic --hw_rng
@@ -442,8 +442,15 @@ def load_dataset(args, device):
             return synthetic.make_dataset(n_views=12, H=96, W=96,
                                           near=args.near, far=args.far,
                                           device=device), None
-        raise SystemExit(f"synthetic subject {args.synthetic_subject!r} is "
-                         "not ported yet (textured, blobs are)")
+        if args.synthetic_subject == "human":
+            # closer orbit + longer focal so the 1.6-unit figure fills
+            # the frame
+            return synthetic.make_dataset(
+                n_views=12, H=96, W=96, focal=110.0, near=args.near,
+                far=args.far, field=synthetic.humanoid_field, radius=3.0,
+                elevation=0.1, device=device), None
+        if args.synthetic_subject == "tangle":
+            raise SystemExit(synthetic.TANGLE_REFUSAL)
     data_path = args.data_path or "data/lego/"
     json_path = os.path.join(data_path, "transforms_train.json")
     if not os.path.exists(json_path):

@@ -1,11 +1,14 @@
 """Procedural synthetic scenes (counterpart of the JAX data/synthetic.py).
 
 Pose helpers (numpy), the analytic emissive volumes ``blob_field`` (smooth,
-for small tests) and ``textured_field`` (the hard scene of the zero-flag
-trainer: a thin shell, three rods and a core under a 3-octave albedo), and
-their ground-truth renders through the same compositing as the model.  The
-card's machine has no JAX, so the port renders its own ground truth.  The
-humanoid, sphere and tangle subjects are not ported yet.
+for small tests), ``textured_field`` (the hard scene of the zero-flag
+trainer: a thin shell, three rods and a core under a 3-octave albedo),
+``humanoid_field`` (a standing figure of capsules) and
+``textured_humanoid_field`` (the figure under the same albedo), and their
+ground-truth renders through the same compositing as the model.  The card's
+machine has no JAX, so the port renders its own ground truth.  The sphere
+subject is not ported yet; the tangle subject is not ported at all
+(``TANGLE_REFUSAL``).
 """
 
 from __future__ import annotations
@@ -58,12 +61,75 @@ def blob_field(pts):
     return rgb, sigma
 
 
+TANGLE_REFUSAL = ("the tangle scene is not ported: its capsules and texture "
+                  "are drawn from the JAX PRNG, which torch cannot "
+                  "reproduce (textured and humanoid scenes are)")
+
+
+def _capsule_dist(pts, a, b, r):
+    """Distance from pts (N, 3) to the capsule with axis segment a-b,
+    radius r."""
+    a = pts.new_tensor(a)
+    b = pts.new_tensor(b)
+    ab = b - a
+    t = torch.clamp((pts - a) @ ab / torch.dot(ab, ab), 0.0, 1.0)
+    closest = a + t[:, None] * ab
+    return torch.linalg.vector_norm(pts - closest, dim=-1) - r
+
+
+# (a, b, radius, rgb): a stick figure ~1.6 units tall centred on the origin
+_HUMANOID_PARTS = (
+    ((0.0, 0.0, 0.55), (0.0, 0.0, 0.75), 0.13, (0.9, 0.75, 0.65)),   # head
+    ((0.0, 0.0, 0.05), (0.0, 0.0, 0.45), 0.17, (0.2, 0.35, 0.7)),    # torso
+    ((-0.16, 0.0, 0.42), (-0.42, 0.0, 0.05), 0.06, (0.9, 0.75, 0.65)),  # L arm
+    ((0.16, 0.0, 0.42), (0.42, 0.0, 0.05), 0.06, (0.9, 0.75, 0.65)),   # R arm
+    ((-0.09, 0.0, -0.05), (-0.12, 0.0, -0.75), 0.07, (0.25, 0.25, 0.3)),  # L leg
+    ((0.09, 0.0, -0.05), (0.12, 0.0, -0.75), 0.07, (0.25, 0.25, 0.3)),   # R leg
+)
+
+
+def humanoid_field(pts):
+    """A standing figure of six capsules: density falls off smoothly at
+    each capsule's surface, colour comes from the nearest part.
+    Returns (rgb (N, 3), sigma (N,))."""
+    dists = torch.stack([_capsule_dist(pts, a, b, r)
+                         for a, b, r, _ in _HUMANOID_PARTS], dim=-1)  # (N, P)
+    colors = pts.new_tensor([c for _, _, _, c in _HUMANOID_PARTS])    # (P, 3)
+    part_sigma = 50.0 * torch.sigmoid(-60.0 * dists)
+    sigma = torch.sum(part_sigma, dim=-1)
+    w = part_sigma / (sigma[:, None] + 1e-9)
+    return w @ colors, sigma
+
+
+def _albedo(pts):
+    """The 3-octave incommensurate trig albedo (N, 3) of the textured
+    scenes, base frequency 24 (wavelengths down to ~0.08 units)."""
+    freq = 24.0
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+
+    def octave(f, phase):
+        return (torch.sin(f * x + phase) * torch.sin(f * 1.31 * y + 2.1 * phase)
+                * torch.sin(f * 0.87 * z + 0.7 * phase))
+
+    tex = (octave(freq, 0.0) + 0.5 * octave(2.3 * freq, 1.0),
+           octave(1.7 * freq, 2.0) + 0.5 * octave(3.1 * freq, 0.4),
+           octave(1.3 * freq, 4.0) + 0.5 * octave(2.7 * freq, 1.7))
+    rgb = torch.stack([0.5 + 0.33 * t for t in tex], dim=-1)
+    return torch.clamp(rgb, 0.0, 1.0)
+
+
+def textured_humanoid_field(pts):
+    """The humanoid's geometry under the textured scene's albedo: fine
+    detail on thin limbs (radius ~0.06) instead of shells.
+    Returns (rgb (N, 3), sigma (N,))."""
+    return _albedo(pts), humanoid_field(pts)[1]
+
+
 def textured_field(pts):
     """The hard scene: a thin shell at radius 0.85, three thin rods through
     the centre and a small core, under a 3-octave incommensurate trig
     albedo of base frequency 24 (wavelengths down to ~0.08 units).
     Returns (rgb (N, 3), sigma (N,))."""
-    freq = 24.0
     r = torch.linalg.vector_norm(pts, dim=-1)
     sharp = 200.0
     shell = torch.exp(-((r - 0.85) / 0.025) ** 2)
@@ -78,16 +144,7 @@ def textured_field(pts):
             + torch.sigmoid(-sharp * (rz - rod_r))) * inside
     core = torch.sigmoid(-sharp * (r - 0.18))
     sigma = 120.0 * shell + 90.0 * torch.clamp(rods, 0.0, 1.0) + 90.0 * core
-
-    def octave(f, phase):
-        return (torch.sin(f * x + phase) * torch.sin(f * 1.31 * y + 2.1 * phase)
-                * torch.sin(f * 0.87 * z + 0.7 * phase))
-
-    tex = (octave(freq, 0.0) + 0.5 * octave(2.3 * freq, 1.0),
-           octave(1.7 * freq, 2.0) + 0.5 * octave(3.1 * freq, 0.4),
-           octave(1.3 * freq, 4.0) + 0.5 * octave(2.7 * freq, 1.7))
-    rgb = torch.stack([0.5 + 0.33 * t for t in tex], dim=-1)
-    return torch.clamp(rgb, 0.0, 1.0), sigma
+    return _albedo(pts), sigma
 
 
 @torch.no_grad()

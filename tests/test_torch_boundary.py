@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of the JAX package, and what it
 copied from there (the config dataclasses and their JSON round trip, the
-trainer's flag surface and preset resolution, the dataset reader) agrees
-with the original.  Its entry points run on the card unless given
+trainer's flag surface and preset resolution, the dataset reader, the
+native marching-cubes source, the quality protocol's constants and the
+render and mesh-export flags) agrees with the original.  Its entry points run on the card unless given
 ``--device cpu``.  Test names avoid the words that tests/conftest.py marks
 slow.
 """
@@ -20,7 +21,8 @@ import torch
 from human_body_reconstruction_tpu.cli import train_hash as jcli
 from human_body_reconstruction_tpu.data import datasets as jdatasets
 from human_body_reconstruction_tpu.utils import config as jC
-from human_body_reconstruction_tpu_torch.cli import serve, train_hash
+from human_body_reconstruction_tpu_torch.cli import (
+    nerf2mesh, occ_report, quality_holdout, render, serve, train_hash)
 from human_body_reconstruction_tpu_torch.data import datasets
 from human_body_reconstruction_tpu_torch.utils import config as C
 
@@ -228,3 +230,66 @@ def test_port_imports_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split()[1])
     assert n >= 25, proc.stdout
+
+
+def test_native_marching_source_is_a_copy():
+    """native/marching.cpp byte for byte the JAX package's."""
+    def read(pkg):
+        with open(os.path.join(REPO, pkg, "native", "marching.cpp"), "rb") as f:
+            return f.read()
+
+    assert read("human_body_reconstruction_tpu_torch") == read(
+        "human_body_reconstruction_tpu")
+
+
+def test_quality_constants_match_jax():
+    """The holdout eyes, their names and the scenes of
+    scripts/quality_matrix.py (tangle is not ported)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "quality_matrix", os.path.join(REPO, "scripts", "quality_matrix.py"))
+    qm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qm)
+    assert quality_holdout.HOLDOUT_EYES == qm.HOLDOUT_EYES
+    assert quality_holdout.HOLDOUT_NAMES == qm.HOLDOUT_NAMES
+    assert quality_holdout.SCENES == {k: v for k, v in qm.SCENES.items()
+                                      if k != "tangle"}
+
+
+@pytest.mark.parametrize("cli", ["render", "nerf2mesh"])
+def test_render_and_mesh_flags_match_jax(cli):
+    """The JAX CLI's flags, with the same defaults, types and choices; the
+    port adds only --device (default cuda)."""
+    import importlib
+
+    ref = importlib.import_module(
+        f"human_body_reconstruction_tpu.cli.{cli}").build_parser()
+    port = {"render": render, "nerf2mesh": nerf2mesh}[cli].build_parser()
+
+    def flags(p):
+        return {a.dest: (tuple(a.option_strings), a.default, a.type,
+                         tuple(a.choices or ()), type(a).__name__)
+                for a in p._actions if a.dest != "help"}
+
+    got, want = flags(port), flags(ref)
+    assert set(got) - set(want) == {"device"}
+    assert {k: got[k] for k in want} == want
+    assert got["device"][1] == "cuda"
+
+
+@pytest.mark.parametrize("cli", ["quality_holdout", "render", "nerf2mesh",
+                                 "occ_report"])
+def test_new_entry_points_need_a_card(cli, monkeypatch, tmp_path):
+    """Without a card the new CLIs exit with a message naming --device
+    cpu; each defaults to the card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = {"quality_holdout": quality_holdout, "render": render,
+           "nerf2mesh": nerf2mesh, "occ_report": occ_report}[cli]
+    argv = {"quality_holdout": ["--out", str(tmp_path / "q.json")],
+            "render": ["--orbit", "1", "--out_dir", str(tmp_path)],
+            "nerf2mesh": ["--ckpt_dir", str(tmp_path)],
+            "occ_report": ["--run_dir", str(tmp_path)]}[cli]
+    assert mod.build_parser().parse_args(argv).device == "cuda"
+    with pytest.raises(SystemExit, match="--device cpu"):
+        mod.main(argv)

@@ -764,3 +764,67 @@ def test_dense_kernels_full_width_on_ray_samples(cuda_device):
     assert grads_close(dense_kernel.dense_encode_backward_kernel,
                        dense_kernel.dense_encode_plain_backward, grids, args,
                        g[:, :d], True)
+
+
+def sweep_chunks(device):
+    """(points, scene) of two mesh-sweep chunks, lattice-ordered (k
+    fastest): 100,003 points (a multiple of no block) from the middle of a
+    64^3 sweep, and the last chunk of a 50^3 sweep in chunks of 65,536,
+    padded past R^3 so its tail lies outside the scene box."""
+    from human_body_reconstruction_tpu_torch.models.nerf import scene_from_bounds
+    from human_body_reconstruction_tpu_torch.pipeline.mesh_export import (
+        sweep_points)
+
+    scene = scene_from_bounds([-1.2, -1.5, -0.9], [1.3, 1.1, 1.4],
+                              device=device)
+    lo, span = scene["min_bound"], scene["max_bound"] - scene["min_bound"]
+    mid = sweep_points(2 ** 17, 64, 100_003, lo, span)
+    start = (50 ** 3 // 65_536) * 65_536
+    last = sweep_points(start, 50, 65_536, lo, span)
+    outside = ((last > scene["max_bound"]) | (last < lo)).any(-1)
+    assert int(outside.sum()) == start + 65_536 - 50 ** 3
+    return [mid, last], scene
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder", ["cp", "dense", "hash"])
+def test_forward_kernels_match_plain_on_sweep_chunks(cuda_device, encoder):
+    """The mesh sweep's forwards (CP and dense at the preset's width, the
+    exact hash forward on the reference table) on lattice-ordered chunks,
+    bit for bit with their plain versions, both into a contiguous output
+    and into their columns of the encoder's NaN-filled (N, out_dim) matrix
+    (the sweep's layout: dense first), the other columns left NaN."""
+    chunks, scene = sweep_chunks(cuda_device)
+    if encoder == "hash":
+        h = C.HashConfig(num_levels=16, log2_table_size=16, n_max=2048,
+                         variant="corner")
+        table = hash_inputs(cuda_device, n=4, levels=16, log2_t=16)[0]
+        kern = lambda x, **kw: hash_kernel.hash_encode_kernel(
+            table, x, scene["mu"], scene["sigma"], h, **kw)
+        plain = lambda x: hash_kernel.hash_encode_plain(
+            table, x, scene["mu"], scene["sigma"], h)
+    else:
+        h = C.flagship_config().hash
+        grids, lines, _ = tables(h, cuda_device, n=4)
+        mod, tabs = ((cp_kernel, lines) if encoder == "cp"
+                     else (dense_kernel, grids))
+        name = f"{encoder}_encode"
+        kern = lambda x, **kw: getattr(mod, f"{name}_kernel")(
+            tabs, x, scene["mu"], scene["sigma"], h, **kw)
+        plain = lambda x: getattr(mod, f"{name}_plain")(
+            tabs, x, scene["mu"], scene["sigma"], h)
+    d = h.dense_levels * h.features_per_level if encoder != "hash" else 0
+    cols = slice(0, d) if encoder == "dense" else slice(d, h.out_dim)
+    for x in chunks:
+        got = kern(x)
+        mat = torch.full((x.shape[0], h.out_dim), float("nan"),
+                         device=cuda_device)
+        kern(x, out=mat[:, cols])
+        torch.cuda.synchronize()
+        want = plain(x)
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert torch.equal(got, want)
+        assert torch.equal(mat[:, cols], want)
+        rest = torch.ones(h.out_dim, dtype=torch.bool)
+        rest[cols] = False
+        assert bool(mat[:, rest.to(cuda_device)].isnan().all())
