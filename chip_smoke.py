@@ -66,6 +66,35 @@
    (262,144 lattice points, k fastest) through the kernels held to the
    same chunk through the plain versions on the card, the encoder outputs
    and the quantised rgb8 and sigma16 bit for bit.
+9. SDF mode: ``cli/quality_holdout.py --mode cp_r21_sdf_guided_es16k`` (the
+   quality matrix's SDF mode, full width: 8 levels, n_max 2048, rank 21,
+   dense G 18 and 34, subsampled eikonal) on the textured scene, cut to
+   320 steps: ms/step, rays/s, the eikonal term, the sharpness var_b,
+   occ_frac and the holdout; one step of the saved model on the card
+   against the CPU from the same batch, guided placement and eikonal
+   indices (loss, every gradient, var_b's included); each encoder kernel
+   against its plain version on that step's 98,304 eikonal points (16384
+   points at six clipped offsets), the forwards into their columns of the
+   encoder's (N, 130) matrix bit for bit.
+10. The hierarchical pass: the same for ``cp_r21_hier_xla`` (64 + 64
+    samples, no grid) cut to 96 steps, the card-vs-CPU step on 4096 rays,
+    the kernels on a 16384-ray batch's second-pass points (2,097,152).
+11. Continuation: the SDF mode's Trainer at full width (warmup cut to 16)
+    trains 24 steps, saves, a fresh Trainer loads (the loaded params,
+    moments, counts, step, grid and generator equal to the saved ones bit
+    for bit) and trains 16 more; each step's loss within CONT_LOSS_RTOL of
+    40 steps in one run.
+12. The TPU's own trained SDF weights (``qm_params_*.npz``): the 4
+    holdout poses at 400x400, 128 exact samples, beside each record's
+    per-pose PSNR and, on every 4th pixel, within JAX_CPU_DB of the JAX
+    package on the CPU (``tpu_weights_jax_cpu.json``, written by
+    ``tools/tpu_weights_jax_cpu.py``); the xla weights meshed at 192^3, iso
+    auto, against the TPU's ``sdf_mesh_textured_r5.ply`` (vertex and face
+    counts, symmetric mean nearest-vertex distance in voxels).
+13. The new flags through their CLIs: ``train_hash --use_sdf
+    --hierarchical`` on the flagship preset for 8 steps, ``--load`` for 8
+    more; ``render`` and ``nerf2mesh`` with ``--use_sdf --hierarchical`` on
+    that run, the forward kernels' launches counted.
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
@@ -81,15 +110,16 @@ behind a device sleep, so they are the device's time, not the host's
 enqueue.
 
 Any failure ends the run with a nonzero exit.  Output: the card's name and
-power limit, per-phase, per-request and per-kernel lines, then one JSON line
-listing the seven kernels (launches counted on the path that runs each; the
-encoder kernels once per shape, named for it and with a "shape" key:
-{cp,dense}_forward/serving_path and /random, {cp,dense}_backward/
-guided_path, guided_random, unculled_path and unculled_random,
-hash_forward/train_path, /random and /serving_path (exact),
-hash_backward/train_path and /random, {cp,dense,hash}_forward/sweep_chunk,
-with the launches of the phase that runs each shape), and last
-``{"ok": true, "device": {...}}``.
+power limit, per-phase, per-request and per-kernel lines, the smoke's wall
+time, then one JSON line listing the seven kernels (launches counted on the
+path that runs each; the encoder kernels once per shape, named for it and
+with a "shape" key: {cp,dense}_forward/serving_path and /random,
+{cp,dense}_backward/guided_path, guided_random, unculled_path and
+unculled_random, hash_forward/train_path, /random and /serving_path
+(exact), hash_backward/train_path and /random,
+{cp,dense,hash}_forward/sweep_chunk, {cp,dense}_{forward,backward}/
+eikonal_points and /fine_pass, with the launches of the phase that runs
+each shape), and last ``{"ok": true, "device": {...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
 """
@@ -101,6 +131,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import sys
 import tempfile
 import time
@@ -111,6 +142,7 @@ import numpy as np
 import torch
 
 SEED = 0
+ROOT = os.path.dirname(os.path.abspath(__file__))   # the repo's checkout
 N_POINTS = 16384 * 128          # one ladder chunk: 16384 rays x 128 samples
 FWD_TOL = {"cp_forward": 1e-6,  # kernel vs plain: same operations, order
            "dense_forward": 1e-6}
@@ -124,9 +156,11 @@ TRAIN_POINTS = (16000 * 48, 16000 * 128)   # guided and unculled steps
 STEP_LOSS_RTOL = 1e-4           # one step, card vs CPU
 STEP_GRAD_RTOL = 1e-2           # per group, ||card - cpu|| / ||cpu||
 SOURCE = "human_body_reconstruction_tpu_torch/csrc/encoders.cu"
-REPLACES = {    # the TPU kernel (or jnp code) each forward kernel stands for
+REPLACES = {    # the TPU kernel (or jnp code) each encoder kernel stands for
     "cp_forward": "human_body_reconstruction_tpu/ops/cp_pallas.py:143",
     "dense_forward": "human_body_reconstruction_tpu/ops/dense_pallas.py:125",
+    "cp_backward": "human_body_reconstruction_tpu/ops/cp_pallas.py:173",
+    "dense_backward": "human_body_reconstruction_tpu/ops/dense_pallas.py:152",
     "hash_forward": "none (no TPU kernel: human_body_reconstruction_tpu/ops/"
                     "hash_encoding.py:259 gathers in jnp)"}
 HASH_STEPS = 150
@@ -141,6 +175,25 @@ QUALITY_STEPS = 320             # the protocol's 6000-step horizon, cut in depth
 QUALITY_FLOOR_DB = 26.8
 SWEEP_CHUNK = 262144            # points a mesh-sweep chunk (cli/nerf2mesh.py)
 MESH_RES = {"flagship": 256, "hash": 128}   # the sweeps' lattice sides
+SDF_MODE, HIER_MODE = "cp_r21_sdf_guided_es16k", "cp_r21_hier_xla"
+# the records' 5088 and 352 steps, cut in depth: the SDF run installs its
+# grid at 256 and refreshes it at 320
+MODE_STEPS = {SDF_MODE: 320, HIER_MODE: 96}
+HIER_STEP_RAYS = 4096           # the hierarchical card-vs-CPU step's batch
+CONT_STEPS, CONT_WARMUP = (24, 16), 16   # k, then m more; warmup cut to 16
+PROTOCOL_RAYS = 16384           # the protocol's batch
+CLI_STEPS = 8                   # train_hash --use_sdf --hierarchical, then --load
+# continued vs uninterrupted, per step on the card: the float-atomic
+# backwards make two runs of the same steps differ, and the difference
+# grows (an H100 80GB HBM3: 1.27e-2 at worst over 40 steps); a second
+# uninterrupted run shows the same spread
+CONT_LOSS_RTOL = 5e-2
+TPU_WEIGHTS = {"cp_r21_sdf_guided_es16k": "qm_r5_sdf_pallas_600.json",
+               "cp_r21_sdf_guided_xla_es16k": "qm_r5_sdf_xla_textured.json"}
+JAX_CPU_SCORES = "tpu_weights_jax_cpu.json"   # tools/tpu_weights_jax_cpu.py
+JAX_CPU_DB = 0.05               # port on the card vs JAX on the CPU, per pose
+SDF_MESH = ("cp_r21_sdf_guided_xla_es16k", 192, "sdf_mesh_textured_r5.ply",
+            "sdf_mesh_textured_r4.json")
 JAX_ROW_KEYS = ("mode", "steps", "rays_per_sec", "train_psnr", "holdout_psnr",
                 "holdout_std", "holdout_min", "holdout_per_pose", "scene",
                 "budget_s", "occ_frac")
@@ -417,6 +470,62 @@ def grid_sample_backward_levels(inputs, grad):
         for go, (vol, u) in zip(gos, inputs)]
 
 
+def backward_ops(nm: str, tables, h, n: int):
+    """Scalar operations of the backward kernel ``nm`` on n points."""
+    return n * {"cp_backward": len(tables) * (h.cp_rank * 26 + 3 * 6),
+                "dense_backward": h.dense_levels
+                * (28 + 18 * h.features_per_level)}[nm]
+
+
+def plain_backward(nm: str):
+    """The plain PyTorch version of the backward kernel ``nm``."""
+    from human_body_reconstruction_tpu_torch.ops import cp_kernel, dense_kernel
+
+    return {"cp_backward": cp_kernel.cp_encode_plain_backward,
+            "dense_backward": dense_kernel.dense_encode_plain_backward}[nm]
+
+
+def backward_check(nm, tables, pts, scene, h, cols, label, tag):
+    """The backward kernel ``nm`` against its plain version on ``pts`` with
+    the cotangent ``cols`` (its columns of the encoder's (N, out_dim)
+    gradient), within ``cuda_lib.sum_order_tolerance``; the dense one also
+    timed against ``grid_sampler_3d_backward``.  Returns (max_abs_err, ms,
+    plain_ms, library_ms, bound)."""
+    from human_body_reconstruction_tpu_torch.ops import cuda_lib
+
+    kern, plain = dict(wrappers(nm))[nm], plain_backward(nm)
+    a = (tables, pts, scene["mu"], scene["sigma"], h, cols)
+    bnd = bound(nbytes(pts, cols, *tables, *tables),
+                backward_ops(nm, tables, h, pts.shape[0]))
+    with torch.no_grad():
+        got, want = kern(*a), plain(*a)
+        abs_sum = plain([t.abs() for t in tables], *a[1:-1], cols.abs())
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        ulps = max(float(((x - y).abs() / (cuda_lib.bf16_ulp(y)
+                                           + 1e-6)).max())
+                   for x, y in zip(got, want))
+        ratio = max(float(((x - y).abs() / cuda_lib.sum_order_tolerance(
+            y, s, True)).max()) for x, y, s in zip(got, want, abs_sum))
+        check(all(x.shape == y.shape and bool(torch.isfinite(x).all())
+                  for x, y in zip(got, want)),
+              f"{nm} gradients finite, of the plain version's shapes")
+        ms = time_ms(lambda: kern(*a))
+        plain_ms = time_ms(lambda: plain(*a), reps=5)
+        lib_ms = None
+        if nm == "dense_backward":
+            lib_ms = time_ms(grid_sample_backward_levels(
+                grid_sample_inputs(tables, pts, scene["mu"], scene["sigma"],
+                                   h), cols))
+    lib = "" if lib_ms is None else f", grid_sampler_3d_backward {lib_ms:.4f} ms"
+    print(f"kernel {nm}: {pts.shape[0]} {label}, max_abs_err {err:.3e}, worst "
+          f"|err| / tolerance {ratio:.3f} (tol 1; / (bf16 ulp + 1e-6) "
+          f"{ulps:.3f}), {ms:.4f} ms vs plain {plain_ms:.4f} ms{lib}, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}) {tag}")
+    check(ratio <= 1.0, (nm, label, err, ratio))
+    return err, ms, plain_ms, lib_ms, bnd
+
+
 def backward_checks(trainer, device, tag, paths):
     """Each backward kernel against its plain version at both training
     shapes, from a seeded (N, 129) cotangent read through a row stride, on
@@ -424,9 +533,6 @@ def backward_checks(trainer, device, tag, paths):
     uniform random points.  Returns {kernel name: {(phase, points kind):
     record}}, a record being (max_abs_err, ms, plain_ms, library_ms,
     bound)."""
-    from human_body_reconstruction_tpu_torch.ops import (
-        cp_kernel, cuda_lib, dense_kernel)
-
     field, scene, h = trainer.state.field, trainer.scene, trainer.cfg.hash
     d = h.dense_levels * h.features_per_level
     gen = torch.Generator(device).manual_seed(SEED + 3)
@@ -439,54 +545,13 @@ def backward_checks(trainer, device, tag, paths):
         pts = scene["mu"] + xn * scene["sigma"]
         g = torch.randn((n, h.out_dim + 3), generator=gen, device=device)
         g = g[:, 3:]
-        n_cp, rank = len(field.lines), h.cp_rank
-        cp_ops = n * n_cp * (rank * 26 + 3 * 6)
-        dense_ops = n * h.dense_levels * (28 + 18 * h.features_per_level)
-        for nm, kern, plain, tables, cols, ops in (
-                ("cp_backward", cp_kernel.cp_encode_backward_kernel,
-                 cp_kernel.cp_encode_plain_backward, list(field.lines),
-                 g[:, d:], cp_ops),
-                ("dense_backward", dense_kernel.dense_encode_backward_kernel,
-                 dense_kernel.dense_encode_plain_backward, list(field.dense),
-                 g[:, :d], dense_ops)):
+        for nm, tables, cols in (("cp_backward", list(field.lines), g[:, d:]),
+                                 ("dense_backward", list(field.dense),
+                                  g[:, :d])):
             for kind, at in (("path", path_pts), ("random", pts)):
-                a = (tables, at, scene["mu"], scene["sigma"], h, cols)
-                bnd = bound(nbytes(at, cols, *tables, *tables), ops)
-                with torch.no_grad():
-                    got, want = kern(*a), plain(*a)
-                    abs_sum = plain([t.abs() for t in tables], *a[1:-1],
-                                    cols.abs())
-                    torch.cuda.synchronize()
-                    err = max(float((x - y).abs().max())
-                              for x, y in zip(got, want))
-                    ulps = max(float(((x - y).abs() / (cuda_lib.bf16_ulp(y)
-                                                       + 1e-6)).max())
-                               for x, y in zip(got, want))
-                    ratio = max(float(((x - y).abs()
-                                       / cuda_lib.sum_order_tolerance(
-                                           y, s, True)).max())
-                                for x, y, s in zip(got, want, abs_sum))
-                    check(all(x.shape == y.shape
-                              and bool(torch.isfinite(x).all())
-                              for x, y in zip(got, want)),
-                          f"{nm} gradients finite, of the plain version's "
-                          "shapes")
-                    ms = time_ms(lambda: kern(*a))
-                    plain_ms = time_ms(lambda: plain(*a), reps=5)
-                    lib_ms = None
-                    if nm == "dense_backward":
-                        lib_ms = time_ms(grid_sample_backward_levels(
-                            grid_sample_inputs(tables, at, scene["mu"],
-                                               scene["sigma"], h), cols))
-                lib = "" if lib_ms is None else (
-                    f", grid_sampler_3d_backward {lib_ms:.4f} ms")
-                print(f"kernel {nm}: {n} {kind} points ({phase}), max_abs_err "
-                      f"{err:.3e}, worst |err| / tolerance {ratio:.3f} (tol 1;"
-                      f" / (bf16 ulp + 1e-6) {ulps:.3f}), {ms:.4f} ms vs plain "
-                      f"{plain_ms:.4f} ms{lib}, bound {bnd[0]:.4f} ms "
-                      f"({bnd[1]}) {tag}")
-                check(ratio <= 1.0, (nm, kind, n, err, ratio))
-                out[nm][(phase, kind)] = (err, ms, plain_ms, lib_ms, bnd)
+                out[nm][(phase, kind)] = backward_check(
+                    nm, tables, at, scene, h, cols,
+                    f"{kind} points ({phase})", tag)
     return out
 
 
@@ -1189,6 +1254,427 @@ def mesh_phase(train_dir: str, hash_dir: str, work: str, device: torch.device,
     return report
 
 
+def protocol_mode_phase(mode: str, work: str, device: torch.device,
+                        tag: str):
+    """``quality_holdout --mode mode --save_params`` on the textured scene,
+    cut to MODE_STEPS[mode] steps.  Returns (row, launches of the encoder
+    kernels during the run, the saved run restored with its grid)."""
+    from human_body_reconstruction_tpu_torch.cli import quality_holdout
+    from human_body_reconstruction_tpu_torch.pipeline import restore
+
+    argv = ["--mode", mode, "--scene", "textured", "--steps",
+            str(MODE_STEPS[mode]), "--device", str(device), "--out",
+            f"{work}/{mode}.json", "--save_params"]
+    t0 = time.perf_counter()
+    row, launches = counted(wrappers(*TRAIN_KERNELS),
+                            lambda: quality_holdout.main(argv))
+    sdf = ""
+    if "var_b" in row:
+        sdf = f", eikonal {row['eikonal']}, var_b {row['var_b']}"
+    print(f"quality protocol ({mode}, {row['scene']}): {row['steps']} steps, "
+          f"{1e3 * PROTOCOL_RAYS / row['rays_per_sec']:.2f} ms/step and "
+          f"{row['rays_per_sec']} rays/s on the protocol's clock "
+          f"({row['budget_s']} s), train PSNR {row['train_psnr']} dB{sdf}, "
+          f"occ_frac {row.get('occ_frac')} (by refresh {row.get('occ_trace')})"
+          "; holdout "
+          + ", ".join(f"{k} {v}" for k, v in row["holdout_per_pose"].items())
+          + f" dB, mean {row['holdout_psnr']}, min {row['holdout_min']}; "
+          f"{time.perf_counter() - t0:.1f} s with the ground truth {tag}")
+    print(f"launches in the {mode} run: {launches}")
+    check(row["steps"] == MODE_STEPS[mode], (mode, "steps", row["steps"]))
+    check(all(math.isfinite(v) for v in row["holdout_per_pose"].values())
+          and row["holdout_psnr"] > 10.0, (mode, "holdout", row))
+    check("var_b" not in row or (math.isfinite(row["eikonal"])
+                                 and row["var_b"] != 0.5), (mode, row))
+    check(all(n > 0 for n in launches.values()), launches)
+    res = restore.restore(  # the second pass is the caller's choice
+        f"{work}/{mode}", mode, device=device, with_occ=True,
+        hierarchical=quality_holdout.make_modes()[mode].render.hierarchical,
+        log_fn=lambda s: None)
+    return row, launches, res
+
+
+def encoded_points(fn):
+    """fn() with every point set that ``nerf.encode_points`` encodes
+    recorded, in call order: (fn's result, [points])."""
+    from human_body_reconstruction_tpu_torch.models import nerf
+
+    seen, orig = [], nerf.encode_points
+
+    def record(field, scene, pts, cfg, **kw):
+        seen.append(pts.detach())
+        return orig(field, scene, pts, cfg, **kw)
+
+    nerf.encode_points = record
+    try:
+        return fn(), seen
+    finally:
+        nerf.encode_points = orig
+
+
+def mode_batch(res, data, rays: int, gen):
+    """A seeded ray batch of the protocol's training views and the draws of
+    one step of the restored mode: its first pass's placement (guided with
+    the grid, else the jittered ladder), the eikonal subsample's indices
+    and the second pass's quantiles."""
+    from human_body_reconstruction_tpu_torch.ops import sampling
+    from human_body_reconstruction_tpu_torch.train import step
+
+    cfg, r, scene = res.cfg, res.cfg.render, res.scene
+    batch = step.sample_ray_batch(data["train_imgs"], data["train_poses"],
+                                  data["K"], rays, gen)
+    o, d = batch[:2]
+    if r.occ_guided and res.occ is not None:
+        placement = sampling.occupancy_guided_ts(
+            o, d, res.occ, scene["mu"], scene["sigma"], r.near, r.far,
+            r.compact_samples, num_probe=r.occ_probes, dt_mode=r.occ_dt,
+            jitter=True, explore_frac=r.occ_explore,
+            probe_jitter=r.occ_probe_jitter, stratified=r.occ_stratified,
+            generator=gen)
+    else:
+        placement = (sampling.stratified_ts(
+            (rays,), r.near, r.far, r.num_samples, r.log_sampling, o.device,
+            jitter=True, per_ray_jitter=r.per_ray_jitter, generator=gen), None)
+    draws = {}
+    if r.use_sdf:
+        n = placement[0].numel()
+        draws["eik_idx"] = torch.randint(0, n, (cfg.train.eikonal_subsample,),
+                                         generator=gen, device=o.device)
+    if r.hierarchical:
+        draws["fine_u"] = torch.rand((rays, r.num_fine_samples or
+                                      r.num_samples), generator=gen,
+                                     device=o.device) * (1.0 - 1e-6)
+    return batch, placement, draws
+
+
+def mode_step_on_card_vs_cpu(mode, res, data, device, rays: int, tag):
+    """One training step of the restored mode, loss and every group's
+    gradient (the SDF sharpness's included), from the same params, batch,
+    placement and draws: kernels on the card, plain versions on the CPU.
+    In the mode's numerics (the encoders' bf16 roundings, the MLP in bf16
+    compute) and, in SDF mode, also all in f32, which alone is held to
+    STEP_GRAD_RTOL there: the eikonal term's gradient is the difference of
+    two densities' gradients 1e-3 apart, which cancel to about 1e-3 of
+    their size, and each point's cotangent is rounded to bf16 in the
+    encoder's backward, so a rounding that the devices' f32 differences
+    flip moves it by a few 1e-2 of its norm (an H100 80GB HBM3: dense 4.1e-2
+    and 3.2e-2, lines 2.2e-2 and 1.5e-2; reordering the same terms on the
+    CPU moves it by 9e-7).  Returns the point sets the card's step in the
+    mode's numerics encoded."""
+    from human_body_reconstruction_tpu_torch.train import step
+
+    gen = torch.Generator(device).manual_seed(SEED + 9)
+    batch, placement, draws = mode_batch(res, data, rays, gen)
+
+    def loss_and_grads(field, dev, cfg, dtype):
+        move = (lambda t: None if t is None else t.to(dev))
+        field.zero_grad(set_to_none=True)
+        loss, aux = step.loss_fn(
+            field, {k: move(v) for k, v in res.scene.items()},
+            [move(t) for t in batch], cfg,
+            None if res.occ is None else type(res.occ)(*map(move, res.occ)),
+            dtype, step=MODE_STEPS[mode],
+            draws={k: move(v) for k, v in draws.items()},
+            placement=[move(t) for t in placement])
+        loss.backward()
+        groups = {"dense": field.dense, "lines": field.lines,
+                  "mlp": list(field.mlp.parameters())}
+        if field.var_b is not None:
+            groups["var"] = [field.var_b]
+        grads = {k: torch.cat([p.grad.reshape(-1) for p in ps]).cpu()
+                 for k, ps in groups.items()}
+        field.zero_grad(set_to_none=True)
+        eik = aux.get("eikonal")
+        return (float(loss.detach()),
+                None if eik is None else float(eik.detach()), grads)
+
+    sdf = res.cfg.render.use_sdf
+    numerics = [("the mode's", res.cfg, torch.bfloat16, not sdf)]
+    if sdf:
+        numerics.append(("f32", dataclasses.replace(
+            res.cfg, hash=dataclasses.replace(res.cfg.hash,
+                                              dense_bf16=False)), None, True))
+    field_cpu = copy.deepcopy(res.field).to(torch.device("cpu"))
+    pts = None
+    for name, cfg, dtype, held in numerics:
+        (card_loss, card_eik, card), seen = encoded_points(
+            lambda: loss_and_grads(res.field, device, cfg, dtype))
+        pts = pts or seen
+        cpu_loss, cpu_eik, ref = loss_and_grads(
+            field_cpu, torch.device("cpu"), cfg, dtype)
+        rel = {k: float(torch.linalg.vector_norm(card[k] - ref[k])
+                        / torch.linalg.vector_norm(ref[k])) for k in ref}
+        loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        print(f"{mode} step card vs CPU, {name} numerics ({rays} rays, "
+              f"points encoded {[p.shape[0] for p in seen]}): loss "
+              f"{card_loss:.7f} vs {cpu_loss:.7f} (rel {loss_rel:.2e}, tol "
+              f"{STEP_LOSS_RTOL:g}), eikonal {card_eik} vs {cpu_eik}; "
+              "gradient rel norm "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+              + (f" (tol {STEP_GRAD_RTOL:g})" if held else " (not held)")
+              + f" {tag}")
+        check(loss_rel <= STEP_LOSS_RTOL, (mode, "step loss", card_loss,
+                                           cpu_loss))
+        check(not held or all(v <= STEP_GRAD_RTOL for v in rel.values()),
+              (mode, name, "step gradients", rel))
+    return pts
+
+
+def encoder_kernel_checks(res, pts, label, tag):
+    """Each encoder kernel of the restored model against its plain version
+    on ``pts``: the forwards into their columns of the encoder's matrix,
+    bit for bit; the backwards from a seeded cotangent, within the
+    sum-order tolerance.  Returns {kernel name: record}."""
+    h, scene, field = res.cfg.hash, res.scene, res.field
+    d = h.dense_levels * h.features_per_level
+    gen = torch.Generator(pts.device).manual_seed(SEED + 10)
+    g = torch.randn((pts.shape[0], h.out_dim + 3), generator=gen,
+                    device=pts.device)[:, 3:]
+    out = {}
+    for nm, tables in encoder_parts(field):
+        tables = [t.detach() for t in tables]
+        out[nm] = forward_check(nm, tables, pts, scene, h, matrix=True,
+                                tol=0.0, label=label, tag=tag, plain_reps=3)
+        bw = nm.replace("forward", "backward")
+        out[bw] = backward_check(bw, tables, pts, scene, h,
+                                 g[:, :d] if bw == "dense_backward"
+                                 else g[:, d:], label, tag)
+    return out
+
+
+def fine_pass_points(res, data, device):
+    """The second pass's points of one seeded full batch (PROTOCOL_RAYS
+    rays x (64 + 64) samples), ray-major as ``render_rays`` encodes
+    them."""
+    from human_body_reconstruction_tpu_torch.models import nerf
+
+    gen = torch.Generator(device).manual_seed(SEED + 11)
+    batch, placement, draws = mode_batch(res, data, PROTOCOL_RAYS, gen)
+    with torch.no_grad():
+        _, pts = encoded_points(lambda: nerf.render_rays(
+            res.field, res.scene, *batch[:3], res.cfg, occ=res.occ,
+            compute_dtype=torch.bfloat16, jitter=True, generator=gen,
+            draws=draws, placement=placement))
+    return pts[1]
+
+
+def continuation_phase(data, device, tag):
+    """The SDF mode's Trainer, full width on the protocol's views with the
+    warmup cut to CONT_WARMUP: k steps, ``save``, a fresh Trainer,
+    ``load`` (the loaded state equal to the saved one bit for bit), m more
+    steps, against k + m steps in one run."""
+    from human_body_reconstruction_tpu_torch.cli import quality_holdout
+    from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt
+    from human_body_reconstruction_tpu_torch.train.trainer import Trainer
+
+    cfg = quality_holdout.make_modes()[SDF_MODE]
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, ray_batch=PROTOCOL_RAYS, occ_warmup_steps=CONT_WARMUP))
+    ds = {"images": data["train_imgs"], "c2ws": data["train_poses"],
+          "K": data["K"], "H": data["train_imgs"].shape[1],
+          "W": data["train_imgs"].shape[2]}
+    k, m = CONT_STEPS
+
+    def trainer(out_dir):
+        return Trainer(cfg=cfg, ds=ds, out_dir=out_dir, model_name="c",
+                       total_steps=k + m, log_fn=lambda s: None)
+
+    def state_of(tr):
+        st = tr.state
+        return ([torch.as_tensor(a) for a in ckpt.jax_leaves(st.field)
+                 + ckpt.opt_leaves(st.field, st.opt, st.step)]
+                + list(st.occ) + [tr.generator.get_state()], st.step)
+
+    with tempfile.TemporaryDirectory() as a, tempfile.TemporaryDirectory() as b:
+        t0 = time.perf_counter()
+        wholes = []
+        for _ in range(2):               # the spread of two repeated runs
+            wholes.append(trainer(a))
+            wholes[-1].run(k + m, log_every=1)
+        first = trainer(b)
+        first.run(k, log_every=1)
+        first.save()
+        saved = state_of(first)
+        rest = trainer(b)
+        rest.load()
+        loaded = state_of(rest)
+        same = loaded[1] == saved[1] == k and len(loaded[0]) == len(
+            saved[0]) and all(torch.equal(x.cpu(), y.cpu())
+                              for x, y in zip(loaded[0], saved[0]))
+        rest.run(m, log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def worst(xs, ys):
+        return max(abs(x - y) / abs(y) for x, y in zip(xs, ys))
+
+    got = [r["loss"] for r in first.history + rest.history]
+    want, again = ([r["loss"] for r in w.history] for w in wholes)
+    print(f"continuation ({SDF_MODE}, warmup {CONT_WARMUP}): {k} steps, save, "
+          f"load into a fresh Trainer (params, moments, counts, step, grid "
+          f"and generator equal bit for bit: {same}; grid installed before "
+          f"the save: {first.state.occ is not None}), {m} more; per-step loss "
+          f"against {k + m} steps in one run: worst rel {worst(got, want):.2e}"
+          f" ({worst(got[:k], want[:k]):.2e} before the save; tol "
+          f"{CONT_LOSS_RTOL:g}), a second run of {k + m} steps against the "
+          f"first {worst(again, want):.2e}; last loss {got[-1]:.6f}, "
+          f"{want[-1]:.6f} and {again[-1]:.6f}; {wall:.1f} s {tag}")
+    check(same and first.state.occ is not None, "loaded state equals saved")
+    check(len(got) == len(want) == k + m
+          and worst(got, want) <= CONT_LOSS_RTOL,
+          ("continued losses", worst(got, want)))
+
+
+def read_ply_vertices(path: str) -> np.ndarray:
+    """(V, 3) float32 vertex positions of a binary little-endian PLY whose
+    vertices are x, y, z floats then r, g, b uchars."""
+    with open(path, "rb") as f:
+        head = b""
+        while not head.endswith(b"end_header\n"):
+            head += f.readline()
+        n = int(head.split(b"element vertex ")[1].split()[0])
+        dt = np.dtype([("xyz", "<f4", 3), ("rgb", "u1", 3)])
+        return np.frombuffer(f.read(n * dt.itemsize), dt)["xyz"].copy()
+
+
+def mean_nearest(a, b, chunk: int = 4096) -> float:
+    """Mean distance from each row of a to its nearest row of b (on the
+    card)."""
+    return float(torch.cat([torch.cdist(a[s:s + chunk], b).min(1).values
+                            for s in range(0, a.shape[0], chunk)]).mean())
+
+
+def tpu_weights_phase(data, work, device, tag):
+    """The TPU's trained SDF weights (the committed quality-matrix params)
+    in the port: the 4 holdout poses at 400x400, 128 exact samples, no
+    occupancy, against the records and, on every 4th pixel, against the
+    JAX package on the CPU; the xla weights meshed at 192^3, iso auto,
+    against the TPU's mesh."""
+    from human_body_reconstruction_tpu_torch.cli import psnr, quality_holdout
+    from human_body_reconstruction_tpu_torch.models.nerf import (
+        Field, scene_from_bounds)
+    from human_body_reconstruction_tpu_torch.ops import rays
+    from human_body_reconstruction_tpu_torch.pipeline import mesh_export
+    from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt
+    from human_body_reconstruction_tpu_torch.train import step
+
+    H = data["train_imgs"].shape[1]
+    lo, hi = rays.scene_bounds(H, H, data["K"], data["train_poses"], 2.0, 6.0)
+    scene = scene_from_bounds(lo, hi, device=device)
+    with open(os.path.join(ROOT, JAX_CPU_SCORES)) as f:
+        jax_cpu = json.load(f)
+    stride = jax_cpu["stride"]
+    fields = {}
+    for mode, record in TPU_WEIGHTS.items():
+        cfg = quality_holdout.make_modes()[mode]
+        eval_cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, occupancy=False, compact_samples=0, occ_guided=False))
+        field = ckpt.load_params(os.path.join(ROOT, f"qm_params_{mode}.npz"),
+                                 Field(cfg)).to(device)
+        fields[mode] = (field, cfg)
+        with open(os.path.join(ROOT, record)) as f:
+            rec = json.load(f)[mode]["holdout_per_pose"]
+        ref = jax_cpu[mode]["per_pose_psnr"]
+        full, sub = {}, {}
+        t0 = time.perf_counter()
+        for name, pose, gt in zip(quality_holdout.HOLDOUT_NAMES,
+                                  data["hold_poses"], data["hold_imgs"]):
+            img = step.render_image(
+                field, scene, H, H, data["K"], pose, eval_cfg,
+                num_samples=quality_holdout.HOLDOUT_SAMPLES,
+                chunk=quality_holdout.HOLDOUT_CHUNK).cpu().numpy()
+            gt = gt.cpu().numpy()
+            full[name] = psnr(img, gt)
+            sub[name] = psnr(img.reshape(-1, 3)[::stride],
+                             gt.reshape(-1, 3)[::stride])
+        torch.cuda.synchronize()
+        print(f"TPU weights {mode} (var_b {float(field.var_b.detach()):.4f}) on the "
+              f"card, 4 poses in {time.perf_counter() - t0:.2f} s: "
+              + "; ".join(f"{k} {full[k]:.4f} dB (record {rec[k]}, "
+                          f"{full[k] - rec[k]:+.4f}), every {stride}th pixel "
+                          f"{sub[k]:.4f} vs JAX on the CPU {ref[k]:.4f} "
+                          f"({sub[k] - ref[k]:+.4f})" for k in full)
+              + f"; mean {np.mean(list(full.values())):.4f} (record "
+              f"{np.mean(list(rec.values())):.4f}) {tag}")
+        check(all(abs(sub[k] - ref[k]) <= JAX_CPU_DB for k in sub),
+              (mode, "against JAX on the CPU", sub, ref))
+    mode, R, ref_ply, ref_json = SDF_MESH
+    field, cfg = fields[mode]
+    stats = mesh_export.export_mesh(
+        field, scene, cfg, resolution=R, iso="auto",
+        cache_path=f"{work}/sdf_grid.npy", out_path=f"{work}/sdf.ply")
+    iso = mesh_export.resolve_iso(np.load(f"{work}/sdf_grid.npy")[..., 3],
+                                  "auto")
+    with open(os.path.join(ROOT, ref_json)) as f:
+        rec = json.load(f)
+    voxel = ((hi - lo) / (R - 1)).to(device)
+    a = torch.as_tensor(stats["verts"], device=device) / voxel
+    b = torch.as_tensor(read_ply_vertices(os.path.join(ROOT, ref_ply)),
+                        device=device) / voxel
+    dist = 0.5 * (mean_nearest(a, b) + mean_nearest(b, a))
+    n_ref = rec["num_verts"]
+    print(f"SDF mesh of {mode} at {R}^3 on the card: iso auto -> {iso:.4f}, "
+          f"{stats['num_verts']} verts ({stats['num_verts'] / n_ref - 1:+.2%} "
+          f"against the TPU's {n_ref}), {stats['num_faces']} faces (TPU "
+          f"{rec['num_faces']}), symmetric mean nearest-vertex distance to "
+          f"{ref_ply} {dist:.4f} voxels; sweep {stats['sweep_seconds']:.2f} s,"
+          f" marching {stats['marching_seconds']:.2f} s {tag}")
+    check(stats["num_faces"] > 0 and dist < 2.0, ("SDF mesh", dist))
+
+
+def sdf_cli_phase(work: str, device: torch.device, tag: str):
+    """The PR 8 flags through the entry points a user calls: ``train_hash
+    --use_sdf --hierarchical`` (the flagship preset otherwise) for
+    CLI_STEPS steps with the warmup cut, then ``--load`` for CLI_STEPS
+    more; ``render --use_sdf --hierarchical`` of two orbit views and
+    ``nerf2mesh --use_sdf --hierarchical`` of the run, each with the
+    encoder kernels' launches counted."""
+    from human_body_reconstruction_tpu_torch.cli import (nerf2mesh, render,
+                                                         train_hash)
+
+    run_dir = f"{work}/sdf_cli"
+    argv = ["--synthetic", "--synthetic_subject", "textured", "--use_sdf",
+            "--hierarchical", "--occ_warmup", str(CLI_STEPS // 2),
+            "--steps", str(CLI_STEPS), "--log_every", str(CLI_STEPS),
+            "--device", str(device), "--out_dir", run_dir, "--model_name",
+            "sdf"]
+    t0 = time.perf_counter()
+    first, launches = counted(wrappers(*TRAIN_KERNELS),
+                              lambda: train_hash.main(argv))
+    second = train_hash.main(argv + ["--load"])
+    torch.cuda.synchronize()
+    cfg = second.cfg
+    print(f"train_hash --use_sdf --hierarchical: {CLI_STEPS} steps, then "
+          f"--load and {CLI_STEPS} more to step {second.state.step} "
+          f"({cfg.render.num_samples} + {cfg.render.num_fine_samples or cfg.render.num_samples} "
+          f"samples, grid {'installed' if second.state.occ is not None else 'none'}"
+          f"), last loss {second.history[-1]['loss']:.5f}, var_b "
+          f"{float(second.state.field.var_b.detach()):.4f}; "
+          f"{time.perf_counter() - t0:.1f} s; launches in the first run: "
+          f"{launches} {tag}")
+    check(first.state.step == CLI_STEPS and second.state.step == 2 * CLI_STEPS
+          and all(math.isfinite(r["loss"]) for r in second.history),
+          ("train_hash --load", first.state.step, second.state.step))
+    check(all(n > 0 for n in launches.values()), launches)
+    common = ["--ckpt_dir", run_dir, "--model_name", "sdf", "--use_sdf",
+              "--hierarchical", "--device", str(device)]
+    summary, r_launches = counted(
+        wrappers("cp_forward", "dense_forward"), lambda: render.main(
+            common + ["--orbit", "2", "--height", "200", "--width", "200",
+                      "--out_dir", f"{work}/sdf_renders"]))
+    stats, m_launches = counted(
+        wrappers("cp_forward", "dense_forward"), lambda: nerf2mesh.main(
+            common + ["--resolution", "128", "--iso", "0", "--cache", "",
+                      "--out", f"{work}/sdf_cli.ply"]))
+    print(f"render --use_sdf --hierarchical: {summary['num_views']} views "
+          f"{summary['H']}x{summary['W']}, {summary['wall_s']} s, launches "
+          f"{r_launches}; nerf2mesh --use_sdf at 128^3, iso 0: "
+          f"{stats['num_verts']} verts, launches {m_launches} {tag}")
+    check(summary["num_views"] == 2 and all(
+        n > 0 for n in {**r_launches, **m_launches}.values()),
+          ("render/nerf2mesh launches", r_launches, m_launches))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1206,10 +1692,9 @@ def main() -> int:
     device = torch.device("cuda")
     gpu = card_line(device)
     print(gpu)
-    name = torch.cuda.get_device_name(0)
     tag = f"[{gpu}]"
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:     # g++ beside the nvcc processes
         mc_build = pool.submit(marching_cubes.build)
         lib_path, log = cuda_lib.build()
@@ -1323,14 +1808,11 @@ def main() -> int:
                          "launches while training")
                 name, n = f"{nm}/random", train_launches[nm]
             report.append(entry(name, SOURCE, REPLACES[nm], n, *rec, shape))
-    for nm, replaces in (
-            ("cp_backward", "human_body_reconstruction_tpu/ops/cp_pallas.py:173"),
-            ("dense_backward",
-             "human_body_reconstruction_tpu/ops/dense_pallas.py:152")):
+    for nm in ("cp_backward", "dense_backward"):
         for (phase, kind), (err, ms, plain_ms, lib_ms, bnd) in bwd[nm].items():
             n = TRAIN_POINTS[0] if phase == "guided" else TRAIN_POINTS[1]
             report.append(entry(
-                f"{nm}/{phase}_{kind}", SOURCE, replaces,
+                f"{nm}/{phase}_{kind}", SOURCE, REPLACES[nm],
                 phase_launches[phase][nm], err, ms, plain_ms, lib_ms, bnd,
                 f"{n} {'path' if kind == 'path' else 'uniform random'} points "
                 f"of a {phase} step; launches in the {phase} training steps"))
@@ -1391,6 +1873,31 @@ def main() -> int:
     quality_phase(work.name, device, tag)
     render_phase(train_dir, work.name, device, tag)
     sweep = mesh_phase(train_dir, hash_dir, work.name, device, tag)
+
+    # SDF mode, the hierarchical pass, a continued run, the TPU's weights
+    from human_body_reconstruction_tpu_torch.cli import quality_holdout
+
+    data = quality_holdout.protocol_data(400, 400, 20, "textured", device)
+    mode_rows = {}
+    for mode, rays, label in (
+            (SDF_MODE, PROTOCOL_RAYS, "the step's eikonal points (its 16384 "
+             "subsampled points at six clipped offsets)"),
+            (HIER_MODE, HIER_STEP_RAYS, "the second pass's points of a 16384"
+             "-ray batch (64 + 64 samples a ray)")):
+        row, launches, res = protocol_mode_phase(mode, work.name, device, tag)
+        pts = mode_step_on_card_vs_cpu(mode, res, data, device, rays, tag)
+        if mode == HIER_MODE:
+            pts = [fine_pass_points(res, data, device)]
+        check(pts[-1].shape[0] == {SDF_MODE: 16384 * 6,
+                                   HIER_MODE: PROTOCOL_RAYS * 128}[mode],
+              (mode, pts[-1].shape))
+        mode_rows[mode] = (encoder_kernel_checks(res, pts[-1], label, tag),
+                           launches, pts[-1].shape[0], label)
+        del res
+        torch.cuda.empty_cache()
+    continuation_phase(data, device, tag)
+    tpu_weights_phase(data, work.name, device, tag)
+    sdf_cli_phase(work.name, device, tag)
     work.cleanup()
     for key, (rec, launches, R) in sweep.items():
         nm = key.split("/")[0]
@@ -1401,6 +1908,14 @@ def main() -> int:
             f"{', exact' if nm == 'hash_forward' else ''}; launches in the "
             "sweep"))
 
+    for mode, (recs, launches, n, label) in mode_rows.items():
+        kind = "eikonal_points" if mode == SDF_MODE else "fine_pass"
+        for nm, rec in recs.items():
+            report.append(entry(
+                f"{nm}/{kind}", SOURCE, REPLACES[nm], launches[nm], *rec,
+                f"{n} points: {label}, {mode} at full width; launches in its "
+                f"{MODE_STEPS[mode]}-step protocol run"))
+    print(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ field over a ``--resolution``^3 lattice on the device, extracts the
 writes PLY (per-vertex colour) or OBJ.  The density cache (``--cache``,
 '' disables) has the JAX layout, so either package reads the other's.
 The port adds ``--device`` (default cuda; without a card it exits unless
-given ``--device cpu``).  Refused: ``--aot_cache`` (the JAX compile cache
-is not ported), ``--use_sdf`` and ``--hierarchical`` (not ported yet).
+given ``--device cpu``).  An SDF model sweeps its 2·sigmoid−1 head, whose
+zero level drifts in training (``mesh_export.export_mesh(iso="auto")``
+reads a level from the sweep).  Refused:
+``--aot_cache`` (the JAX compile cache is not ported).
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.nerf2mesh \\
           --ckpt_dir results --model_name default --out mesh.ply
@@ -68,12 +70,6 @@ def check_supported(args):
     if args.aot_cache:
         raise SystemExit("--aot_cache is not ported: the JAX compile cache "
                          "has no PyTorch counterpart")
-    for flag, what in (("use_sdf", "SDF mode (--use_sdf)"),
-                       ("hierarchical", "hierarchical sampling "
-                                        "(--hierarchical)")):
-        if getattr(args, flag):
-            raise SystemExit(f"{what} is not ported to the PyTorch package "
-                             "yet")
 
 
 def main(argv=None):
@@ -87,7 +83,8 @@ def main(argv=None):
     res = restore.restore(
         args.ckpt_dir, args.model_name, device=device,
         bound_pth=args.bound_pth, ckpt_name=args.ckpt_name, near=args.near,
-        far=args.far, max_res=args.max_res, hash_size=args.hash_size,
+        far=args.far, hierarchical=args.hierarchical, use_sdf=args.use_sdf,
+        max_res=args.max_res, hash_size=args.hash_size,
         encoder_variant=args.encoder_variant, rgb_elu=args.rgb_elu,
         normalization=args.normalization)
     stats = mesh_export.export_mesh(

@@ -19,12 +19,19 @@ the exact encoder, no occupancy, no guidance, 128 samples, chunks of 32768
 rays; PSNR per pose is 10·log10(1/mse).
 
 Output: one JSON object ``{mode: row}`` with the JAX row's keys plus
-``seed``, ``card`` (the card's name and power limit, "cpu" on the CPU) and
-``occ_trace`` (the step and occupied fraction of every refresh), by
+``seed``, ``card`` (the card's name and power limit, "cpu" on the CPU),
+``occ_trace`` (the step and occupied fraction of every refresh) and, in
+SDF mode, the last step's ``eikonal`` term and the sharpness ``var_b``, by
 default under ``results/`` (git-ignored); ``--save_params`` adds the
 trained model as a run directory that ``render``, ``nerf2mesh`` and
-``occ_report`` restore.  Only the CP guided modes of ``make_modes`` run;
-the tangle scene is not ported.  The port's
+``occ_report`` restore.  The CP guided n1448 modes, the SDF modes
+(``cp_r21_sdf_guided_es16k`` and its ``_xla`` twin) and the hierarchical
+modes (``cp_r21_hier_64f64_tv1e2``, ``cp_r21_hier_xla``) of ``make_modes``
+run; an ``_xla`` mode differs from its twin only in the JAX implementation
+switch (``cp_impl``/``dense_impl``), so both run the port's one set of
+kernels.  The holdout of a hierarchical mode renders the first pass
+alone, as JAX's ``render_image`` does by default.  The tangle scene is
+not ported.  The port's
 random draws come from one ``torch.Generator`` seeded with ``--seed`` (init
 and sampling), so runs are alike in distribution, not in samples, to the
 JAX package's.
@@ -96,8 +103,8 @@ def protocol_data(H: int, W: int, views: int, scene: str, device):
 
 
 def make_modes() -> dict:
-    """The CP guided modes of the JAX ``make_modes`` that the port runs
-    (before ``ray_batch`` is set from ``--batch``)."""
+    """The modes of the JAX ``make_modes`` that the port runs (before
+    ``ray_batch`` is set from ``--batch``)."""
     from human_body_reconstruction_tpu_torch.ops import dense_grid
 
     cp = C.HashConfig(num_levels=7, n_min=16, n_max=1448, variant="cp",
@@ -107,6 +114,21 @@ def make_modes() -> dict:
                             occupancy=True, occupancy_resolution=128,
                             compact_samples=32, occ_guided=True,
                             occ_probes=32, occ_dt="mass", occ_stratified=True)
+    cp16 = C.HashConfig(num_levels=8, n_min=16, n_max=2048, variant="cp",
+                        cp_rank=16)
+    r21 = dataclasses.replace(
+        cp16, cp_rank=21, dense_levels=dense_grid.auto_dense_levels(cp16))
+    r21_xla = dataclasses.replace(r21, cp_impl="xla", dense_impl="xla")
+    sdf_render = C.RenderConfig(num_samples=128, near=2.0, far=6.0,
+                                occupancy=True, occupancy_resolution=128,
+                                compact_samples=32, occ_guided=True,
+                                occ_probes=64, occ_dt="mass",
+                                occ_stratified=True, use_sdf=True)
+    sdf = {"mlp": C.MLPConfig(density_activation="sdf"), "render": sdf_render,
+           "train": C.TrainConfig(cp_tv_weight=1e-2, eikonal_subsample=16384)}
+    hier = {"render": C.RenderConfig(near=2.0, far=6.0, num_samples=64,
+                                     hierarchical=True, num_fine_samples=64),
+            "train": C.TrainConfig(cp_tv_weight=1e-2)}
     return {
         DEFAULT_MODE: C.PipelineConfig(
             hash=cp, render=render, train=C.TrainConfig(cp_tv_weight=1e-2)),
@@ -114,6 +136,10 @@ def make_modes() -> dict:
         "cp_n1448_r25_guided_k32_p32_tv1e2_w320_strat": C.PipelineConfig(
             hash=cp, render=render,
             train=C.TrainConfig(cp_tv_weight=1e-2, cp_tv_warmup=320)),
+        "cp_r21_sdf_guided_es16k": C.PipelineConfig(hash=r21, **sdf),
+        "cp_r21_sdf_guided_xla_es16k": C.PipelineConfig(hash=r21_xla, **sdf),
+        "cp_r21_hier_64f64_tv1e2": C.PipelineConfig(hash=r21, **hier),
+        "cp_r21_hier_xla": C.PipelineConfig(hash=r21_xla, **hier),
     }
 
 
@@ -225,6 +251,9 @@ def run_mode(name: str, cfg: C.PipelineConfig, args, data, device,
         row["occ_frac"] = round(
             float(occupancy.occupied_fraction(state.occ)), 4)
         row["occ_trace"] = [[n, round(float(f), 4)] for n, f in trace]
+    if cfg.render.use_sdf:
+        row["eikonal"] = round(float(m["eikonal"]), 6)
+        row["var_b"] = round(float(state.field.var_b.detach()), 6)
     row["seed"] = args.seed
     row["card"] = card_line(device)
     if args.save_params:
@@ -246,8 +275,10 @@ def build_parser():
     p = argparse.ArgumentParser(
         description="4-pose holdout quality protocol (PyTorch/CUDA)")
     p.add_argument("--mode", type=str, default=DEFAULT_MODE,
-                   help="a CP guided mode of the JAX quality matrix: "
-                        + ", ".join(make_modes()))
+                   help="a mode of the JAX quality matrix: "
+                        + ", ".join(make_modes()) + " (an _xla mode names "
+                        "the JAX XLA encoders; the port runs its one set of "
+                        "kernels for both twins)")
     p.add_argument("--scene", type=str, default="textured",
                    choices=["textured", "humanoid", "tangle"],
                    help="'tangle' is not ported and is refused")

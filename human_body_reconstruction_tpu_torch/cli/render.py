@@ -14,7 +14,10 @@ Camera sources (exactly one):
 
 --use_occ reuses the occupancy grid saved in the checkpoint; with it,
 --eval_guided K renders K deterministic guided samples a ray.  --bf16 runs
-the MLP in bf16 compute (f32 accumulation), as in training.  --gif writes
+the MLP in bf16 compute (f32 accumulation), as in training.
+--hierarchical adds the second pass, its quantiles drawn from a generator
+seeded 0, the same for every chunk (JAX: one fixed key); --use_sdf names
+an SDF model when there is no saved config.  --gif writes
 a turntable GIF through Pillow, imported only then; without Pillow it
 exits with a message.  The port adds ``--device`` (default cuda; without a
 card it exits unless given ``--device cpu``).  Refused: ``--fused`` and
@@ -113,10 +116,7 @@ def check_supported(args):
     """Refuse what the port cannot run, before any work starts."""
     for flag, what in (("fused", "--fused (a JAX one-dispatch frame; the "
                                  "port renders in eager chunks)"),
-                       ("aot_cache", "--aot_cache (the JAX compile cache)"),
-                       ("use_sdf", "SDF mode (--use_sdf)"),
-                       ("hierarchical", "hierarchical sampling "
-                                        "(--hierarchical)")):
+                       ("aot_cache", "--aot_cache (the JAX compile cache)")):
         if getattr(args, flag):
             raise SystemExit(f"{what} is not ported to the PyTorch package")
 
@@ -181,7 +181,8 @@ def main(argv=None):
     res = restore.restore(
         args.ckpt_dir, args.model_name, device=device,
         bound_pth=args.bound_pth, ckpt_name=args.ckpt_name, near=args.near,
-        far=args.far, max_res=args.max_res, hash_size=args.hash_size,
+        far=args.far, hierarchical=args.hierarchical, use_sdf=args.use_sdf,
+        max_res=args.max_res, hash_size=args.hash_size,
         encoder_variant=args.encoder_variant, rgb_elu=args.rgb_elu,
         normalization=args.normalization, with_occ=args.use_occ)
     occ = res.occ
@@ -211,8 +212,8 @@ def main(argv=None):
         img = step_lib.render_image(
             res.field, res.scene, H, W, K_t,
             torch.as_tensor(c2ws[i], device=device), cfg, occ=occ,
-            num_samples=args.num_samples, chunk=args.chunk,
-            bf16=args.bf16).cpu().numpy()
+            num_samples=args.num_samples, hierarchical=args.hierarchical,
+            chunk=args.chunk, bf16=args.bf16).cpu().numpy()
         path = os.path.join(args.out_dir, f"{tag}_{i:04d}.png")
         frame = (np.clip(img, 0, 1) * 255).astype(np.uint8)
         with open(path, "wb") as f:

@@ -12,12 +12,15 @@ factor-line TV 1e-2 from step 320.  Any hash-path flag (``--stochastic``,
 ``--hw_rng``, ...) switches the preset to the reference's ``corner`` hash
 grid (L 16, F 2, T 2^16, n_max 2048, 64 samples, no culling); the port runs
 it exact or with ``--stochastic`` (single-corner training, exact eval),
-with or without ``--hw_rng``.  What the port does not run yet is refused
-with a message: the ``cell`` variant, packed/int8 gathers and the gradient
-subsampling and scatter options, SDF mode, hierarchical sampling,
-data/level parallelism, fused multi-step dispatches, the
-compiled-executable cache, resume, gradient-norm logging, the live preview
-and the tangle synthetic subject (``data/synthetic.TANGLE_REFUSAL``).
+with or without ``--hw_rng``.  ``--use_sdf`` trains the SDF head with its
+eikonal term, ``--hierarchical`` adds the second pass, and ``--load``
+continues the run in ``--out_dir`` (``<ckpt_name>_ckpt.npz``, else
+``<model_name>_ckpt.npz``, written by either package) for ``--steps``
+more steps.  What the port does not run yet is refused with a message:
+the ``cell`` variant, packed/int8 gathers and the gradient subsampling and
+scatter options, data/level parallelism, fused multi-step dispatches, the
+compiled-executable cache, gradient-norm logging, the live preview and
+the tangle synthetic subject (``data/synthetic.TANGLE_REFUSAL``).
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.train_hash \\
           --synthetic --synthetic_subject textured --stochastic --hw_rng
@@ -401,11 +404,10 @@ def make_config(args):
     )
 
 
-_NOT_PORTED = (("load", "resume"), ("data_parallel", "--data_parallel"),
+_NOT_PORTED = (("data_parallel", "--data_parallel"),
                ("level_parallel", "--level_parallel"),
                ("aot_cache", "--aot_cache"), ("plot_grads", "--plot_grads"),
-               ("display", "--display"), ("use_sdf", "SDF mode"),
-               ("hierarchical", "hierarchical sampling"))
+               ("display", "--display"))
 
 
 def check_supported(args, cfg):
@@ -421,10 +423,6 @@ def check_supported(args, cfg):
     unported = hash_encoding.unported(cfg.hash)
     if unported:
         raise SystemExit(unported)
-    if cfg.render.occupancy and not cfg.render.occ_guided and \
-            0 < cfg.render.compact_samples < cfg.render.num_samples:
-        raise SystemExit("top-K sample compaction (--occupancy --compact "
-                         "without --occ_guided) is not ported yet")
 
 
 def load_dataset(args, device):
@@ -486,6 +484,12 @@ def main(argv=None):
     trainer = Trainer(cfg=cfg, ds=ds, out_dir=args.out_dir,
                       model_name=args.model_name, eval_ds=eval_ds,
                       total_steps=steps)
+    if args.load:
+        path = os.path.join(args.out_dir, f"{args.ckpt_name}_ckpt.npz")
+        if not os.path.exists(path):
+            path = trainer.ckpt_path()
+        trainer.load(path)
+        print(f"resumed from {path} at step {trainer.state.step}")
     # ~100 eval renders over a long run, never more often than every 100
     # steps (an eval render costs many training steps)
     eval_every = args.eval_every or (max(100, steps // 100) if args.write

@@ -1,22 +1,34 @@
 """Radiance-field forward and ray rendering (counterpart of the JAX
-models/nerf.py), density mode.
+models/nerf.py): density and SDF mode, with the optional hierarchical
+second pass.
 
 The model is a ``Field`` module holding the encoder tables (dense coarse
-grids, CP factor lines or the hash table) and the MLP head; it plays the
-role of the JAX params pytree.  ``scene`` is {"mu": (3,), "sigma": scalar or (3,),
-"min_bound", "max_bound"} as tensors on the field's device.
+grids, CP factor lines or the hash table), the MLP head and, in SDF mode,
+the learnable sharpness ``var_b``; it plays the role of the JAX params
+pytree.  ``scene`` is {"mu": (3,), "sigma": scalar or (3,), "min_bound",
+"max_bound"} as tensors on the field's device.
 
 ``render_rays`` has the eval branch (no jitter, the occupancy mask applied,
 guided placement when ``cfg.render.eval_guided`` > 0 with a grid, else the
 ladder) and the training branch (``jitter=True``): the jittered ladder
 while no grid is attached, then occupancy-guided placement with
 exploration, computed under ``no_grad`` and with no mask lookup (masking
-would zero the gradient of every exploration sample).  With
-``cfg.hash.stochastic_train`` the training branch encodes the hashed levels
-with the single-corner estimator, as JAX ``render_rays`` does; the eval
-branch, ``density_only`` and serving always encode exactly.  Not ported
-yet, and raising: top-K compaction (training with a grid but without guided
-placement), SDF mode and the hierarchical second pass.
+would zero the gradient of every exploration sample), or, with a grid but
+without guided placement, the masked ladder cut to each ray's first
+``compact_samples`` occupied samples (top-K compaction; never in SDF
+mode).  With ``cfg.hash.stochastic_train`` the training branch encodes the
+hashed levels with the single-corner estimator, as JAX ``render_rays``
+does; the eval branch, ``density_only`` and serving always encode exactly.
+
+SDF mode composites the 2·sigmoid−1 head with ``composite_sdf`` and adds
+``out["eikonal_norm"]``, the finite-difference gradient norm of the field
+at the pass's points (a with-replacement subsample of
+``cfg.train.eikonal_subsample`` of them while training).  The hierarchical
+pass resamples ``num_fine_samples`` (or S) depths from the first pass's
+weights (gradient stopped), merges them with the first pass's and renders
+again, masked; its colour is ``out["fine"]``.  At evaluation the JAX
+package draws the fine samples from one fixed key, the same for every
+chunk; the port draws them from a generator seeded 0.
 """
 
 from __future__ import annotations
@@ -42,7 +54,8 @@ class Field(nn.Module):
     U(-cp_init_scale, cp_init_scale) lines, torch-default linears) on the
     generator's device and then moved to ``device``; without one they are
     zeros, to be loaded from a checkpoint.  ``table`` is None unless the
-    variant hashes its fine levels.
+    variant hashes its fine levels; ``var_b`` (the SDF sharpness, 0.5 at
+    init) is None unless ``cfg.render.use_sdf``.
     """
 
     def __init__(self, cfg: PipelineConfig, *, device=None,
@@ -52,8 +65,6 @@ class Field(nn.Module):
         msg = hash_encoding.unported(h)
         if msg:
             raise NotImplementedError(msg)
-        if cfg.render.use_sdf:
-            raise NotImplementedError("SDF mode is not ported yet")
         cp = h.variant == "cp" and h.num_hashed_levels > 0
         hashed = h.variant != "cp" and h.num_hashed_levels > 0
         lines, table = [], None
@@ -77,6 +88,12 @@ class Field(nn.Module):
         self.table = None if table is None else nn.Parameter(table)
         self.mlp = MLP3D(cfg.mlp, h.out_dim, cfg.dir_enc.out_dim,
                          generator=generator)
+        # SDF sharpness b (JAX init_var_model); the JAX "lines" and "table"
+        # optimizer labels depend on the variant (train/checkpoint.py)
+        self.var_b = (nn.Parameter(torch.tensor(
+            0.5, device=None if generator is None else generator.device))
+            if cfg.render.use_sdf else None)
+        self.variant = h.variant
         if device is not None:
             self.to(device)
 
@@ -122,17 +139,56 @@ def density_only(field: Field, scene, pts, cfg: PipelineConfig,
     return apply_density_activation(raw, cfg.mlp)[..., 0]
 
 
+def sdf_finite_difference_normals(field: Field, scene, pts,
+                                  cfg: PipelineConfig, eps: float = 5e-4,
+                                  compute_dtype=None):
+    """(N, 3) central-difference gradient of the SDF head at world points,
+    its six offsets (clipped to the scene bounds) in one ``density_only``
+    call of N * 6 points laid out (N, 6, 3).  The encoders pass no gradient
+    to positions, so the analytic d(field)/dx is zero."""
+    eye = torch.eye(3, device=pts.device)
+    offs = torch.cat([eye, -eye]) * eps                              # (6, 3)
+    q = torch.clamp(pts[:, None, :] + offs[None, :, :], scene["min_bound"],
+                    scene["max_bound"])                              # (N,6,3)
+    d = density_only(field, scene, q.reshape(-1, 3), cfg,
+                     compute_dtype=compute_dtype).reshape(-1, 6)
+    return (d[:, :3] - d[:, 3:]) / (2.0 * eps)
+
+
+def eikonal_loss(norm):
+    """mean((|grad| - 1)^2)."""
+    return torch.mean((norm - 1.0) ** 2)
+
+
 def _render_pass(field, scene, rays_o, rays_d, dir_norm, t,
                  cfg: PipelineConfig, occ, compute_dtype, dt_override=None,
-                 apply_mask=True, **encode):
-    """One encode -> MLP -> composite pass at samples t (B, S), with the
-    occupancy mask applied when a grid is given and ``apply_mask``;
-    ``encode`` goes to ``encode_points``."""
+                 allow_compact=True, **encode):
+    """One encode -> MLP -> composite pass at samples t (B, S); ``encode``
+    goes to ``encode_points``.  The occupancy mask is applied when a grid
+    is given, except to guided training placement (``dt_override`` with
+    ``allow_compact``); without ``dt_override``, ``allow_compact`` keeps
+    each ray's first ``compact_samples`` occupied samples in depth order
+    (not in SDF mode).  Returns (color, weights, density, pts, t) of the
+    samples kept."""
     B, S = t.shape
     pts = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]    # (B,S,3)
-    mask = None
-    if occ is not None and apply_mask:
+    K = cfg.render.compact_samples if allow_compact else 0
+    mask, dt = None, dt_override
+    if occ is not None and (dt_override is None or not allow_compact):
         mask = occupancy.lookup(occ, pts, scene["mu"], scene["sigma"])
+        if dt_override is None and 0 < K < S and not cfg.render.use_sdf:
+            # occupied first, then depth: the keys are distinct, so the K
+            # smallest come in the order JAX's top_k gives them
+            key = (1.0 - mask) * S + torch.arange(S, dtype=torch.float32,
+                                                  device=t.device)
+            order = torch.topk(-key, K, dim=-1).indices              # (B, K)
+            dt = torch.gather(torch.cat([t[..., 1:] - t[..., :-1],
+                                         torch.zeros_like(t[..., :1])], -1),
+                              -1, order)
+            t = torch.gather(t, -1, order)
+            mask = torch.gather(mask, -1, order)
+            pts = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
+            S = K
     dirs_enc = positional.positional_encode(
         rays_d, cfg.dir_enc.num_freq, cfg.dir_enc.mode)             # (B, dv)
     dirs_rep = dirs_enc[:, None, :].expand(B, S, dirs_enc.shape[-1])
@@ -143,42 +199,47 @@ def _render_pass(field, scene, rays_o, rays_d, dir_norm, t,
     density = density.reshape(B, S)
     if mask is not None:
         density = density * mask
-    color, weights, _ = compositing.composite(
-        t, rgb, density, dir_norm, sigma_clip_min=cfg.render.sigma_clip_min,
-        white_background=cfg.render.white_background, dt=dt_override)
-    return color, weights, density
+    if cfg.render.use_sdf:
+        color, weights, _ = compositing.composite_sdf(
+            t, rgb, density, field.var_b, dir_norm)
+    else:
+        color, weights, _ = compositing.composite(
+            t, rgb, density, dir_norm,
+            sigma_clip_min=cfg.render.sigma_clip_min,
+            white_background=cfg.render.white_background, dt=dt)
+    return color, weights, density, pts, t
 
 
 def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
                 cfg: PipelineConfig, *, num_samples: Optional[int] = None,
+                hierarchical: Optional[bool] = None,
                 occ: Optional[occupancy.OccupancyGrid] = None,
                 compute_dtype=None, jitter: bool = False,
                 generator: Optional[torch.Generator] = None,
                 draws: Optional[dict] = None, placement=None):
-    """Render a ray batch.  Returns {"coarse", "fine" (the same tensor: no
-    hierarchical pass), "weights", "t", "density"}.
+    """Render a ray batch.  Returns {"coarse", "fine" (the second pass's
+    colour, or the coarse one without ``hierarchical``, which defaults to
+    ``cfg.render.hierarchical``), "weights", "t", "density"}, plus
+    "fine_weights" with the second pass and "eikonal_norm" in SDF mode.
 
     ``jitter`` selects the training branch, whose random draws come from
     ``generator``; ``draws`` may replace them: "u" (the ladder jitter, or
     the iid quantiles of guided placement), "xi" (its stratified draw),
-    "probe_u" (its probe jitter), "enc_u" (the stochastic encoder's
-    uniforms, (3, L_hashed, B * S)).  ``placement`` (t (B, S), dt (B, S) or
-    None) replaces the sampler's output altogether: a step's gradient moves
-    measurably when t moves by a few f32 ulps, so comparisons of one step
-    across devices hand both the same samples."""
+    "probe_u" (its probe jitter), "enc_u" and "fine_enc_u" (the stochastic
+    encoder's uniforms of each pass, (3, L_hashed, points)), "fine_u" (the
+    second pass's quantiles, (B, n_fine)) and "eik_idx" (the eikonal
+    subsample's point indices).  At evaluation the second pass draws from
+    ``generator``, else from one seeded 0.  ``placement`` (t (B, S), dt
+    (B, S) or None) replaces the sampler's output altogether: a step's
+    gradient moves measurably when t moves by a few f32 ulps, so
+    comparisons of one step across devices hand both the same samples."""
     r = cfg.render
-    if r.use_sdf:
-        raise NotImplementedError("SDF mode is not ported yet")
-    if jitter and r.hierarchical:
-        raise NotImplementedError("hierarchical sampling is not ported yet")
+    hier = r.hierarchical if hierarchical is None else hierarchical
     S = r.num_samples if num_samples is None else num_samples
     draws = draws or {}
     dt_guided = None
     guided_train = r.occ_guided and occ is not None and jitter
     guided_eval = r.eval_guided > 0 and occ is not None and not jitter
-    if jitter and occ is not None and not guided_train and \
-            0 < r.compact_samples < S:
-        raise NotImplementedError("top-K sample compaction is not ported yet")
     with torch.no_grad():              # placement depends on no parameter
         if placement is not None:
             t, dt_guided = placement
@@ -199,10 +260,44 @@ def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
                 log_sampling=r.log_sampling, device=rays_o.device,
                 jitter=jitter, per_ray_jitter=r.per_ray_jitter,
                 generator=generator, u=draws.get("u"))
-    color, weights, density = _render_pass(
+    stochastic = jitter and cfg.hash.stochastic_train
+    coarse, weights, density, pts, t = _render_pass(
         field, scene, rays_o, rays_d, dir_norm, t, cfg, occ, compute_dtype,
-        dt_override=dt_guided, apply_mask=not guided_train,
-        stochastic=jitter and cfg.hash.stochastic_train, generator=generator,
-        enc_u=draws.get("enc_u"))
-    return {"coarse": color, "fine": color, "weights": weights, "t": t,
-            "density": density}
+        dt_override=dt_guided, allow_compact=jitter, stochastic=stochastic,
+        generator=generator, enc_u=draws.get("enc_u"))
+    out = {"coarse": coarse, "fine": coarse, "weights": weights, "t": t,
+           "density": density}
+    sdf_pts = pts
+    if hier:
+        with torch.no_grad():
+            t_h, w_h = t, weights.detach()
+            if occ is not None and jitter and 0 < r.compact_samples:
+                # compaction puts occupied samples first: sort again for
+                # the inverse CDF's sorted bins
+                t_h, order = torch.sort(t_h, dim=-1, stable=True)
+                w_h = torch.gather(w_h, -1, order)
+            fine_gen = generator
+            if fine_gen is None and "fine_u" not in draws:
+                fine_gen = torch.Generator(rays_o.device).manual_seed(0)
+            t_fine = sampling.hierarchical_ts(
+                t_h, w_h, r.num_fine_samples or S, generator=fine_gen,
+                u=draws.get("fine_u"))
+        fine, fweights, _, sdf_pts, _ = _render_pass(
+            field, scene, rays_o, rays_d, dir_norm, t_fine, cfg, occ,
+            compute_dtype, allow_compact=jitter, stochastic=stochastic,
+            generator=generator, enc_u=draws.get("fine_enc_u"))
+        out["fine"], out["fine_weights"] = fine, fweights
+    if r.use_sdf:
+        mid = sdf_pts.reshape(-1, 3)
+        n_sub = cfg.train.eikonal_subsample
+        if jitter and 0 < n_sub < mid.shape[0]:
+            idx = draws.get("eik_idx")
+            if idx is None:
+                idx = torch.randint(0, mid.shape[0], (n_sub,),
+                                    generator=generator, device=mid.device)
+            mid = mid[idx]
+        grads = sdf_finite_difference_normals(field, scene, mid, cfg,
+                                              compute_dtype=compute_dtype)
+        out["eikonal_norm"] = torch.sqrt(torch.sum(grads ** 2, dim=-1)
+                                         + 1e-12)
+    return out

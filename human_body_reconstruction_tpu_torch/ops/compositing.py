@@ -5,6 +5,10 @@
   alpha = 1 - exp(-sigma * dt)
   T_i   = exp(-sum_{j<i} sigma_j dt_j)        (exclusive transmittance)
   C     = sum_i T_i * alpha_i * rgb_i
+
+SDF mode (``composite_sdf``): phi = clip(sigmoid(b * s), 1e-6, 1),
+alpha_i = relu(1 - phi_{i+1} / phi_i), last alpha 0, T = exclusive
+cumprod(1 - alpha); dt is not used.
 """
 
 from __future__ import annotations
@@ -17,6 +21,13 @@ def exclusive_cumsum(x, dim: int = -1):
     c = torch.cumsum(x, dim=dim)
     zero = torch.zeros_like(c.narrow(dim, 0, 1))
     return torch.cat([zero, c.narrow(dim, 0, x.shape[dim] - 1)], dim=dim)
+
+
+def exclusive_cumprod(x, dim: int = -1):
+    """Cumulative product shifted right by one, with a leading one."""
+    c = torch.cumprod(x, dim=dim)
+    one = torch.ones_like(c.narrow(dim, 0, 1))
+    return torch.cat([one, c.narrow(dim, 0, x.shape[dim] - 1)], dim=dim)
 
 
 def composite(t, rgb, sigma, dir_norm=None, *, sigma_clip_min: float = -10.0,
@@ -37,6 +48,27 @@ def composite(t, rgb, sigma, dir_norm=None, *, sigma_clip_min: float = -10.0,
     color = torch.sum(weights[..., None] * rgb, dim=-2)
     if white_background:
         color = color + (1.0 - torch.sum(weights, dim=-1, keepdim=True))
+    return color, weights, trans
+
+
+def composite_sdf(t, rgb, sdf, b, dir_norm=None):
+    """NeuS-style compositing of an SDF-like field: sdf (..., S) is the
+    density channel read as a signed field, b the learned sharpness (a
+    scalar tensor).  t and dir_norm are not used.  Returns (color (..., 3),
+    weights, trans)."""
+    del t, dir_norm
+    # the sigmoid as the JAX package writes it; maximum and minimum (not
+    # clamp) split a tie's gradient in halves, as jnp.clip and jnp.maximum
+    # do: two equal neighbours (masked samples, sdf 0) tie at alpha 0
+    sig = 1.0 / (1.0 + torch.exp(-(b * sdf)))
+    phi = torch.minimum(torch.maximum(sig, torch.full_like(sig, 1e-6)),
+                        torch.ones_like(sig))
+    ratio = phi[..., 1:] / phi[..., :-1]
+    alpha = torch.maximum(1.0 - ratio, torch.zeros_like(ratio))
+    alpha = torch.cat([alpha, torch.zeros_like(alpha[..., :1])], dim=-1)
+    trans = exclusive_cumprod(1.0 - alpha, dim=-1)
+    weights = trans * alpha
+    color = torch.sum(weights[..., None] * rgb, dim=-2)
     return color, weights, trans
 
 

@@ -5,7 +5,9 @@ inverse CDF draws fixed quantiles ``u = linspace(0, 1 - 1e-6, K)``, and the
 occupancy-guided placement probes interval midpoints with no exploration
 floor.  Training (``jitter=True``) jitters the ladder per ray, draws the
 inverse CDF's ``u`` iid or stratified, and may jitter the probes and route
-a share of the sample mass to empty intervals.  Every random draw comes
+a share of the sample mass to empty intervals.  The hierarchical
+resampler (``hierarchical_ts``) draws its quantiles iid in both, as the
+JAX one does.  Every random draw comes
 from an explicit ``torch.Generator`` and can be injected instead (``u``,
 ``xi``, ``probe_u``): the JAX package draws other bits from its keys, so the
 tests hand both sides the same numbers.
@@ -179,3 +181,14 @@ def occupancy_guided_ts(rays_o, rays_d, occ, mu, sigma, near: float,
     t_next = torch.cat([t[..., 1:], torch.full_like(t[..., :1], far)], dim=-1)
     dt = torch.minimum(t_next, interval_end) - t
     return t, torch.clamp(dt, min=0.0)
+
+
+def hierarchical_ts(t_coarse, weights, num_fine: int, *, generator=None,
+                    u=None):
+    """The coarse depths (..., S) merged with ``num_fine`` depths drawn by
+    inverse CDF from the leading S - 1 weights (iid quantiles from
+    ``generator``, or ``u``), sorted: (..., S + num_fine)."""
+    w = weights[..., :t_coarse.shape[-1] - 1]
+    t_fine = sample_pdf(t_coarse, w, num_fine, u=u, jitter=True,
+                        generator=generator)
+    return torch.sort(torch.cat([t_coarse, t_fine], dim=-1), dim=-1).values

@@ -6,7 +6,8 @@ bounds, in chunks of ``chunk`` points addressed by their flat start index
 (k fastest: grid[i, j, k] is the field at (x_i, y_j, z_k)), with view
 direction (0, 0, 1) and the MLP in bf16 compute.  rgb comes back as uint8
 (rounded half to even, as ``jnp.round``) and sigma as float16 clipped to
-+-6e4 (the iso level needs ~1e-3 relative precision).  The last chunk is
++-6e4 (the iso level needs ~1e-3 relative precision; an SDF model's
+2·sigmoid−1 head keeps its (-1, 1) range to fp16 precision).  The last chunk is
 padded to the chunk size, as in JAX, and the points past R^3 are dropped.
 Every chunk is launched before any is copied back: device-to-host copies
 into pinned buffers, one synchronise.  The ``.npy`` cache holds the JAX

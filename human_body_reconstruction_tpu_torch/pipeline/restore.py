@@ -2,8 +2,10 @@
 
 Restores, in one call, the pipeline config (``<model_name>_config.json``
 preferred, CLI-flag reconstruction as fallback), the scene from the bounds
-artifact, the field from a JAX-layout checkpoint, and optionally the
-occupancy grid saved in the checkpoint's extras, all on ``device``.
+artifact, the field from a JAX-layout checkpoint (with the SDF sharpness
+when the config has SDF mode), and optionally the occupancy grid saved in
+the checkpoint's extras, all on ``device``.  near, far and
+``hierarchical`` are the caller's (render-time choices), as in JAX.
 """
 
 from __future__ import annotations
@@ -30,17 +32,19 @@ class Restored:
 
 
 def load_config(ckpt_dir: str, model_name: str, *, near: float = 2.0,
-                far: float = 6.0, use_sdf: bool = False,
+                far: float = 6.0, hierarchical: bool = False,
+                use_sdf: bool = False,
                 max_res: float = 2048, hash_size: float = 16,
                 encoder_variant: Optional[str] = None,
                 rgb_elu: bool = False):
     """The persisted training config when present (near/far stay the
-    caller's); otherwise one rebuilt from flags.  Returns (cfg, source)."""
+    caller's, and so is ``hierarchical``); otherwise one rebuilt from
+    flags.  Returns (cfg, source)."""
     cfg_json = os.path.join(ckpt_dir, f"{model_name}_config.json")
     if os.path.exists(cfg_json):
         saved = C.from_json(cfg_json)
         cfg = dataclasses.replace(saved, render=dataclasses.replace(
-            saved.render, near=near, far=far, hierarchical=False))
+            saved.render, near=near, far=far, hierarchical=hierarchical))
         source = "json"
     else:
         cfg = C.PipelineConfig(
@@ -50,7 +54,8 @@ def load_config(ckpt_dir: str, model_name: str, *, near: float = 2.0,
             mlp=C.MLPConfig(
                 density_activation="sdf" if use_sdf else "leaky_relu",
                 rgb_activation="elu" if rgb_elu else "sigmoid"),
-            render=C.RenderConfig(near=near, far=far, use_sdf=use_sdf))
+            render=C.RenderConfig(near=near, far=far, use_sdf=use_sdf,
+                                  hierarchical=hierarchical))
         source = "flags"
     if encoder_variant and encoder_variant != cfg.hash.variant:
         cfg = dataclasses.replace(cfg, hash=dataclasses.replace(
@@ -73,14 +78,16 @@ def find_checkpoint(ckpt_dir: str, model_name: str,
 def restore(ckpt_dir: str, model_name: str, *, device,
             bound_pth: str = "bounds_model.npy",
             ckpt_name: str = "N_2048_T_16", near: float = 2.0,
-            far: float = 6.0, use_sdf: bool = False, max_res: float = 2048,
+            far: float = 6.0, hierarchical: bool = False,
+            use_sdf: bool = False, max_res: float = 2048,
             hash_size: float = 16, encoder_variant: Optional[str] = None,
             rgb_elu: bool = False, normalization: Optional[str] = None,
             with_occ: bool = False, log_fn=print) -> Restored:
     """(field, scene, cfg, occ) from a run directory, on ``device``."""
     device = torch.device(device)
     cfg, source = load_config(
-        ckpt_dir, model_name, near=near, far=far, use_sdf=use_sdf,
+        ckpt_dir, model_name, near=near, far=far,
+        hierarchical=hierarchical, use_sdf=use_sdf,
         max_res=max_res, hash_size=hash_size,
         encoder_variant=encoder_variant, rgb_elu=rgb_elu)
     if source == "json":

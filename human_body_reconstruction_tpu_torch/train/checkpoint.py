@@ -1,19 +1,28 @@
 """Checkpoints in the JAX package's ``.npz`` layout (counterpart of the JAX
 train/checkpoint.py).
 
-A JAX checkpoint stores the params pytree positionally, ``leaf_i`` in
+A JAX checkpoint stores a pytree positionally, ``leaf_i`` in
 ``jax.tree_util`` flatten order, with extras as ``extra_<name>``.  Dict keys
 flatten sorted, so a model's leaves are the dense grids, then the factor
 lines, then ``mlp.col[*]``, then ``mlp.sig[*]``, each layer ``b`` before
-``w``, and last the hash table (``"mlp" < "table"``); JAX stores ``w`` as (d_in, d_out), the transpose of
-``nn.Linear.weight``.  A full train-state checkpoint stores (params,
-opt_state), so its params are a positional prefix and load the same way.
-The occupancy grid rides along as ``extra_occ_{density,mask,threshold}``.
-``save_train_state`` writes the params plus ``extra_step`` and those
-extras; the optimizer state is not saved yet, so a port-written checkpoint
-restores a model (in either package) but does not resume training.  Bounds
-are ``np.stack([min, max])`` under either spelling,
-``bounds_model.npy`` or ``bounds.npy``.
+``w``, then the hash table (``"mlp" < "table"``) and last, in SDF mode, the
+sharpness ``var.b`` (a 0-d array); JAX stores ``w`` as (d_in, d_out), the
+transpose of ``nn.Linear.weight``.
+
+``save_train_state`` writes (params, opt_state) as JAX does, so either
+package continues the other's run, with ``extra_step``, the occupancy grid
+(``extra_occ_{density,mask,threshold}``) and the port's own
+``extra_torch_rng``, the training generator's state, which the JAX loader
+ignores.  The optax state of ``train/state.make_optimizer`` is one block a
+label, in sorted label order (``opt_blocks``): ``dense``, ``lines`` and
+``mlp`` hold Adam's count, its first moments, its second moments and the
+schedule's count; ``table`` the same, and JAX builds it even for a model
+with no table, where it holds the two counts alone; ``var`` holds count,
+first and second moment (its constant rate keeps no state).  A full
+checkpoint's params are a positional prefix, so ``load_params`` reads
+either a bare params file or a train state.  Bounds are
+``np.stack([min, max])`` under either spelling, ``bounds_model.npy`` or
+``bounds.npy``.
 """
 
 from __future__ import annotations
@@ -39,13 +48,73 @@ def _slots(field: Field):
             slots += [(layer.bias, False), (layer.weight, True)]
     if field.table is not None:
         slots.append((field.table, False))
+    if field.var_b is not None:
+        slots.append((field.var_b, False))
     return slots
+
+
+def opt_blocks(field: Field):
+    """The optax state's blocks in flatten order: (label, [(parameter,
+    transposed?)], scheduled?).  The ``lines`` label exists for a CP model,
+    ``dense`` with dense levels, ``var`` in SDF mode; ``table`` always."""
+    slots = _slots(field)
+    n_d, n_l = len(field.dense), len(field.lines)
+    n_m = 2 * (len(field.mlp.col) + len(field.mlp.sig))
+    blocks = []
+    if n_d:
+        blocks.append(("dense", slots[:n_d], True))
+    if field.variant == "cp":
+        blocks.append(("lines", slots[n_d:n_d + n_l], True))
+    blocks.append(("mlp", slots[n_d + n_l:n_d + n_l + n_m], True))
+    blocks.append(("table", [] if field.table is None
+                   else [(field.table, False)], True))
+    if field.var_b is not None:
+        blocks.append(("var", [(field.var_b, False)], False))
+    return blocks
+
+
+def _jax_layout(t, transposed: bool) -> np.ndarray:
+    return (t.detach().t() if transposed else t.detach()).cpu().numpy()
+
+
+def opt_leaves(field: Field, opt, step: int) -> list:
+    """The optimizer's state as the optax leaves of ``opt_blocks``, numpy,
+    in the JAX layout: counts int32, moments float32.  A label's counts
+    are the update count ``step``, as every optax count is."""
+    count = np.asarray(step, np.int32)
+    leaves = []
+    for _, slots, scheduled in opt_blocks(field):
+        mom = [opt.moments(p) for p, _ in slots]
+        leaves.append(count)
+        leaves += [_jax_layout(m[0], tr) for m, (_, tr) in zip(mom, slots)]
+        leaves += [_jax_layout(m[1], tr) for m, (_, tr) in zip(mom, slots)]
+        if scheduled:
+            leaves.append(count)
+    return leaves
+
+
+def load_opt_leaves(field: Field, opt, leaves):
+    """Install optax leaves (numpy, the ``opt_blocks`` layout) as the
+    optimizer's Adam state, checking shapes."""
+    it = iter(leaves)
+    for label, slots, scheduled in opt_blocks(field):
+        count = int(next(it))
+        mom = [[next(it) for _ in slots] for _ in range(2)]
+        if scheduled:
+            next(it)
+        for i, (p, tr) in enumerate(slots):
+            want = tuple(p.t().shape if tr else p.shape)
+            arrs = [mom[0][i], mom[1][i]]
+            if any(tuple(np.shape(a)) != want for a in arrs):
+                raise ValueError(f"optimizer state of {label!r} does not "
+                                 f"match the model's {want}")
+            m, v = (torch.as_tensor(np.asarray(a, np.float32)) for a in arrs)
+            opt.set_moments(p, count, m.t() if tr else m, v.t() if tr else v)
 
 
 def jax_leaves(field: Field) -> list:
     """The field's parameters as numpy arrays in JAX leaf order/layout."""
-    return [(p.detach().t() if tr else p.detach()).cpu().numpy()
-            for p, tr in _slots(field)]
+    return [_jax_layout(p, tr) for p, tr in _slots(field)]
 
 
 def load_leaves(field: Field, leaves):
@@ -75,6 +144,8 @@ def to_jax_params(field: Field) -> dict:
 
     tree = {"mlp": {"col": layers(field.mlp.col),
                     "sig": layers(field.mlp.sig)}}
+    if field.var_b is not None:
+        tree["var"] = {"b": field.var_b.detach().cpu().numpy()}
     if len(field.lines):
         tree["lines"] = tuple(p.detach().cpu().numpy() for p in field.lines)
     if len(field.dense):
@@ -92,33 +163,80 @@ def from_jax_params(tree, cfg: PipelineConfig, device=None) -> Field:
 
     leaves = (list(tree.get("dense", ())) + list(tree.get("lines", ()))
               + layers(tree["mlp"]["col"]) + layers(tree["mlp"]["sig"])
-              + ([tree["table"]] if "table" in tree else []))
+              + ([tree["table"]] if "table" in tree else [])
+              + ([tree["var"]["b"]] if "var" in tree else []))
     return load_leaves(Field(cfg), leaves).to(device)
+
+
+def _payload(leaves, extra=None) -> dict:
+    payload = {f"leaf_{i}": a for i, a in enumerate(leaves)}
+    for k, v in (extra or {}).items():
+        payload[f"extra_{k}"] = np.asarray(
+            v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+    return payload
+
+
+def _write(path: str, payload: dict):
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **payload)
+    os.replace(tmp, path)
 
 
 def save_params(path: str, field: Field, extra=None):
     """Write the field as a JAX-layout ``.npz`` (plus ``extra_*`` arrays)."""
-    payload = {f"leaf_{i}": a for i, a in enumerate(jax_leaves(field))}
-    for k, v in (extra or {}).items():
-        payload[f"extra_{k}"] = np.asarray(
-            v.detach().cpu() if isinstance(v, torch.Tensor) else v)
-    tmp = path + ".tmp.npz"
-    np.savez(tmp, **payload)
-    os.replace(tmp, path)
+    _write(path, _payload(jax_leaves(field), extra))
 
 
 def occ_extras(occ: OccupancyGrid) -> dict:
     return dict(zip(OCC_KEYS, occ))
 
 
-def save_train_state(path: str, state):
-    """The trainer's checkpoint: the field's params as the leading
-    ``leaf_i`` (JAX order), the step count, and the occupancy grid when
-    attached."""
+def save_train_state(path: str, state, generator=None):
+    """The trainer's checkpoint: (params, opt_state) as the JAX package
+    writes them, the step count, the occupancy grid when attached, and the
+    generator's state when given."""
     extra = {"step": np.int64(state.step)}
     if state.occ is not None:
         extra.update(occ_extras(state.occ))
-    save_params(path, state.field, extra=extra)
+    if generator is not None:
+        extra["torch_rng"] = generator.get_state()
+    _write(path, _payload(jax_leaves(state.field) + opt_leaves(
+        state.field, state.opt, state.step), extra))
+
+
+def load_train_state(path: str, state, allow_occ: bool = True,
+                     generator=None, seed: int = 0):
+    """Fill ``state`` (field, optimizer, step, grid) from a train-state
+    checkpoint of either package, in place; returns it.  ``allow_occ``
+    gates a saved grid into a state that has none (as in JAX: True when the
+    run's occupancy is held back by its warmup, False when the config has
+    none).  ``generator`` takes the saved ``extra_torch_rng``; a file
+    without one (the JAX package's) reseeds it from (seed, step)."""
+    n = len(_slots(state.field))
+    with np.load(path) as data:
+        n_opt = sum(1 + 2 * len(slots) + scheduled
+                    for _, slots, scheduled in opt_blocks(state.field))
+        missing = [i for i in range(n + n_opt) if f"leaf_{i}" not in data]
+        if missing:
+            raise ValueError(f"{path} holds no optimizer state (leaves "
+                             f"{missing[0]}..{n + n_opt - 1} missing): a "
+                             "bare params file restores a model but does "
+                             "not continue its training")
+        leaves = [data[f"leaf_{i}"] for i in range(n + n_opt)]
+        step = int(data["extra_step"]) if "extra_step" in data else 0
+        rng = data["extra_torch_rng"] if "extra_torch_rng" in data else None
+    load_leaves(state.field, leaves[:n])
+    load_opt_leaves(state.field, state.opt, leaves[n:])
+    state.step = step
+    saved = load_occ(path, state.field.mlp.sig[0].weight.device)
+    if saved is not None and (allow_occ or state.occ is not None):
+        state.occ = saved
+    if generator is not None:
+        if rng is not None and rng.size == generator.get_state().numel():
+            generator.set_state(torch.as_tensor(rng, dtype=torch.uint8))
+        else:
+            generator.manual_seed(seed * 2 ** 32 + step)
+    return state
 
 
 def load_params(path: str, field: Field) -> Field:

@@ -4,10 +4,14 @@ the JAX train/state.py).
 The JAX package drives one ``optax.multi_transform`` over the params
 pytree: Adam (eps 1e-15) on the embedding-like groups ``dense``,
 ``lines`` and ``table``, AdamW (weight decay ``cfg.weight_decay``) on ``mlp``, each on
-``cosine_to_floor`` of its own base rate.  Here the groups are two
+``cosine_to_floor`` of its own base rate, and in SDF mode AdamW at the
+constant rate ``cfg.lr_var`` with optax's default weight decay 1e-4 (not
+torch's 1e-2) on the sharpness ``var``.  Here the groups are
 ``torch.optim`` optimizers whose learning rate is set from the closed-form
 schedule before every step, evaluated at the count of updates taken so far
 (optax's ``scale_by_schedule`` reads its count before incrementing it).
+``moments``/``set_moments`` read and write one parameter's Adam moments
+(and count), which the checkpoint maps to the optax state.
 torch's recursive ``CosineAnnealingLR`` is not used: it drifts from the
 closed form.  Only the "cosine" schedule is ported.
 """
@@ -33,8 +37,12 @@ def cosine_to_floor(lr: float, lr_final: float, total_steps: int):
     return sched
 
 
+OPTAX_ADAMW_DECAY = 1e-4     # optax.adamw's default weight_decay
+
+
 class GroupedOptimizer:
-    """Adam on the encoder tables, AdamW on the MLP, both scheduled."""
+    """Adam on the encoder tables, AdamW on the MLP, both scheduled; AdamW
+    on the SDF sharpness at a constant rate."""
 
     def __init__(self, cfg: TrainConfig, total_steps: int, field):
         if cfg.schedule != "cosine":
@@ -50,6 +58,11 @@ class GroupedOptimizer:
                                weight_decay=cfg.weight_decay),
              cosine_to_floor(cfg.lr_mlp, cfg.lr_final, total_steps)),
         ]
+        if field.var_b is not None:
+            self.groups.append(
+                (torch.optim.AdamW([field.var_b], lr=cfg.lr_var,
+                                   weight_decay=OPTAX_ADAMW_DECAY),
+                 lambda count: cfg.lr_var))
 
     def zero_grad(self):
         for opt, _ in self.groups:
@@ -61,6 +74,27 @@ class GroupedOptimizer:
             for group in opt.param_groups:
                 group["lr"] = sched(count)
             opt.step()
+
+    def _owner(self, p):
+        return next(opt for opt, _ in self.groups
+                    if any(q is p for g in opt.param_groups
+                           for q in g["params"]))
+
+    def moments(self, p):
+        """(first moment, second moment) of parameter p: zeros before its
+        first update."""
+        st = self._owner(p).state.get(p)
+        if not st:
+            return torch.zeros_like(p), torch.zeros_like(p)
+        return st["exp_avg"], st["exp_avg_sq"]
+
+    def set_moments(self, p, count: int, exp_avg, exp_avg_sq):
+        """Install p's Adam state as torch keeps it (the count a float32
+        tensor on the CPU)."""
+        self._owner(p).state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": exp_avg.to(p.device, p.dtype).clone(),
+            "exp_avg_sq": exp_avg_sq.to(p.device, p.dtype).clone()}
 
 
 def make_optimizer(cfg: TrainConfig, total_steps: int, field) -> GroupedOptimizer:

@@ -5,8 +5,8 @@ train/step.py).
 
 A training step samples a batch of (image, pixel) rays on the device,
 renders them on the training branch of ``nerf.render_rays``, takes the
-loss (MSE coarse + MSE fine, the factor-line TV after its warmup, the
-density L1 when weighted), back-propagates through the encoder kernels and
+loss (MSE coarse + MSE fine, the eikonal term in SDF mode, the
+factor-line TV after its warmup, the density L1 when weighted), back-propagates through the encoder kernels and
 applies the grouped optimizer.  The MLP computes in
 ``cfg.train.compute_dtype`` (bf16 operands, f32 accumulation).
 
@@ -60,6 +60,10 @@ def loss_fn(field, scene, batch, cfg: PipelineConfig, occ=None,
     loss = torch.mean((out["coarse"] - gt) ** 2) + mse
     aux = {"mse": mse}
     tc = cfg.train
+    if cfg.render.use_sdf:
+        eik = nerf.eikonal_loss(out["eikonal_norm"])
+        loss = loss + tc.eikonal_weight * eik
+        aux["eikonal"] = eik
     if tc.cp_tv_weight > 0.0 and len(field.lines):
         # normalised by the global rank (JAX: exact under rank parallelism)
         rank = cfg.hash.cp_rank
@@ -95,39 +99,60 @@ def train_step(state, scene, images, c2ws, K, cfg: PipelineConfig,
 
 @torch.no_grad()
 def render_chunk(field, scene, rays_o, rays_d, dir_norm, cfg: PipelineConfig,
-                 occ=None, num_samples: int = 256, bf16: bool = False):
-    """Colours (B, 3) of one ray chunk."""
+                 occ=None, num_samples: int = 256, hierarchical: bool = False,
+                 bf16: bool = False, draws=None):
+    """Colours (B, 3) of one ray chunk: the second pass's with
+    ``hierarchical`` (whose quantiles ``draws["fine_u"]`` may give)."""
     out = nerf.render_rays(field, scene, rays_o, rays_d, dir_norm, cfg,
-                           num_samples=num_samples, occ=occ,
+                           num_samples=num_samples, hierarchical=hierarchical,
+                           occ=occ, draws=draws,
                            compute_dtype=torch.bfloat16 if bf16 else None)
     return out["fine"]
+
+
+def fine_quantiles(cfg: PipelineConfig, num_samples: int, chunk: int, device):
+    """The eval second pass's quantiles (chunk, n_fine), U[0, 1 - 1e-6) from
+    a generator seeded 0: the JAX render functions hand every chunk one
+    fixed key, so every chunk draws the same."""
+    n_fine = cfg.render.num_fine_samples or num_samples
+    gen = torch.Generator(device).manual_seed(0)
+    return torch.rand((chunk, n_fine), generator=gen,
+                      device=device) * (1.0 - 1e-6)
 
 
 @torch.no_grad()
 def render_rays_chunked(field, scene, o, d, n, cfg: PipelineConfig, occ=None,
                         num_samples: int = 256, chunk: int = 16384,
-                        bf16: bool = False):
+                        hierarchical: bool = False, bf16: bool = False):
     """Colours (R, 3) of R rays, ``chunk`` rays per pass."""
+    u = (fine_quantiles(cfg, num_samples, min(chunk, o.shape[0]), o.device)
+         if hierarchical else None)
     outs = [render_chunk(field, scene, o[s:s + chunk], d[s:s + chunk],
                          n[s:s + chunk], cfg, occ=occ,
-                         num_samples=num_samples, bf16=bf16)
+                         num_samples=num_samples, hierarchical=hierarchical,
+                         bf16=bf16,
+                         draws=None if u is None else {
+                             "fine_u": u[:o[s:s + chunk].shape[0]]})
             for s in range(0, o.shape[0], chunk)]
     return torch.cat(outs)
 
 
 def render_image(field, scene, H: int, W: int, K, c2w, cfg: PipelineConfig,
-                 occ=None, num_samples: int = 256, chunk: int = 16384,
-                 bf16: bool = False):
-    """(H, W, 3) float32 image on the field's device."""
+                 occ=None, num_samples: int = 256, hierarchical: bool = False,
+                 chunk: int = 16384, bf16: bool = False):
+    """(H, W, 3) float32 image on the field's device.  ``hierarchical``
+    (not ``cfg.render.hierarchical``, as in JAX) asks for the second
+    pass."""
     o, d, n = rays_lib.full_image_rays(H, W, K, c2w)
     return render_rays_chunked(field, scene, o, d, n, cfg, occ=occ,
                                num_samples=num_samples, chunk=chunk,
+                               hierarchical=hierarchical,
                                bf16=bf16).reshape(H, W, 3)
 
 
 def render_poses(field, scene, H: int, W: int, K, c2ws, cfg: PipelineConfig,
-                 occ=None, num_samples: int = 256, chunk: int = 16384,
-                 bf16: bool = False):
+                 occ=None, num_samples: int = 256, hierarchical: bool = False,
+                 chunk: int = 16384, bf16: bool = False):
     """(P, H, W, 3) images of a pose stack (P, 4, 4).  The chunks tile the
     concatenated rays of all poses, so only the batch's last chunk is
     short."""
@@ -136,5 +161,5 @@ def render_poses(field, scene, H: int, W: int, K, c2ws, cfg: PipelineConfig,
     img = render_rays_chunked(field, scene, o.reshape(-1, 3),
                               d.reshape(-1, 3), n.reshape(-1, 1), cfg,
                               occ=occ, num_samples=num_samples, chunk=chunk,
-                              bf16=bf16)
+                              hierarchical=hierarchical, bf16=bf16)
     return img.reshape(P, H, W, 3)

@@ -4,11 +4,14 @@ renders, checkpoints and metrics.
 
 One process on one device.  The JAX trainer's data- and level-parallel
 branches, its compiled-executable cache and fused multi-step dispatches,
-optimizer-state resume, gradient-norm probes and live preview are not
-ported.  The step count is kept on the host; every random draw comes from
-one ``torch.Generator`` on the training device, seeded with
-``cfg.train.seed`` (the JAX keys give other bits, so runs of the two
-packages are alike in distribution, not in samples).
+gradient-norm probes and live preview are not ported.  The step count is
+kept on the host; every random draw comes from one ``torch.Generator`` on
+the training device, seeded with ``cfg.train.seed`` (the JAX keys give
+other bits, so runs of the two packages are alike in distribution, not in
+samples).  ``load`` continues a run from a checkpoint of either package:
+params, optimizer state, step and grid; the generator's state from a
+port-written file (so that the continuation draws what an uninterrupted
+run draws), else reseeded from (seed, step).
 """
 
 from __future__ import annotations
@@ -91,11 +94,25 @@ class Trainer:
         return os.path.join(self.out_dir, f"{self.model_name}_ckpt.npz")
 
     def save(self):
-        """The checkpoint (params, step, occupancy grid) and the config
-        JSON; the bounds were written at construction."""
-        ckpt_lib.save_train_state(self.ckpt_path(), self.state)
+        """The checkpoint (params, optimizer state, step, occupancy grid,
+        generator) and the config JSON; the bounds were written at
+        construction."""
+        ckpt_lib.save_train_state(self.ckpt_path(), self.state,
+                                  generator=self.generator)
         C.to_json(self.cfg, os.path.join(
             self.out_dir, f"{self.model_name}_config.json"))
+
+    def load(self, path: Optional[str] = None):
+        """Continue from a train-state checkpoint (this run's by default).
+        A saved grid comes back when the config has occupancy, and then no
+        install is pending; a run loaded past its warmup without one
+        installs the grid at its first step."""
+        ckpt_lib.load_train_state(
+            path or self.ckpt_path(), self.state,
+            allow_occ=self.cfg.render.occupancy, generator=self.generator,
+            seed=self.cfg.train.seed)
+        if self.state.occ is not None:
+            self._occ_pending = None
 
     # -- occupancy --------------------------------------------------------
     def _install_occ(self, step_no: int):
@@ -166,7 +183,8 @@ class Trainer:
         img = step_lib.render_image(
             self.state.field, self.scene, ds["H"], ds["W"], ds["K"],
             ds["c2ws"][0], self.cfg, occ=self.state.occ,
-            num_samples=256).cpu().numpy()
+            num_samples=256,
+            hierarchical=self.cfg.render.hierarchical).cpu().numpy()
         gt = ds["images"][0].cpu().numpy()
         mse = float(np.mean((img - gt) ** 2))
         psnr = 10 * np.log10(1.0 / max(mse, 1e-12))

@@ -217,10 +217,8 @@ def test_port_cache_exports_the_same_mesh_in_both_clis(jax_run, tmp_path):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--aot_cache", "x"], "--aot_cache is not ported"),
-    (["--use_sdf"], "SDF mode"),
-    (["--hierarchical"], "hierarchical sampling")],
-    ids=["aot_cache", "use_sdf", "hierarchical"])
+    (["--aot_cache", "x"], "--aot_cache is not ported")],
+    ids=["aot_cache"])
 def test_nerf2mesh_refusals(flag, match, tmp_path):
     with pytest.raises(SystemExit, match=match):
         nerf2mesh.main(["--ckpt_dir", str(tmp_path), "--device", "cpu"] + flag)

@@ -119,7 +119,10 @@ def test_mode_configs_match_make_modes(name):
             cfg.train, ray_batch=16384))
 
     assert dataclasses.asdict(batch(port)) == dataclasses.asdict(batch(ref))
-    assert port.hash.dense_levels == 2 and port.hash.out_dim == 129
+    # 2 dense levels of 2 features, then 5 CP levels of rank 25 (n1448) or
+    # 6 of rank 21
+    assert port.hash.dense_levels == 2
+    assert port.hash.out_dim == (129 if "n1448" in name else 130)
 
 
 def record_jax_loop(max_steps, monkeypatch):
@@ -238,6 +241,24 @@ def test_quality_holdout_cpu_run_writes_jax_keys(tmp_path):
     assert res.cfg == dataclasses.replace(
         qh.make_modes()[qh.DEFAULT_MODE], train=dataclasses.replace(
             res.cfg.train, ray_batch=64))
+
+
+@pytest.mark.parametrize("mode", ["cp_r21_sdf_guided_es16k",
+                                  "cp_r21_hier_xla"])
+def test_quality_holdout_sdf_and_hierarchical_modes_run(mode, tmp_path):
+    """A tiny protocol run of an SDF and a hierarchical mode at their full
+    width: the JAX keys, in SDF mode also the last eikonal term and the
+    sharpness (moved from its initial 0.5 by the var group's AdamW)."""
+    row = qh.main(["--mode", mode, "--height", "12", "--views", "2",
+                   "--batch", "16", "--steps", "4", "--device", "cpu",
+                   "--out", str(tmp_path / "q.json")], log=lambda s: None)
+    sdf = "sdf" in mode
+    assert set(row) == (JAX_ROW_KEYS - {"occ_frac"}) | {"seed", "card"} | (
+        {"eikonal", "var_b"} if sdf else set())
+    assert row["steps"] == 4
+    assert all(np.isfinite(v) for v in row["holdout_per_pose"].values())
+    if sdf:
+        assert row["eikonal"] > 0 and row["var_b"] != 0.5
 
 
 @pytest.mark.parametrize("argv,match", [

@@ -411,9 +411,9 @@ def test_cli_config_matches_jax(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--use_sdf"], ["--hierarchical"], ["--encoder_variant", "cell"],
-    ["--data_parallel"], ["--steps_per_call", "4"], ["--load"],
-    ["--occupancy", "--preset", "reference", "--compact", "8"],
+    ["--level_parallel", "2"], ["--plot_grads"], ["--encoder_variant", "cell"],
+    ["--data_parallel"], ["--steps_per_call", "4"], ["--display"],
+    ["--aot_cache", "x"],
     ["--stochastic", "--packed"], ["--packed_exact"],
     ["--stochastic", "--scatter_strategy", "sorted"]])
 def test_cli_refuses_what_is_not_ported(argv):
