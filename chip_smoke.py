@@ -95,6 +95,21 @@
     --hierarchical`` on the flagship preset for 8 steps, ``--load`` for 8
     more; ``render`` and ``nerf2mesh`` with ``--use_sdf --hierarchical`` on
     that run, the forward kernels' launches counted.
+14. The capture front end: the textured humanoid's 20 protocol training
+    views rendered at 400x400 and written as PNG frames (``data/png.py``)
+    with a COLMAP text model of their cameras; ``cli/colmap2nerf.py
+    --text`` (sharpness on), then ``cli/reconstruct.py --skip_poses
+    --segment_backend threshold`` at its defaults (the flagship encoder,
+    16000 rays x 64 samples, diagonal normalisation, a 256^3 mesh at iso
+    30) cut to RECON_STEPS steps, with no cv2, Pillow, ffmpeg or COLMAP:
+    each stage's seconds, PNG decode times (the run's frames, and
+    Paeth-filtered 400x400 and 1920x1080 ones), train PSNR, ms a step,
+    the sweep and marching, the threshold mask's IoU against the
+    silhouette (printed, not held); the recovered poses equal the rendered
+    ones under the normalising similarity (1e-5), the frames read back
+    exactly, the PSNR rises, the mesh is non-empty and inside the run's
+    bounds; the four encoder kernels on one ray batch of the run's own
+    points (768,000), forwards bit for bit.
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
@@ -118,8 +133,9 @@ with a "shape" key: {cp,dense}_forward/serving_path and /random,
 unculled_random, hash_forward/train_path, /random and /serving_path
 (exact), hash_backward/train_path and /random,
 {cp,dense,hash}_forward/sweep_chunk, {cp,dense}_{forward,backward}/
-eikonal_points and /fine_pass, with the launches of the phase that runs
-each shape), and last ``{"ok": true, "device": {...}}``.
+eikonal_points, /fine_pass and /reconstruct_path, with the launches of
+the phase that runs each shape), and last ``{"ok": true, "device":
+{...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
 """
@@ -183,6 +199,9 @@ HIER_STEP_RAYS = 4096           # the hierarchical card-vs-CPU step's batch
 CONT_STEPS, CONT_WARMUP = (24, 16), 16   # k, then m more; warmup cut to 16
 PROTOCOL_RAYS = 16384           # the protocol's batch
 CLI_STEPS = 8                   # train_hash --use_sdf --hierarchical, then --load
+# reconstruct: the protocol's 20 training views; the depth cut to a run that
+# installs the grid (256) and starts the TV (320), then a few timed steps
+RECON_HW, RECON_VIEWS, RECON_STEPS, RECON_TIMED = 400, 20, 384, 32
 # continued vs uninterrupted, per step on the card: the float-atomic
 # backwards make two runs of the same steps differ, and the difference
 # grows (an H100 80GB HBM3: 1.27e-2 at worst over 40 steps); a second
@@ -670,18 +689,11 @@ def profile_step(trainer, label, tag):
           f"{1.0 - (busy_f + busy_b) / (wall_f + wall_b):.3f} {tag}")
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """The server's own PNG (8-bit RGB, one IDAT, no filtering)."""
-    w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
-    n = int.from_bytes(data[33:37], "big")
-    rows = np.frombuffer(zlib.decompress(data[41:41 + n]), np.uint8)
-    return rows.reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
-
-
 def serve_trained(trainer, ds, run_dir, samples, tag):
     """Save the trained model, restore it through RenderServer, render a
     training view exact on a ``samples`` ladder and score it."""
     from human_body_reconstruction_tpu_torch.cli import serve
+    from human_body_reconstruction_tpu_torch.data import png
 
     trainer.save()
     occ = trainer.state.occ
@@ -700,7 +712,7 @@ def serve_trained(trainer, ds, run_dir, samples, tag):
     server.handle(req)                       # first use at this shape
     resp = server.handle(req)
     check(resp["ok"], resp)
-    img = decode_png(base64.b64decode(resp["image_b64"])) / 255.0
+    img = png.decode_png(base64.b64decode(resp["image_b64"])) / 255.0
     gt = ds["images"][pose].cpu().numpy()
     psnr = 10.0 * math.log10(1.0 / max(float(np.mean((img - gt) ** 2)), 1e-12))
     print(f"served trained {trainer.model_name} model: view {pose} "
@@ -1100,6 +1112,7 @@ def render_phase(train_dir: str, work: str, device: torch.device, tag: str):
     """cli/render.py over the trained flagship run: four orbit frames,
     guided by the saved grid; frame 0 against render_image."""
     from human_body_reconstruction_tpu_torch.cli import render
+    from human_body_reconstruction_tpu_torch.data import png
     from human_body_reconstruction_tpu_torch.pipeline import restore
     from human_body_reconstruction_tpu_torch.train import step
 
@@ -1114,10 +1127,7 @@ def render_phase(train_dir: str, work: str, device: torch.device, tag: str):
           f"{summary['wall_s']} s ({summary['wall_s'] / n:.3f} s a frame), "
           f"{summary['rays_per_sec']} rays/s {tag}")
     print(f"launches in the render CLI: {launches}")
-    frames = []
-    for v in summary["views"]:
-        with open(v["path"], "rb") as f:
-            frames.append(decode_png(f.read()))
+    frames = [png.read_png(v["path"]) for v in summary["views"]]
     check(n == 4 and all(f.shape == (summary["H"], summary["W"], 3)
                          for f in frames), "the render CLI's PNGs decode")
     args = render.build_parser().parse_args(argv)
@@ -1675,6 +1685,236 @@ def sdf_cli_phase(work: str, device: torch.device, tag: str):
           ("render/nerf2mesh launches", r_launches, m_launches))
 
 
+def rotmat2qvec(R) -> np.ndarray:
+    """(3, 3) rotation -> COLMAP's (w, x, y, z) unit quaternion, w >= 0
+    (COLMAP's own read_write_model.rotmat2qvec)."""
+    (rxx, ryx, rzx), (rxy, ryy, rzy), (rxz, ryz, rzz) = np.asarray(R)
+    k = np.array([[rxx - ryy - rzz, 0, 0, 0],
+                  [ryx + rxy, ryy - rxx - rzz, 0, 0],
+                  [rzx + rxz, rzy + ryz, rzz - rxx - ryy, 0],
+                  [ryz - rzy, rzx - rxz, rxy - ryx, rxx + ryy + rzz]]) / 3.0
+    vals, vecs = np.linalg.eigh(k)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return -q if q[0] < 0 else q
+
+
+def write_colmap_text(text_dir: str, c2ws, names, K, H: int, W: int):
+    """A COLMAP text model (one OPENCV camera, no distortion) of NeRF-
+    convention c2w poses: the inverse of ``colmap_axes_to_nerf`` (both its
+    axis matrices are their own inverses) and of ``colmap_to_c2w``."""
+    from human_body_reconstruction_tpu_torch.pipeline import poses
+
+    os.makedirs(text_dir, exist_ok=True)
+    with open(f"{text_dir}/cameras.txt", "w") as f:
+        f.write(f"1 OPENCV {W} {H} {K[0][0]!r} {K[1][1]!r} {K[0][2]!r} "
+                f"{K[1][2]!r} 0 0 0 0\n")
+    with open(f"{text_dir}/images.txt", "w") as f:
+        for k, (c2w, name) in enumerate(zip(c2ws, names)):
+            colmap = (poses._WORLD_PERM @ np.asarray(c2w, np.float64)
+                      @ poses._CAM_FLIP)
+            w2c = colmap[:3, :3].T
+            q, t = rotmat2qvec(w2c), -w2c @ colmap[:3, 3]
+            # the poses are float32: their rotations orthonormal to ~1e-7
+            check(np.abs(poses.qvec2rotmat(q) - w2c).max() < 1e-6,
+                  ("quaternion round trip", k))
+            f.write(f"{k + 1} " + " ".join(f"{v:.17g}" for v in (*q, *t))
+                    + f" 1 {name}\n{W / 2} {H / 2} -1\n")
+
+
+def paeth_png(img8: np.ndarray) -> bytes:
+    """A PNG of uint8 (H, W, 3) img8 with every row Paeth-filtered (as an
+    encoder that filters writes most rows of a photograph)."""
+    import struct
+
+    x = img8.astype(np.int32)
+    a = np.pad(x, ((0, 0), (1, 0), (0, 0)))[:, :-1]
+    b = np.pad(x, ((1, 0), (0, 0), (0, 0)))[:-1]
+    c = np.pad(b, ((0, 0), (1, 0), (0, 0)))[:, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    h, w, _ = img8.shape
+    rows = np.concatenate([np.full((h, 1), 4, np.uint8),
+                           ((x - pred) & 0xFF).astype(np.uint8).reshape(h, -1)],
+                          1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def reconstruct_phase(work: str, device: torch.device, tag: str):
+    """The capture front end on the card's machine: render the textured
+    humanoid's RECON_VIEWS protocol views at RECON_HW^2, write them as PNG
+    frames with a COLMAP text model of their cameras, run ``colmap2nerf
+    --text`` (sharpness on) and ``reconstruct --skip_poses
+    --segment_backend threshold --steps RECON_STEPS`` at its defaults
+    (the flagship encoder, 16000 rays x 64 samples, diagonal
+    normalisation, a 256^3 mesh at iso 30), the encoder kernels' launches
+    counted.  Checks: the poses equal the rendered ones under the
+    normalising similarity, the frames read back exactly, the train PSNR
+    rises, a non-empty mesh inside the run's bounds; the four encoder
+    kernels against their plain versions on one ray batch of the trained
+    run's own points.  Returns {kernel name: record}, the launches and the
+    point count."""
+    from types import SimpleNamespace
+
+    from human_body_reconstruction_tpu_torch.cli import (
+        colmap2nerf, quality_holdout, reconstruct)
+    from human_body_reconstruction_tpu_torch.data import datasets, png, synthetic
+    from human_body_reconstruction_tpu_torch.models import nerf
+    from human_body_reconstruction_tpu_torch.pipeline import segment
+
+    H = W = RECON_HW
+    t0 = time.perf_counter()
+    c2ws = quality_holdout.protocol_poses(RECON_VIEWS)[0]
+    focal = quality_holdout.FOCAL_MULT * H
+    K = [[focal, 0.0, W / 2], [0.0, focal, H / 2], [0.0, 0.0, 1.0]]
+    K_t = torch.tensor(K, device=device)
+
+    def silhouette(pts):          # white albedo: the render is the opacity
+        sigma = synthetic.humanoid_field(pts)[1]
+        return torch.ones_like(pts), sigma
+
+    frames, accs = [], []
+    for c2w in c2ws:
+        pose = torch.as_tensor(c2w, device=device)
+        img = synthetic.render_gt_image(
+            H, W, K_t, pose, field=synthetic.textured_humanoid_field,
+            num_samples=quality_holdout.GT_SAMPLES)
+        acc = synthetic.render_gt_image(H, W, K_t, pose, field=silhouette,
+                                        num_samples=quality_holdout.GT_SAMPLES)
+        frames.append((img.cpu().numpy() * 255).astype(np.uint8))
+        accs.append(acc[..., 0].cpu().numpy())
+    render_s = time.perf_counter() - t0
+    wd = f"{work}/recon"
+    os.makedirs(f"{wd}/images")
+    names = [f"{k:04d}.png" for k in range(RECON_VIEWS)]
+    t0 = time.perf_counter()
+    for name, img in zip(names, frames):
+        png.write_png(f"{wd}/images/{name}", img)
+    write_s = time.perf_counter() - t0
+    write_colmap_text(f"{work}/colmap_text", c2ws, names, K, H, W)
+    t0 = time.perf_counter()
+    for name in names:
+        png.read_png(f"{wd}/images/{name}")
+    decode_ms = 1e3 * (time.perf_counter() - t0) / len(names)
+    filtered = {}
+    for shape in ((400, 400), (1080, 1920)):
+        img = np.tile(frames[0], (3, 5, 1))[:shape[0], :shape[1]]
+        data = paeth_png(img)
+        t0 = time.perf_counter()
+        back = png.decode_png(data)
+        filtered[shape] = 1e3 * (time.perf_counter() - t0)
+        check(np.array_equal(back, img), ("Paeth PNG decode", shape))
+
+    t0 = time.perf_counter()
+    colmap2nerf.main(["--text", f"{work}/colmap_text", "--images",
+                      f"{wd}/images", "--out", f"{wd}/transforms.json"])
+    poses_s = time.perf_counter() - t0
+    with open(f"{wd}/transforms.json") as f:
+        meta = json.load(f)
+    got = np.array([fr["transform_matrix"] for fr in meta["frames"]])
+    want = np.asarray(c2ws, np.float64)
+    rel = lambda p: np.einsum("kji,mjl->kmil", p[:, :3, :3], p[:, :3, :3])
+    rot_err = float(np.abs(rel(got) - rel(want)).max())
+    pair = lambda p: np.linalg.norm(p[:, None, :3, 3] - p[None, :, :3, 3], axis=-1)
+    off = ~np.eye(RECON_VIEWS, dtype=bool)
+    ratio = pair(got)[off] / pair(want)[off]
+    ratio_spread = float((ratio.max() - ratio.min()) / ratio.mean())
+    sharp = [fr["sharpness"] for fr in meta["frames"]]
+    ds = datasets.load_nerf_json(f"{wd}/transforms.json")
+    same_frames = np.array_equal(
+        ds["images"], np.stack(frames).astype(np.float32) / 255.0)
+    ious = []
+    for img, acc in zip(frames, accs):
+        m, s = segment.mask_threshold(img) > 0, acc > 0.5
+        ious.append(float((m & s).sum() / (m | s).sum()))
+    print(f"reconstruct capture: {RECON_VIEWS} views of the textured humanoid "
+          f"at {H}x{W} rendered in {render_s:.2f} s, written as PNG in "
+          f"{write_s:.3f} s; PNG decode (host of the card's machine) "
+          f"{decode_ms:.2f} ms a frame (unfiltered), every row Paeth "
+          + ", ".join(f"{h}x{w} {ms:.1f} ms" for (h, w), ms in filtered.items())
+          + f"; colmap2nerf {poses_s:.2f} s: relative rotations within "
+          f"{rot_err:.2e} of the rendered ones, camera distance ratio spread "
+          f"{ratio_spread:.2e} (scale {ratio.mean():.6f}), sharpness "
+          f"{min(sharp):.1f}-{max(sharp):.1f}; frames read back equal the "
+          f"written ones: {same_frames}; threshold mask IoU against the "
+          f"silhouette acc > 0.5: mean {np.mean(ious):.3f}, min "
+          f"{min(ious):.3f} (not gated) {tag}")
+    check(rot_err <= 1e-5 and ratio_spread <= 1e-5,
+          ("recovered poses", rot_err, ratio_spread))
+    check(same_frames, "frames read back by load_nerf_json")
+    check(min(sharp) > 0, ("sharpness", sharp))
+
+    argv = ["--workdir", wd, "--skip_poses", "--segment_backend", "threshold",
+            "--steps", str(RECON_STEPS), "--device", str(device)]
+    out, launches = counted(wrappers(*TRAIN_KERNELS),
+                            lambda: reconstruct.main(argv))
+    trainer, mesh = out["trainer"], out["mesh"]
+    hist, cfg = trainer.history, trainer.cfg
+    t0 = time.perf_counter()
+    trainer.run(RECON_TIMED, log_every=0)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / RECON_TIMED
+    sigma = np.load(f"{wd}/density_grid_w_rgb.npy", mmap_mode="r")[..., 3]
+    q = np.percentile(sigma, [50, 99, 99.9, 100])
+    lo, hi = np.load(f"{wd}/results/bounds_model.npy")
+    v = mesh["verts"]
+    inside = bool(len(v)) and bool((v.min(0) >= lo - 1e-4).all()
+                                   and (v.max(0) <= hi + 1e-4).all())
+    print("reconstruct stages: " + ", ".join(
+        f"{k} {v_:.2f} s" for k, v_ in out["seconds"].items())
+          + f"; the encoder {cfg.hash.num_levels} levels, n_max "
+          f"{cfg.hash.n_max}, rank {cfg.hash.cp_rank}, dense levels "
+          f"{cfg.hash.dense_levels}, {cfg.render.num_samples} samples, "
+          f"{cfg.train.ray_batch} rays, normalization "
+          f"{cfg.render.normalization}; train PSNR {hist[0]['psnr']:.2f} dB at "
+          f"step {hist[0]['step']} -> {hist[-1]['psnr']:.2f} at "
+          f"{hist[-1]['step']}, occupied {hist[-1].get('occupied_frac')}; "
+          f"{step_ms:.2f} ms a step over {RECON_TIMED} more guided steps; "
+          f"mesh 256^3 iso 30: sweep {mesh['sweep_seconds']:.3f} s, marching "
+          f"{mesh['marching_seconds']:.3f} s, {mesh['num_verts']} verts, "
+          f"{mesh['num_faces']} faces, inside the bounds {inside}; sigma "
+          f"median {q[0]:.3f}, 99% {q[1]:.3f}, 99.9% {q[2]:.3f}, max "
+          f"{q[3]:.3f}; launches in the run {launches} {tag}")
+    check((cfg.hash.num_levels, cfg.hash.n_max, cfg.hash.cp_rank,
+           cfg.hash.dense_levels, cfg.render.num_samples, cfg.train.ray_batch,
+           cfg.render.normalization, trainer.ds["H"], trainer.ds["W"])
+          == (7, 1448, 25, 2, 64, 16000, "diagonal", H, W),
+          ("reconstruct at full width", cfg))
+    check(trainer.state.occ is not None, "occupancy grid installed")
+    check(hist[-1]["psnr"] > hist[0]["psnr"], ("train PSNR rises", hist))
+    check(mesh["num_verts"] > 0 and inside, ("mesh", mesh["num_verts"]))
+    check(all(n > 0 for n in launches.values()), launches)
+
+    # one ray batch of the trained run's own points: guided placement from
+    # its grid, ray-major as the training step encodes them
+    res = SimpleNamespace(cfg=cfg, scene=trainer.scene,
+                          field=trainer.state.field, occ=trainer.state.occ)
+    data = {"train_imgs": trainer.ds["images"],
+            "train_poses": trainer.ds["c2ws"], "K": trainer.ds["K"]}
+    gen = torch.Generator(device).manual_seed(SEED + 12)
+    batch, placement, draws = mode_batch(res, data, cfg.train.ray_batch, gen)
+    with torch.no_grad():
+        _, pts = encoded_points(lambda: nerf.render_rays(
+            res.field, res.scene, *batch[:3], cfg, occ=res.occ,
+            compute_dtype=torch.bfloat16, jitter=True, generator=gen,
+            draws=draws, placement=placement))
+    pts = pts[0]
+    check(pts.shape == (cfg.train.ray_batch * cfg.render.compact_samples, 3),
+          ("reconstruct path points", pts.shape))
+    label = (f"points of a {cfg.train.ray_batch}-ray batch of the reconstruct "
+             f"run (guided, K {cfg.render.compact_samples}, the COLMAP-derived "
+             "diagonal bounds)")
+    recs = encoder_kernel_checks(res, pts, label, tag)
+    return recs, launches, pts.shape[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1898,6 +2138,7 @@ def main() -> int:
     continuation_phase(data, device, tag)
     tpu_weights_phase(data, work.name, device, tag)
     sdf_cli_phase(work.name, device, tag)
+    recon = reconstruct_phase(work.name, device, tag)
     work.cleanup()
     for key, (rec, launches, R) in sweep.items():
         nm = key.split("/")[0]
@@ -1915,6 +2156,14 @@ def main() -> int:
                 f"{nm}/{kind}", SOURCE, REPLACES[nm], launches[nm], *rec,
                 f"{n} points: {label}, {mode} at full width; launches in its "
                 f"{MODE_STEPS[mode]}-step protocol run"))
+    recs, launches, n = recon
+    for nm, rec in recs.items():
+        report.append(entry(
+            f"{nm}/reconstruct_path", SOURCE, REPLACES[nm], launches[nm], *rec,
+            f"{n} points of a 16000-ray batch of the reconstruct run (guided, "
+            "K 48, 64-sample ladder, the COLMAP-derived diagonal bounds); "
+            f"launches in the reconstruct run ({RECON_STEPS} steps, its eval "
+            "renders and its 256^3 sweep)"))
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

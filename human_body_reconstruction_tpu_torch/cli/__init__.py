@@ -1,5 +1,7 @@
 """Command-line entry points of the port: ``train_hash``, ``serve``,
-``quality_holdout``, ``render`` and ``nerf2mesh``, and their shared
+``quality_holdout``, ``render``, ``nerf2mesh``, ``occ_report``, the capture
+front end (``colmap2nerf``, ``segment``) and ``reconstruct``, which chains
+capture, segmentation, training and mesh export; and their shared
 helpers."""
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ cli/render.py, same flags and summary JSON).
 
 Restore the checkpoint, its config and bounds (``pipeline/restore.py``),
 render a camera set, write one PNG per view (the port's own encoder,
-``cli/serve.png_bytes``: no Pillow needed) and ``<tag>_render.json``.
+``data/png.py``: no Pillow needed) and ``<tag>_render.json``.
 
 Camera sources (exactly one):
   --data_path transforms.json   every frame of a dataset, with its PSNR
@@ -164,7 +164,7 @@ def main(argv=None):
     import torch
 
     from human_body_reconstruction_tpu_torch.cli import device_from_flag, psnr
-    from human_body_reconstruction_tpu_torch.cli.serve import png_bytes
+    from human_body_reconstruction_tpu_torch.data import png
     from human_body_reconstruction_tpu_torch.pipeline import restore
     from human_body_reconstruction_tpu_torch.train import step as step_lib
 
@@ -216,8 +216,7 @@ def main(argv=None):
             chunk=args.chunk, bf16=args.bf16).cpu().numpy()
         path = os.path.join(args.out_dir, f"{tag}_{i:04d}.png")
         frame = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-        with open(path, "wb") as f:
-            f.write(png_bytes(frame))
+        png.write_png(path, frame)
         if args.gif:
             frames.append(Image.fromarray(frame))
         rec = {"view": i, "path": path}

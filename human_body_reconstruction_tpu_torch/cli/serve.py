@@ -30,20 +30,17 @@ from __future__ import annotations
 
 import argparse
 import base64
-import binascii
 import dataclasses
 import json
 import os
-import struct
 import sys
 import time
-import zlib
 
 import numpy as np
 import torch
 
 from human_body_reconstruction_tpu_torch.cli import device_from_flag
-from human_body_reconstruction_tpu_torch.data import synthetic
+from human_body_reconstruction_tpu_torch.data import png, synthetic
 from human_body_reconstruction_tpu_torch.pipeline import restore
 from human_body_reconstruction_tpu_torch.train import step as step_lib
 
@@ -87,20 +84,7 @@ def build_parser():
     return p
 
 
-def png_bytes(img8: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 -> PNG file bytes (8-bit RGB, no filtering)."""
-    h, w, _ = img8.shape
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", binascii.crc32(kind + data) & 0xFFFFFFFF))
-
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           np.ascontiguousarray(img8).reshape(h, w * 3)], 1)
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + chunk(b"IEND", b""))
+png_bytes = png.encode_png      # the server's frames: 8-bit RGB PNG
 
 
 def _to_u8(img) -> np.ndarray:

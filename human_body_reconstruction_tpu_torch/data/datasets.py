@@ -4,7 +4,9 @@ Both JSON camera formats of the reference: NeRF-synthetic / Blender
 (intrinsics from ``camera_angle_x``, frame paths like ``./train/r_0`` with an
 implicit ``.png``) and instant-ngp / COLMAP (explicit ``fl_x, fl_y, cx, cy``
 and full file names).  ``load_nerf_json`` is a copy of the JAX package's
-numpy-only reader (tests/test_torch_boundary.py holds the two equal);
+numpy-only reader (tests/test_torch_boundary.py holds the two equal); its
+frames are read as that reader reads them, PNGs through ``data/png.py``
+(whether or not Pillow is installed), other formats through Pillow.
 ``to_device`` puts the arrays on a torch device.
 """
 
@@ -17,12 +19,26 @@ from typing import Optional
 import numpy as np
 import torch
 
+from human_body_reconstruction_tpu_torch.data import png
+
+
+def _read_image(path: str) -> np.ndarray:
+    """uint8 (H, W) or (H, W, C) samples: a ``.png`` through ``data/png.py``
+    (no Pillow needed), any other format through Pillow."""
+    if path.lower().endswith(".png"):
+        arr = png.read_png(path)
+        return arr[..., 0] if arr.shape[-1] == 1 else arr
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(f"{path}: reading this format needs Pillow, which "
+                           "is not installed (PNG frames need nothing)") from None
+    return np.asarray(Image.open(path))
+
 
 def _imread_rgb(path: str, white_background: bool = False) -> np.ndarray:
     """Load an image as float32 RGB in [0, 1]; alpha composited if present."""
-    from PIL import Image
-
-    arr = np.asarray(Image.open(path)).astype(np.float32) / 255.0
+    arr = _read_image(path).astype(np.float32) / 255.0
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
     if arr.shape[-1] == 4:

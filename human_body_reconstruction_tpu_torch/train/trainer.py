@@ -177,7 +177,7 @@ class Trainer:
         """Render view 0 of the eval (else the training) dataset in f32 on
         the eval branch with 256 samples; write a PNG and return the PSNR
         against the dataset image."""
-        from human_body_reconstruction_tpu_torch.cli.serve import png_bytes
+        from human_body_reconstruction_tpu_torch.data import png
 
         ds = self.eval_ds if self.eval_ds is not None else self.ds
         img = step_lib.render_image(
@@ -189,7 +189,6 @@ class Trainer:
         mse = float(np.mean((img - gt) ** 2))
         psnr = 10 * np.log10(1.0 / max(mse, 1e-12))
         path = os.path.join(self.out_dir, f"{self.model_name}_{tag}.png")
-        with open(path, "wb") as f:
-            f.write(png_bytes((np.clip(img, 0, 1) * 255).astype(np.uint8)))
+        png.write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
         self.log_fn(f"eval [{tag}] view 0: PSNR {psnr:.2f} dB")
         return psnr

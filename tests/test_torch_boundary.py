@@ -1,8 +1,9 @@
 """The port stands alone: it imports nothing of the JAX package, and what it
 copied from there (the config dataclasses and their JSON round trip, the
 trainer's flag surface and preset resolution, the dataset reader, the
-native marching-cubes source, the quality protocol's constants and the
-render and mesh-export flags) agrees with the original.  Its entry points run on the card unless given
+native marching-cubes source and the pose math, the quality protocol's
+constants and the render, mesh-export, capture, segmentation and
+reconstruct flags) agrees with the original.  Its entry points run on the card unless given
 ``--device cpu``.  Test names avoid the words that tests/conftest.py marks
 slow.
 """
@@ -22,7 +23,8 @@ from human_body_reconstruction_tpu.cli import train_hash as jcli
 from human_body_reconstruction_tpu.data import datasets as jdatasets
 from human_body_reconstruction_tpu.utils import config as jC
 from human_body_reconstruction_tpu_torch.cli import (
-    nerf2mesh, occ_report, quality_holdout, render, serve, train_hash)
+    colmap2nerf, nerf2mesh, occ_report, quality_holdout, reconstruct, render,
+    segment, serve, train_hash)
 from human_body_reconstruction_tpu_torch.data import datasets
 from human_body_reconstruction_tpu_torch.utils import config as C
 
@@ -232,14 +234,23 @@ def test_port_imports_nothing_of_the_jax_package():
     assert n >= 25, proc.stdout
 
 
+def _read(pkg, path):
+    with open(os.path.join(REPO, pkg, path), "rb") as f:
+        return f.read()
+
+
 def test_native_marching_source_is_a_copy():
     """native/marching.cpp byte for byte the JAX package's."""
-    def read(pkg):
-        with open(os.path.join(REPO, pkg, "native", "marching.cpp"), "rb") as f:
-            return f.read()
+    path = os.path.join("native", "marching.cpp")
+    assert _read("human_body_reconstruction_tpu_torch", path) == _read(
+        "human_body_reconstruction_tpu", path)
 
-    assert read("human_body_reconstruction_tpu_torch") == read(
-        "human_body_reconstruction_tpu")
+
+def test_pose_math_is_a_copy():
+    """pipeline/poses.py (numpy only) byte for byte the JAX package's."""
+    path = os.path.join("pipeline", "poses.py")
+    assert _read("human_body_reconstruction_tpu_torch", path) == _read(
+        "human_body_reconstruction_tpu", path)
 
 
 def test_quality_constants_match_jax():
@@ -257,15 +268,19 @@ def test_quality_constants_match_jax():
                                       if k != "tangle"}
 
 
-@pytest.mark.parametrize("cli", ["render", "nerf2mesh"])
+@pytest.mark.parametrize("cli", ["render", "nerf2mesh", "colmap2nerf",
+                                 "segment", "reconstruct"])
 def test_render_and_mesh_flags_match_jax(cli):
     """The JAX CLI's flags, with the same defaults, types and choices; the
-    port adds only --device (default cuda)."""
+    port adds only --device (default cuda), and the capture front end's
+    CLIs (colmap2nerf, segment), which use no card, not even that."""
     import importlib
 
     ref = importlib.import_module(
         f"human_body_reconstruction_tpu.cli.{cli}").build_parser()
-    port = {"render": render, "nerf2mesh": nerf2mesh}[cli].build_parser()
+    port = {"render": render, "nerf2mesh": nerf2mesh,
+            "colmap2nerf": colmap2nerf, "segment": segment,
+            "reconstruct": reconstruct}[cli].build_parser()
 
     def flags(p):
         return {a.dest: (tuple(a.option_strings), a.default, a.type,
@@ -273,23 +288,29 @@ def test_render_and_mesh_flags_match_jax(cli):
                 for a in p._actions if a.dest != "help"}
 
     got, want = flags(port), flags(ref)
+    if cli in ("colmap2nerf", "segment"):
+        assert got == want
+        return
     assert set(got) - set(want) == {"device"}
     assert {k: got[k] for k in want} == want
     assert got["device"][1] == "cuda"
 
 
 @pytest.mark.parametrize("cli", ["quality_holdout", "render", "nerf2mesh",
-                                 "occ_report"])
+                                 "occ_report", "reconstruct"])
 def test_new_entry_points_need_a_card(cli, monkeypatch, tmp_path):
     """Without a card the new CLIs exit with a message naming --device
     cpu; each defaults to the card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     mod = {"quality_holdout": quality_holdout, "render": render,
-           "nerf2mesh": nerf2mesh, "occ_report": occ_report}[cli]
+           "nerf2mesh": nerf2mesh, "occ_report": occ_report,
+           "reconstruct": reconstruct}[cli]
     argv = {"quality_holdout": ["--out", str(tmp_path / "q.json")],
             "render": ["--orbit", "1", "--out_dir", str(tmp_path)],
             "nerf2mesh": ["--ckpt_dir", str(tmp_path)],
-            "occ_report": ["--run_dir", str(tmp_path)]}[cli]
+            "occ_report": ["--run_dir", str(tmp_path)],
+            "reconstruct": ["--workdir", str(tmp_path / "w"),
+                            "--skip_poses"]}[cli]
     assert mod.build_parser().parse_args(argv).device == "cuda"
     with pytest.raises(SystemExit, match="--device cpu"):
         mod.main(argv)

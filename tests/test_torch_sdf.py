@@ -329,3 +329,77 @@ def test_step_loss_and_grads_match_jax(case, monkeypatch):
         assert gp[k].shape == gj[k].shape, k
         assert rel_norm(gp[k], gj[k]) <= (
             STEP_GRAD_SDF if cfg.render.use_sdf else 1e-5), k
+
+
+# One step of the SDF mode in its bf16 numerics (the encoders' bf16
+# roundings, the MLP in bf16 compute), held to JAX's Pallas path: both
+# Pallas kernels run interpreted, as the TPU ran the es16k mode, whose xla
+# twin differs only in that switch.  The port takes the JAX placement
+# (``placement=``) and eikonal indices.  JAX's CP kernel lays the levels'
+# factor rows out "tight" (a level may start inside a 128-column block) and
+# rounds a point's block-local coordinate x + (level offset) to f32 there,
+# which moves about 1% of its hat weights by one bf16 ulp; its "padded"
+# layout starts every level on a block and rounds nothing.  The same terms
+# under the two layouts are the step's spread, measured on this step: JAX
+# tight against padded 1.45e-3 (lines), 1.9e-4 (mlp), 8.7e-5 (dense),
+# 9.1e-6 (var), loss 1.8e-6.  The port against padded: 6e-8 (lines), 3.5e-7
+# (mlp), 1.0e-4 (dense: the bf16 rounding of the dense grid's f32 sums,
+# taken in another order), 1e-7 (var); against tight: the layout's spread.
+# Tolerance: twice the largest spread, 3e-3.  (JAX's XLA path rounds the
+# lerp weights and the CP lines' products elsewhere: on this step the port's
+# gradients differ from it by 0.28 (mlp) to 0.62 (dense) of their norm, and
+# its eikonal term reads 0.694 against 0.718, so at bf16 the mode's two JAX
+# paths are two functions; the port follows the Pallas one.)
+BF16_STEP_GRAD = 3e-3
+
+
+@pytest.mark.parametrize("layout", ["tight", "padded"])
+def test_bf16_sdf_step_matches_jax_pallas(layout, monkeypatch):
+    monkeypatch.setattr(jsampling, "jnp", _JnpWithTorchSums())
+    base = small_cfg(sdf=True, occ="guided")
+    cfg = dataclasses.replace(
+        base, hash=dataclasses.replace(base.hash, dense_bf16=True,
+                                       cp_impl="pallas", dense_impl="pallas",
+                                       cp_layout=layout),
+        train=dataclasses.replace(base.train, compute_dtype="bfloat16"))
+    params = jax_params(cfg)
+    field = ckpt.from_jax_params(params, cfg)
+    batch, tbatch = rays()
+    occ_j, occ_p = both_occ(ball_mask())
+    key = jax.random.PRNGKey(3)
+    r, scene = cfg.render, jrestore.scene_from_bounds(LO, HI)
+    t, dt = jsampling.occupancy_guided_ts(
+        jax.random.split(key, 4)[0], batch[0], batch[1], occ_j, scene["mu"],
+        scene["sigma"], r.near, r.far, r.compact_samples,
+        num_probe=r.occ_probes, explore_frac=r.occ_explore, jitter=True,
+        probe_jitter=r.occ_probe_jitter, dt_mode=r.occ_dt,
+        stratified=r.occ_stratified)
+    eik_idx = jax.random.randint(jax.random.fold_in(key, 0x5DF), (N_EIK,), 0,
+                                 eik_points(cfg, True))
+    (lj, auxj), gj = jax.value_and_grad(jstep.loss_fn, has_aux=True)(
+        jax.tree.map(jnp.asarray, params), scene, batch, key, cfg, occ_j,
+        jnp.bfloat16, step=10)
+    lp, auxp = step.loss_fn(
+        field, nerf.scene_from_bounds(LO, HI), tbatch, cfg, occ_p,
+        torch.bfloat16, step=10,
+        draws={"eik_idx": torch.tensor(np.asarray(eik_idx))},
+        placement=[torch.tensor(np.asarray(a)) for a in (t, dt)])
+    lp.backward()
+    assert float(lp) == pytest.approx(float(lj), rel=1e-4)
+    assert float(auxp["eikonal"]) == pytest.approx(float(auxj["eikonal"]),
+                                                   rel=1e-4)
+    jg = {k: np.concatenate([np.asarray(g).reshape(-1) for g in
+                             jax.tree_util.tree_leaves(gj[k])])
+          for k in ("dense", "lines")}
+    jg["mlp"] = np.concatenate(
+        [np.asarray(g).reshape(-1) for branch in ("sig", "col")
+         for layer in gj["mlp"][branch]
+         for g in (np.asarray(layer["w"]).T, layer["b"])])
+    jg["var"] = np.asarray(gj["var"]["b"]).reshape(1)
+    pg = {name: np.concatenate([p.grad.numpy().reshape(-1) for p in ps])
+          for name, ps in (("dense", field.dense), ("lines", field.lines),
+                           ("mlp", list(field.mlp.parameters())),
+                           ("var", [field.var_b]))}
+    for k in jg:
+        assert pg[k].shape == jg[k].shape, k
+        assert rel_norm(pg[k], jg[k]) <= BF16_STEP_GRAD, k
