@@ -110,6 +110,25 @@
     exactly, the PSNR rises, the mesh is non-empty and inside the run's
     bounds; the four encoder kernels on one ray batch of the run's own
     points (768,000), forwards bit for bit.
+15. The 2-D image fit (``cli/image_fit.py`` at its defaults: L 16, F 2, T
+    2^18, n_max 2^16, 500 steps): ``--synthetic`` (256x256, batch 65,536),
+    then ``--image`` on a 512x512 PNG of the same procedural target written
+    by ``data/png.py`` (batch 200,000): ms a step, the final full-image
+    PSNR above IMAGE_FIT_FLOOR_DB, the 2-D hash kernels' launches (a
+    forward and a backward a step, one more forward for full_pred); both
+    kernels against plain on the image run's first batch and its 262,144
+    full_pred points (forward bit for bit, backward within the sum-order
+    tolerance), timed beside their bounds and the library calls below.
+16. ``cli/train_vanilla.py --synthetic --write`` at its defaults (8x256,
+    1024 rays x 64 samples, 1000 iterations): ms a step, the test view's
+    PSNR beside the untrained model's and an all-black image's, the same
+    view again from the saved checkpoint; one step from the CLI's initial
+    weights card vs CPU (loss and gradients).
+17. ``train_hash --plot_grads --display`` on the flagship, PLOT_GRADS_STEPS
+    steps on the textured scene: every log record's grad-norm keys, the
+    preview PNG read back, the encoder kernels' launches (the probe's
+    backward among them); a ``schedule="onecycle"`` Trainer of
+    ONECYCLE_STEPS steps, its rates against the closed form.
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
@@ -119,10 +138,12 @@ clock), from this run's shapes.  ``library_ms`` is one PyTorch call that
 computes the same function: ``torch.rand`` for the Philox kernel;
 ``F.grid_sample`` (trilinear, ``align_corners=True``, f32, one call a
 level) for the dense forward and its ``grid_sampler_3d_backward`` (the
-volume's gradient) for the dense backward; none for the CP and hash
-encoders.  Kernel times are CUDA events over a run of launches queued
-behind a device sleep, so they are the device's time, not the host's
-enqueue.
+volume's gradient) for the dense backward; ``F.embedding_bag(mode="sum")``
+given the rows and weights for the hash forward (3-D and 2-D) and
+``index_add_`` given the rows and the weighted terms for the hash
+backward; none for the CP encoder.  Kernel times are CUDA events over a
+run of launches queued behind a device sleep, so they are the device's
+time, not the host's enqueue.
 
 Any failure ends the run with a nonzero exit.  Output: the card's name and
 power limit, per-phase, per-request and per-kernel lines, the smoke's wall
@@ -133,9 +154,10 @@ with a "shape" key: {cp,dense}_forward/serving_path and /random,
 unculled_random, hash_forward/train_path, /random and /serving_path
 (exact), hash_backward/train_path and /random,
 {cp,dense,hash}_forward/sweep_chunk, {cp,dense}_{forward,backward}/
-eikonal_points, /fine_pass and /reconstruct_path, with the launches of
-the phase that runs each shape), and last ``{"ok": true, "device":
-{...}}``.
+eikonal_points, /fine_pass and /reconstruct_path,
+hash_{forward,backward}_2d/image_fit_batch and /full_pred, with the
+launches of the phase that runs each shape), and last ``{"ok": true,
+"device": {...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
 """
@@ -213,6 +235,10 @@ JAX_CPU_SCORES = "tpu_weights_jax_cpu.json"   # tools/tpu_weights_jax_cpu.py
 JAX_CPU_DB = 0.05               # port on the card vs JAX on the CPU, per pose
 SDF_MESH = ("cp_r21_sdf_guided_xla_es16k", 192, "sdf_mesh_textured_r5.ply",
             "sdf_mesh_textured_r4.json")
+IMAGE_FIT_HW = 512              # the --image target written for the image fit
+IMAGE_FIT_FLOOR_DB = 20.0       # the JAX CLI test's floor (test_cli_extras.py)
+PLOT_GRADS_STEPS = 32           # train_hash --plot_grads --display
+ONECYCLE_STEPS = 10             # a onecycle trainer's horizon and steps
 JAX_ROW_KEYS = ("mode", "steps", "rays_per_sec", "train_psnr", "holdout_psnr",
                 "holdout_std", "holdout_min", "holdout_per_pose", "scene",
                 "budget_s", "occ_frac")
@@ -487,6 +513,49 @@ def grid_sample_backward_levels(inputs, grad):
     return lambda: [torch.ops.aten.grid_sampler_3d_backward(
         go, vol, u, 0, 0, True, [True, False])[0]
         for go, (vol, u) in zip(gos, inputs)]
+
+
+def hash_rows_weights(pts, mu, sigma, h, bits=None):
+    """The hash kernels' rows and weights, for a library call handed them:
+    (flat rows into the (L*T, F) table, (N*L, C) int64, weights (N*L, C)
+    f32 or None), C the 2^dim corners of a (point, level) in exact mode or
+    the one picked corner (``bits``, stochastic, weight 1)."""
+    from human_body_reconstruction_tpu_torch.ops import hash_kernel
+    from human_body_reconstruction_tpu_torch.ops.dense_grid import normalise
+
+    per_level = hash_kernel._level_terms(normalise(pts, mu, sigma), h,
+                                         bits=bits)
+    rows = torch.stack([torch.stack([r for r, _ in terms], -1)
+                        for terms, _ in per_level], 1)
+    n, L, C = rows.shape
+    if bits is not None:
+        return rows.reshape(n * L, C), None
+    w = torch.stack([torch.stack([wt for _, wt in terms], -1)
+                     for terms, _ in per_level], 1)
+    return rows.reshape(n * L, C), w.reshape(n * L, C)
+
+
+def embedding_bag_call(table, rows, w):
+    """The hash forward as one library call given the rows and weights:
+    ``F.embedding_bag(mode="sum")`` over the flat (L*T, F) table, (N*L, F)
+    out."""
+    flat = table.reshape(-1, table.shape[-1])
+    return lambda: torch.nn.functional.embedding_bag(
+        rows, flat, per_sample_weights=w, mode="sum")
+
+
+def index_add_call(table, rows, w, g):
+    """The hash backward as one library call given the rows and the terms
+    (g, times the corner weights in exact mode, made before the call):
+    ``index_add_`` into a flat (L*T, F) accumulator."""
+    F = table.shape[-1]
+    terms = g.reshape(rows.shape[0], 1, F).expand(-1, rows.shape[1], F)
+    if w is not None:
+        terms = terms * w[..., None]
+    terms, idx = terms.reshape(-1, F).contiguous(), rows.reshape(-1)
+    acc = torch.zeros((table.numel() // F, F), dtype=torch.float32,
+                      device=table.device)
+    return lambda: acc.index_add_(0, idx, terms)
 
 
 def backward_ops(nm: str, tables, h, n: int):
@@ -865,15 +934,23 @@ def hash_kernel_checks(trainer, device, tag, train_pts, serve_pts):
                                   reps=3)
                 bnd_f = bound(nbytes(at, table, feats, *((uu, cb) if stoch
                                                          else ())), ops_f)
+                rows, w = hash_rows_weights(at, scene["mu"], scene["sigma"],
+                                            h, cb if stoch else None)
+                lib = embedding_bag_call(table, rows, w)
+                lib_err = float((lib().reshape(feats.shape) - wf).abs().max())
+                lib_f = time_ms(lib)
             print(f"kernel hash_forward ({mode}): {at.shape[0]} {kind} points "
                   f"({outside:.3f} outside the box), out {tuple(feats.shape)}"
                   f"{', bits ' + str(tuple(cb.shape)) if stoch else ''}, bit "
                   f"for bit {same} (max_abs_err {err_f:.3e}), {ms_f:.4f} ms vs "
-                  f"plain {plain_f:.4f} ms, bound {bnd_f[0]:.4f} ms "
-                  f"({bnd_f[1]}) {tag}")
+                  f"plain {plain_f:.4f} ms, embedding_bag given rows and "
+                  f"weights {lib_f:.4f} ms (max_abs_err {lib_err:.1e}), bound "
+                  f"{bnd_f[0]:.4f} ms ({bnd_f[1]}) {tag}")
             check(same, ("hash_forward bit for bit", kind, mode, err_f))
+            check(lib_err <= 1e-5, ("embedding_bag computes the hash forward",
+                                    kind, mode, lib_err))
             errs.append(err_f)
-            rec["hash_forward"] = (max(errs), ms_f, plain_f, None, bnd_f)
+            rec["hash_forward"] = (max(errs), ms_f, plain_f, lib_f, bnd_f)
             if kind == "serving_path":
                 continue
             with torch.no_grad():
@@ -894,15 +971,19 @@ def hash_kernel_checks(trainer, device, tag, train_pts, serve_pts):
                         *a, g, bits=wb), reps=3)
                 bnd_b = bound(nbytes(at, g, gb, *((cb,) if stoch else ())),
                               ops_f + at.shape[0] * L * F)
+                lib = index_add_call(table, rows, w, g)
+                lib_b = time_ms(lib, reps=5)
+                del rows, w, lib
             print(f"kernel hash_backward ({mode}): {at.shape[0]} {kind} "
                   f"points{', from the bits' if stoch else ''}, max_abs_err "
                   f"{err_b:.3e}, worst |err| / tolerance {ratio:.3f} (tol 1), "
-                  f"{ms_b:.4f} ms vs plain {plain_b:.4f} ms, bound "
-                  f"{bnd_b[0]:.4f} ms ({bnd_b[1]}) {tag}")
+                  f"{ms_b:.4f} ms vs plain {plain_b:.4f} ms, index_add_ given "
+                  f"rows and terms {lib_b:.4f} ms, bound {bnd_b[0]:.4f} ms "
+                  f"({bnd_b[1]}) {tag}")
             check(bool(torch.isfinite(gb).all()) and ratio <= 1.0,
                   ("hash_backward", kind, mode, err_b, ratio))
             prev = rec.get("hash_backward", (0.0,))[0]
-            rec["hash_backward"] = (max(prev, err_b), ms_b, plain_b, None,
+            rec["hash_backward"] = (max(prev, err_b), ms_b, plain_b, lib_b,
                                     bnd_b)
         for nm, r in rec.items():
             out[f"{nm}/{kind}"] = r
@@ -1050,6 +1131,11 @@ def forward_check(nm, tables, pts, scene, h, *, matrix: bool, tol: float,
             lib_ms = time_ms(lambda gs=grid_sample_inputs(*a): (
                 grid_sample_levels(gs)))
             extra += f", grid_sample {lib_ms:.4f} ms"
+        if nm == "hash_forward":
+            rows, w = hash_rows_weights(pts, scene["mu"], scene["sigma"], h)
+            lib_ms = time_ms(embedding_bag_call(tables, rows, w))
+            extra += f", embedding_bag given rows and weights {lib_ms:.4f} ms"
+            del rows, w
         if matrix and not kw["out"].is_contiguous():
             extra += f", contiguous {time_ms(lambda: kern(*a)):.4f} ms"
     bnd = bound(nbytes(pts, *(tables if isinstance(tables, list)
@@ -1915,6 +2001,274 @@ def reconstruct_phase(work: str, device: torch.device, tag: str):
     return recs, launches, pts.shape[0]
 
 
+def hash2d_kernel_checks(res, pix, device, tag):
+    """The 2-D build of the hash kernels against their plain versions on the
+    image fit's own points: ``pix``, one batch of the run's pixels, and the
+    H*W points of ``full_pred``, with the run's trained table.  The forward
+    bit for bit, the backward within the sum-order tolerance; beside each,
+    one library call given the same rows and weights (terms).  Returns
+    {record name: (max_abs_err, ms, plain_ms, library_ms, bound)}."""
+    from human_body_reconstruction_tpu_torch.cli import image_fit
+    from human_body_reconstruction_tpu_torch.ops import cuda_lib, hash_kernel
+
+    cfg, table, sigma = res["cfg"], res["table"].detach(), res["sigma"]
+    L, F, W = cfg.num_hashed_levels, cfg.features_per_level, res["W"]
+    mu = torch.zeros((), device=device)
+    gen = torch.Generator(device).manual_seed(SEED + 9)
+    out = {}
+    for kind, p in (("image_fit_batch", pix),
+                    ("full_pred", torch.arange(res["H"] * W, device=device))):
+        ij = image_fit.pixel_coords(p, W)
+        n = ij.shape[0]
+        a = (table, ij, mu, sigma, cfg)
+        g = torch.randn((n, L * F + 3), generator=gen, device=device)[:, 3:]
+        ops = n * L * (10 + 4 * (8 + 2 * F))
+        with torch.no_grad():
+            got = hash_kernel.hash_encode_kernel(*a)
+            want = hash_kernel.hash_encode_plain(*a)
+            gb = hash_kernel.hash_encode_backward_kernel(*a, g)
+            want_b = hash_kernel.hash_encode_plain_backward(*a, g)
+            abs_sum = hash_kernel.hash_encode_plain_backward(*a, g.abs())
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            err_f = float((got - want).abs().max())
+            err_b = float((gb - want_b).abs().max())
+            ratio = float(((gb - want_b).abs() / cuda_lib.sum_order_tolerance(
+                want_b, abs_sum, False)).max())
+            rows, w = hash_rows_weights(ij, mu, sigma, cfg)
+            lib_fwd = embedding_bag_call(table, rows, w)
+            lib_err = float((lib_fwd().reshape(n, -1) - want).abs().max())
+            touched = int(torch.unique(rows).numel())
+            times = {
+                "ms_f": time_ms(lambda: hash_kernel.hash_encode_kernel(*a)),
+                "plain_f": time_ms(lambda: hash_kernel.hash_encode_plain(*a),
+                                   reps=3),
+                "lib_f": time_ms(lib_fwd),
+                "ms_b": time_ms(lambda: hash_kernel.hash_encode_backward_kernel(
+                    *a, g)),
+                "plain_b": time_ms(
+                    lambda: hash_kernel.hash_encode_plain_backward(*a, g),
+                    reps=3),
+                "lib_b": time_ms(index_add_call(table, rows, w, g), reps=5)}
+        # the forward reads the rows its points touch, the backward writes
+        # the whole gradient table
+        bnd_f = bound(nbytes(ij, got) + touched * F * 4, ops)
+        bnd_b = bound(nbytes(ij, g, gb), ops + n * L * 4 * F * 2)
+        print(f"kernel hash_forward (2-D, exact): {n} {kind} points, out "
+              f"{tuple(got.shape)}, {touched} distinct rows of "
+              f"{L * cfg.table_size}, bit for bit {same} (max_abs_err "
+              f"{err_f:.3e}), {times['ms_f']:.4f} ms vs plain "
+              f"{times['plain_f']:.4f} ms, embedding_bag given rows and "
+              f"weights {times['lib_f']:.4f} ms (max_abs_err {lib_err:.1e}), "
+              f"bound {bnd_f[0]:.4f} ms ({bnd_f[1]}) {tag}")
+        print(f"kernel hash_backward (2-D, exact): {n} {kind} points, "
+              f"max_abs_err {err_b:.3e}, worst |err| / tolerance {ratio:.3f} "
+              f"(tol 1), {times['ms_b']:.4f} ms vs plain "
+              f"{times['plain_b']:.4f} ms, index_add_ given rows and terms "
+              f"{times['lib_b']:.4f} ms, bound {bnd_b[0]:.4f} ms ({bnd_b[1]}) "
+              f"{tag}")
+        check(same, ("2-D hash_forward bit for bit", kind, err_f))
+        check(lib_err <= 1e-5, ("embedding_bag computes the 2-D forward",
+                                lib_err))
+        check(bool(torch.isfinite(gb).all()) and ratio <= 1.0,
+              ("2-D hash_backward", kind, err_b, ratio))
+        out[f"hash_forward/{kind}"] = (err_f, times["ms_f"], times["plain_f"],
+                                       times["lib_f"], bnd_f)
+        out[f"hash_backward/{kind}"] = (err_b, times["ms_b"],
+                                        times["plain_b"], times["lib_b"],
+                                        bnd_b)
+        del rows, w, lib_fwd
+    return out
+
+
+def image_fit_phase(work: str, device: torch.device, tag: str):
+    """(a) The 2-D image fit at the CLI's defaults: ``--synthetic`` (the
+    256x256 procedural target, batch 65,536), then ``--image`` on a
+    512x512 PNG of the same target written by ``data/png.py`` (batch
+    200,000), 500 steps each, the hash kernels' launches counted per run;
+    then the 2-D kernels against plain on the image run's first batch and
+    its full_pred points.  Returns (kernel records, launches of the image
+    run)."""
+    from human_body_reconstruction_tpu_torch.cli import image_fit
+    from human_body_reconstruction_tpu_torch.data import png
+
+    path = f"{work}/image_fit_target.png"
+    png.write_png(path, (np.clip(image_fit.procedural_target(IMAGE_FIT_HW),
+                                 0, 1) * 255).astype(np.uint8))
+    kernels = wrappers("hash_forward", "hash_backward")
+    runs = {}
+    for label, argv in (("synthetic", ["--synthetic"]),
+                        ("image", ["--image", path])):
+        out_dir = f"{work}/image_fit_{label}"
+        res, launches = counted(kernels, lambda: image_fit.main(
+            argv + ["--device", "cuda", "--out_dir", out_dir,
+                    "--log_every", "100"]))
+        cfg = res["cfg"]
+        print(f"image fit --{label}: {res['H']}x{res['W']}, batch "
+              f"{res['batch']}, L {cfg.num_levels}, F "
+              f"{cfg.features_per_level}, T 2^{cfg.log2_table_size}, n_max "
+              f"{cfg.n_max}: {res['steps']} steps, "
+              f"{1e3 * res['train_s'] / res['steps']:.3f} ms a step (first-"
+              f"use costs included), final full-image PSNR {res['psnr']:.2f} "
+              f"dB (floor {IMAGE_FIT_FLOOR_DB:g}); launches {launches} {tag}")
+        final = png.read_png(f"{out_dir}/imagefit_final.png")
+        check(final.shape == (res["H"], res["W"], 3),
+              ("image fit PNG", final.shape))
+        check((cfg.num_levels, cfg.log2_table_size, cfg.n_max, res["steps"])
+              == (16, 18, 2 ** 16, 500), "the image fit at its defaults")
+        check(res["psnr"] > IMAGE_FIT_FLOOR_DB,
+              ("image fit PSNR", label, res["psnr"]))
+        # a forward and a backward a step, and one full_pred
+        check(launches == {"hash_forward": res["steps"] + 1,
+                           "hash_backward": res["steps"]}, (label, launches))
+        runs[label] = (res, launches)
+    res, launches = runs["image"]
+    check(res["batch"] == 200_000
+          and (res["H"], res["W"]) == (IMAGE_FIT_HW, IMAGE_FIT_HW),
+          "the image run's batch and size")
+    # the run's first batch: the CLI's pixel generator, seeded 0
+    pix = torch.randint(0, res["H"] * res["W"], (res["batch"],),
+                        generator=torch.Generator(device).manual_seed(0),
+                        device=device)
+    return hash2d_kernel_checks(res, pix, device, tag), launches
+
+
+def vanilla_phase(work: str, device: torch.device, tag: str):
+    """(b) ``train_vanilla --synthetic --write`` at its defaults (8x256,
+    1024 rays x 64 samples, 1000 iterations): ms a step, the test view's
+    PSNR beside the untrained model's and an all-black image's (printed,
+    not held: the reference's recipe, ReLU colours at a rate of 1e-2, ends
+    near the black image on this black-background scene in the JAX package
+    too), the checkpoint read back; then one step from the CLI's initial
+    weights on the card against the CPU from the same image, pixels and
+    sample positions."""
+    from human_body_reconstruction_tpu_torch.cli import psnr, train_vanilla
+    from human_body_reconstruction_tpu_torch.data import png
+    from human_body_reconstruction_tpu_torch.models import mlp as mlp_lib
+    from human_body_reconstruction_tpu_torch.ops import sampling
+    from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt
+    from human_body_reconstruction_tpu_torch.utils import jax_prng
+
+    out_dir = f"{work}/vanilla"
+    argv = ["--synthetic", "--write", "--device", "cuda", "--out_dir",
+            out_dir, "--log_every", "250"]
+    args = train_vanilla.build_parser().parse_args(argv)
+    cfg = train_vanilla.model_config(args)
+    ds = train_vanilla.load_data(args, device)
+    test = ds["images"].shape[0] - 1
+    init = mlp_lib.init_classic_nerf(jax_prng.prng_key(0), cfg)
+    psnr0 = psnr(train_vanilla.render_view(
+        mlp_lib.classic_nerf_from_jax(init, cfg, device), ds, test,
+        args).cpu().numpy(), ds["images"][test].cpu().numpy())
+    black = psnr(np.zeros((ds["H"], ds["W"], 3), np.float32),
+                 ds["images"][test].cpu().numpy())
+    res = train_vanilla.main(argv)
+    trained = mlp_lib.classic_nerf_from_jax(
+        ckpt.load_pytree(res["path"], init)[0], cfg, device)
+    again = psnr(train_vanilla.render_view(trained, ds, test, args)
+                 .cpu().numpy(), ds["images"][test].cpu().numpy())
+    print(f"vanilla: {cfg.n_layers}x{cfg.d_filter}, {args.batch} rays x "
+          f"{args.num_samples} samples, {res['steps']} iterations, "
+          f"{1e3 * res['train_s'] / res['steps']:.3f} ms a step; test view "
+          f"PSNR {res['test_psnr']:.2f} dB (from the saved checkpoint "
+          f"{again:.2f}; untrained {psnr0:.2f}, all black {black:.2f}) {tag}")
+    check(res["steps"] == 1000 and (cfg.n_layers, cfg.d_filter) == (8, 256),
+          "vanilla at its defaults")
+    check(math.isfinite(res["test_psnr"]) and again == res["test_psnr"],
+          ("vanilla test view, and again from its checkpoint",
+           res["test_psnr"], again))
+    check(png.read_png(f"{out_dir}/Nerf_test.png").shape
+          == (ds["H"], ds["W"], 3), "the vanilla test view's PNG")
+    model = mlp_lib.classic_nerf_from_jax(init, cfg, device)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    pix = torch.randint(0, ds["H"] * ds["W"], (args.batch,), generator=gen)
+    t = sampling.stratified_ts((args.batch,), args.near, args.far,
+                               args.num_samples, jitter=True, generator=gen)
+
+    def loss_and_grads(m, dev):
+        d = {k: (v.to(dev) if torch.is_tensor(v) else v)
+             for k, v in ds.items()}
+        m.zero_grad(set_to_none=True)
+        loss = train_vanilla.batch_loss(m, d, torch.tensor(3, device=dev),
+                                        pix.to(dev), args, t=t.to(dev))
+        loss.backward()
+        return float(loss.detach()), torch.cat(
+            [p.grad.reshape(-1).cpu() for p in m.parameters()])
+
+    card_loss, card = loss_and_grads(model, device)
+    cpu_loss, ref = loss_and_grads(copy.deepcopy(model).cpu(),
+                                   torch.device("cpu"))
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_rel = float(torch.linalg.vector_norm(card - ref)
+                     / torch.linalg.vector_norm(ref))
+    print(f"vanilla step card vs CPU (initial weights, {args.batch} rays x "
+          f"{args.num_samples}): loss {card_loss:.7f} vs {cpu_loss:.7f} (rel "
+          f"{loss_rel:.2e}, tol {STEP_LOSS_RTOL:g}); gradient rel norm "
+          f"{grad_rel:.2e} (tol {STEP_GRAD_RTOL:g})")
+    check(loss_rel <= STEP_LOSS_RTOL,
+          ("vanilla step loss", card_loss, cpu_loss))
+    check(grad_rel <= STEP_GRAD_RTOL, ("vanilla step grads", grad_rel))
+
+
+def plot_grads_phase(work: str, device: torch.device, tag: str):
+    """(c) The flagship through ``train_hash --plot_grads --display``
+    (textured scene, PLOT_GRADS_STEPS steps, a log every 8 with the probe's
+    gradient norms, an eval render every 16 with the preview), then a
+    ``TrainConfig(schedule="onecycle")`` trainer of ONECYCLE_STEPS steps on
+    the same data, its learning rates read after each step against the
+    closed form."""
+    from human_body_reconstruction_tpu_torch.cli import train_hash
+    from human_body_reconstruction_tpu_torch.data import png
+    from human_body_reconstruction_tpu_torch.train import state
+    from human_body_reconstruction_tpu_torch.train.trainer import Trainer
+
+    out_dir = f"{work}/plot_grads"
+    tr, launches = counted(wrappers(*TRAIN_KERNELS), lambda: train_hash.main([
+        "--synthetic", "--synthetic_subject", "textured", "--steps",
+        str(PLOT_GRADS_STEPS), "--log_every", "8", "--eval_every", "16",
+        "--plot_grads", "--display", "--device", "cuda", "--out_dir",
+        out_dir, "--model_name", "pg"]))
+    keys = {"grad_norm/dense", "grad_norm/lines", "grad_norm/mlp"}
+    for rec in tr.history:
+        norms = {k: v for k, v in rec.items() if k.startswith("grad_norm/")}
+        print(f"plot_grads step {rec['step']}: loss {rec['loss']:.5f}, "
+              + ", ".join(f"{k} {v:.4e}" for k, v in sorted(norms.items())))
+        check(set(norms) == keys and all(math.isfinite(v) and v > 0
+                                         for v in norms.values()),
+              ("grad-norm record", rec))
+    preview = png.read_png(f"{out_dir}/pg_preview.png")
+    print(f"plot_grads: {len(tr.history)} records, preview {preview.shape} "
+          f"read back (mean {preview.mean():.1f}); launches {launches} {tag}")
+    check(len(tr.history) == PLOT_GRADS_STEPS // 8
+          and preview.shape == (400, 400, 3) and preview.std() > 1.0,
+          "the preview PNG")
+    check(all(v > 0 for v in launches.values()), launches)
+
+    cfg = dataclasses.replace(tr.cfg, train=dataclasses.replace(
+        tr.cfg.train, schedule="onecycle"))
+    oc = Trainer(cfg=cfg, ds=tr.ds, out_dir=f"{work}/onecycle",
+                 model_name="oc", total_steps=ONECYCLE_STEPS,
+                 log_fn=lambda _: None)
+    del tr
+    want = [state.onecycle(lr, ONECYCLE_STEPS)
+            for lr in (cfg.train.lr_hash, cfg.train.lr_mlp)]
+    worst, losses = 0.0, []
+    for k in range(ONECYCLE_STEPS):
+        oc.run(1, log_every=1)
+        losses.append(oc.history[-1]["loss"])
+        for (opt, _), sched in zip(oc.state.opt.groups, want):
+            worst = max(worst, abs(opt.param_groups[0]["lr"] - sched(k)))
+    peak = int(0.3 * ONECYCLE_STEPS)
+    print(f"onecycle: {ONECYCLE_STEPS} steps, table rates "
+          + " ".join(f"{want[0](k):.4g}" for k in range(ONECYCLE_STEPS))
+          + f" (peak {cfg.train.lr_hash:g} at step {peak}), worst |rate - "
+          f"closed form| {worst:.1e}, losses {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}")
+    check(worst == 0.0
+          and abs(want[0](peak) - cfg.train.lr_hash) <= 1e-12
+          and all(math.isfinite(v) for v in losses), "onecycle rates")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2139,6 +2493,12 @@ def main() -> int:
     tpu_weights_phase(data, work.name, device, tag)
     sdf_cli_phase(work.name, device, tag)
     recon = reconstruct_phase(work.name, device, tag)
+    torch.cuda.empty_cache()
+    # PR 10: the 2-D image fit, the vanilla NeRF, --plot_grads/--display
+    # and onecycle
+    image_recs, image_launches = image_fit_phase(work.name, device, tag)
+    vanilla_phase(work.name, device, tag)
+    plot_grads_phase(work.name, device, tag)
     work.cleanup()
     for key, (rec, launches, R) in sweep.items():
         nm = key.split("/")[0]
@@ -2164,6 +2524,23 @@ def main() -> int:
             "K 48, 64-sample ladder, the COLMAP-derived diagonal bounds); "
             f"launches in the reconstruct run ({RECON_STEPS} steps, its eval "
             "renders and its 256^3 sweep)"))
+    image_shapes = {
+        "image_fit_batch": "200000 pixels (x, y) of a 512x512 PNG, 2-D, "
+                           "exact, L 16, F 2, T 2^18, n_max 2^16: the image "
+                           "fit's first batch",
+        "full_pred": f"{IMAGE_FIT_HW ** 2} pixels of the same image in row "
+                     "order: the image fit's full_pred"}
+    for key, rec in image_recs.items():
+        nm, kind = key.split("/")
+        report.append(entry(
+            f"{nm}_2d/{kind}", hash_src,
+            "none (no TPU kernel: human_body_reconstruction_tpu/ops/"
+            "hash_encoding.py:259 hash_encode with cfg.dim 2, jnp gather and "
+            "its autodiff scatter)", image_launches[nm], *rec,
+            f"{image_shapes[kind]}; launches in the 500-step --image run; "
+            "library: " + ("embedding_bag given rows and weights"
+                           if nm == "hash_forward"
+                           else "index_add_ given rows and terms")))
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

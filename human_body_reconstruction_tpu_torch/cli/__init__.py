@@ -1,7 +1,9 @@
 """Command-line entry points of the port: ``train_hash``, ``serve``,
 ``quality_holdout``, ``render``, ``nerf2mesh``, ``occ_report``, the capture
 front end (``colmap2nerf``, ``segment``) and ``reconstruct``, which chains
-capture, segmentation, training and mesh export; and their shared
+capture, segmentation, training and mesh export; ``train_vanilla`` (the
+classic positional-encoding NeRF), ``image_fit`` (the 2-D hash-grid image
+fit) and ``plot_psnr`` (PSNR curves of rendered frames); and their shared
 helpers."""
 
 from __future__ import annotations

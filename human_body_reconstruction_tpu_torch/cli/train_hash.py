@@ -16,11 +16,13 @@ with or without ``--hw_rng``.  ``--use_sdf`` trains the SDF head with its
 eikonal term, ``--hierarchical`` adds the second pass, and ``--load``
 continues the run in ``--out_dir`` (``<ckpt_name>_ckpt.npz``, else
 ``<model_name>_ckpt.npz``, written by either package) for ``--steps``
-more steps.  What the port does not run yet is refused with a message:
-the ``cell`` variant, packed/int8 gathers and the gradient subsampling and
-scatter options, data/level parallelism, fused multi-step dispatches, the
-compiled-executable cache, gradient-norm logging, the live preview and
-the tangle synthetic subject (``data/synthetic.TANGLE_REFUSAL``).
+more steps.  ``--plot_grads`` logs each group's gradient norm on a probe
+batch, ``--display`` writes every eval render to ``<model>_preview.png``
+too (and shows it where cv2 and a display exist).  What the port does not
+run yet is refused with a message: the ``cell`` variant, packed/int8
+gathers and the gradient subsampling and scatter options, data/level
+parallelism, fused multi-step dispatches, the compiled-executable cache
+and the tangle synthetic subject (``data/synthetic.TANGLE_REFUSAL``).
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.train_hash \\
           --synthetic --synthetic_subject textured --stochastic --hw_rng
@@ -406,8 +408,7 @@ def make_config(args):
 
 _NOT_PORTED = (("data_parallel", "--data_parallel"),
                ("level_parallel", "--level_parallel"),
-               ("aot_cache", "--aot_cache"), ("plot_grads", "--plot_grads"),
-               ("display", "--display"))
+               ("aot_cache", "--aot_cache"))
 
 
 def check_supported(args, cfg):
@@ -483,7 +484,8 @@ def main(argv=None):
 
     trainer = Trainer(cfg=cfg, ds=ds, out_dir=args.out_dir,
                       model_name=args.model_name, eval_ds=eval_ds,
-                      total_steps=steps)
+                      total_steps=steps, log_grad_norms=args.plot_grads,
+                      display=args.display)
     if args.load:
         path = os.path.join(args.out_dir, f"{args.ckpt_name}_ckpt.npz")
         if not os.path.exists(path):

@@ -77,14 +77,28 @@
 // points, 0.299 against 0.245 on random ones).  The loop itself, with no
 // adds at all, takes 0.11-0.12 ms.
 //
+// 2-D points (DIM = 2, exact mode only): the image fit (cli/image_fit.py)
+// encodes pixel coordinates through the same grid, JAX hash_encode with
+// cfg.dim = 2: four corners a (point, level), hashed as c0 ^ (c1 *
+// 2654435761), weights w_0 * w_1, at the CLI's width L 16, F 2, T 2^18
+// (33.5 MB, still inside L2).  The forward must move the points and the
+// features, 136 B a point (8 + 16 x 2 x 4), and gathers 4 rows a (point,
+// level) from L2; the backward reads the points and the gradient, 136 B a
+// point, and writes the whole gradient table.  The kernels are the 3-D ones
+// instantiated for DIM = 2: the run merge helps little there (the fit's
+// pixels are drawn at random, so consecutive points seldom share a cell),
+// and nothing else was tuned for it.
+//
 // Numerics follow hash_encode step for step, so the forward equals its plain
 // version (ops/hash_kernel.py) bit for bit: xn = (x - mu) / sigma as a true
 // division, xl = xn * scale_l with the f32 cast of the float64 level scale,
 // frac = xl - floor(xl) (no clipping: points outside [0, 1]^3 hash their
 // wrapped coordinates, as the JAX uint32 cast does), corner weights
-// ((w_0 * w_1) * w_2) and the sum over corners c = 0..7 (offset bit d of c is
-// (c >> d) & 1) from 0, each operation a _rn intrinsic so nothing is
-// contracted into an FMA.  The backward's terms are g * w (exact) or g, as
+// ((w_0 * w_1) * w_2) (w_0 * w_1 in 2-D) and the sum over corners c = 0..7
+// (0..3; offset bit d of c is (c >> d) & 1) from 0, each operation a _rn
+// intrinsic so nothing is contracted into an FMA: at n_max 2^16 xl keeps
+// only 8 bits of fraction, so xn * scale and 1 - frac must round as the
+// plain version's do.  The backward's terms are g * w (exact) or g, as
 // the plain version's; only the order of their f32 sums differs.
 
 #include <cuda_runtime.h>
@@ -107,11 +121,25 @@ __device__ __forceinline__ unsigned hash3(unsigned c0, unsigned c1, unsigned c2,
   return (c0 ^ (c1 * 2654435761u) ^ (c2 * 805459861u)) & mask;
 }
 
+__device__ __forceinline__ unsigned hash2(unsigned c0, unsigned c1, unsigned mask) {
+  return (c0 ^ (c1 * 2654435761u)) & mask;
+}
+
+// The row of corner c of the cell x0 (offset bit d of c is (c >> d) & 1).
+template <int DIM>
+__device__ __forceinline__ unsigned corner_row(const int* x0, int c, unsigned mask) {
+  const unsigned c0 = (unsigned)x0[0] + (unsigned)(c & 1);
+  const unsigned c1 = (unsigned)x0[1] + (unsigned)((c >> 1) & 1);
+  if constexpr (DIM == 2) return hash2(c0, c1, mask);
+  else return hash3(c0, c1, (unsigned)x0[2] + (unsigned)(c >> 2), mask);
+}
+
 // Cell x0 and frac of one level, per axis.
+template <int DIM>
 __device__ __forceinline__ void level_cell(const float* xn, float scale, int* x0,
                                            float* fr) {
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
+  for (int d = 0; d < DIM; ++d) {
     const float xl = __fmul_rn(xn[d], scale);
     const float x0f = floorf(xl);
     fr[d] = __fsub_rn(xl, x0f);
@@ -120,17 +148,21 @@ __device__ __forceinline__ void level_cell(const float* xn, float scale, int* x0
 }
 
 // w[d][b]: the weight of offset bit b on axis d.
+template <int DIM>
 __device__ __forceinline__ void axis_weights(const float* fr, float (*w)[2]) {
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
+  for (int d = 0; d < DIM; ++d) {
     w[d][0] = __fsub_rn(1.0f, fr[d]);
     w[d][1] = fr[d];
   }
 }
 
-// Corner c's weight ((w_0 * w_1) * w_2).
+// Corner c's weight: (w_0 * w_1) in 2-D, ((w_0 * w_1) * w_2) in 3-D.
+template <int DIM>
 __device__ __forceinline__ float corner_weight(const float (*w)[2], int c) {
-  return __fmul_rn(__fmul_rn(w[0][c & 1], w[1][(c >> 1) & 1]), w[2][c >> 2]);
+  const float w01 = __fmul_rn(w[0][c & 1], w[1][(c >> 1) & 1]);
+  if constexpr (DIM == 2) return w01;
+  else return __fmul_rn(w01, w[2][c >> 2]);
 }
 
 // One row's F features, in the widest aligned loads (rows start at h * F).
@@ -158,41 +190,38 @@ __device__ __forceinline__ void load_row(const float* p, float* v) {
   }
 }
 
-// The eight corner rows of one (point, level), corner c's offset bit d
+// The 2^DIM corner rows of one (point, level), corner c's offset bit d
 // being (c >> d) & 1.
-template <int F>
+template <int F, int DIM>
 __device__ __forceinline__ void load_corners(const float* tl, const int* x0,
                                              unsigned mask, float (*v)[F]) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
-    load_row<F>(tl + (long long)hash3((unsigned)x0[0] + (unsigned)(c & 1),
-                                      (unsigned)x0[1] + (unsigned)((c >> 1) & 1),
-                                      (unsigned)x0[2] + (unsigned)(c >> 2), mask) * F,
-                v[c]);
+  for (int c = 0; c < (1 << DIM); ++c)
+    load_row<F>(tl + (long long)corner_row<DIM>(x0, c, mask) * F, v[c]);
 }
 
-// The exact features: the sum over corners c = 0..7 of row_c * w_c from 0,
-// in that order.
-template <int F>
+// The exact features: the sum over corners c = 0..2^DIM - 1 of row_c * w_c
+// from 0, in that order.
+template <int F, int DIM>
 __device__ __forceinline__ void exact_sum(const float (*v)[F], const float* fr,
                                           float* acc) {
-  float w[3][2];
-  axis_weights(fr, w);
+  float w[DIM][2];
+  axis_weights<DIM>(fr, w);
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = 0.0f;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float wc = corner_weight(w, c);
+  for (int c = 0; c < (1 << DIM); ++c) {
+    const float wc = corner_weight<DIM>(w, c);
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(v[c][f], wc));
   }
 }
 
 // table: (L, T, F) f32, level l from row lv.offset[l].  out[p, l*F + f], row
-// stride out_stride.  STOCH: u (3, L, n) picks the corners, and bits (L, n)
-// gets their offset bits.  A block takes P points; the G threads of a point
-// take every G-th level.
-template <int F, bool STOCH>
+// stride out_stride.  STOCH (3-D only): u (3, L, n) picks the corners, and
+// bits (L, n) gets their offset bits.  A block takes P points; the G threads
+// of a point take every G-th level.
+template <int F, bool STOCH, int DIM>
 __global__ void __launch_bounds__(HASH_FWD_THREADS)
 hash_forward_kernel(WorldPoints pts, const float* __restrict__ table,
                     const float* __restrict__ u, long long n, int T, HbrLevels lv,
@@ -208,15 +237,16 @@ hash_forward_kernel(WorldPoints pts, const float* __restrict__ table,
   const int i = threadIdx.x % P;
   const long long p = p0 + i;
   const unsigned mask = (unsigned)(T - 1);
+  static_assert(!STOCH || DIM == 3, "the stochastic mode is 3-D only");
   if (p < n) {
-    float xn[3];
-    pts.at(p, xn);
+    float xn[DIM];
+    pts.at<DIM>(p, xn);
     float* dst = s_rows + i * row_words;
-    if (STOCH) {
+    if constexpr (STOCH) {
       for (int l = threadIdx.x / P; l < L; l += G) {
         int x0[3];
         float fr[3];
-        level_cell(xn, lv.scale[l], x0, fr);
+        level_cell<3>(xn, lv.scale[l], x0, fr);
         unsigned c[3], b = 0;
 #pragma unroll
         for (int d = 0; d < 3; ++d) {
@@ -232,26 +262,27 @@ hash_forward_kernel(WorldPoints pts, const float* __restrict__ table,
         for (int f = 0; f < F; ++f) dst[l * F + f] = v[f];
       }
     } else {
-      // the next level's eight rows are asked for before this level's sum
-      int x0[3];
-      float fr[3], v[8][F];
-      level_cell(xn, lv.scale[0], x0, fr);
-      load_corners<F>(table + (long long)lv.offset[0] * F, x0, mask, v);
+      // the next level's corner rows are asked for before this level's sum
+      constexpr int NC = 1 << DIM;
+      int x0[DIM];
+      float fr[DIM], v[NC][F];
+      level_cell<DIM>(xn, lv.scale[0], x0, fr);
+      load_corners<F, DIM>(table + (long long)lv.offset[0] * F, x0, mask, v);
       for (int l = 0;; ++l) {
-        float nfr[3], nv[8][F];
+        float nfr[DIM], nv[NC][F];
         if (l + 1 < L) {
-          level_cell(xn, lv.scale[l + 1], x0, nfr);
-          load_corners<F>(table + (long long)lv.offset[l + 1] * F, x0, mask, nv);
+          level_cell<DIM>(xn, lv.scale[l + 1], x0, nfr);
+          load_corners<F, DIM>(table + (long long)lv.offset[l + 1] * F, x0, mask, nv);
         }
         float acc[F];
-        exact_sum<F>(v, fr, acc);
+        exact_sum<F, DIM>(v, fr, acc);
 #pragma unroll
         for (int f = 0; f < F; ++f) dst[l * F + f] = acc[f];
         if (l + 1 == L) break;
 #pragma unroll
-        for (int d = 0; d < 3; ++d) fr[d] = nfr[d];
+        for (int d = 0; d < DIM; ++d) fr[d] = nfr[d];
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
+        for (int c = 0; c < NC; ++c)
 #pragma unroll
           for (int f = 0; f < F; ++f) v[c][f] = nv[c][f];
       }
@@ -317,32 +348,31 @@ __device__ __forceinline__ void add_pair(float* dl, unsigned h0, unsigned h1,
   add_row<F>(dl, h1, v1);
 }
 
-// Adds the current cell's partials acc[c][f] into L2.
-template <int F, bool STOCH>
+// Adds the current cell's partials acc[c][f] into L2: the corners in pairs
+// (c, c + 1) that differ in x alone.
+template <int F, bool STOCH, int DIM>
 __device__ __forceinline__ void flush_cell(float* dl, const int* cell, unsigned mask,
                                            float (*acc)[F]) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < (1 << (DIM - 1)); ++k) {
     const float* v0 = acc[2 * k];
     const float* v1 = acc[2 * k + 1];
-    const unsigned y = (unsigned)cell[1] + (unsigned)(k & 1);
-    const unsigned z = (unsigned)cell[2] + (unsigned)(k >> 1);
+    const unsigned h0 = corner_row<DIM>(cell, 2 * k, mask);
+    const unsigned h1 = corner_row<DIM>(cell, 2 * k + 1, mask);
     if (STOCH) {
-      if (!all_zero<F>(v0)) add_row<F>(dl, hash3((unsigned)cell[0], y, z, mask), v0);
-      if (!all_zero<F>(v1))
-        add_row<F>(dl, hash3((unsigned)cell[0] + 1u, y, z, mask), v1);
+      if (!all_zero<F>(v0)) add_row<F>(dl, h0, v0);
+      if (!all_zero<F>(v1)) add_row<F>(dl, h1, v1);
     } else {
-      add_pair<F>(dl, hash3((unsigned)cell[0], y, z, mask),
-                  hash3((unsigned)cell[0] + 1u, y, z, mask), v0, v1);
+      add_pair<F>(dl, h0, h1, v0, v1);
     }
   }
 }
 
 // dtable: (L, T, F) f32, zeroed by the caller.  g: (n, L*F), row stride
-// g_stride.  STOCH: bits (L, n) hold the picked corners.  A unit is one (run
-// of HASH_RUN points, level), the level fastest, so a warp's gradient reads
-// are two rows.
-template <int F, bool STOCH>
+// g_stride.  STOCH (3-D only): bits (L, n) hold the picked corners.  A unit
+// is one (run of HASH_RUN points, level), the level fastest, so a warp's
+// gradient reads are two rows.
+template <int F, bool STOCH, int DIM>
 __global__ void __launch_bounds__(HASH_BWD_THREADS)
 hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
                      const float* __restrict__ g, long long g_stride, long long n,
@@ -356,11 +386,12 @@ hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
     const int l = (int)(unit - run * L);
     const float scale = lv.scale[l];
     float* dl = dtable + (long long)lv.offset[l] * F;
-    int cell[3] = {0, 0, 0};
+    constexpr int NC = 1 << DIM;
+    int cell[DIM] = {};
     bool have = false;
-    float acc[8][F];
+    float acc[NC][F];
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int f = 0; f < F; ++f) acc[c][f] = 0.0f;
     // one pass past the run's last point adds what is left
@@ -370,41 +401,43 @@ hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
       if (k > np) break;
       const long long p = p0 + k;
       const bool live = k < np;
-      int x0[3] = {0, 0, 0};
-      float fr[3] = {0.0f, 0.0f, 0.0f}, gf[F];
+      int x0[DIM] = {};
+      float fr[DIM] = {}, gf[F];
       unsigned b = 0;
       if (live) {
-        float xn[3];
-        pts.at(p, xn);
-        level_cell(xn, scale, x0, fr);
+        float xn[DIM];
+        pts.at<DIM>(p, xn);
+        level_cell<DIM>(xn, scale, x0, fr);
 #pragma unroll
         for (int f = 0; f < F; ++f) gf[f] = __ldg(g + p * g_stride + l * F + f);
         if (STOCH) b = __ldg(bits + (long long)l * n + p);
       }
-      if (have && (!live || x0[0] != cell[0] || x0[1] != cell[1] || x0[2] != cell[2])) {
-        flush_cell<F, STOCH>(dl, cell, mask, acc);
+      bool moved = !live;
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
+      for (int d = 0; d < DIM; ++d) moved = moved || x0[d] != cell[d];
+      if (have && moved) {
+        flush_cell<F, STOCH, DIM>(dl, cell, mask, acc);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
 #pragma unroll
           for (int f = 0; f < F; ++f) acc[c][f] = 0.0f;
       }
       if (!live) break;
-      cell[0] = x0[0];
-      cell[1] = x0[1];
-      cell[2] = x0[2];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) cell[d] = x0[d];
       have = true;
       if (STOCH) {
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
+        for (int c = 0; c < NC; ++c)
           if ((unsigned)c == b)
 #pragma unroll
             for (int f = 0; f < F; ++f) acc[c][f] = __fadd_rn(acc[c][f], gf[f]);
       } else {
-        float w[3][2];
-        axis_weights(fr, w);
+        float w[DIM][2];
+        axis_weights<DIM>(fr, w);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const float wc = corner_weight(w, c);
+        for (int c = 0; c < NC; ++c) {
+          const float wc = corner_weight<DIM>(w, c);
 #pragma unroll
           for (int f = 0; f < F; ++f)
             acc[c][f] = __fadd_rn(acc[c][f], __fmul_rn(gf[f], wc));
@@ -414,7 +447,7 @@ hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
   }
 }
 
-template <int F, bool STOCH>
+template <int F, bool STOCH, int DIM>
 static int launch_hash_forward(const WorldPoints& pts, const float* table,
                                const float* u, long long n, int T,
                                const HbrLevels& lv, float* out, long long out_stride,
@@ -423,30 +456,31 @@ static int launch_hash_forward(const WorldPoints& pts, const float* table,
   const size_t smem = (size_t)P * (lv.n_levels * F + 1) * sizeof(float);
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024)
-    e = cudaFuncSetAttribute(hash_forward_kernel<F, STOCH>,
+    e = cudaFuncSetAttribute(hash_forward_kernel<F, STOCH, DIM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess && !STOCH)
-    e = cudaFuncSetAttribute(hash_forward_kernel<F, STOCH>,
+    e = cudaFuncSetAttribute(hash_forward_kernel<F, STOCH, DIM>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              HASH_FWD_EXACT_CARVEOUT);
   if (e != cudaSuccess) return (int)e;
   const unsigned int blocks = (unsigned int)((n + P - 1) / P);
-  hash_forward_kernel<F, STOCH><<<blocks, HASH_FWD_THREADS, smem, s>>>(
+  hash_forward_kernel<F, STOCH, DIM><<<blocks, HASH_FWD_THREADS, smem, s>>>(
       pts, table, u, n, T, lv, out, out_stride, bits);
   return (int)cudaGetLastError();
 }
 
-template <int F, bool STOCH>
+template <int F, bool STOCH, int DIM>
 static int launch_hash_backward(const WorldPoints& pts, const unsigned char* bits,
                                 const float* g, long long g_stride, long long n, int T,
                                 const HbrLevels& lv, float* dtable, cudaStream_t s) {
   const long long units = (n + HASH_RUN - 1) / HASH_RUN * lv.n_levels;
   int blocks = 0;
-  const int err = persistent_blocks(hash_backward_kernel<F, STOCH>, HASH_BWD_THREADS, 0,
+  const int err = persistent_blocks(hash_backward_kernel<F, STOCH, DIM>,
+                                    HASH_BWD_THREADS, 0,
                                     (units + HASH_BWD_THREADS - 1) / HASH_BWD_THREADS,
                                     &blocks);
   if (err) return err;
-  hash_backward_kernel<F, STOCH><<<blocks, HASH_BWD_THREADS, 0, s>>>(
+  hash_backward_kernel<F, STOCH, DIM><<<blocks, HASH_BWD_THREADS, 0, s>>>(
       pts, bits, g, g_stride, n, T, lv, dtable);
   return (int)cudaGetLastError();
 }
@@ -457,43 +491,56 @@ extern "C" {
 
 // Each launcher returns cudaGetLastError() right after the launch (0 = ok),
 // or the error of its set-up (cudaErrorInvalidValue for arguments the kernel
-// does not take).  x: (n, 3) f32 world points; mu, sigma: (3,) f32 on the
-// device; table (L, T, F) f32 from a 16-byte aligned address, F 1 to 8.
+// does not take).  x: (n, dim) f32 world points, dim 3, or 2 (exact mode
+// only); mu, sigma: (dim,) f32 on the device; table (L, T, F) f32 from a
+// 16-byte aligned address, F 1 to 8.
 
-// Stochastic: u (3, L, n) f32 and bits (L, n) uint8, the picked corners'
-// offset bits written; exact: both null.
+// Stochastic (3-D): u (3, L, n) f32 and bits (L, n) uint8, the picked
+// corners' offset bits written; exact: both null.
 int hbr_hash_forward(const float* x, const float* mu, const float* sigma,
-                     const float* table, const float* u, long long n,
+                     const float* table, const float* u, long long n, int dim,
                      int table_size, int features, const HbrLevels* lv, float* out,
                      long long out_stride, unsigned char* bits, void* stream) {
   if (n <= 0) return 0;
-  if ((u == nullptr) != (bits == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((u == nullptr) != (bits == nullptr) || (dim != 2 && dim != 3) ||
+      (dim == 2 && u != nullptr))
+    return (int)cudaErrorInvalidValue;
   const WorldPoints pts{x, mu, sigma, 1};
   return with_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (dim == 2)
+      return launch_hash_forward<F, false, 2>(pts, table, u, n, table_size, *lv, out,
+                                              out_stride, bits, s);
     if (u != nullptr)
-      return launch_hash_forward<F, true>(pts, table, u, n, table_size, *lv, out,
-                                          out_stride, bits, (cudaStream_t)stream);
-    return launch_hash_forward<F, false>(pts, table, u, n, table_size, *lv, out,
-                                         out_stride, bits, (cudaStream_t)stream);
+      return launch_hash_forward<F, true, 3>(pts, table, u, n, table_size, *lv, out,
+                                             out_stride, bits, s);
+    return launch_hash_forward<F, false, 3>(pts, table, u, n, table_size, *lv, out,
+                                            out_stride, bits, s);
   });
 }
 
-// bits: (L, n) uint8 from the stochastic forward, or null (exact).  dtable
-// (L, T, F) f32 must be zeroed.
+// bits: (L, n) uint8 from the stochastic forward (3-D), or null (exact).
+// dtable (L, T, F) f32 must be zeroed.
 int hbr_hash_backward(const float* x, const float* mu, const float* sigma,
                       const unsigned char* bits, const float* g, long long g_stride,
-                      long long n, int table_size, int features, const HbrLevels* lv,
-                      float* dtable, void* stream) {
+                      long long n, int dim, int table_size, int features,
+                      const HbrLevels* lv, float* dtable, void* stream) {
   if (n <= 0) return 0;
+  if ((dim != 2 && dim != 3) || (dim == 2 && bits != nullptr))
+    return (int)cudaErrorInvalidValue;
   const WorldPoints pts{x, mu, sigma, 1};
   return with_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (dim == 2)
+      return launch_hash_backward<F, false, 2>(pts, bits, g, g_stride, n, table_size,
+                                               *lv, dtable, s);
     if (bits != nullptr)
-      return launch_hash_backward<F, true>(pts, bits, g, g_stride, n, table_size, *lv,
-                                           dtable, (cudaStream_t)stream);
-    return launch_hash_backward<F, false>(pts, bits, g, g_stride, n, table_size, *lv,
-                                          dtable, (cudaStream_t)stream);
+      return launch_hash_backward<F, true, 3>(pts, bits, g, g_stride, n, table_size,
+                                              *lv, dtable, s);
+    return launch_hash_backward<F, false, 3>(pts, bits, g, g_stride, n, table_size,
+                                             *lv, dtable, s);
   });
 }
 

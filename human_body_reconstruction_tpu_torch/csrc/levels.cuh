@@ -21,16 +21,18 @@ struct HbrLevels {
 
 // World points and the box that normalises them, xn = (x - mu) / sigma per
 // axis with the same two rounded operations as ops/dense_grid.normalise
-// (sigma_step 0: one sigma for every axis).
+// (sigma_step 0: one sigma for every axis).  D is the points' dimension: 3,
+// or 2 for the hash grid's image points.
 struct WorldPoints {
-  const float* x;      // (n, 3)
-  const float* mu;     // (3,)
-  const float* sigma;  // (1,) or (3,)
+  const float* x;      // (n, D)
+  const float* mu;     // (D,)
+  const float* sigma;  // (1,) or (D,)
   int sigma_step;
+  template <int D = 3>
   __device__ __forceinline__ void at(long long p, float* pos) const {
 #pragma unroll
-    for (int d = 0; d < 3; ++d)
-      pos[d] = __fdiv_rn(__fsub_rn(__ldg(x + p * 3 + d), __ldg(mu + d)),
+    for (int d = 0; d < D; ++d)
+      pos[d] = __fdiv_rn(__fsub_rn(__ldg(x + p * D + d), __ldg(mu + d)),
                          __ldg(sigma + d * sigma_step));
   }
 };

@@ -3,12 +3,12 @@
 Pose helpers (numpy), the analytic emissive volumes ``blob_field`` (smooth,
 for small tests), ``textured_field`` (the hard scene of the zero-flag
 trainer: a thin shell, three rods and a core under a 3-octave albedo),
-``humanoid_field`` (a standing figure of capsules) and
-``textured_humanoid_field`` (the figure under the same albedo), and their
+``humanoid_field`` (a standing figure of capsules),
+``textured_humanoid_field`` (the figure under the same albedo) and
+``sphere_field`` (one solid sphere, the SDF subject), and their
 ground-truth renders through the same compositing as the model.  The card's
-machine has no JAX, so the port renders its own ground truth.  The sphere
-subject is not ported yet; the tangle subject is not ported at all
-(``TANGLE_REFUSAL``).
+machine has no JAX, so the port renders its own ground truth.  The tangle
+subject is not ported (``TANGLE_REFUSAL``).
 """
 
 from __future__ import annotations
@@ -59,6 +59,17 @@ def blob_field(pts):
     rgb = (w1[..., None] * pts.new_tensor([0.9, 0.3, 0.2])
            + (1 - w1)[..., None] * pts.new_tensor([0.2, 0.5, 0.9]))
     return rgb, sigma
+
+
+def sphere_field(pts, radius: float = 0.6):
+    """One solid sphere of ``radius`` with a smooth colour ramp; an SDF
+    run's zero level set must sit at ``radius``.
+    Returns (rgb (N, 3), sigma (N,))."""
+    r = torch.linalg.vector_norm(pts, dim=-1)
+    sigma = 80.0 * torch.sigmoid(-40.0 * (r - radius))
+    rgb = torch.stack([0.75 + 0.2 * pts[:, 0], 0.45 + 0.2 * pts[:, 1],
+                       0.35 + 0.2 * pts[:, 2]], dim=-1)
+    return torch.clamp(rgb, 0.0, 1.0), sigma
 
 
 TANGLE_REFUSAL = ("the tangle scene is not ported: its capsules and texture "

@@ -132,10 +132,10 @@ def library() -> ctypes.CDLL:
     lib.hbr_dense_backward.argtypes = [p, p, p, i, i, p, ll, ll, i,
                                        ctypes.POINTER(HbrLevels), i, p, p]
     lib.hbr_dense_backward.restype = i
-    lib.hbr_hash_forward.argtypes = [p, p, p, p, p, ll, i, i,
+    lib.hbr_hash_forward.argtypes = [p, p, p, p, p, ll, i, i, i,
                                      ctypes.POINTER(HbrLevels), p, ll, p, p]
     lib.hbr_hash_forward.restype = i
-    lib.hbr_hash_backward.argtypes = [p, p, p, p, p, ll, ll, i, i,
+    lib.hbr_hash_backward.argtypes = [p, p, p, p, p, ll, ll, i, i, i,
                                       ctypes.POINTER(HbrLevels), p, p]
     lib.hbr_hash_backward.restype = i
     lib.hbr_uniform_bits.argtypes = [p, ll, i, p, p]

@@ -18,7 +18,8 @@ hash path's 1,024,000 points).  The backward recomputes the per-axis lerps
 and the cells instead of keeping them (the (3, N, C) CP products are 1.15
 GB at 768k points).  Positions get no gradient.
 
-The hashed levels run exact (8 corners, ops/hash_kernel.py) or, when
+The hashed levels run exact (8 corners, or 4 for the 2-D points of the
+image fit, whose encoder is the table alone; ops/hash_kernel.py) or, when
 training with ``stochastic``, the single-corner estimator driven by
 uniforms u (3, L, N): drawn by ``stoch_uniform`` (the Philox kernel of
 ops/rng_kernel.py when ``cfg.hw_rng``, else ``torch.rand``) or handed in.
@@ -46,7 +47,18 @@ _UNPORTED_FLAGS = (
 
 
 def unported(cfg: HashConfig) -> Optional[str]:
-    """Why the port cannot run this encoder config, or None when it can."""
+    """Why the port cannot run this encoder config, or None when it can.
+    2-D points (the image fit's) go through the exact corner hash grid
+    alone."""
+    if cfg.dim == 2 and (cfg.variant != "corner" or cfg.dense_levels
+                         or cfg.num_hashed_levels == 0):
+        return ("2-D points are ported for the corner hash grid alone (no "
+                "dense levels, no CP)")
+    if cfg.dim == 2 and cfg.stochastic_train:
+        return ("the stochastic hash grid on 2-D points (stochastic_train "
+                "with dim 2) is not ported; no entry point runs it")
+    if cfg.dim not in (2, 3):
+        return f"{cfg.dim}-D points are not ported; 2-D and 3-D are"
     if cfg.num_hashed_levels == 0 or cfg.variant == "cp":
         return None
     if cfg.variant != "corner":

@@ -4,18 +4,22 @@ their plain versions.
 Counterpart of the JAX ops/hash_encoding.py ``_level_coords``,
 ``_hash_levels``, ``hash_encode`` (exact, 8 corners) and
 ``hash_encode_stochastic`` (one corner picked by uniforms u), with their
-autodiff scatters as the backward.  The kernels are ``hbr_hash_forward`` and
-``hbr_hash_backward`` in csrc/hash.cu, a port's own: the JAX package gathers
-in plain jnp, and the note there says what bounds them on Hopper.  Both
+autodiff scatters as the backward, for 3-D points, and exact for the 2-D
+points of the image fit (``cfg.dim`` 2: 4 corners, ``PRIMES[:2]``).  The
+kernels are ``hbr_hash_forward`` and ``hbr_hash_backward`` in
+csrc/hash.cu, a port's own: the JAX package gathers in plain jnp, and the
+note there says what bounds them on Hopper.  Both
 versions compute hash_encode's numerics step for step:
 
   xn    = (x - mu) / sigma,  xl = xn * f32(scale_l),  x0 = floor(xl),
   frac  = xl - x0                                    (no clipping)
   row   = ((c0 * 1) ^ (c1 * 2654435761) ^ (c2 * 805459861)) mod 2^32 & (T-1)
           for the corner's coordinates c_d = x0_d + bit_d as uint32 (a
-          negative cell wraps, as the JAX uint32 cast does)
+          negative cell wraps, as the JAX uint32 cast does); in 2-D the
+          c2 term is absent
   exact: out = sum over c = 0..7 of table[l, row_c, f] * ((w_0 * w_1) * w_2),
          bit d of corner c is (c >> d) & 1, w_d = frac_d or 1 - frac_d
+         (2-D: c = 0..3, weight w_0 * w_1)
   stochastic: bit_d = u[d, l, n] < frac_d; out = table[l, row, f]
 
 and the table gradient adds w * g (exact) or g (stochastic) at each row.
@@ -55,29 +59,34 @@ def _mul_u32(c, p: int):
 
 
 def hash_rows(coords, table_size: int):
-    """(..., 3) int64 corner coordinates -> (...,) int64 row in [0, T)."""
+    """(..., dim) int64 corner coordinates -> (...,) int64 row in [0, T)."""
     c = coords & MASK32
     h = _mul_u32(c[..., 0], PRIMES[0])
-    for d in (1, 2):
+    for d in range(1, coords.shape[-1]):
         h = h ^ _mul_u32(c[..., d], PRIMES[d])
     return h & (table_size - 1)
 
 
 def level_coords(xn, scale: float):
-    """Normalised points (N, 3) -> (cell x0 (N, 3) int64, frac (N, 3) f32)
-    of one level."""
+    """Normalised points (N, dim) -> (cell x0 (N, dim) int64, frac (N, dim)
+    f32) of one level."""
     xl = xn * scale
     x0f = torch.floor(xl)
     return x0f.long(), xl - x0f
 
 
 def _corner_weight(frac, off):
-    """((w_0 * w_1) * w_2) of the corner with offset bits ``off``."""
-    w = [frac[:, d] if off[d] else 1.0 - frac[:, d] for d in range(3)]
-    return (w[0] * w[1]) * w[2]
+    """The product of the corner's axis weights, in axis order
+    (((w_0 * w_1) * w_2) in 3-D), for offset bits ``off``."""
+    w = frac[:, 0] if off[0] else 1.0 - frac[:, 0]
+    for d in range(1, len(off)):
+        w = w * (frac[:, d] if off[d] else 1.0 - frac[:, d])
+    return w
 
 
-_OFFSETS = [tuple((c >> d) & 1 for d in range(3)) for c in range(8)]
+def _corner_offsets(dim: int):
+    """The 2^dim corners' offset bits, bit d of corner c being (c >> d) & 1."""
+    return [tuple((c >> d) & 1 for d in range(dim)) for c in range(2 ** dim)]
 
 
 def _level_terms(xn, cfg: HashConfig, u=None, bits=None):
@@ -91,7 +100,7 @@ def _level_terms(xn, cfg: HashConfig, u=None, bits=None):
         x0, frac = level_coords(xn, float(scale))
         if u is None and bits is None:
             terms = []
-            for off in _OFFSETS:
+            for off in _corner_offsets(cfg.dim):
                 rows = hash_rows(x0 + torch.tensor(off, device=xn.device), T)
                 terms.append((rows + l * T, _corner_weight(frac, off)))
             out.append((terms, None))
@@ -107,9 +116,9 @@ def _level_terms(xn, cfg: HashConfig, u=None, bits=None):
 
 
 def hash_encode_plain(table, x, mu, sigma, cfg: HashConfig, u=None):
-    """(N, 3) world points -> (N, L*F) f32 features of the hashed levels
-    (exact), or, given u (3, L, N), (features, the picked corners' offset
-    bits, uint8 (L, N)) (stochastic)."""
+    """(N, cfg.dim) world points -> (N, L*F) f32 features of the hashed
+    levels (exact), or, given u (3, L, N), (features, the picked corners'
+    offset bits, uint8 (L, N)) (stochastic, 3-D)."""
     L, T, F = table.shape
     flat = table.reshape(L * T, F).to(torch.float32)
     cols, picked = [], []
@@ -149,11 +158,14 @@ def hash_encode_plain_backward(table, x, mu, sigma, cfg: HashConfig, grad,
 def _check_args(table, x, cfg: HashConfig, u=None, bits=None):
     """Shapes and devices the kernels rely on; returns (n, L*F)."""
     want = (cfg.num_hashed_levels, cfg.table_size, cfg.features_per_level)
-    if cfg.dim != 3 or tuple(table.shape) != want:
-        raise ValueError(f"the table must be {want} (3-D points), got "
-                         f"{tuple(table.shape)}")
-    if x.dim() != 2 or x.shape[1] != 3:
-        raise ValueError(f"points must be (N, 3), got {tuple(x.shape)}")
+    if cfg.dim not in (2, 3) or tuple(table.shape) != want:
+        raise ValueError(f"the table must be {want} (2-D or 3-D points), got "
+                         f"{tuple(table.shape)} for dim {cfg.dim}")
+    if x.dim() != 2 or x.shape[1] != cfg.dim:
+        raise ValueError(f"points must be (N, {cfg.dim}), got "
+                         f"{tuple(x.shape)}")
+    if cfg.dim == 2 and (u is not None or bits is not None):
+        raise ValueError("the stochastic hash grid takes 3-D points only")
     if table.device != x.device or table.dtype != torch.float32:
         raise ValueError(f"the table must be float32 on the points' device, "
                          f"got {table.dtype} on {table.device}")
@@ -175,12 +187,12 @@ def _check_args(table, x, cfg: HashConfig, u=None, bits=None):
 
 
 def _launch_args(table, x, mu, sigma, cfg: HashConfig):
-    """(table from a 16-byte aligned address, points, mu (3,), sigma (3,),
-    level struct) for a launch: f32, contiguous, on the points' device (no
-    host synchronisation)."""
-    def vec3(v):
+    """(table from a 16-byte aligned address, points, mu (dim,), sigma
+    (dim,), level struct) for a launch: f32, contiguous, on the points'
+    device (no host synchronisation)."""
+    def vec(v):
         return torch.as_tensor(v, dtype=torch.float32,
-                               device=x.device).expand(3).contiguous()
+                               device=x.device).expand(cfg.dim).contiguous()
 
     T = cfg.table_size
     L = cfg.num_hashed_levels
@@ -189,7 +201,7 @@ def _launch_args(table, x, mu, sigma, cfg: HashConfig):
     tc = table.detach().contiguous()
     if tc.data_ptr() % 16:
         tc = tc.clone()
-    return tc, x.to(torch.float32).contiguous(), vec3(mu), vec3(sigma), lv
+    return tc, x.to(torch.float32).contiguous(), vec(mu), vec(sigma), lv
 
 
 def hash_encode_kernel(table, x, mu, sigma, cfg: HashConfig, u=None,
@@ -215,11 +227,11 @@ def hash_encode_kernel(table, x, mu, sigma, cfg: HashConfig, u=None,
             torch.empty((cfg.num_hashed_levels, n), dtype=torch.uint8,
                         device=x.device))
     if n > 0:
-        tc, xc, mu3, sigma3, lv = _launch_args(table, x, mu, sigma, cfg)
+        tc, xc, muv, sigmav, lv = _launch_args(table, x, mu, sigma, cfg)
         uc = None if u is None else u.contiguous()
         code = cuda_lib.library().hbr_hash_forward(
-            xc.data_ptr(), mu3.data_ptr(), sigma3.data_ptr(), tc.data_ptr(),
-            None if uc is None else uc.data_ptr(), n, cfg.table_size,
+            xc.data_ptr(), muv.data_ptr(), sigmav.data_ptr(), tc.data_ptr(),
+            None if uc is None else uc.data_ptr(), n, cfg.dim, cfg.table_size,
             cfg.features_per_level, lv, out.data_ptr(), out.stride(0),
             None if bits is None else bits.data_ptr(),
             cuda_lib.stream_handle(x.device))
@@ -244,12 +256,13 @@ def hash_encode_backward_kernel(table, x, mu, sigma, cfg: HashConfig, grad,
     dtable = torch.zeros(tuple(table.shape), dtype=torch.float32,
                          device=x.device)
     if n > 0:
-        _, xc, mu3, sigma3, lv = _launch_args(table, x, mu, sigma, cfg)
+        _, xc, muv, sigmav, lv = _launch_args(table, x, mu, sigma, cfg)
         bc = None if bits is None else bits.contiguous()
         code = cuda_lib.library().hbr_hash_backward(
-            xc.data_ptr(), mu3.data_ptr(), sigma3.data_ptr(),
+            xc.data_ptr(), muv.data_ptr(), sigmav.data_ptr(),
             None if bc is None else bc.data_ptr(), grad.data_ptr(),
-            grad.stride(0), n, cfg.table_size, cfg.features_per_level, lv,
+            grad.stride(0), n, cfg.dim, cfg.table_size,
+            cfg.features_per_level, lv,
             dtable.data_ptr(),
             cuda_lib.stream_handle(x.device))
         hash_encode_backward_kernel.launches += 1

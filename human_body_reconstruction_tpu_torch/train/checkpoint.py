@@ -22,7 +22,10 @@ first and second moment (its constant rate keeps no state).  A full
 checkpoint's params are a positional prefix, so ``load_params`` reads
 either a bare params file or a train state.  Bounds are
 ``np.stack([min, max])`` under either spelling, ``bounds_model.npy`` or
-``bounds.npy``.
+``bounds.npy``.  ``save_pytree``/``load_pytree`` write and read any params
+tree of nested dicts, lists and tuples (the vanilla NeRF's and the image
+fit's, ``models/mlp.to_jax_tree``) as the JAX functions of the same names
+do.
 """
 
 from __future__ import annotations
@@ -166,6 +169,55 @@ def from_jax_params(tree, cfg: PipelineConfig, device=None) -> Field:
               + ([tree["table"]] if "table" in tree else [])
               + ([tree["var"]["b"]] if "var" in tree else []))
     return load_leaves(Field(cfg), leaves).to(device)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists and tuples in
+    ``jax.tree_util`` flatten order (a dict's keys sorted)."""
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [v for sub in tree for v in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """``template``'s structure holding ``leaves`` (flatten order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(sub) for sub in t)
+        return next(it)
+
+    return build(template)
+
+
+def save_pytree(path: str, tree, extra=None):
+    """Write a params tree (numpy leaves) as the JAX ``save_pytree`` does:
+    ``leaf_i`` in flatten order, extras as ``extra_<name>``."""
+    _write(path, _payload([np.asarray(v) for v in tree_leaves(tree)], extra))
+
+
+def load_pytree(path: str, template, extra_keys=()):
+    """(tree, extras) read from a ``save_pytree`` file of either package
+    into ``template``'s structure, each leaf's shape checked against the
+    template's."""
+    want = tree_leaves(template)
+    with np.load(path) as data:
+        leaves = []
+        for i, leaf in enumerate(want):
+            arr = data[f"leaf_{i}"]
+            if tuple(arr.shape) != tuple(np.shape(leaf)):
+                raise ValueError(f"checkpoint leaf {i} shape {arr.shape} != "
+                                 f"model {np.shape(leaf)}")
+            leaves.append(arr)
+        extra = {k: data[f"extra_{k}"] for k in extra_keys
+                 if f"extra_{k}" in data}
+    return tree_unflatten(template, leaves), extra
 
 
 def _payload(leaves, extra=None) -> dict:

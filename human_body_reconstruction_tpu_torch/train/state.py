@@ -13,7 +13,8 @@ schedule before every step, evaluated at the count of updates taken so far
 ``moments``/``set_moments`` read and write one parameter's Adam moments
 (and count), which the checkpoint maps to the optax state.
 torch's recursive ``CosineAnnealingLR`` is not used: it drifts from the
-closed form.  Only the "cosine" schedule is ported.
+closed form.  The "onecycle" schedule is optax's
+``cosine_onecycle_schedule``, also in closed form (``onecycle``).
 """
 
 from __future__ import annotations
@@ -37,26 +38,58 @@ def cosine_to_floor(lr: float, lr_final: float, total_steps: int):
     return sched
 
 
+def onecycle(peak: float, total_steps: int):
+    """optax.cosine_onecycle_schedule(transition_steps=total_steps,
+    peak_value=peak) with optax's defaults (pct_start 0.3, div_factor 25,
+    final_div_factor 1e4), closed form: from peak / 25 up to peak over the
+    first int(0.3 * T) steps, then down to peak / 2.5e5 at T, each leg
+    ``end + (start - end) / 2 * (cos(pi * pct) + 1)``, flat after T.
+    optax's schedule is NaN at every step when the first leg is empty (T <
+    4), so that horizon is refused."""
+    b1, b2 = int(0.3 * total_steps), int(total_steps)
+    if b1 <= 0:
+        raise ValueError(f"onecycle over {total_steps} steps: the warm-up "
+                         f"leg int(0.3 * {total_steps}) is empty, where "
+                         "optax's schedule is NaN")
+    v0, v2 = peak / 25.0, peak / (25.0 * 1e4)
+
+    def leg(start, end, pct):
+        return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1.0)
+
+    def sched(step: int) -> float:
+        if step < b1:
+            return leg(v0, peak, max(step, 0) / b1)
+        if step < b2:
+            return leg(peak, v2, (step - b1) / (b2 - b1))
+        return v2
+    return sched
+
+
+def make_schedule(cfg: TrainConfig, lr: float, total_steps: int):
+    """The schedule of a group whose base rate is ``lr`` (JAX
+    ``_make_schedule``)."""
+    if cfg.schedule == "onecycle":
+        return onecycle(lr, max(total_steps, 1))
+    return cosine_to_floor(lr, cfg.lr_final, total_steps)
+
+
 OPTAX_ADAMW_DECAY = 1e-4     # optax.adamw's default weight_decay
 
 
 class GroupedOptimizer:
-    """Adam on the encoder tables, AdamW on the MLP, both scheduled; AdamW
-    on the SDF sharpness at a constant rate."""
+    """Adam on the encoder tables, AdamW on the MLP, both on
+    ``cfg.schedule``; AdamW on the SDF sharpness at a constant rate."""
 
     def __init__(self, cfg: TrainConfig, total_steps: int, field):
-        if cfg.schedule != "cosine":
-            raise NotImplementedError(
-                f"schedule {cfg.schedule!r} is not ported; only 'cosine'")
         tables = list(field.dense) + list(field.lines)
         if field.table is not None:
             tables.append(field.table)
         self.groups = [
             (torch.optim.Adam(tables, lr=cfg.lr_hash, eps=1e-15),
-             cosine_to_floor(cfg.lr_hash, cfg.lr_final, total_steps)),
+             make_schedule(cfg, cfg.lr_hash, total_steps)),
             (torch.optim.AdamW(field.mlp.parameters(), lr=cfg.lr_mlp,
                                weight_decay=cfg.weight_decay),
-             cosine_to_floor(cfg.lr_mlp, cfg.lr_final, total_steps)),
+             make_schedule(cfg, cfg.lr_mlp, total_steps)),
         ]
         if field.var_b is not None:
             self.groups.append(

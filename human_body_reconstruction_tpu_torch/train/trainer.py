@@ -3,12 +3,17 @@ model, grouped optimizer, occupancy warmup and refreshes, periodic eval
 renders, checkpoints and metrics.
 
 One process on one device.  The JAX trainer's data- and level-parallel
-branches, its compiled-executable cache and fused multi-step dispatches,
-gradient-norm probes and live preview are not ported.  The step count is
-kept on the host; every random draw comes from one ``torch.Generator`` on
-the training device, seeded with ``cfg.train.seed`` (the JAX keys give
-other bits, so runs of the two packages are alike in distribution, not in
-samples).  ``load`` continues a run from a checkpoint of either package:
+branches, its compiled-executable cache and fused multi-step dispatches
+are not ported.  ``log_grad_norms`` adds each group's gradient norm on a
+256-ray probe batch to every log record, as the JAX trainer does; the
+probe draws from its own generator, seeded with ``cfg.train.seed`` at each
+log (the JAX probe reuses one key), so the training draws are untouched.
+``display`` writes every eval render to ``<model>_preview.png`` too and
+shows it in a cv2 window where cv2 imports and a display exists.  The step
+count is kept on the host; every random draw comes from one
+``torch.Generator`` on the training device, seeded with ``cfg.train.seed``
+(the JAX keys give other bits, so runs of the two packages are alike in
+distribution, not in samples).  ``load`` continues a run from a checkpoint of either package:
 params, optimizer state, step and grid; the generator's state from a
 port-written file (so that the continuation draws what an uninterrupted
 run draws), else reseeded from (seed, step).
@@ -31,7 +36,28 @@ from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt_lib
 from human_body_reconstruction_tpu_torch.train import state as state_lib
 from human_body_reconstruction_tpu_torch.train import step as step_lib
 from human_body_reconstruction_tpu_torch.utils import config as C
-from human_body_reconstruction_tpu_torch.utils.observability import MetricsLogger
+from human_body_reconstruction_tpu_torch.utils import observability as obs
+
+PROBE_RAYS = 256        # the gradient-norm probe's batch (JAX _probe_loss)
+
+
+def probe_grad_norms(field, scene, ds, cfg: C.PipelineConfig, occ,
+                     generator: torch.Generator, batch=None, draws=None):
+    """``grad_norm/<group>`` of the loss on a PROBE_RAYS-ray batch (JAX
+    ``jax.grad(_probe_loss)`` through ``grad_norms``): f32 numerics, no TV
+    warmup gating; ``batch`` and ``draws`` replace the draws.  The field's
+    ``.grad`` is left as it was."""
+    if batch is None:
+        batch = step_lib.sample_ray_batch(ds["images"], ds["c2ws"], ds["K"],
+                                          PROBE_RAYS, generator)
+    loss, _ = step_lib.loss_fn(field, scene, batch, cfg, occ, None,
+                               generator=generator, draws=draws)
+    groups = obs.param_groups(field)
+    params = [p for ps in groups.values() for p in ps]
+    grads = iter(torch.autograd.grad(loss, params, allow_unused=True))
+    return obs.grad_norms({
+        k: [torch.zeros_like(p) if g is None else g
+            for p, g in zip(ps, grads)] for k, ps in groups.items()})
 
 
 def init_params(cfg: C.PipelineConfig, generator: torch.Generator) -> nerf.Field:
@@ -59,6 +85,8 @@ class Trainer:
     eval_ds: Optional[dict] = None
     total_steps: Optional[int] = None  # schedule horizon; default
                                        # num_epochs * steps per epoch
+    log_grad_norms: bool = False       # --plot_grads
+    display: bool = False              # --display
 
     def __post_init__(self):
         cfg = self.cfg
@@ -86,8 +114,8 @@ class Trainer:
         self.state = state_lib.create_train_state(
             field, cfg.train, self.total_steps, occ=occ)
         self.history = []
-        self.metrics = MetricsLogger(self.out_dir,
-                                     name=f"{self.model_name}_metrics")
+        self.metrics = obs.MetricsLogger(self.out_dir,
+                                         name=f"{self.model_name}_metrics")
 
     # -- checkpointing ----------------------------------------------------
     def ckpt_path(self):
@@ -160,6 +188,12 @@ class Trainer:
                 if self.state.occ is not None:
                     rec["occupied_frac"] = float(
                         occupancy.occupied_fraction(self.state.occ))
+                if self.log_grad_norms:
+                    norms = probe_grad_norms(
+                        self.state.field, self.scene, self.ds, cfg,
+                        self.state.occ, torch.Generator(
+                            self.device).manual_seed(cfg.train.seed))
+                    rec.update({k: float(v) for k, v in norms.items()})
                 self.history.append(rec)
                 self.metrics.log(rec)
                 self.log_fn(
@@ -188,7 +222,26 @@ class Trainer:
         gt = ds["images"][0].cpu().numpy()
         mse = float(np.mean((img - gt) ** 2))
         psnr = 10 * np.log10(1.0 / max(mse, 1e-12))
-        path = os.path.join(self.out_dir, f"{self.model_name}_{tag}.png")
-        png.write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        arr8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        png.write_png(os.path.join(self.out_dir,
+                                   f"{self.model_name}_{tag}.png"), arr8)
+        if self.display:
+            self._show_preview(arr8)
         self.log_fn(f"eval [{tag}] view 0: PSNR {psnr:.2f} dB")
         return psnr
+
+    def _show_preview(self, arr8):
+        """The rolling live preview: overwrite ``<model>_preview.png`` and,
+        where cv2 imports and a display exists, show it in a non-blocking
+        window."""
+        from human_body_reconstruction_tpu_torch.data import png
+
+        png.write_png(os.path.join(self.out_dir,
+                                   f"{self.model_name}_preview.png"), arr8)
+        try:
+            import cv2
+        except ImportError:
+            return                  # headless: the rolling PNG is the preview
+        if os.environ.get("DISPLAY") or os.name == "nt":
+            cv2.imshow(f"{self.model_name} preview", arr8[..., ::-1])
+            cv2.waitKey(1)

@@ -1,7 +1,8 @@
-"""Structured training metrics (the ``MetricsLogger`` of the JAX
-utils/observability.py, which imports JAX at its top and so cannot be
-reused).  The JAX module's profiler and debug helpers are not ported:
-``torch.profiler`` is used directly where a trace is wanted."""
+"""Structured training metrics and gradient norms (the ``MetricsLogger``
+and ``grad_norms`` of the JAX utils/observability.py, which imports JAX at
+its top and so cannot be reused).  The JAX module's profiler and debug
+helpers are not ported: ``torch.profiler`` is used directly where a trace
+is wanted."""
 
 from __future__ import annotations
 
@@ -9,6 +10,37 @@ import csv
 import json
 import os
 import time
+
+import torch
+
+
+def param_groups(field) -> dict:
+    """A field's parameters grouped as the keys of the JAX params dict:
+    ``dense`` (with dense levels), ``lines`` (CP) or ``table`` (hash grid),
+    ``mlp``, and ``var`` (SDF)."""
+    groups = {}
+    if len(field.dense):
+        groups["dense"] = list(field.dense)
+    if field.variant == "cp":
+        groups["lines"] = list(field.lines)
+    elif field.table is not None:
+        groups["table"] = [field.table]
+    groups["mlp"] = list(field.mlp.parameters())
+    if field.var_b is not None:
+        groups["var"] = [field.var_b]
+    return groups
+
+
+def grad_norms(grads: dict) -> dict:
+    """Per-group global norm of gradients {group: [tensors]}, under the
+    JAX keys ``grad_norm/<group>`` (the square root of the sum of every
+    element's square, in f32; 0 for an empty group)."""
+    out = {}
+    for key, leaves in grads.items():
+        total = sum((torch.sum(g.to(torch.float32) ** 2) for g in leaves),
+                    torch.zeros(()))
+        out[f"grad_norm/{key}"] = torch.sqrt(total)
+    return out
 
 
 class MetricsLogger:

@@ -19,12 +19,15 @@ import numpy as np
 import pytest
 import torch
 
+from human_body_reconstruction_tpu.cli import image_fit as jimage_fit
+from human_body_reconstruction_tpu.cli import plot_psnr as jplot_psnr
 from human_body_reconstruction_tpu.cli import train_hash as jcli
+from human_body_reconstruction_tpu.cli import train_vanilla as jtrain_vanilla
 from human_body_reconstruction_tpu.data import datasets as jdatasets
 from human_body_reconstruction_tpu.utils import config as jC
 from human_body_reconstruction_tpu_torch.cli import (
-    colmap2nerf, nerf2mesh, occ_report, quality_holdout, reconstruct, render,
-    segment, serve, train_hash)
+    colmap2nerf, image_fit, nerf2mesh, occ_report, plot_psnr, quality_holdout,
+    reconstruct, render, segment, serve, train_hash, train_vanilla)
 from human_body_reconstruction_tpu_torch.data import datasets
 from human_body_reconstruction_tpu_torch.utils import config as C
 
@@ -108,17 +111,20 @@ def test_config_post_init_errors_match_jax(bad):
 
 
 def test_parsers_match_jax():
-    """Every flag of the JAX trainer, with the same default, type, choices
-    and action; the port adds only --device (default cuda)."""
+    """Every flag of the JAX trainer, vanilla trainer, image fit and PSNR
+    plotter, with the same default, type, choices and action; the port adds
+    only --device (default cuda)."""
     def flags(p):
         return {a.dest: (tuple(a.option_strings), a.default, a.type,
                          tuple(a.choices or ()), type(a).__name__, a.nargs)
                 for a in p._actions}
 
-    port, ref = flags(train_hash.build_parser()), flags(jcli.build_parser())
-    assert set(port) - set(ref) == {"device"}
-    assert {k: port[k] for k in ref} == ref
-    assert port["device"][1] == "cuda"
+    for mine, theirs in ((train_hash, jcli), (train_vanilla, jtrain_vanilla),
+                         (image_fit, jimage_fit), (plot_psnr, jplot_psnr)):
+        port, ref = flags(mine.build_parser()), flags(theirs.build_parser())
+        assert set(port) - set(ref) == {"device"}, mine.__name__
+        assert {k: port[k] for k in ref} == ref, mine.__name__
+        assert port["device"][1] == "cuda"
 
 
 @pytest.mark.parametrize("argv", PRESET_ARGVS,
@@ -186,11 +192,24 @@ def test_load_nerf_json_matches_jax(tmp_path, fmt, white, down):
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch, tmp_path):
-    """Without a card, train_hash and serve exit with a message naming
-    --device cpu; with it they run on the CPU."""
+    """Without a card, train_hash, serve, train_vanilla, image_fit and
+    plot_psnr exit with a message naming --device cpu; with it they run on
+    the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         train_hash.main(["--synthetic", "--steps", "1"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        train_vanilla.main(["--synthetic", "--num_iters", "1"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        image_fit.main(["--synthetic", "--steps", "1"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        plot_psnr.main(["--pred_dirs", str(tmp_path), "--gt_dirs",
+                        str(tmp_path)])
+    out = str(tmp_path / "cpu")
+    res = image_fit.main(["--synthetic", "--steps", "1", "--batch", "64",
+                          "--hash_size", "8", "--levels", "2", "--n_max",
+                          "32", "--out_dir", out, "--device", "cpu"])
+    assert res["steps"] == 1 and os.path.exists(f"{out}/imagefit_final.png")
     with pytest.raises(SystemExit, match="--device cpu"):
         serve.RenderServer(serve.build_parser().parse_args(
             ["--ckpt_dir", str(tmp_path)]))

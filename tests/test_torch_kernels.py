@@ -497,6 +497,56 @@ def test_hash_kernels_match_plain_on_rays_and_random(cuda_device, mode, order,
     assert hash_kernel.hash_encode_backward_kernel.launches == n_b + 3
 
 
+def pixel_points(n, order, device, seed=0):
+    """(pixel coordinates (n, 2) of a 512x512 image, mu 0, sigma (512,
+    512)), the image fit's 2-D points: in row order (``full_pred``'s) or
+    drawn at random (a training batch's)."""
+    if order == "rows":
+        pix = torch.arange(n, device=device) % (512 * 512)
+    else:
+        pix = torch.randint(0, 512 * 512, (n,), device=device,
+                            generator=torch.Generator(device).manual_seed(seed))
+    ij = torch.stack([(pix % 512).float(), (pix // 512).float()], -1)
+    return ij, torch.tensor(0.0, device=device), torch.tensor(
+        [512.0, 512.0], device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["rows", "random"])
+def test_hash_kernels_2d_match_plain(cuda_device, order):
+    """The 2-D build at the image fit's width (L 16, F 2, T 2^18, n_max
+    2^16): the forward bit for bit into a column block of a NaN-filled
+    wider matrix, the backward within the sum-order tolerance from a
+    row-strided gradient; N below a run, not a multiple of a run or a
+    block, and a full batch; the stochastic mode refused on 2-D points."""
+    cfg = C.HashConfig(num_levels=16, features_per_level=2,
+                       log2_table_size=18, n_min=16, n_max=2 ** 16, dim=2)
+    table = torch.empty((16, 2 ** 18, 2), device=cuda_device).uniform_(
+        -1, 1, generator=torch.Generator(cuda_device).manual_seed(0))
+    n_f = hash_kernel.hash_encode_kernel.launches
+    n_b = hash_kernel.hash_encode_backward_kernel.launches
+    for n in (5, 1000, 200_003):
+        args = (table, *pixel_points(n, order, cuda_device, seed=n), cfg)
+        out = torch.full((n, 38), float("nan"), device=cuda_device)
+        hash_kernel.hash_encode_kernel(*args, out=out[:, 3:35])
+        want = hash_kernel.hash_encode_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, 3:35], want)
+        assert torch.isnan(out[:, :3]).all() and torch.isnan(out[:, 35:]).all()
+        g = cotangent(n, 32, cuda_device, seed=n, extra=5)
+        assert grads_close(
+            lambda tb, *a: [hash_kernel.hash_encode_backward_kernel(tb[0], *a)],
+            lambda tb, *a: [hash_kernel.hash_encode_plain_backward(tb[0], *a)],
+            [table], args[1:], g, False)
+    assert hash_kernel.hash_encode_kernel.launches == n_f + 3
+    assert hash_kernel.hash_encode_backward_kernel.launches == n_b + 3
+    u = torch.zeros((3, 16, 5), device=cuda_device)
+    with pytest.raises(ValueError, match="3-D points only"):
+        hash_kernel.hash_encode_kernel(table, *pixel_points(5, order,
+                                                            cuda_device)[:3],
+                                       cfg, u=u)
+
+
 def test_stochastic_encoder_keeps_the_bits_not_u():
     """What the encoder's autograd Function keeps for the backward in
     stochastic mode: the picked corners' offset bits, uint8 (L, N), and no

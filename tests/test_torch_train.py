@@ -411,8 +411,9 @@ def test_cli_config_matches_jax(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--level_parallel", "2"], ["--plot_grads"], ["--encoder_variant", "cell"],
-    ["--data_parallel"], ["--steps_per_call", "4"], ["--display"],
+    ["--level_parallel", "2"], ["--stochastic", "--scatter_strategy", "segsum"],
+    ["--encoder_variant", "cell"], ["--data_parallel"],
+    ["--steps_per_call", "4"], ["--stochastic", "--packed", "--grad_subsample"],
     ["--aot_cache", "x"],
     ["--stochastic", "--packed"], ["--packed_exact"],
     ["--stochastic", "--scatter_strategy", "sorted"]])
