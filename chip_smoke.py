@@ -76,7 +76,7 @@
    against its plain version on that step's 98,304 eikonal points (16384
    points at six clipped offsets), the forwards into their columns of the
    encoder's (N, 130) matrix bit for bit.
-10. The hierarchical pass: the same for ``cp_r21_hier_xla`` (64 + 64
+10. The hierarchical pass: the same for ``cp_r21_hier_64f64_tv1e2`` (64 + 64
     samples, no grid) cut to 96 steps, the card-vs-CPU step on 4096 rays,
     the kernels on a 16384-ray batch's second-pass points (2,097,152).
 11. Continuation: the SDF mode's Trainer at full width (warmup cut to 16)
@@ -129,6 +129,20 @@
     preview PNG read back, the encoder kernels' launches (the probe's
     backward among them); a ``schedule="onecycle"`` Trainer of
     ONECYCLE_STEPS steps, its rates against the closed form.
+18. The held-back tangle: ``cli/quality_holdout.py --scene tangle
+    --scene_seed 101`` in the record's mode, its ground truth (20 + 4
+    views, 400x400, 384 samples) rendered on the card, cut to
+    QUALITY_STEPS: the JAX keys, finite PSNRs, 0 < occ_frac < 1, the field
+    computed on the card only.
+19. The wide CP ladders and the corner hash grid: ``cp_r64_guided_k48_mass``
+    (C 384), ``cp_l12_r32_guided_k48_mass`` (9 CP levels, C 288, 3 dense
+    levels) and ``exact`` through the protocol for MODE_STEPS, then their
+    kernels against plain on the 2,097,152 ladder points of a seeded
+    batch: the forwards bit for bit (the CP one into the matrix and into
+    its own output), the backwards within the sum-order tolerance.
+20. ``cli/speedrun.py`` with the record's gating (guided 48 every 125
+    steps), capped at 375 steps: the JAX keys, every gate render finite,
+    the last one guided.
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
@@ -155,7 +169,9 @@ unculled_random, hash_forward/train_path, /random and /serving_path
 (exact), hash_backward/train_path and /random,
 {cp,dense,hash}_forward/sweep_chunk, {cp,dense}_{forward,backward}/
 eikonal_points, /fine_pass and /reconstruct_path,
-hash_{forward,backward}_2d/image_fit_batch and /full_pred, with the
+hash_{forward,backward}_2d/image_fit_batch and /full_pred,
+{cp,dense}_{forward,backward}/r64_path and /l12_path (and
+cp_forward/*_path_contiguous), hash_{forward,backward}/exact_path, with the
 launches of the phase that runs each shape), and last ``{"ok": true,
 "device": {...}}``.
 
@@ -196,11 +212,18 @@ STEP_GRAD_RTOL = 1e-2           # per group, ||card - cpu|| / ||cpu||
 SOURCE = "human_body_reconstruction_tpu_torch/csrc/encoders.cu"
 REPLACES = {    # the TPU kernel (or jnp code) each encoder kernel stands for
     "cp_forward": "human_body_reconstruction_tpu/ops/cp_pallas.py:143",
+    # the same forward split per axis: the TPU's kernel past a 15.5 MB VMEM
+    # stack, of the protocol's modes only the 12-level ladder's
+    # (tools/cp_axis_split.py)
+    "cp_forward_axis": "human_body_reconstruction_tpu/ops/cp_pallas.py:158",
     "dense_forward": "human_body_reconstruction_tpu/ops/dense_pallas.py:125",
     "cp_backward": "human_body_reconstruction_tpu/ops/cp_pallas.py:173",
     "dense_backward": "human_body_reconstruction_tpu/ops/dense_pallas.py:152",
     "hash_forward": "none (no TPU kernel: human_body_reconstruction_tpu/ops/"
-                    "hash_encoding.py:259 gathers in jnp)"}
+                    "hash_encoding.py:259 gathers in jnp)",
+    "hash_backward": "none (no TPU kernel: the autodiff scatter of "
+                     "human_body_reconstruction_tpu/ops/hash_encoding.py:259)"}
+HASH_SOURCE = "human_body_reconstruction_tpu_torch/csrc/hash.cu"
 HASH_STEPS = 150
 HASH_POINTS = 16000 * 64        # one step of the hash path: rays x samples
 HASH_RUN = 16                   # points a hash backward thread merges (csrc/hash.cu)
@@ -213,10 +236,25 @@ QUALITY_STEPS = 320             # the protocol's 6000-step horizon, cut in depth
 QUALITY_FLOOR_DB = 26.8
 SWEEP_CHUNK = 262144            # points a mesh-sweep chunk (cli/nerf2mesh.py)
 MESH_RES = {"flagship": 256, "hash": 128}   # the sweeps' lattice sides
-SDF_MODE, HIER_MODE = "cp_r21_sdf_guided_es16k", "cp_r21_hier_xla"
+# the hierarchical mode through the kernels: its _xla twin (the record's)
+# runs the JAX XLA path's roundings in plain PyTorch (ops/xla_encoders.py)
+SDF_MODE, HIER_MODE = "cp_r21_sdf_guided_es16k", "cp_r21_hier_64f64_tv1e2"
+# the wide CP ladders: rank 64 (C 384) on the 8-level ladder, and the
+# 12-level ladder (3 dense levels, 9 CP levels, C 288); the corner hash grid
+WIDE_MODES = ("cp_r64_guided_k48_mass", "cp_l12_r32_guided_k48_mass")
+HASH_MODE = "exact"
 # the records' 5088 and 352 steps, cut in depth: the SDF run installs its
-# grid at 256 and refreshes it at 320
-MODE_STEPS = {SDF_MODE: 320, HIER_MODE: 96}
+# grid at 256 and refreshes it at 320; the wide ladders and the hash grid
+# take a few unculled steps (their path: 16384 rays x 128 ladder samples)
+MODE_STEPS = {SDF_MODE: 320, HIER_MODE: 96, WIDE_MODES[0]: 64,
+              WIDE_MODES[1]: 64, HASH_MODE: 160}
+# the held-back scene: the record's scene seed and mode
+TANGLE_SEED, TANGLE_MODE = 101, "cp_r21_guided_k32_p32_tv1e2_strat"
+# the time-to-target run: the record's gating (guided 48, every 125 steps),
+# capped after the first guided gate (the grid installs at 256)
+SPEEDRUN_ARGS = ("--encoder", "cp", "--cp_rank", "32", "--eval_every", "125",
+                 "--eval_guided", "48", "--max_steps", "375",
+                 "--eval_after_train_db", "0")
 HIER_STEP_RAYS = 4096           # the hierarchical card-vs-CPU step's batch
 CONT_STEPS, CONT_WARMUP = (24, 16), 16   # k, then m more; warmup cut to 16
 PROTOCOL_RAYS = 16384           # the protocol's batch
@@ -860,8 +898,7 @@ def hash_kernel_checks(trainer, device, tag, train_pts, serve_pts):
     bound)}: uniform_bits, and the hash kernels per point set in the path's
     mode (stochastic on training and random points, exact serving), the
     error over both modes."""
-    from human_body_reconstruction_tpu_torch.ops import (
-        cuda_lib, hash_kernel, rng_kernel)
+    from human_body_reconstruction_tpu_torch.ops import rng_kernel
     from human_body_reconstruction_tpu_torch.utils.config import fine_scales
 
     h, scene = trainer.cfg.hash, trainer.scene
@@ -909,85 +946,100 @@ def hash_kernel_checks(trainer, device, tag, train_pts, serve_pts):
     g = torch.randn((n, L * F + 3), generator=gen, device=device)[:, 3:]
     for kind, at in (("train_path", train_pts), ("random", pts),
                      ("serving_path", serve_pts)):
-        a = (table, at, scene["mu"], scene["sigma"], h)
-        xa = (at - scene["mu"]) / scene["sigma"]
-        outside = float(((xa < 0) | (xa > 1)).any(-1).float().mean())
         errs, rec = [], {}
         for mode in (("exact",) if kind == "serving_path"
                      else ("exact", "stochastic")):
-            stoch = mode == "stochastic"
-            uu = u if stoch else None
-            ops_f = forward_ops("hash_forward", table, h, at.shape[0], stoch)
-            with torch.no_grad():
-                got = hash_kernel.hash_encode_kernel(*a, u=uu)
-                want = hash_kernel.hash_encode_plain(*a, u=uu)
-                torch.cuda.synchronize()
-                (feats, cb), (wf, wb) = ((got, want) if stoch
-                                         else ((got, None), (want, None)))
-                same = torch.equal(feats, wf) and (not stoch
-                                                   or torch.equal(cb, wb))
-                err_f = float((feats - wf).abs().max())
-                check(bool(torch.isfinite(feats).all()),
-                      "hash forward output finite")
-                ms_f = time_ms(lambda: hash_kernel.hash_encode_kernel(*a, u=uu))
-                plain_f = time_ms(lambda: hash_kernel.hash_encode_plain(*a, u=uu),
-                                  reps=3)
-                bnd_f = bound(nbytes(at, table, feats, *((uu, cb) if stoch
-                                                         else ())), ops_f)
-                rows, w = hash_rows_weights(at, scene["mu"], scene["sigma"],
-                                            h, cb if stoch else None)
-                lib = embedding_bag_call(table, rows, w)
-                lib_err = float((lib().reshape(feats.shape) - wf).abs().max())
-                lib_f = time_ms(lib)
-            print(f"kernel hash_forward ({mode}): {at.shape[0]} {kind} points "
-                  f"({outside:.3f} outside the box), out {tuple(feats.shape)}"
-                  f"{', bits ' + str(tuple(cb.shape)) if stoch else ''}, bit "
-                  f"for bit {same} (max_abs_err {err_f:.3e}), {ms_f:.4f} ms vs "
-                  f"plain {plain_f:.4f} ms, embedding_bag given rows and "
-                  f"weights {lib_f:.4f} ms (max_abs_err {lib_err:.1e}), bound "
-                  f"{bnd_f[0]:.4f} ms ({bnd_f[1]}) {tag}")
-            check(same, ("hash_forward bit for bit", kind, mode, err_f))
-            check(lib_err <= 1e-5, ("embedding_bag computes the hash forward",
-                                    kind, mode, lib_err))
-            errs.append(err_f)
-            rec["hash_forward"] = (max(errs), ms_f, plain_f, lib_f, bnd_f)
-            if kind == "serving_path":
-                continue
-            with torch.no_grad():
-                gb = hash_kernel.hash_encode_backward_kernel(*a, g, bits=cb)
-                want_b = hash_kernel.hash_encode_plain_backward(*a, g,
-                                                                bits=wb)
-                abs_sum = hash_kernel.hash_encode_plain_backward(
-                    *a, g.abs(), bits=wb)
-                torch.cuda.synchronize()
-                err_b = float((gb - want_b).abs().max())
-                ratio = float(((gb - want_b).abs()
-                               / cuda_lib.sum_order_tolerance(
-                                   want_b, abs_sum, False)).max())
-                ms_b = time_ms(lambda: hash_kernel.hash_encode_backward_kernel(
-                    *a, g, bits=cb))
-                plain_b = time_ms(
-                    lambda: hash_kernel.hash_encode_plain_backward(
-                        *a, g, bits=wb), reps=3)
-                bnd_b = bound(nbytes(at, g, gb, *((cb,) if stoch else ())),
-                              ops_f + at.shape[0] * L * F)
-                lib = index_add_call(table, rows, w, g)
-                lib_b = time_ms(lib, reps=5)
-                del rows, w, lib
-            print(f"kernel hash_backward ({mode}): {at.shape[0]} {kind} "
-                  f"points{', from the bits' if stoch else ''}, max_abs_err "
-                  f"{err_b:.3e}, worst |err| / tolerance {ratio:.3f} (tol 1), "
-                  f"{ms_b:.4f} ms vs plain {plain_b:.4f} ms, index_add_ given "
-                  f"rows and terms {lib_b:.4f} ms, bound {bnd_b[0]:.4f} ms "
-                  f"({bnd_b[1]}) {tag}")
-            check(bool(torch.isfinite(gb).all()) and ratio <= 1.0,
-                  ("hash_backward", kind, mode, err_b, ratio))
-            prev = rec.get("hash_backward", (0.0,))[0]
-            rec["hash_backward"] = (max(prev, err_b), ms_b, plain_b, lib_b,
-                                    bnd_b)
+            fwd, bwd = hash_mode_check(
+                table, at, scene, h, g, u if mode == "stochastic" else None,
+                kind, tag, backward=kind != "serving_path")
+            errs.append(fwd[0])
+            rec["hash_forward"] = (max(errs), *fwd[1:])
+            if bwd is not None:
+                prev = rec.get("hash_backward", (0.0,))[0]
+                rec["hash_backward"] = (max(prev, bwd[0]), *bwd[1:])
         for nm, r in rec.items():
             out[f"{nm}/{kind}"] = r
     return out
+
+
+def hash_mode_check(table, at, scene, h, g, u, kind: str, tag: str,
+                    backward: bool = True):
+    """The hash forward kernel against its plain version on the points
+    ``at`` (stochastic with the uniforms ``u``, else exact): features and
+    the stochastic corner bits bit for bit, beside ``embedding_bag`` given
+    the rows and weights; with ``backward`` the backward kernel (from the
+    kernel's bits) against its plain version with the cotangent ``g``,
+    within the sum-order tolerance, beside ``index_add_`` given the rows and
+    terms.  Returns (forward record, backward record or None), a record
+    being (max_abs_err, ms, plain_ms, library_ms, bound)."""
+    from human_body_reconstruction_tpu_torch.ops import cuda_lib, hash_kernel
+
+    stoch = u is not None
+    mode = "stochastic" if stoch else "exact"
+    L, F = h.num_hashed_levels, h.features_per_level
+    a = (table, at, scene["mu"], scene["sigma"], h)
+    xa = (at - scene["mu"]) / scene["sigma"]
+    outside = float(((xa < 0) | (xa > 1)).any(-1).float().mean())
+    ops_f = forward_ops("hash_forward", table, h, at.shape[0], stoch)
+    with torch.no_grad():
+        got = hash_kernel.hash_encode_kernel(*a, u=u)
+        want = hash_kernel.hash_encode_plain(*a, u=u)
+        torch.cuda.synchronize()
+        (feats, cb), (wf, wb) = ((got, want) if stoch
+                                 else ((got, None), (want, None)))
+        same = torch.equal(feats, wf) and (not stoch or torch.equal(cb, wb))
+        err_f = float((feats - wf).abs().max())
+        check(bool(torch.isfinite(feats).all()), "hash forward output finite")
+        ms_f = time_ms(lambda: hash_kernel.hash_encode_kernel(*a, u=u))
+        plain_f = time_ms(lambda: hash_kernel.hash_encode_plain(*a, u=u),
+                          reps=3)
+        bnd_f = bound(nbytes(at, table, feats, *((u, cb) if stoch else ())),
+                      ops_f)
+        rows, w = hash_rows_weights(at, scene["mu"], scene["sigma"], h,
+                                    cb if stoch else None)
+        lib = embedding_bag_call(table, rows, w)
+        lib_err = float((lib().reshape(feats.shape) - wf).abs().max())
+        lib_f = time_ms(lib)
+    print(f"kernel hash_forward ({mode}): {at.shape[0]} {kind} points "
+          f"({outside:.3f} outside the box), out {tuple(feats.shape)}"
+          f"{', bits ' + str(tuple(cb.shape)) if stoch else ''}, bit "
+          f"for bit {same} (max_abs_err {err_f:.3e}), {ms_f:.4f} ms vs "
+          f"plain {plain_f:.4f} ms, embedding_bag given rows and "
+          f"weights {lib_f:.4f} ms (max_abs_err {lib_err:.1e}), bound "
+          f"{bnd_f[0]:.4f} ms ({bnd_f[1]}) {tag}")
+    check(same, ("hash_forward bit for bit", kind, mode, err_f))
+    check(lib_err <= 1e-5, ("embedding_bag computes the hash forward", kind,
+                            mode, lib_err))
+    fwd = (err_f, ms_f, plain_f, lib_f, bnd_f)
+    if not backward:
+        return fwd, None
+    with torch.no_grad():
+        gb = hash_kernel.hash_encode_backward_kernel(*a, g, bits=cb)
+        want_b = hash_kernel.hash_encode_plain_backward(*a, g, bits=wb)
+        abs_sum = hash_kernel.hash_encode_plain_backward(*a, g.abs(),
+                                                         bits=wb)
+        torch.cuda.synchronize()
+        err_b = float((gb - want_b).abs().max())
+        ratio = float(((gb - want_b).abs() / cuda_lib.sum_order_tolerance(
+            want_b, abs_sum, False)).max())
+        ms_b = time_ms(lambda: hash_kernel.hash_encode_backward_kernel(
+            *a, g, bits=cb))
+        plain_b = time_ms(lambda: hash_kernel.hash_encode_plain_backward(
+            *a, g, bits=wb), reps=3)
+        bnd_b = bound(nbytes(at, g, gb, *((cb,) if stoch else ())),
+                      ops_f + at.shape[0] * L * F)
+        lib = index_add_call(table, rows, w, g)
+        lib_b = time_ms(lib, reps=5)
+        del rows, w, lib
+    print(f"kernel hash_backward ({mode}): {at.shape[0]} {kind} "
+          f"points{', from the bits' if stoch else ''}, max_abs_err "
+          f"{err_b:.3e}, worst |err| / tolerance {ratio:.3f} (tol 1), "
+          f"{ms_b:.4f} ms vs plain {plain_b:.4f} ms, index_add_ given "
+          f"rows and terms {lib_b:.4f} ms, bound {bnd_b[0]:.4f} ms "
+          f"({bnd_b[1]}) {tag}")
+    check(bool(torch.isfinite(gb).all()) and ratio <= 1.0,
+          ("hash_backward", kind, mode, err_b, ratio))
+    return fwd, (err_b, ms_b, plain_b, lib_b, bnd_b)
 
 
 def hash_step_on_card_vs_cpu(trainer, ds, device):
@@ -1160,18 +1212,38 @@ def counted(kernels, fn):
     return out, {nm: kern.launches for nm, kern in kernels}
 
 
-def quality_phase(work: str, device: torch.device, tag: str):
+def quality_phase(work: str, device: torch.device, tag: str,
+                  scene: str = "textured"):
     """The 4-pose holdout protocol through its CLI, cut to QUALITY_STEPS
-    steps at the 6000-step horizon."""
+    steps at the 6000-step horizon: the default mode on the textured scene
+    (its holdout above QUALITY_FLOOR_DB), or the record's mode on the
+    held-back tangle (scene seed TANGLE_SEED), whose field must compute on
+    the card."""
     from human_body_reconstruction_tpu_torch.cli import quality_holdout
+    from human_body_reconstruction_tpu_torch.data import synthetic
 
     t0 = time.perf_counter()
-    argv = ["--scene", "textured", "--steps", str(QUALITY_STEPS), "--device",
-            str(device), "--out", f"{work}/quality.json"]
-    row, launches = counted(wrappers(*TRAIN_KERNELS),
-                            lambda: quality_holdout.main(argv))
+    argv = ["--scene", scene, "--steps", str(QUALITY_STEPS), "--device",
+            str(device), "--out", f"{work}/quality_{scene}.json"]
+    tangle = scene == "tangle"
+    if tangle:
+        argv += ["--scene_seed", str(TANGLE_SEED), "--mode", TANGLE_MODE]
+    devices, field = set(), synthetic.tangle_field
+
+    def tangle_field(pts, **kw):
+        devices.add(pts.device.type)
+        return field(pts, **kw)
+
+    synthetic.tangle_field = tangle_field
+    try:
+        row, launches = counted(wrappers(*TRAIN_KERNELS),
+                                lambda: quality_holdout.main(argv))
+    finally:
+        synthetic.tangle_field = field
     wall = time.perf_counter() - t0
-    print(f"quality protocol ({row['mode']}, {row['scene']}, horizon 6000): "
+    floor = None if tangle else QUALITY_FLOOR_DB
+    print(f"quality protocol ({row['mode']}, {row['scene']}"
+          f"{f' seed {TANGLE_SEED}' if tangle else ''}, horizon 6000): "
           f"{row['steps']} steps, {1e3 * 16384 / row['rays_per_sec']:.2f} "
           f"ms/step and {row['rays_per_sec']} rays/s on the protocol's clock "
           f"({row['budget_s']} s), occ_frac {row['occ_frac']} (by refresh "
@@ -1179,9 +1251,8 @@ def quality_phase(work: str, device: torch.device, tag: str):
           f"{row['train_psnr']} dB; holdout "
           + ", ".join(f"{k} {v}" for k, v in row["holdout_per_pose"].items())
           + f" dB, mean {row['holdout_psnr']}, min {row['holdout_min']} "
-          f"(floor {QUALITY_FLOOR_DB}); {wall:.1f} s with the ground truth "
-          f"{tag}")
-    print(f"launches in the quality protocol: {launches}")
+          f"(floor {floor}); {wall:.1f} s with the ground truth {tag}")
+    print(f"launches in the quality protocol ({scene}): {launches}")
     vals = [row[k] for k in JAX_ROW_KEYS if k not in ("mode", "scene",
                                                      "holdout_per_pose")]
     check(all(k in row for k in JAX_ROW_KEYS)
@@ -1189,9 +1260,14 @@ def quality_phase(work: str, device: torch.device, tag: str):
               row["holdout_per_pose"].values())), ("quality row", row))
     check(row["steps"] == QUALITY_STEPS, ("quality steps", row["steps"]))
     check(0.0 < row["occ_frac"] < 1.0, ("occ_frac", row["occ_frac"]))
-    check(row["holdout_psnr"] > QUALITY_FLOOR_DB, ("holdout mean",
-                                                   row["holdout_psnr"]))
+    check(floor is None or row["holdout_psnr"] > floor,
+          ("holdout mean", row["holdout_psnr"]))
     check(all(n > 0 for n in launches.values()), launches)
+    if tangle:
+        print(f"tangle field computed on: {sorted(devices)}")
+        check(row["scene"] == "tangle" and row["scene_seed"] == TANGLE_SEED,
+              ("tangle row", row["scene"], row.get("scene_seed")))
+        check(devices == {"cuda"}, ("the tangle field on the card", devices))
 
 
 def render_phase(train_dir: str, work: str, device: torch.device, tag: str):
@@ -1354,15 +1430,18 @@ def protocol_mode_phase(mode: str, work: str, device: torch.device,
                         tag: str):
     """``quality_holdout --mode mode --save_params`` on the textured scene,
     cut to MODE_STEPS[mode] steps.  Returns (row, launches of the encoder
-    kernels during the run, the saved run restored with its grid)."""
+    kernels during the run (the hash pair for the hash mode), the saved run
+    restored with its grid)."""
     from human_body_reconstruction_tpu_torch.cli import quality_holdout
     from human_body_reconstruction_tpu_torch.pipeline import restore
 
     argv = ["--mode", mode, "--scene", "textured", "--steps",
             str(MODE_STEPS[mode]), "--device", str(device), "--out",
             f"{work}/{mode}.json", "--save_params"]
+    kernels = (("hash_forward", "hash_backward") if mode == HASH_MODE
+               else TRAIN_KERNELS)
     t0 = time.perf_counter()
-    row, launches = counted(wrappers(*TRAIN_KERNELS),
+    row, launches = counted(wrappers(*kernels),
                             lambda: quality_holdout.main(argv))
     sdf = ""
     if "var_b" in row:
@@ -1516,11 +1595,13 @@ def mode_step_on_card_vs_cpu(mode, res, data, device, rays: int, tag):
     return pts
 
 
-def encoder_kernel_checks(res, pts, label, tag):
+def encoder_kernel_checks(res, pts, label, tag, contiguous: bool = False):
     """Each encoder kernel of the restored model against its plain version
-    on ``pts``: the forwards into their columns of the encoder's matrix,
-    bit for bit; the backwards from a seeded cotangent, within the
-    sum-order tolerance.  Returns {kernel name: record}."""
+    on ``pts``: the forwards into their columns of the encoder's matrix
+    (with ``contiguous`` the CP forward also into its own output), bit for
+    bit; the backwards from a seeded cotangent, within the sum-order
+    tolerance.  Returns {kernel name (``cp_forward_contiguous`` for the
+    contiguous output): record}."""
     h, scene, field = res.cfg.hash, res.scene, res.field
     d = h.dense_levels * h.features_per_level
     gen = torch.Generator(pts.device).manual_seed(SEED + 10)
@@ -1531,6 +1612,10 @@ def encoder_kernel_checks(res, pts, label, tag):
         tables = [t.detach() for t in tables]
         out[nm] = forward_check(nm, tables, pts, scene, h, matrix=True,
                                 tol=0.0, label=label, tag=tag, plain_reps=3)
+        if contiguous and nm == "cp_forward":
+            out[f"{nm}_contiguous"] = forward_check(
+                nm, tables, pts, scene, h, matrix=False, tol=0.0,
+                label=label, tag=tag, plain_reps=3)
         bw = nm.replace("forward", "backward")
         out[bw] = backward_check(bw, tables, pts, scene, h,
                                  g[:, :d] if bw == "dense_backward"
@@ -1538,10 +1623,71 @@ def encoder_kernel_checks(res, pts, label, tag):
     return out
 
 
-def fine_pass_points(res, data, device):
-    """The second pass's points of one seeded full batch (PROTOCOL_RAYS
-    rays x (64 + 64) samples), ray-major as ``render_rays`` encodes
-    them."""
+def wide_mode_phase(mode: str, data, work: str, device: torch.device,
+                    tag: str):
+    """A few steps of a wide mode through the protocol, then each encoder
+    kernel of the trained model against its plain version on the ladder
+    points of one seeded full batch (PROTOCOL_RAYS rays x 128 samples, the
+    path of those steps): the CP pair at rank 64 (C 384) or on the 12-level
+    ladder (9 CP levels, C 288, and D = 3 dense levels), or the corner hash
+    grid exact.  Returns (records by kernel name, launches in the run, the
+    points, their label)."""
+    _, launches, res = protocol_mode_phase(mode, work, device, tag)
+    pts = pass_points(res, data, device, 0)
+    h = res.cfg.hash
+    check(pts.shape[0] == PROTOCOL_RAYS * 128, (mode, pts.shape))
+    if mode == HASH_MODE:
+        label = (f"ladder points of a {PROTOCOL_RAYS}-ray batch, {mode} "
+                 f"(L {h.num_hashed_levels}, F {h.features_per_level}, T "
+                 f"2^{h.log2_table_size})")
+        gen = torch.Generator(device).manual_seed(SEED + 12)
+        g = torch.randn((pts.shape[0], h.out_dim + 3), generator=gen,
+                        device=device)[:, 3:]
+        fwd, bwd = hash_mode_check(res.field.table.detach(), pts, res.scene,
+                                   h, g, None, f"{mode} path", tag)
+        recs = {"hash_forward": fwd, "hash_backward": bwd}
+    else:
+        label = (f"ladder points of a {PROTOCOL_RAYS}-ray batch, {mode} "
+                 f"({h.num_levels - h.dense_levels} CP levels of rank "
+                 f"{h.cp_rank}, C {(h.num_levels - h.dense_levels) * h.cp_rank}"
+                 f", {h.dense_levels} dense levels)")
+        recs = encoder_kernel_checks(res, pts, label, tag, contiguous=True)
+    del res
+    torch.cuda.empty_cache()
+    return recs, launches, pts.shape[0], label
+
+
+def speedrun_phase(work: str, device: torch.device, tag: str):
+    """``cli/speedrun.py`` with the record's gating, capped at the first
+    guided gate: the JAX record's keys, every gate render finite, the last
+    one guided, the encoder kernels launched."""
+    from human_body_reconstruction_tpu_torch.cli import speedrun
+
+    t0 = time.perf_counter()
+    argv = [*SPEEDRUN_ARGS, "--device", str(device), "--out",
+            f"{work}/speedrun.json"]
+    res, launches = counted(wrappers(*TRAIN_KERNELS),
+                            lambda: speedrun.main(argv, log=lambda s: None))
+    print(f"speedrun ({' '.join(SPEEDRUN_ARGS)}): {res['steps']} steps, "
+          "gates " + ", ".join(
+              f"step {e['steps']} {e['gate']} {e['gate_db']} dB (train "
+              f"{e['train_db']}, exact {e['exact_db']}, wall {e['wall_s']} s)"
+              for e in res["evals"])
+          + f"; crossed {json.dumps(res['crossed'])}; "
+          f"{time.perf_counter() - t0:.1f} s with the ground truth {tag}")
+    print(f"launches in the speedrun: {launches}")
+    check({"target_db", "crossed", "protocol"} <= set(res), sorted(res))
+    check(res["evals"] and all(math.isfinite(e["gate_db"])
+                               for e in res["evals"]), res["evals"])
+    check(res["crossed"] is not None
+          or res["evals"][-1]["gate"] == "guided48", res["evals"])
+    check(all(n > 0 for n in launches.values()), launches)
+
+
+def pass_points(res, data, device, which: int):
+    """The points of pass ``which`` of one seeded full batch (PROTOCOL_RAYS
+    rays; 0: the first pass, 1: a hierarchical mode's second pass of 64 +
+    64 samples), ray-major as ``render_rays`` encodes them."""
     from human_body_reconstruction_tpu_torch.models import nerf
 
     gen = torch.Generator(device).manual_seed(SEED + 11)
@@ -1551,7 +1697,7 @@ def fine_pass_points(res, data, device):
             res.field, res.scene, *batch[:3], res.cfg, occ=res.occ,
             compute_dtype=torch.bfloat16, jitter=True, generator=gen,
             draws=draws, placement=placement))
-    return pts[1]
+    return pts[which]
 
 
 def continuation_phase(data, device, tag):
@@ -2414,7 +2560,7 @@ def main() -> int:
         "uniform_bits", "human_body_reconstruction_tpu_torch/csrc/rng.cu",
         "human_body_reconstruction_tpu/ops/pallas_rng.py:30",
         hash_launches["uniform_bits"], *hash_report["uniform_bits"]))
-    hash_src = "human_body_reconstruction_tpu_torch/csrc/hash.cu"
+    hash_src = HASH_SOURCE
     shapes = {"train_path": f"{HASH_POINTS} points of a hash-grid training "
                             "step's ray batch, stochastic; launches in the "
                             "timed hash training steps",
@@ -2481,7 +2627,7 @@ def main() -> int:
         row, launches, res = protocol_mode_phase(mode, work.name, device, tag)
         pts = mode_step_on_card_vs_cpu(mode, res, data, device, rays, tag)
         if mode == HIER_MODE:
-            pts = [fine_pass_points(res, data, device)]
+            pts = [pass_points(res, data, device, 1)]
         check(pts[-1].shape[0] == {SDF_MODE: 16384 * 6,
                                    HIER_MODE: PROTOCOL_RAYS * 128}[mode],
               (mode, pts[-1].shape))
@@ -2499,6 +2645,12 @@ def main() -> int:
     image_recs, image_launches = image_fit_phase(work.name, device, tag)
     vanilla_phase(work.name, device, tag)
     plot_grads_phase(work.name, device, tag)
+    # the held-back tangle, the wide CP ladders and the corner hash grid
+    # through the protocol, and the time-to-target run
+    quality_phase(work.name, device, tag, scene="tangle")
+    wide_rows = {mode: wide_mode_phase(mode, data, work.name, device, tag)
+                 for mode in (*WIDE_MODES, HASH_MODE)}
+    speedrun_phase(work.name, device, tag)
     work.cleanup()
     for key, (rec, launches, R) in sweep.items():
         nm = key.split("/")[0]
@@ -2541,6 +2693,22 @@ def main() -> int:
             "library: " + ("embedding_bag given rows and weights"
                            if nm == "hash_forward"
                            else "index_add_ given rows and terms")))
+    short = {WIDE_MODES[0]: "r64", WIDE_MODES[1]: "l12", HASH_MODE: "exact"}
+    for mode, (recs, launches, n, label) in wide_rows.items():
+        for key, rec in recs.items():
+            nm = key.removesuffix("_contiguous")
+            where = ("its own contiguous output" if key != nm else
+                     "the encoder's matrix" if nm.endswith("forward") else
+                     "from a seeded cotangent")
+            axis = nm == "cp_forward" and mode == WIDE_MODES[1]
+            report.append(entry(
+                f"{nm}/{short[mode]}_path" + ("_contiguous" if key != nm
+                                              else ""),
+                HASH_SOURCE if nm.startswith("hash") else SOURCE,
+                REPLACES["cp_forward_axis" if axis else nm], launches[nm],
+                *rec,
+                f"{n} {label}, {where}; launches in its "
+                f"{MODE_STEPS[mode]}-step protocol run"))
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

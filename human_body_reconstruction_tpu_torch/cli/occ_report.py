@@ -15,12 +15,13 @@ refresh lies between the two.
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.occ_report \\
           --run_dir results/quality_holdout_textured_<mode>_seed0 \\
-          --scene textured
+          --scene textured      (the tangle: --scene tangle --scene_seed N)
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 
 import torch
@@ -122,8 +123,11 @@ def report(args) -> dict:
     in_box = ((pts >= scene["min_bound"])
               & (pts <= scene["max_bound"])).all(-1)
     vis = seen(pts, K, poses, H, H, r.near, r.far)
-    subject = on_subject(pts, getattr(synthetic, qh.SCENES[args.scene]),
-                         0.5 * scene["sigma"] / g, float(grid.threshold))
+    field_fn = getattr(synthetic, qh.SCENES[args.scene])
+    if args.scene == "tangle":
+        field_fn = functools.partial(field_fn, seed=args.scene_seed)
+    subject = on_subject(pts, field_fn, 0.5 * scene["sigma"] / g,
+                         float(grid.threshold))
     n = occ.numel()
     split = {
         "outside_box": occ & ~in_box,
@@ -135,7 +139,9 @@ def report(args) -> dict:
     largest, smallest, twice = refresh_bracket(
         grid, res.field, scene, res.cfg, qh.refresh_cells(grid), gen)
     out = {
-        "run_dir": args.run_dir, "scene": args.scene, "cells": n,
+        "run_dir": args.run_dir, "scene": args.scene,
+        "scene_seed": args.scene_seed if args.scene == "tangle" else None,
+        "cells": n,
         "occ_frac": round(float(occ.float().mean()), 6),
         "of_grid": {k: round(float(v.sum()) / n, 6) for k, v in split.items()},
         "in_box": round(float(in_box.float().mean()), 6),
@@ -160,7 +166,9 @@ def build_parser():
     p.add_argument("--mode", type=str, default=qh.DEFAULT_MODE,
                    help="the model name in the run directory")
     p.add_argument("--scene", type=str, default="textured",
-                   choices=["textured", "humanoid"])
+                   choices=sorted(qh.SCENES))
+    p.add_argument("--scene_seed", type=int, default=0,
+                   help="seed of the held-back 'tangle' family")
     p.add_argument("--height", type=int, default=400)
     p.add_argument("--views", type=int, default=20)
     p.add_argument("--seed", type=int, default=0,

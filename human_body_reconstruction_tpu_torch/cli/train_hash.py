@@ -21,8 +21,9 @@ batch, ``--display`` writes every eval render to ``<model>_preview.png``
 too (and shows it where cv2 and a display exist).  What the port does not
 run yet is refused with a message: the ``cell`` variant, packed/int8
 gathers and the gradient subsampling and scatter options, data/level
-parallelism, fused multi-step dispatches, the compiled-executable cache
-and the tangle synthetic subject (``data/synthetic.TANGLE_REFUSAL``).
+parallelism, fused multi-step dispatches and the compiled-executable
+cache.  ``--synthetic_subject tangle`` is the held-back scene, its
+capsules and texture drawn from ``--seed``.
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.train_hash \\
           --synthetic --synthetic_subject textured --stochastic --hw_rng
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 
 
@@ -449,7 +451,16 @@ def load_dataset(args, device):
                 far=args.far, field=synthetic.humanoid_field, radius=3.0,
                 elevation=0.1, device=device), None
         if args.synthetic_subject == "tangle":
-            raise SystemExit(synthetic.TANGLE_REFUSAL)
+            # the held-back family: the textured scene's regime, its
+            # geometry and texture drawn from --seed (seeds >= 100 are the
+            # held-back evaluations)
+            return synthetic.make_dataset(
+                n_views=20, H=400, W=400, focal=440.0, near=args.near,
+                far=args.far,
+                field=functools.partial(synthetic.tangle_field,
+                                        seed=args.seed),
+                radius=4.0, elevation=0.35, gt_samples=384,
+                device=device), None
     data_path = args.data_path or "data/lego/"
     json_path = os.path.join(data_path, "transforms_train.json")
     if not os.path.exists(json_path):

@@ -120,15 +120,23 @@ def batch_loss(model, ds, img_idx, pix, args, *, t=None, generator=None):
     return torch.mean((color - gt) ** 2)
 
 
-def train_step(model, opt, lr: float, ds, args, generator):
+def train_step(model, opt, lr: float, ds, args, generator, draws=None):
     """One update at learning rate ``lr`` on a random training image's
-    random pixels; returns the loss (detached)."""
+    random pixels; ``draws`` (image index (0-d), flat pixel indices (B,),
+    sample depths t (B, S)) replace the random draws.  Returns the loss
+    (detached)."""
     dev = ds["images"].device
-    n_train = ds["images"].shape[0] - 1
-    img_idx = torch.randint(0, n_train, (), generator=generator, device=dev)
-    pix = torch.randint(0, ds["H"] * ds["W"], (args.batch,),
-                        generator=generator, device=dev)
-    loss = batch_loss(model, ds, img_idx, pix, args, generator=generator)
+    if draws is None:
+        n_train = ds["images"].shape[0] - 1
+        img_idx = torch.randint(0, n_train, (), generator=generator,
+                                device=dev)
+        pix = torch.randint(0, ds["H"] * ds["W"], (args.batch,),
+                            generator=generator, device=dev)
+        t = None
+    else:
+        img_idx, pix, t = draws
+    loss = batch_loss(model, ds, img_idx, pix, args, t=t,
+                      generator=generator)
     opt.zero_grad(set_to_none=True)
     loss.backward()
     for group in opt.param_groups:

@@ -4,11 +4,13 @@ Pose helpers (numpy), the analytic emissive volumes ``blob_field`` (smooth,
 for small tests), ``textured_field`` (the hard scene of the zero-flag
 trainer: a thin shell, three rods and a core under a 3-octave albedo),
 ``humanoid_field`` (a standing figure of capsules),
-``textured_humanoid_field`` (the figure under the same albedo) and
-``sphere_field`` (one solid sphere, the SDF subject), and their
-ground-truth renders through the same compositing as the model.  The card's
-machine has no JAX, so the port renders its own ground truth.  The tangle
-subject is not ported (``TANGLE_REFUSAL``).
+``textured_humanoid_field`` (the figure under the same albedo),
+``tangle_field`` (the held-back family: seeded random capsules under a
+seeded texture) and ``sphere_field`` (one solid sphere, the SDF subject),
+and their ground-truth renders through the same compositing as the model.
+The card's machine has no JAX, so the port renders its own ground truth;
+the tangle's capsules and texture come from the JAX PRNG's draws, which
+``utils/jax_prng.py`` reproduces in numpy.
 """
 
 from __future__ import annotations
@@ -70,11 +72,6 @@ def sphere_field(pts, radius: float = 0.6):
     rgb = torch.stack([0.75 + 0.2 * pts[:, 0], 0.45 + 0.2 * pts[:, 1],
                        0.35 + 0.2 * pts[:, 2]], dim=-1)
     return torch.clamp(rgb, 0.0, 1.0), sigma
-
-
-TANGLE_REFUSAL = ("the tangle scene is not ported: its capsules and texture "
-                  "are drawn from the JAX PRNG, which torch cannot "
-                  "reproduce (textured and humanoid scenes are)")
 
 
 def _capsule_dist(pts, a, b, r):
@@ -156,6 +153,66 @@ def textured_field(pts):
     core = torch.sigmoid(-sharp * (r - 0.18))
     sigma = 120.0 * shell + 90.0 * torch.clamp(rods, 0.0, 1.0) + 90.0 * core
     return _albedo(pts), sigma
+
+
+# the tangle's per-channel octave frequency multipliers
+_TANGLE_OCTAVES = np.array([[1.0, 2.3], [1.7, 3.1], [1.3, 2.7]], np.float32)
+
+
+def tangle_params(seed: int = 0, n_capsules: int = 14, freq: float = 24.0):
+    """The tangle's parameters as JAX draws them from ``PRNGKey(seed)``,
+    numpy float32: capsule ends a, b (C, 3) and radii (C,); texture
+    frequencies f, phases ph and axis stretches sx, (3, 2) each.  The key
+    splits into five; the direction's key draws twice (a normal, then the
+    length's uniform) and so does the phase's (ph, then sx)."""
+    from human_body_reconstruction_tpu_torch.utils import jax_prng
+
+    f32 = np.float32
+    ka, kb, kr, kf, kp = jax_prng.split(jax_prng.prng_key(seed), 5)
+    a = jax_prng.uniform(ka, (n_capsules, 3), -0.55, 0.55)
+    step = jax_prng.normal(kb, (n_capsules, 3))
+    norm = np.sqrt(np.sum(step * step, axis=-1, keepdims=True))
+    step = step / (norm + f32(1e-9))
+    ln = jax_prng.uniform(kb, (n_capsules, 1), 0.3, 0.8)
+    b = np.clip(a + step * ln, f32(-0.8), f32(0.8))
+    radii = jax_prng.uniform(kr, (n_capsules,), 0.03, 0.07)
+    f = jax_prng.uniform(kf, (3, 2), 0.8, 1.4) * f32(freq) * _TANGLE_OCTAVES
+    ph = jax_prng.uniform(kp, (3, 2), 0.0, 6.28)
+    sx = jax_prng.uniform(kp, (3, 2), 0.8, 1.5)
+    return {"a": a, "b": b, "radii": radii, "f": f, "ph": ph, "sx": sx}
+
+
+def tangle_field(pts, seed: int = 0, n_capsules: int = 14,
+                 freq: float = 24.0):
+    """The held-back scene family: ``n_capsules`` thin capsules (radii
+    0.03-0.07) at seeded places inside the ~0.85 ball, each a smooth
+    density step of sharpness 200 at its surface, under a seeded 2-octave
+    texture per channel (``tangle_params``).  Seeds of 100 and up are the
+    held-back evaluations.  The (N, C, 3) intermediates are about 1 GB for
+    a 16384-ray chunk of 384 samples, so callers chunk (``render_gt_image``
+    does).  Returns (rgb (N, 3), sigma (N,))."""
+    p = {k: torch.as_tensor(v, device=pts.device)
+         for k, v in tangle_params(seed, n_capsules, freq).items()}
+    a, ab = p["a"], p["b"] - p["a"]                                # (C, 3)
+    t = torch.clamp((pts @ ab.T - torch.sum(a * ab, dim=-1)[None, :])
+                    / (torch.sum(ab * ab, dim=-1)[None, :] + 1e-9),
+                    0.0, 1.0)                                      # (N, C)
+    closest = a[None, :, :] + t[..., None] * ab[None, :, :]        # (N, C, 3)
+    dists = (torch.linalg.vector_norm(pts[:, None, :] - closest, dim=-1)
+             - p["radii"][None, :])                                # (N, C)
+    sigma = torch.sum(90.0 * torch.sigmoid(-200.0 * dists), dim=-1)
+
+    def octave(fr, phase, s):
+        return (torch.sin(fr * pts[:, 0] + phase)
+                * torch.sin(fr * 1.31 * s * pts[:, 1] + 2.1 * phase)
+                * torch.sin(fr * 0.87 * s * pts[:, 2] + 0.7 * phase))
+
+    f, ph, sx = p["f"], p["ph"], p["sx"]
+    rgb = torch.stack([0.5 + 0.33 * (octave(f[c, 0], ph[c, 0], sx[c, 0])
+                                     + 0.5 * octave(f[c, 1], ph[c, 1],
+                                                    sx[c, 1]))
+                       for c in range(3)], dim=-1)
+    return torch.clamp(rgb, 0.0, 1.0), sigma
 
 
 @torch.no_grad()

@@ -10,9 +10,12 @@ has the kernel wrappers write their column blocks of one (N, out_dim)
 feature matrix, and its backward hands the matching column blocks of the
 incoming gradient to the backward kernel wrappers.  The wrappers run the
 plain versions for tensors on the CPU and launch the CUDA kernels for
-tensors on a CUDA device.  The forward saves only the points, the scene
-normalisation, the tables and, in stochastic mode, the picked corners'
-offset bits, uint8 (L, N), which the hash forward writes beside its
+tensors on a CUDA device.  A config that names the JAX XLA encoders
+(``cp_impl``/``dense_impl`` "xla") runs those levels in plain PyTorch with
+the XLA path's roundings instead (ops/xla_encoders.py) on either device;
+"auto" and "pallas" take the kernels.  The forward saves only the points,
+the scene normalisation, the tables and, in stochastic mode, the picked
+corners' offset bits, uint8 (L, N), which the hash forward writes beside its
 features; the uniforms are not kept (197 MB against the bits' 16 MB at the
 hash path's 1,024,000 points).  The backward recomputes the per-axis lerps
 and the cells instead of keeping them (the (3, N, C) CP products are 1.15
@@ -35,7 +38,7 @@ from typing import Optional
 import torch
 
 from human_body_reconstruction_tpu_torch.ops import (
-    cp_kernel, dense_kernel, hash_kernel, rng_kernel)
+    cp_kernel, dense_kernel, hash_kernel, rng_kernel, xla_encoders)
 from human_body_reconstruction_tpu_torch.utils.config import HashConfig
 
 _UNPORTED_FLAGS = (
@@ -115,10 +118,16 @@ class _Encode(torch.autograd.Function):
             width = 0
         out = torch.empty((x.shape[0], d_dense + width), dtype=torch.float32,
                           device=x.device)
-        if grids:
+        if grids and cfg.dense_impl == "xla":
+            out[:, :d_dense] = xla_encoders.dense_encode_xla(
+                grids, x, mu, sigma, cfg)
+        elif grids:
             dense_kernel.dense_encode_kernel(grids, x, mu, sigma, cfg,
                                              out=out[:, :d_dense])
-        if lines:
+        if lines and cfg.cp_impl == "xla":
+            out[:, d_dense:] = xla_encoders.cp_encode_xla(lines, x, mu, sigma,
+                                                          cfg)
+        elif lines:
             cp_kernel.cp_encode_kernel(lines, x, mu, sigma, cfg,
                                        out=out[:, d_dense:])
         bits = None
@@ -144,11 +153,15 @@ class _Encode(torch.autograd.Function):
         g_grids = [None] * len(grids)
         g_rest = [None] * (len(lines) + len(table))
         if grids and any(need[:n_dense]):
-            g_grids = dense_kernel.dense_encode_backward_kernel(
-                grids, x, mu, sigma, cfg, grad[:, :d_dense])
+            dense_bwd = (xla_encoders.dense_encode_xla_backward
+                         if cfg.dense_impl == "xla"
+                         else dense_kernel.dense_encode_backward_kernel)
+            g_grids = dense_bwd(grids, x, mu, sigma, cfg, grad[:, :d_dense])
         if lines and any(need[n_dense:]):
-            g_rest = cp_kernel.cp_encode_backward_kernel(
-                lines, x, mu, sigma, cfg, grad[:, d_dense:])
+            cp_bwd = (xla_encoders.cp_encode_xla_backward
+                      if cfg.cp_impl == "xla"
+                      else cp_kernel.cp_encode_backward_kernel)
+            g_rest = cp_bwd(lines, x, mu, sigma, cfg, grad[:, d_dense:])
         if table and need[-1]:
             g_rest = [hash_kernel.hash_encode_backward_kernel(
                 table[0], x, mu, sigma, cfg, grad[:, d_dense:], bits)]

@@ -274,7 +274,7 @@ def test_pose_math_is_a_copy():
 
 def test_quality_constants_match_jax():
     """The holdout eyes, their names and the scenes of
-    scripts/quality_matrix.py (tangle is not ported)."""
+    scripts/quality_matrix.py, the held-back tangle's included."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -283,8 +283,8 @@ def test_quality_constants_match_jax():
     spec.loader.exec_module(qm)
     assert quality_holdout.HOLDOUT_EYES == qm.HOLDOUT_EYES
     assert quality_holdout.HOLDOUT_NAMES == qm.HOLDOUT_NAMES
-    assert quality_holdout.SCENES == {k: v for k, v in qm.SCENES.items()
-                                      if k != "tangle"}
+    assert quality_holdout.SCENES == qm.SCENES
+    assert quality_holdout.SCENES["tangle"] == "tangle_field"
 
 
 @pytest.mark.parametrize("cli", ["render", "nerf2mesh", "colmap2nerf",

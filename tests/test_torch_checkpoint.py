@@ -34,6 +34,7 @@ from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt
 from human_body_reconstruction_tpu_torch.train import state
 from human_body_reconstruction_tpu_torch.train import trainer as trainer_lib
 from human_body_reconstruction_tpu_torch.utils import config as C
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOTAL = 20
 

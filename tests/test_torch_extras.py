@@ -51,6 +51,7 @@ from human_body_reconstruction_tpu_torch.utils import jax_prng
 from human_body_reconstruction_tpu_torch.utils import observability as obs
 from test_torch_train import (B, HI, LO, dataset, jax_batch, jax_params,
                               small_cfg)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL_NERF = dict(d_input=12, n_layers=4, d_filter=32, skip=(2,))
 
@@ -327,6 +328,67 @@ def test_vanilla_step_matches_jax():
     for a, b in zip(ckpt.tree_leaves(mlp.to_jax_tree(model)),
                     jax.tree_util.tree_leaves(ref)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=1e-5)
+
+
+# Twenty steps of the vanilla trainer against JAX's loop (4 views of 8x8, 64
+# pixels, 8 samples, 2 frequencies, the 4x32 ClassicNeRF from the JAX init,
+# Adam on the cosine schedule of a 20-step horizon): the port's train_step
+# handed the image index, pixels and sample depths that JAX's CLI draws from
+# its keys at each step.  Measured over 40 such steps: the losses 1.2e-4
+# apart at worst (relative), with no drift; so a longer run's different
+# ending comes from the draws, not from the step.  Tolerance: rel 5e-4 per
+# step, and the final parameters within 1e-3 of their norm.
+VANILLA_STEPS, VANILLA_LOSS_RTOL = 20, 5e-4
+
+
+def test_vanilla_twenty_steps_match_jax_with_its_draws():
+    args = _vanilla_args("--num_iters", str(VANILLA_STEPS))
+    images, c2ws, K = dataset(n=4)
+    H = W = 8
+    cfg, jcfg = _classic_cfgs(True)
+    params = jmlp.init_classic_nerf(jax.random.PRNGKey(0), jcfg)
+    tx = optax.adam(jstate.cosine_to_floor(args.lr, args.lr_final,
+                                           args.num_iters))
+    opt_state = tx.init(params)
+
+    @jax.jit
+    def jax_step(params, opt_state, img_idx, pix, t):
+        o, d, n = jrays.rays_for_pixels(
+            (pix % W).astype(jnp.float32), (pix // W).astype(jnp.float32),
+            jnp.asarray(K), jnp.asarray(c2ws)[img_idx])
+        gt = jnp.asarray(images)[img_idx, pix // W, pix % W]
+        loss, g = jax.value_and_grad(lambda p: jnp.mean(
+            (_jax_render(p, o, d, n, t, args, jcfg) - gt) ** 2))(params)
+        updates, opt_state = tx.update(g, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss
+
+    ds = {"images": torch.tensor(images), "c2ws": torch.tensor(c2ws),
+          "K": torch.tensor(K), "H": H, "W": W}
+    model = mlp.classic_nerf_from_jax(
+        mlp.init_classic_nerf(jax_prng.prng_key(0), cfg), cfg)
+    opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+    sched = state.cosine_to_floor(args.lr, args.lr_final, args.num_iters)
+    key, n_train = jax.random.PRNGKey(0), images.shape[0] - 1
+    for it in range(VANILLA_STEPS):
+        # the JAX CLI's draws: the image from k, then the pixels and the
+        # jittered depths from split(k)
+        key, k = jax.random.split(key)
+        img_idx = jax.random.randint(k, (), 0, n_train)
+        k1, k2 = jax.random.split(k)
+        pix = jax.random.randint(k1, (args.batch,), 0, H * W)
+        t = jsampling.stratified_ts(k2, (args.batch,), args.near, args.far,
+                                    args.num_samples)
+        params, opt_state, loss_j = jax_step(params, opt_state, img_idx, pix,
+                                             t)
+        loss = train_vanilla.train_step(
+            model, opt, sched(it), ds, args, None,
+            draws=tuple(torch.tensor(np.asarray(a))
+                        for a in (img_idx, pix, t)))
+        assert float(loss) == pytest.approx(float(loss_j),
+                                            rel=VANILLA_LOSS_RTOL), it
+    for a, b in zip(ckpt.tree_leaves(mlp.to_jax_tree(model)),
+                    jax.tree_util.tree_leaves(params)):
+        assert rel_norm(a, b) <= 1e-3
 
 
 def test_sphere_field_matches_jax():

@@ -37,6 +37,7 @@ from human_body_reconstruction_tpu_torch.pipeline import restore
 from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt
 from human_body_reconstruction_tpu_torch.train import step
 from human_body_reconstruction_tpu_torch.utils import config as C
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 600
 MU = np.array([-1.0, -2.0, -0.5], np.float32)

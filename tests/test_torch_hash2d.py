@@ -31,6 +31,7 @@ from human_body_reconstruction_tpu_torch.cli import image_fit
 from human_body_reconstruction_tpu_torch.data import png
 from human_body_reconstruction_tpu_torch.ops import hash_encoding, hash_kernel
 from human_body_reconstruction_tpu_torch.utils import config as C
+from torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(num_levels=4, features_per_level=2, log2_table_size=10, n_min=16,
           n_max=2 ** 16, dim=2)

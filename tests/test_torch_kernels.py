@@ -32,6 +32,7 @@ from human_body_reconstruction_tpu_torch.ops import (
     cp_kernel, cuda_lib, dense_grid, dense_kernel, hash_encoding, hash_kernel,
     lowrank, rng_kernel)
 from human_body_reconstruction_tpu_torch.utils import config as C
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 

@@ -29,9 +29,10 @@ from human_body_reconstruction_tpu.utils import config as jC
 from human_body_reconstruction_tpu_torch.cli import quality_holdout as qh
 from human_body_reconstruction_tpu_torch.cli import train_hash
 from human_body_reconstruction_tpu_torch.data import synthetic
-from human_body_reconstruction_tpu_torch.ops import occupancy
+from human_body_reconstruction_tpu_torch.ops import hash_encoding, occupancy
 from human_body_reconstruction_tpu_torch.pipeline import restore
 from human_body_reconstruction_tpu_torch.train import step
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_ROW_KEYS = {"mode", "steps", "rays_per_sec", "train_psnr",
@@ -68,7 +69,7 @@ def test_scene_fields_match_jax(name):
                                atol=1e-5)
 
 
-def jax_protocol(scene, H, views):
+def jax_protocol(scene, H, views, seed=0):
     """The JAX ``load_or_render_gt`` at a small size, its /tmp cache neither
     read nor written."""
     exists = os.path.exists
@@ -76,15 +77,19 @@ def jax_protocol(scene, H, views):
         mp.setattr(os.path, "exists",
                    lambda p: False if "qm_gt_" in str(p) else exists(p))
         mp.setattr(np, "savez_compressed", lambda *a, **k: None)
-        return QM.load_or_render_gt(H, H, views, scene=scene)
+        return QM.load_or_render_gt(H, H, views, scene=scene, seed=seed)
 
 
-@pytest.mark.parametrize("scene", ["textured", "humanoid"])
+@pytest.mark.parametrize("scene", ["textured", "humanoid", "tangle101"])
 def test_ground_truth_matches_jax(scene):
-    """The protocol's K, pose split and 384-sample renders of every view."""
+    """The protocol's K, pose split and 384-sample renders of every view;
+    the tangle drawn from scene seed 101."""
     H, views = 10, 3
-    K, train, hold, train_imgs, hold_imgs = jax_protocol(scene, H, views)
-    data = qh.protocol_data(H, H, views, scene, "cpu")
+    seed = 101 if scene == "tangle101" else 0
+    scene = scene.removesuffix("101")
+    K, train, hold, train_imgs, hold_imgs = jax_protocol(scene, H, views,
+                                                         seed)
+    data = qh.protocol_data(H, H, views, scene, "cpu", scene_seed=seed)
     np.testing.assert_array_equal(data["K"].numpy(), np.asarray(K))
     np.testing.assert_array_equal(data["train_poses"].numpy(), train)
     np.testing.assert_array_equal(data["hold_poses"].numpy(), hold)
@@ -110,7 +115,8 @@ def test_holdout_pose_split_matches_jax():
 @pytest.mark.parametrize("name", sorted(qh.make_modes()))
 def test_mode_configs_match_make_modes(name):
     """The port's mode config equals the JAX ``make_modes`` entry once both
-    take the protocol's batch."""
+    take the protocol's batch, and its encoder is one the port runs: dense
+    coarse levels then CP lines, or the corner hash grid alone."""
     ref = QM.make_modes(jC, jdense)[name]
     port = qh.make_modes()[name]
 
@@ -119,10 +125,44 @@ def test_mode_configs_match_make_modes(name):
             cfg.train, ray_batch=16384))
 
     assert dataclasses.asdict(batch(port)) == dataclasses.asdict(batch(ref))
-    # 2 dense levels of 2 features, then 5 CP levels of rank 25 (n1448) or
-    # 6 of rank 21
-    assert port.hash.dense_levels == 2
-    assert port.hash.out_dim == (129 if "n1448" in name else 130)
+    assert hash_encoding.unported(port.hash) is None
+    h = port.hash
+    if h.variant == "cp":
+        assert h.dense_levels in (2, 3) and h.out_dim == (
+            h.dense_levels * 2 + (h.num_levels - h.dense_levels) * h.cp_rank)
+    else:
+        assert (h.variant, h.dense_levels, h.out_dim) == ("corner", 0, 32)
+
+
+# the modes of the JAX make_modes that the port leaves out: the cell
+# variant and the packed bf16/int8 hash grids
+REFUSED_MODES = {"cell", "packed", "packed_gsub", "packed_compact",
+                 "packed_guided", "packed_dense", "int8_dense",
+                 "int8_dense_guided", "int8_dense_guided_lvl",
+                 "int8_dense_guided_k32", "int8_dense_guided_k24",
+                 "int8_dense_guided_k16", "int8_dense_guided_k32_p128",
+                 "int8_dense_guided_k32_mass",
+                 "int8_dense_guided_k32_mass_lpair",
+                 "int8_dense_guided_k32_mass_g256"}
+
+
+def test_all_modes_are_jax_make_modes():
+    """``all_modes`` is the JAX ``make_modes``, name for name in its order
+    and config for config; 44 run and the 16 others are refused with
+    ``unported``'s reason."""
+    ref = QM.make_modes(jC, jdense)
+    port = qh.all_modes()
+    assert list(port) == list(ref) and len(port) == 60
+    for name in ref:
+        assert dataclasses.asdict(port[name]) == dataclasses.asdict(
+            ref[name]), name
+    refused = qh.refused_modes()
+    assert set(refused) == REFUSED_MODES
+    assert set(qh.make_modes()) == set(ref) - REFUSED_MODES
+    assert len(qh.make_modes()) == 44
+    for name, why in refused.items():
+        assert why == hash_encoding.unported(port[name].hash), name
+    assert "cell" in refused["cell"] and "packed" in refused["int8_dense"]
 
 
 def record_jax_loop(max_steps, monkeypatch):
@@ -261,20 +301,64 @@ def test_quality_holdout_sdf_and_hierarchical_modes_run(mode, tmp_path):
         assert row["eikonal"] > 0 and row["var_b"] != 0.5
 
 
+@pytest.mark.parametrize("mode,scene", [
+    ("cp_r21_guided_k32_p32_tv1e2_strat", "tangle"),
+    ("exact", "textured"), ("stochastic", "textured"),
+    ("cp_l12_r32_guided_k48_mass", "textured"),
+    ("cp_r21_sdf_plain", "textured")],
+    ids=["tangle", "exact", "stochastic", "cp_l12", "sdf_full_eikonal"])
+def test_quality_holdout_more_modes_run(mode, scene, tmp_path, monkeypatch):
+    """A 4-step protocol run of the held-back scene (scene seed 101), the
+    corner hash grid exact and single-corner, the 12-level ladder (3 dense,
+    9 CP levels) and an SDF mode whose eikonal term covers every sample
+    (``eikonal_subsample`` 0): the JAX keys, finite holdout PSNRs, and the
+    eikonal term's points are all of the pass's samples."""
+    from human_body_reconstruction_tpu_torch.models import nerf
+
+    calls = []
+    fd = nerf.sdf_finite_difference_normals
+    monkeypatch.setattr(nerf, "sdf_finite_difference_normals",
+                        lambda f, s, pts, *a, **k: (calls.append(
+                            pts.shape[0]), fd(f, s, pts, *a, **k))[1])
+    row = qh.main(["--mode", mode, "--scene", scene, "--scene_seed", "101",
+                   "--height", "12", "--views", "2", "--batch", "16",
+                   "--steps", "4", "--device", "cpu",
+                   "--out", str(tmp_path / "q.json")], log=lambda s: None)
+    cfg = qh.make_modes()[mode]
+    assert set(row) == (JAX_ROW_KEYS - {"occ_frac"}) | {"seed", "card"} | (
+        {"eikonal", "var_b"} if cfg.render.use_sdf else set()) | (
+        {"scene_seed"} if scene == "tangle" else set())
+    assert row["steps"] == 4 and row["scene"] == scene
+    assert all(np.isfinite(v) for v in row["holdout_per_pose"].values())
+    if scene == "tangle":
+        assert row["scene_seed"] == 101
+    if cfg.render.use_sdf:
+        assert cfg.train.eikonal_subsample == 0
+        # training steps: every sample of the 16-ray batch
+        assert calls[:4] == [16 * cfg.render.num_samples] * 4
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--scene", "tangle"], "tangle scene is not ported"),
-    (["--mode", "int8_dense_guided"], "not ported"),
-    (["--mode", "exact"], "not ported"),
-], ids=["tangle", "int8", "hash_exact"])
+    (["--mode", "cell", "--scene", "tangle"], "'cell' is not ported"),
+    (["--mode", "int8_dense_guided"], "packed bf16/int8 gathers"),
+    (["--mode", "packed_dense"], "packed bf16/int8 gathers"),
+    (["--mode", "int8_dense_guided_k32_mass_lpair"], "packed bf16/int8"),
+    (["--mode", "no_such_mode"], "unknown mode"),
+], ids=["tangle", "int8", "hash_exact", "int8_lpair", "unknown"])
 def test_quality_holdout_refusals(argv, match):
-    assert argv[1] == "tangle" or argv[1] in QM.make_modes(jC, jdense)
+    """The modes left out are refused by name with the encoder's reason, on
+    any scene (the tangle's included); ``hash_exact``: the exact corner
+    hash grid runs, its packed variant is refused."""
+    assert argv[1] == "no_such_mode" or argv[1] in QM.make_modes(jC, jdense)
+    assert "exact" in qh.make_modes() and "stochastic" in qh.make_modes()
     with pytest.raises(SystemExit, match=match):
         qh.main(argv + ["--device", "cpu"])
 
 
 def test_synthetic_subjects_match_jax(monkeypatch):
-    """``--synthetic_subject human`` builds the JAX trainer's dataset (the
-    same make_dataset arguments, the humanoid field); tangle is refused."""
+    """``--synthetic_subject human`` and ``tangle`` build the JAX trainer's
+    datasets (the same make_dataset arguments; the humanoid field, the
+    tangle field seeded with ``--seed``)."""
     calls = {}
 
     def capture(tag):
@@ -293,18 +377,22 @@ def test_synthetic_subjects_match_jax(monkeypatch):
     assert port.pop("field") is synthetic.humanoid_field
     assert ref.pop("field") is jsyn.humanoid_field
     assert port == ref
-    with pytest.raises(SystemExit, match="tangle scene is not ported"):
-        train_hash.load_dataset(train_hash.build_parser().parse_args(
-            ["--synthetic", "--synthetic_subject", "tangle"]), "cpu")
+    argv = ["--synthetic", "--synthetic_subject", "tangle", "--seed", "101"]
+    train_hash.load_dataset(train_hash.build_parser().parse_args(argv), "cpu")
+    jcli.load_dataset(jcli.build_parser().parse_args(argv))
+    port, ref = calls["port"], calls["jax"]
+    assert port.pop("device") == "cpu"
+    pf, rf = port.pop("field"), ref.pop("field")
+    assert (pf.func, pf.args, pf.keywords) == (synthetic.tangle_field, (),
+                                               {"seed": 101})
+    assert (rf.func, rf.args, rf.keywords) == (jsyn.tangle_field, (),
+                                               {"seed": 101})
+    assert port == ref
 
 
-def test_occ_report_splits_the_occupied_cells(tmp_path):
-    """cli/occ_report.py on a saved run directory (a narrow CP model and a
-    32^3 grid, half its cells occupied): the four parts add up to the
-    occupied fraction, a refresh keeping the largest candidate occupies at
-    least as many cells as one keeping the smallest, and a point on a
-    training camera's axis is seen between near and far only."""
-    from human_body_reconstruction_tpu_torch.cli import occ_report
+def occ_run_dir(tmp_path, H=16, views=2):
+    """A saved run directory of a narrow CP model and a 32^3 grid, half its
+    cells occupied: (run dir, mask, K, training poses)."""
     from human_body_reconstruction_tpu_torch.models.nerf import Field
     from human_body_reconstruction_tpu_torch.ops import rays
     from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt
@@ -319,7 +407,6 @@ def test_occ_report_splits_the_occupied_cells(tmp_path):
     density = np.where(mask > 0, 1.0, 1e-3).astype(np.float32)
     grid = occupancy.OccupancyGrid(torch.tensor(density), torch.tensor(mask),
                                    torch.tensor(0.01))
-    H, views = 16, 2
     K = torch.tensor([[1.1 * H, 0, H / 2], [0, 1.1 * H, H / 2], [0, 0, 1.0]])
     poses = torch.tensor(qh.protocol_poses(views)[0])
     lo, hi = rays.scene_bounds(H, H, K, poses, 2.0, 6.0)
@@ -329,7 +416,19 @@ def test_occ_report_splits_the_occupied_cells(tmp_path):
                      extra=ckpt.occ_extras(grid))
     C.to_json(cfg, str(run / f"{qh.DEFAULT_MODE}_config.json"))
     ckpt.save_bounds(str(run / "bounds_model.npy"), lo.numpy(), hi.numpy())
+    return run, mask, K, poses
 
+
+def test_occ_report_splits_the_occupied_cells(tmp_path):
+    """cli/occ_report.py on a saved run directory (a narrow CP model and a
+    32^3 grid, half its cells occupied): the four parts add up to the
+    occupied fraction, a refresh keeping the largest candidate occupies at
+    least as many cells as one keeping the smallest, and a point on a
+    training camera's axis is seen between near and far only."""
+    from human_body_reconstruction_tpu_torch.cli import occ_report
+
+    H, views = 16, 2
+    run, mask, K, poses = occ_run_dir(tmp_path, H, views)
     out = occ_report.main(["--run_dir", str(run), "--height", str(H),
                            "--views", str(views), "--device", "cpu"])
     assert out["cells"] == 32 ** 3
@@ -345,3 +444,28 @@ def test_occ_report_splits_the_occupied_cells(tmp_path):
     pts = c2w[:3, 3] + torch.stack([axis * t for t in (1.0, 3.0, 7.0, -3.0)])
     assert occ_report.seen(pts, K, poses[:1], H, H, 2.0, 6.0).tolist() == [
         False, True, False, False]
+
+
+def test_occ_report_takes_the_tangle_and_its_seed(tmp_path, monkeypatch):
+    """``--scene tangle --scene_seed N`` tests the cells against the tangle
+    drawn from seed N: the subject's cells differ between seeds, and the
+    report names the seed."""
+    from human_body_reconstruction_tpu_torch.cli import occ_report
+
+    run, _, _, _ = occ_run_dir(tmp_path)
+    seen_fields, on_subject = [], occ_report.on_subject
+
+    def record(pts, field_fn, *a, **k):
+        seen_fields.append(field_fn)
+        return on_subject(pts, field_fn, *a, **k)
+
+    monkeypatch.setattr(occ_report, "on_subject", record)
+    outs = [occ_report.main(["--run_dir", str(run), "--height", "16",
+                             "--views", "2", "--scene", "tangle",
+                             "--scene_seed", str(seed), "--device", "cpu"])
+            for seed in (0, 101)]
+    assert [o["scene_seed"] for o in outs] == [0, 101]
+    assert [(f.func, f.keywords) for f in seen_fields] == [
+        (synthetic.tangle_field, {"seed": 0}),
+        (synthetic.tangle_field, {"seed": 101})]
+    assert outs[0]["subject_cells"] != outs[1]["subject_cells"]

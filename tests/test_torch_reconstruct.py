@@ -24,6 +24,7 @@ from human_body_reconstruction_tpu.data import datasets as jdatasets
 from human_body_reconstruction_tpu_torch.cli import nerf2mesh, reconstruct
 from human_body_reconstruction_tpu_torch.cli import train_hash
 from human_body_reconstruction_tpu_torch.data import datasets, png, synthetic
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def write_capture(workdir, n=5, H=40, W=40):

@@ -18,6 +18,7 @@ from human_body_reconstruction_tpu.pipeline import restore as jrestore
 from human_body_reconstruction_tpu_torch.models import nerf
 from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt
 from human_body_reconstruction_tpu_torch.train import step
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

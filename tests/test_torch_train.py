@@ -41,6 +41,7 @@ from human_body_reconstruction_tpu_torch.train import state, step
 from human_body_reconstruction_tpu_torch.train import trainer as trainer_lib
 from human_body_reconstruction_tpu_torch.utils import config as C
 from test_torch_ops import _JnpWithTorchSums
+from torch_threads import one_torch_thread  # noqa: F401
 
 LO = np.array([-1.5, -1.5, -1.5], np.float32)
 HI = np.array([1.5, 1.5, 1.5], np.float32)
