@@ -143,6 +143,34 @@
 20. ``cli/speedrun.py`` with the record's gating (guided 48 every 125
     steps), capped at 375 steps: the JAX keys, every gate render finite,
     the last one guided.
+21. The parallel slice (PR 12), on the one card: ``train_hash
+    --data_parallel`` through its ``main`` at the flagship's full width
+    (DP_STEPS steps, the grid installed at DP_WARMUP) and with
+    ``--stochastic --hw_rng`` (DP_HASH_STEPS), each a world of one on NCCL
+    in this process, launches counted per run; one data-parallel step of
+    the trained flagship, and one level-parallel step (``make_lp_train_step``
+    on a (1, 1) layout: the shard's gather, the CP block reorder, the TV's
+    psum) of the hash grid and of the ``--cp_rank 32`` ladder with the TV
+    on, each against ``train_step`` from the same generators (handed the
+    same backward-kernel sums, every metric, gradient and updated parameter
+    bit for bit; launching its own float-atomic sums, metrics and the MLP
+    bit for bit and the kernels' sums within the sum-order tolerance; the
+    NCCL all-reduce a bit-for-bit identity); the level shards of the hash
+    grid (16 levels at extents 2 and 4, exact and stochastic, on the hash
+    path's 1,024,000 points) and the rank shards of the ``--cp_rank 32``
+    ladder (C 80 and 40 a rank, on the flagship's 768,000 guided points),
+    each rank's encode run one after another through ``encode_params``
+    and joined by ``join_level_blocks`` as the gather joins them, launches
+    counted per drive: the forward bit for bit with the unsharded encode's,
+    the backward within the sum-order tolerance of the plain sums, each
+    shard shape's kernels held to plain and timed, Philox at a level
+    rank's (3, L/k, N); the sample-split render of a 400x400 frame at 1,024
+    samples (density with occupancy and a white background, SDF with
+    occupancy; 2, 4 and 8 segments one after another, combined) within
+    1e-5 of the one-pass render; and 2 flagship-width scenes fitted
+    together for 4 steps against two single-scene runs from the same
+    generators, the parameter limit held below what one skipped update
+    moves a group.
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
@@ -171,9 +199,14 @@ unculled_random, hash_forward/train_path, /random and /serving_path
 eikonal_points, /fine_pass and /reconstruct_path,
 hash_{forward,backward}_2d/image_fit_batch and /full_pred,
 {cp,dense}_{forward,backward}/r64_path and /l12_path (and
-cp_forward/*_path_contiguous), hash_{forward,backward}/exact_path, with the
-launches of the phase that runs each shape), and last ``{"ok": true,
-"device": {...}}``.
+cp_forward/*_path_contiguous), hash_{forward,backward}/exact_path,
+hash_{forward,backward}/level_shard_k2 and _k4,
+uniform_bits/level_shard_k2 and _k4, cp_{forward,backward}/rank_shard_k2
+and _k4, with the launches of the phase that runs each shape; a shard
+shape runs on a step only under ``--level_parallel`` on 2 or 4 cards, so
+its row gives the launches of the serial drive of its k ranks' encodes),
+and last
+``{"ok": true, "device": {...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
 """
@@ -181,11 +214,13 @@ Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import dataclasses
 import json
 import math
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -553,16 +588,17 @@ def grid_sample_backward_levels(inputs, grad):
         for go, (vol, u) in zip(gos, inputs)]
 
 
-def hash_rows_weights(pts, mu, sigma, h, bits=None):
+def hash_rows_weights(pts, mu, sigma, h, bits=None, scales=None):
     """The hash kernels' rows and weights, for a library call handed them:
     (flat rows into the (L*T, F) table, (N*L, C) int64, weights (N*L, C)
     f32 or None), C the 2^dim corners of a (point, level) in exact mode or
-    the one picked corner (``bits``, stochastic, weight 1)."""
+    the one picked corner (``bits``, stochastic, weight 1); ``scales`` those
+    of a level slice."""
     from human_body_reconstruction_tpu_torch.ops import hash_kernel
     from human_body_reconstruction_tpu_torch.ops.dense_grid import normalise
 
     per_level = hash_kernel._level_terms(normalise(pts, mu, sigma), h,
-                                         bits=bits)
+                                         bits=bits, scales=scales)
     rows = torch.stack([torch.stack([r for r, _ in terms], -1)
                         for terms, _ in per_level], 1)
     n, L, C = rows.shape
@@ -963,15 +999,17 @@ def hash_kernel_checks(trainer, device, tag, train_pts, serve_pts):
 
 
 def hash_mode_check(table, at, scene, h, g, u, kind: str, tag: str,
-                    backward: bool = True):
+                    backward: bool = True, scales=None):
     """The hash forward kernel against its plain version on the points
     ``at`` (stochastic with the uniforms ``u``, else exact): features and
     the stochastic corner bits bit for bit, beside ``embedding_bag`` given
     the rows and weights; with ``backward`` the backward kernel (from the
     kernel's bits) against its plain version with the cotangent ``g``,
     within the sum-order tolerance, beside ``index_add_`` given the rows and
-    terms.  Returns (forward record, backward record or None), a record
-    being (max_abs_err, ms, plain_ms, library_ms, bound)."""
+    terms.  ``scales`` (a level slice's, with ``h`` of as many levels) runs
+    the kernels on a level shard's table.  Returns (forward record,
+    backward record or None), a record being (max_abs_err, ms, plain_ms,
+    library_ms, bound)."""
     from human_body_reconstruction_tpu_torch.ops import cuda_lib, hash_kernel
 
     stoch = u is not None
@@ -981,22 +1019,24 @@ def hash_mode_check(table, at, scene, h, g, u, kind: str, tag: str,
     xa = (at - scene["mu"]) / scene["sigma"]
     outside = float(((xa < 0) | (xa > 1)).any(-1).float().mean())
     ops_f = forward_ops("hash_forward", table, h, at.shape[0], stoch)
+    sc = {"scales": scales}
     with torch.no_grad():
-        got = hash_kernel.hash_encode_kernel(*a, u=u)
-        want = hash_kernel.hash_encode_plain(*a, u=u)
+        got = hash_kernel.hash_encode_kernel(*a, u=u, **sc)
+        want = hash_kernel.hash_encode_plain(*a, u=u, **sc)
         torch.cuda.synchronize()
         (feats, cb), (wf, wb) = ((got, want) if stoch
                                  else ((got, None), (want, None)))
         same = torch.equal(feats, wf) and (not stoch or torch.equal(cb, wb))
         err_f = float((feats - wf).abs().max())
         check(bool(torch.isfinite(feats).all()), "hash forward output finite")
-        ms_f = time_ms(lambda: hash_kernel.hash_encode_kernel(*a, u=u))
-        plain_f = time_ms(lambda: hash_kernel.hash_encode_plain(*a, u=u),
+        ms_f = time_ms(lambda: hash_kernel.hash_encode_kernel(*a, u=u, **sc))
+        plain_f = time_ms(lambda: hash_kernel.hash_encode_plain(*a, u=u,
+                                                                **sc),
                           reps=3)
         bnd_f = bound(nbytes(at, table, feats, *((u, cb) if stoch else ())),
                       ops_f)
         rows, w = hash_rows_weights(at, scene["mu"], scene["sigma"], h,
-                                    cb if stoch else None)
+                                    cb if stoch else None, scales)
         lib = embedding_bag_call(table, rows, w)
         lib_err = float((lib().reshape(feats.shape) - wf).abs().max())
         lib_f = time_ms(lib)
@@ -1014,18 +1054,18 @@ def hash_mode_check(table, at, scene, h, g, u, kind: str, tag: str,
     if not backward:
         return fwd, None
     with torch.no_grad():
-        gb = hash_kernel.hash_encode_backward_kernel(*a, g, bits=cb)
-        want_b = hash_kernel.hash_encode_plain_backward(*a, g, bits=wb)
+        gb = hash_kernel.hash_encode_backward_kernel(*a, g, bits=cb, **sc)
+        want_b = hash_kernel.hash_encode_plain_backward(*a, g, bits=wb, **sc)
         abs_sum = hash_kernel.hash_encode_plain_backward(*a, g.abs(),
-                                                         bits=wb)
+                                                         bits=wb, **sc)
         torch.cuda.synchronize()
         err_b = float((gb - want_b).abs().max())
         ratio = float(((gb - want_b).abs() / cuda_lib.sum_order_tolerance(
             want_b, abs_sum, False)).max())
         ms_b = time_ms(lambda: hash_kernel.hash_encode_backward_kernel(
-            *a, g, bits=cb))
+            *a, g, bits=cb, **sc))
         plain_b = time_ms(lambda: hash_kernel.hash_encode_plain_backward(
-            *a, g, bits=wb), reps=3)
+            *a, g, bits=wb, **sc), reps=3)
         bnd_b = bound(nbytes(at, g, gb, *((cb,) if stoch else ())),
                       ops_f + at.shape[0] * L * F)
         lib = index_add_call(table, rows, w, g)
@@ -2415,6 +2455,738 @@ def plot_grads_phase(work: str, device: torch.device, tag: str):
           and all(math.isfinite(v) for v in losses), "onecycle rates")
 
 
+# the parallel slice (PR 12): the world-1 NCCL data-parallel runs (the
+# flagship cut to DP_STEPS with its warmup at DP_WARMUP, and the hash grid),
+# the world-1 level-parallel steps, the level and rank shards of LP_EXTENTS,
+# the sample-split render of a 400x400 frame at 1024 samples, and
+# multi-scene fitting
+DP_STEPS, DP_WARMUP, DP_HASH_STEPS = 48, 16, 16
+LP_EXTENTS = (2, 4)
+LP_CP_RANK = 32                 # the speedrun's rank, which 2 and 4 divide
+LP_CP_TV = 1e-2                 # the speedrun's factor-line TV weight
+SP_HW, SP_SAMPLES, SP_SEGMENTS, SP_CHUNK = 400, 1024, (2, 4, 8), 1024
+SP_TOL = 1e-5
+MS_SCENES, MS_STEPS = 2, 4
+# multi-scene vs single-scene runs: the float-atomic backwards make the two
+# runs' steps after the first differ, as CONT_LOSS_RTOL's do (a parameter
+# group within 7.6e-5 to 1.29e-4 of its norm after 4 steps on the card);
+# the group limit sits below what one skipped update moves a group, which
+# the check reads in the same run and holds above it
+MS_LOSS_RTOL, MS_PARAM_RTOL = 1e-3, 5e-4
+
+
+def parallel_cli(argv, kernels, work: str, name: str, tag: str):
+    """``train_hash --data_parallel`` through its ``main`` (a world of one:
+    NCCL in this process), the kernels' launch counts reset just before.
+    Returns (trainer, launches)."""
+    import torch.distributed as dist
+
+    from human_body_reconstruction_tpu_torch.cli import train_hash
+
+    t0 = time.perf_counter()
+    trainer, launches = counted(kernels, lambda: train_hash.main([
+        "--synthetic", "--synthetic_subject", "textured", "--device", "cuda",
+        "--data_parallel", "--out_dir", f"{work}/{name}", "--model_name",
+        name, *argv]))
+    sec = time.perf_counter() - t0
+    check(trainer is not None and trainer.mesh.shape == (1, 1)
+          and trainer._step_fn is not None,
+          "--data_parallel ran the data-parallel step in a world of one")
+    check(not dist.is_initialized(), "the CLI left its NCCL world")
+    hist = trainer.history
+    check(all(math.isfinite(r["loss"]) for r in hist), "finite losses")
+    check(all(n > 0 for n in launches.values()), (name, launches))
+    print(f"parallel {name}: train_hash --data_parallel {' '.join(argv)}: "
+          f"{trainer.state.step} steps in {sec:.2f} s (dataset render "
+          f"included), PSNR {hist[0]['psnr']:.2f} dB (step {hist[0]['step']})"
+          f" -> {hist[-1]['psnr']:.2f} dB (step {hist[-1]['step']}), "
+          f"{hist[-1]['rays_per_sec']:.1f} rays/s at the last log; launches "
+          f"{launches} {tag}")
+    return trainer, launches
+
+
+def clone_state(state, cfg, total: int):
+    """A copy of a single-device train state: field, Adam moments, step,
+    grid."""
+    from human_body_reconstruction_tpu_torch.train import state as state_lib
+
+    field = copy.deepcopy(state.field)
+    st = state_lib.create_train_state(field, cfg.train, total, occ=state.occ)
+    for p, q in zip(state.field.parameters(), field.parameters()):
+        if state.opt.has_state(p):
+            st.opt.set_moments(q, state.step, *state.opt.moments(p))
+    st.step = state.step
+    return st
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """A world of one on NCCL in this process, left on exit."""
+    import torch.distributed as dist
+
+    from human_body_reconstruction_tpu_torch.parallel import comm
+
+    rdzv = tempfile.mkdtemp()
+    comm.init("cuda", rank=0, world_size=1,
+              init_method=f"file://{rdzv}/rendezvous")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+
+
+def backward_sites():
+    """{backward kernel: (module, attribute)}: where the encoder's backward
+    looks each wrapper up."""
+    from human_body_reconstruction_tpu_torch.ops import (
+        cp_kernel, dense_kernel, hash_kernel)
+
+    return {"cp_backward": (cp_kernel, "cp_encode_backward_kernel"),
+            "dense_backward": (dense_kernel, "dense_encode_backward_kernel"),
+            "hash_backward": (hash_kernel, "hash_encode_backward_kernel")}
+
+
+def recorded_plain(nm, args, kw, grad):
+    """The plain version of a recorded backward call on cotangent ``grad``:
+    a list of table gradients."""
+    from human_body_reconstruction_tpu_torch.ops import hash_kernel
+
+    if nm == "hash_backward":
+        table, x, mu, sigma, h = args[:5]
+        bits = args[6] if len(args) > 6 else kw.get("bits")
+        return [hash_kernel.hash_encode_plain_backward(
+            table, x, mu, sigma, h, grad, bits=bits, scales=kw.get("scales"))]
+    tables, x, mu, sigma, h = args[:5]
+    return list(plain_backward(nm)(tables, x, mu, sigma, h, grad))
+
+
+def step_vs_single(label, states, single_fn, par_fn, kernels, tag):
+    """One step of ``par_fn`` (a parallel step, on a world-1 NCCL group)
+    against ``single_fn`` (``train_step``) from the same generator states,
+    each on its own copy of one train state: ``states`` = (single,
+    replayed, launched).  The backward kernels ``kernels`` add in float
+    atomics, so two runs of one step differ in those sums' last bits: the
+    replayed parallel step is handed the single-device step's backward-kernel
+    results (after checking that its cotangents into them are the same bit
+    for bit), and then every metric, gradient and updated parameter must be
+    the same bit for bit; the launched one launches its kernels, and its
+    metrics, MLP gradients and MLP parameters must be the same bit for bit,
+    its cotangents into the backward kernels too, and each kernel's sums,
+    like the single-device step's, within the sum-order tolerance of the
+    plain sums.  Returns the metrics of the launched step."""
+    from human_body_reconstruction_tpu_torch.ops import cuda_lib
+
+    sites = backward_sites()
+    originals = {nm: getattr(*sites[nm]) for nm in kernels}
+    taken, launched, replayed = [], [], []
+
+    def install(make):
+        for nm in kernels:
+            setattr(*sites[nm], make(nm))
+
+    def clones(out):
+        return ([o.clone() for o in out] if isinstance(out, (list, tuple))
+                else out.clone())
+
+    def recording(sink):
+        def make(nm):
+            def spy(*args, **kw):
+                out = originals[nm](*args, **kw)
+                # the tables as the kernel read them: the update overwrites
+                kept = (clones(args[0]), *args[1:])
+                sink.append((nm, kept, kw, args[5].clone(), clones(out)))
+                return out
+            spy.launches = 0    # the wrapper counts on its module's name
+            return spy
+        return make
+
+    def replaying(nm):
+        queue = [r for r in taken if r[0] == nm]
+
+        def spy(*args, **kw):
+            rec = queue.pop(0)
+            replayed.append(torch.equal(args[5], rec[3]))
+            return clones(rec[4])
+        spy.launches = 0
+        return spy
+
+    single_st, replay_st, par_st = states
+    try:
+        install(recording(taken))
+        single = single_fn(single_st)
+        install(replaying)
+        replay = par_fn(replay_st)
+        install(recording(launched))
+        par = par_fn(par_st)
+    finally:
+        for nm, fn in originals.items():
+            setattr(*sites[nm], fn)
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+
+    check(sorted(r[0] for r in taken) == sorted(kernels)
+          and len(replayed) == len(kernels) and all(replayed)
+          and [r[0] for r in launched] == [r[0] for r in taken]
+          and all(torch.equal(a[3], b[3]) for a, b in zip(taken, launched)),
+          (f"{label}: one call of each backward kernel, its cotangents bit "
+           "for bit", [r[0] for r in taken], replayed,
+           [r[0] for r in launched]))
+    params = [list(st.field.parameters())
+              for st in (single_st, replay_st, par_st)]
+    for name, other in (("replayed", replay), ("launched", par)):
+        check(set(single) == set(other)
+              and all(torch.equal(single[k], other[k]) for k in single),
+              (f"{label}: {name} step's metrics bit for bit", single, other))
+    check(same([p.grad for p in params[0]], [p.grad for p in params[1]])
+          and same(params[0], params[1]),
+          f"{label}: given the same kernel sums, every gradient and updated "
+          "parameter bit for bit")
+    mlp = [list(st.field.mlp.parameters()) for st in (single_st, par_st)]
+    check(same([p.grad for p in mlp[0]], [p.grad for p in mlp[1]])
+          and same(*mlp),
+          f"{label}: launched, the MLP's gradients and updated parameters "
+          "bit for bit")
+    ratio = 0.0
+    with torch.no_grad():
+        for (nm, args, kw, grad, out), rec in zip(taken, launched):
+            want = recorded_plain(nm, args, kw, grad)
+            tabs = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
+            abs_sum = recorded_plain(
+                nm, ([t.abs() for t in tabs] if nm != "hash_backward"
+                     else args[0], *args[1:]), kw, grad.abs())
+            bf16 = nm != "hash_backward" and args[4].dense_bf16
+            for got in (out, rec[4]):
+                got = got if isinstance(got, list) else [got]
+                for g_i, w_i, a_i in zip(got, want, abs_sum):
+                    tol = cuda_lib.sum_order_tolerance(w_i, a_i, bf16)
+                    ratio = max(ratio, float(((g_i - w_i).abs()
+                                              / tol).max()))
+    print(f"parallel {label} step: world-1 NCCL vs train_step from one "
+          f"generator state: loss {float(par['loss']):.6f}; given the "
+          f"single-device step's backward-kernel sums "
+          f"({', '.join(kernels)}), every metric, gradient and updated "
+          f"parameter bit for bit; launching its own, metrics and MLP "
+          f"gradients and parameters bit for bit, the backward kernels' sums "
+          f"of both steps at worst |err| / sum-order tolerance of the plain "
+          f"sums {ratio:.3f} (tol 1) {tag}")
+    check(ratio <= 1.0, (f"{label}: backward kernel sums of the two steps",
+                         ratio))
+    return par
+
+
+def dp_step_vs_single(trainer, device, tag):
+    """One step of the trained flagship through the data-parallel step on a
+    world-1 NCCL group against ``train_step`` on a copy, from the same
+    generator state (``step_vs_single``); the group's all-reduce must leave
+    a gradient bit for bit."""
+    from human_body_reconstruction_tpu_torch.parallel import comm
+    from human_body_reconstruction_tpu_torch.parallel import data_parallel as dp
+    from human_body_reconstruction_tpu_torch.train import step
+
+    cfg, ds, B = trainer.cfg, trainer.ds, trainer.cfg.train.ray_batch
+    data = (trainer.scene, ds["images"], ds["c2ws"], ds["K"])
+    states = tuple(clone_state(trainer.state, cfg, trainer.total_steps)
+                   for _ in range(3))
+
+    def gen():
+        return torch.Generator(device).manual_seed(SEED + 9)
+
+    with nccl_world():
+        mesh = dp.make_mesh()
+        dp_step = dp.make_dp_train_step(cfg, B, mesh)
+        step_vs_single(
+            "data-parallel", states,
+            lambda st: step.train_step(st, *data, cfg, B, gen()),
+            lambda st: dp_step(st, *data, generator=gen()),
+            ("cp_backward", "dense_backward"), tag)
+        grads = [p.grad.clone() for p in states[0].field.parameters()]
+        reduced = [g.clone() for g in grads]
+        comm.all_reduce_mean_(reduced, mesh.data_group, 1)
+        torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(reduced, grads)),
+          "the world-1 NCCL all-reduce leaves the gradient bit for bit")
+
+
+def lp_steps_vs_single(hash_tr, flag, device, tag):
+    """``make_lp_train_step`` on a world-1 NCCL (1, 1) layout, which runs
+    the level-parallel encode (``encode_params`` with a shard: the group's
+    ``gather_cols`` and, for CP, the block reorder) and the TV's
+    ``psum_replicated``, against ``train_step`` (``step_vs_single``): the
+    hash grid (``--stochastic --hw_rng``) from its trained state, the
+    encoder's uniforms drawn from one generator on both sides; and the
+    ``--cp_rank 32`` ladder at the flagship's width from a seeded field
+    with the speedrun's TV on, on the flagship's grid."""
+    from human_body_reconstruction_tpu_torch.models import nerf
+    from human_body_reconstruction_tpu_torch.parallel import level_parallel as lp
+    from human_body_reconstruction_tpu_torch.train import state as state_lib
+    from human_body_reconstruction_tpu_torch.train import step
+
+    fc = flag.cfg
+    cfg32 = dataclasses.replace(
+        fc, hash=dataclasses.replace(fc.hash, cp_rank=LP_CP_RANK),
+        train=dataclasses.replace(fc.train, cp_tv_weight=LP_CP_TV,
+                                  cp_tv_warmup=0))
+    st32 = state_lib.create_train_state(
+        nerf.Field(cfg32, generator=torch.Generator(device).manual_seed(
+            SEED + 15)), cfg32.train, flag.total_steps, occ=flag.state.occ)
+    runs = (("hash grid", hash_tr, hash_tr.cfg, hash_tr.state,
+             hash_tr.total_steps, ("hash_backward",)),
+            (f"cp_rank {LP_CP_RANK}", flag, cfg32, st32, flag.total_steps,
+             ("cp_backward", "dense_backward")))
+
+    def gens():
+        return (torch.Generator(device).manual_seed(SEED + 16),
+                torch.Generator(device).manual_seed(SEED + 17))
+
+    with nccl_world():
+        mesh = lp.make_lp_mesh(1, 1)
+        for name, tr, cfg, base, total, kernels in runs:
+            B, ds = cfg.train.ray_batch, tr.ds
+            data = (tr.scene, ds["images"], ds["c2ws"], ds["K"])
+            lp_step = lp.make_lp_train_step(cfg, B, mesh)
+            single, *rest = (clone_state(base, cfg, total) for _ in range(3))
+            rest = [lp.shard_lp_state(st, cfg, mesh, total) for st in rest]
+            check(all(st.field.lp is not None and st.field.lp.extent == 1
+                      for st in rest), (name, "a level shard of extent 1"))
+
+            def single_fn(st):
+                g, e = gens()
+                return step.train_step(st, *data, cfg, B, g, e)
+
+            def par_fn(st):
+                g, e = gens()
+                return lp_step(st, *data, generator=g, enc_generator=e)
+
+            m = step_vs_single(f"level-parallel {name}", (single, *rest),
+                               single_fn, par_fn, kernels, tag)
+            if cfg.hash.variant == "cp":
+                check(float(m["cp_tv"]) > 0.0, "the TV entered the step")
+
+
+def shard_records(device, tag, hash_trainer, flag_trainer):
+    """The level and rank shards at extents LP_EXTENTS: the k level ranks'
+    encodes run one after another on the card through
+    ``hash_encoding.encode_params`` (a shard without a gather: each rank's
+    own columns), joined by ``hash_encoding.join_level_blocks`` as the
+    group's gather joins them, and differentiated through the join: the hash
+    grid's levels on the hash path's 1,024,000 points (exact, and
+    stochastic with each rank's uniforms from a generator of its own,
+    Philox at (3, L/k, N)), the ``--cp_rank 32`` ladder's rank columns
+    (dense levels beside them) on the flagship's 768,000 guided points.
+    The launches of each drive are counted from 0 just before it.  The
+    joined forward equals the unsharded kernel's (given the ranks'
+    uniforms) bit for bit; the joined backward, like the unsharded
+    kernel's, is within the sum-order tolerance of the plain sums.  Each
+    shard shape's kernels against their plain versions, timed (the first
+    shard).  Returns the kernel records {name: (record, launches,
+    shape)}."""
+    from human_body_reconstruction_tpu_torch.ops import (
+        cp_kernel, cuda_lib, hash_encoding, hash_kernel, rng_kernel)
+    from human_body_reconstruction_tpu_torch.utils.config import fine_scales
+
+    he = hash_encoding
+    out = {}
+    # the hash grid's level shards
+    h, scene = hash_trainer.cfg.hash, hash_trainer.scene
+    h_lp = dataclasses.replace(h, level_axis="level")
+    field = hash_trainer.state.field
+    table = field.table.detach()
+    dense = [t.detach() for t in field.dense]
+    L, F = h.num_hashed_levels, h.features_per_level
+    d = len(dense) * F
+    pts = hash_path_points(hash_trainer, device)
+    n = pts.shape[0]
+    mu, sigma = scene["mu"], scene["sigma"]
+    gen = torch.Generator(device).manual_seed(SEED + 11)
+    g = torch.randn((n, L * F + 3), generator=gen, device=device)[:, 3:]
+    g_full = torch.cat([torch.zeros((n, d), device=device), g], dim=1)
+    a = (pts, mu, sigma, h)
+    scales = fine_scales(h)
+    hash_kernels = wrappers("uniform_bits", "hash_forward", "hash_backward")
+    for k in LP_EXTENTS:
+        per = L // k
+        worst, drive_launches = 0.0, {nm: 0 for nm, _ in hash_kernels}
+        for m in ("exact", "stochastic"):
+            stoch = m == "stochastic"
+            parts = [table[i * per:(i + 1) * per].clone().requires_grad_()
+                     for i in range(k)]
+            gens = [torch.Generator(device).manual_seed(SEED + 30 + i)
+                    for i in range(k)]
+            replays = []
+            for gn in gens:
+                rg = torch.Generator(device)
+                rg.set_state(gn.get_state())
+                replays.append(rg)
+
+            def drive():
+                outs = [he.encode_params(
+                    {"dense": dense, "table": parts[i]}, pts, mu, sigma, h_lp,
+                    stochastic=stoch, generator=gens[i],
+                    shard=he.LevelShard(k, scales[i * per:(i + 1) * per]))
+                    for i in range(k)]
+                joined = he.join_level_blocks(
+                    outs[0][:, :d], torch.cat([o[:, d:] for o in outs], 1),
+                    0, k)
+                return (joined.detach(),
+                        torch.autograd.grad(joined, parts, g_full))
+
+            (joined, grads), launches = counted(hash_kernels, drive)
+            for nm, c in launches.items():
+                drive_launches[nm] += c
+            with torch.no_grad():
+                u = (torch.cat([he.stoch_uniform((3, per, n), h, device, rg)
+                                for rg in replays], dim=1) if stoch else None)
+                res = hash_kernel.hash_encode_kernel(table, *a, u=u)
+                ref, bits = (res, None) if u is None else res
+                check(torch.equal(joined[:, d:], ref), (
+                    "hash level shards' joined features bit for bit", k, m))
+                plain_b = hash_kernel.hash_encode_plain_backward(
+                    table, *a, g, bits=bits)
+                abs_b = hash_kernel.hash_encode_plain_backward(
+                    table, *a, g.abs(), bits=bits)
+                tol = cuda_lib.sum_order_tolerance(plain_b, abs_b, False)
+                worst = max(worst, float(((torch.cat(grads) - plain_b).abs()
+                                          / tol).max()))
+        print(f"parallel level shards k={k}: {k} x {per} hash levels on {n} "
+              f"hash path points through encode_params, exact and "
+              f"stochastic (each rank's own uniforms): joined features bit "
+              f"for bit with the unsharded kernel's; joined table gradient "
+              f"worst |err| / sum-order tolerance {worst:.3f} (tol 1); "
+              f"launches in the serial drive {drive_launches} {tag}")
+        check(worst <= 1.0, ("hash level shards' gradient", k, worst))
+        check(drive_launches == {"uniform_bits": k, "hash_forward": 2 * k,
+                                 "hash_backward": 2 * k},
+              ("the level shards' drive launched each rank's kernels", k,
+               drive_launches))
+        lv = slice(0, per)
+        h_k = dataclasses.replace(h, num_levels=per)
+        kind = f"level_shard_k{k}"
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                             device=device, dtype=torch.int32)
+        u_k = rng_kernel.uniform(seed, (3, per, n))
+        fwd = bwd = None
+        for uu in (None, u_k):
+            f_rec, b_rec = hash_mode_check(
+                table[lv], pts, scene, h_k, g[:, :per * F].contiguous(), uu,
+                kind, tag, scales=scales[lv])
+            fwd = f_rec if fwd is None else (max(fwd[0], f_rec[0]),
+                                             *f_rec[1:])
+            bwd = b_rec if bwd is None else (max(bwd[0], b_rec[0]),
+                                             *b_rec[1:])
+        drive = (f"launches: the serial drive of the {k} level ranks' "
+                 "encodes (exact and stochastic, forward and backward) "
+                 "through encode_params, counted from 0 just before it; no "
+                 f"one-card step runs this shape (--level_parallel {k} "
+                 f"takes {k} cards)")
+        shape = (f"{n} hash path points (16000 rays x 64), a level rank's "
+                 f"{per} of 16 levels (--level_parallel {k} with "
+                 f"--stochastic --hw_rng), stochastic; {drive}")
+        out[f"hash_forward/{kind}"] = (fwd, drive_launches["hash_forward"],
+                                       shape)
+        out[f"hash_backward/{kind}"] = (bwd, drive_launches["hash_backward"],
+                                        shape)
+        shp = (3, per, n)
+        bits_k = rng_kernel.uniform_bits(seed, shp)
+        same = torch.equal(bits_k, rng_kernel.uniform_plain(seed, shp,
+                                                            False))
+        ms = time_ms(lambda: rng_kernel.uniform(seed, shp))
+        plain_ms = time_ms(lambda: rng_kernel.uniform_plain(seed, shp),
+                           reps=5)
+        lib_ms = time_ms(lambda: torch.rand(shp, device=device))
+        bnd = bound(nbytes(seed, u_k), u_k.numel() * 28, INT32_OPS_PER_S)
+        print(f"kernel uniform_bits: a level rank's {shp}, bit for bit "
+              f"{same}, {ms:.4f} ms vs plain {plain_ms:.4f} ms, torch.rand "
+              f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) {tag}")
+        check(same, ("Philox at a level rank's shape", k))
+        out[f"uniform_bits/{kind}"] = (
+            (0.0, ms, plain_ms, lib_ms, bnd), drive_launches["uniform_bits"],
+            f"{shp}: a level rank's draw (--level_parallel {k}); {drive}")
+        del bits_k, u_k
+    torch.cuda.empty_cache()
+
+    # the --cp_rank 32 ladder's rank shards
+    h32 = dataclasses.replace(flag_trainer.cfg.hash, cp_rank=LP_CP_RANK)
+    h32_lp = dataclasses.replace(h32, level_axis="level")
+    scene = flag_trainer.scene
+    mu, sigma = scene["mu"], scene["sigma"]
+    dense = [t.detach() for t in flag_trainer.state.field.dense]
+    d = len(dense) * h32.features_per_level
+    pts = training_path_points(flag_trainer, device)["guided"]
+    n, R = pts.shape[0], LP_CP_RANK
+    gen = torch.Generator(device).manual_seed(SEED + 12)
+    lines = [torch.empty((3, g_l, R), device=device).uniform_(
+        -0.6, 0.6, generator=gen) for g_l in
+        cp_kernel.cp_line_sizes(h32)]
+    n_lv = len(lines)
+    g = torch.randn((n, n_lv * R), generator=gen, device=device)
+    g_full = torch.cat([torch.zeros((n, d), device=device), g], dim=1)
+    a = (pts, mu, sigma)
+    cp_kernels = wrappers("cp_forward", "dense_forward", "cp_backward")
+    with torch.no_grad():
+        whole = he.encode_params({"dense": dense, "lines": lines}, *a, h32)
+        plain_b = cp_kernel.cp_encode_plain_backward(lines, *a, h32, g)
+        abs_b = cp_kernel.cp_encode_plain_backward(
+            [t.abs() for t in lines], *a, h32, g.abs())
+    for k in LP_EXTENTS:
+        rl = R // k
+        h_k = dataclasses.replace(h32, cp_rank=rl)
+        parts = [[ln[..., i * rl:(i + 1) * rl].contiguous().requires_grad_()
+                  for ln in lines] for i in range(k)]
+
+        def drive():
+            outs = [he.encode_params({"dense": dense, "lines": parts[i]}, *a,
+                                     h32_lp, shard=he.LevelShard(k))
+                    for i in range(k)]
+            joined = he.join_level_blocks(
+                outs[0][:, :d], torch.cat([o[:, d:] for o in outs], 1), n_lv,
+                k)
+            return joined.detach(), torch.autograd.grad(
+                joined, [p for part in parts for p in part], g_full)
+
+        (joined, grads), launches = counted(cp_kernels, drive)
+        check(torch.equal(joined, whole),
+              ("CP rank shards' joined features bit for bit", k))
+        check(launches == {"cp_forward": k, "dense_forward": k,
+                           "cp_backward": k},
+              ("the rank shards' drive launched each rank's kernels", k,
+               launches))
+        worst = 0.0
+        with torch.no_grad():
+            for lvl in range(n_lv):
+                gj = torch.cat([grads[i * n_lv + lvl] for i in range(k)],
+                               dim=-1)
+                tol = cuda_lib.sum_order_tolerance(plain_b[lvl], abs_b[lvl],
+                                                   h32.dense_bf16)
+                worst = max(worst, float(((gj - plain_b[lvl]).abs()
+                                          / tol).max()))
+        print(f"parallel rank shards k={k}: {k} x {rl} of rank {R} on {n} "
+              f"guided points ({n_lv} CP levels, C {n_lv * rl} a rank) "
+              f"through encode_params: joined features (dense columns "
+              f"beside them) bit for bit with the unsharded encode's; joined "
+              f"line gradient worst |err| / sum-order tolerance {worst:.3f} "
+              f"(tol 1); launches in the serial drive {launches} {tag}")
+        check(worst <= 1.0, ("CP rank shards' gradient", k, worst))
+        part = [ln[..., :rl].contiguous() for ln in lines]
+        kind = f"rank_shard_k{k}"
+        f_rec = forward_check("cp_forward", part, pts, scene, h_k,
+                              matrix=False, tol=FWD_TOL["cp_forward"],
+                              label=f"guided points, a rank shard of {rl} "
+                              "columns", tag=tag)
+        b_rec = backward_check(
+            "cp_backward", part, pts, scene, h_k,
+            g.reshape(n, n_lv, R)[..., :rl].reshape(n, n_lv * rl),
+            f"guided points, a rank shard of {rl} columns", tag)
+        shape = (f"{n} guided points (16000 rays x 48), a level rank's {rl} "
+                 f"of rank {R} over {n_lv} CP levels (C {n_lv * rl}; "
+                 f"--level_parallel {k} --cp_rank {R}); launches: the serial "
+                 f"drive of the {k} level ranks' encodes (forward and "
+                 "backward) through encode_params, counted from 0 just "
+                 f"before it; no one-card step runs this shape "
+                 f"(--level_parallel {k} takes {k} cards)")
+        out[f"cp_forward/{kind}"] = (f_rec, launches["cp_forward"], shape)
+        out[f"cp_backward/{kind}"] = (b_rec, launches["cp_backward"], shape)
+    return out
+
+
+def sample_split_check(device, tag):
+    """The sample-split render's algebra on the card: a 400x400 frame at
+    SP_SAMPLES samples (density mode with occupancy and a white background,
+    SDF mode with occupancy, flagship width, seeded weights), its
+    SP_SEGMENTS segmentings rendered one segment after another and
+    combined (``render_segments``) against the one-pass render of the same
+    rays, within SP_TOL."""
+    from human_body_reconstruction_tpu_torch.data.synthetic import orbit_poses
+    from human_body_reconstruction_tpu_torch.models import nerf
+    from human_body_reconstruction_tpu_torch.ops import occupancy, rays
+    from human_body_reconstruction_tpu_torch.parallel import sample_parallel as sp
+    from human_body_reconstruction_tpu_torch.utils import config as C
+
+    base = C.flagship_config()
+    base = dataclasses.replace(base, render=dataclasses.replace(
+        base.render, eval_guided=0, log_sampling=False))
+    f, c = float(SP_HW), SP_HW / 2.0
+    K = torch.tensor([[f, 0, c], [0, f, c], [0, 0, 1]], device=device)
+    poses = torch.as_tensor(orbit_poses(4), device=device)
+    lo, hi = rays.scene_bounds(SP_HW, SP_HW, K, poses, base.render.near,
+                               base.render.far)
+    scene = nerf.scene_from_bounds(lo, hi)
+    g = base.render.occupancy_resolution
+    c = (torch.arange(g, device=device) + 0.5) / g
+    cells = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), -1)
+    mask = (torch.linalg.vector_norm(lo + cells * scene["sigma"], dim=-1)
+            < 1.2).to(torch.float32)
+    occ = occupancy.OccupancyGrid(mask, mask, torch.tensor(0.01,
+                                                           device=device))
+    o, d, dn = (t.reshape(-1, t.shape[-1]) for t in rays.full_image_rays(
+        SP_HW, SP_HW, K, poses[1]))
+    for mode in ("density", "sdf"):
+        cfg = dataclasses.replace(
+            base, mlp=dataclasses.replace(
+                base.mlp, density_activation="sdf" if mode == "sdf"
+                else base.mlp.density_activation),
+            render=dataclasses.replace(base.render, use_sdf=mode == "sdf",
+                                       white_background=mode == "density"))
+        gen = torch.Generator().manual_seed(SEED + 13)
+        field = nerf.Field(cfg, generator=gen)
+        with torch.no_grad():
+            for t in field.dense:
+                t.mul_(5000.0)
+            for ln in field.lines:
+                ln.mul_(6.0)
+            field.mlp.sig[-1].bias[0] += 2.0
+            if field.var_b is not None:
+                field.var_b.fill_(8.0)
+        field.to(device)
+        errs = {n: 0.0 for n in SP_SEGMENTS}
+        t0 = time.perf_counter()
+        img = []
+        with torch.no_grad():
+            for s in range(0, o.shape[0], SP_CHUNK):
+                args = (o[s:s + SP_CHUNK], d[s:s + SP_CHUNK],
+                        dn[s:s + SP_CHUNK])
+                one = nerf.render_rays(field, scene, *args, cfg,
+                                       num_samples=SP_SAMPLES, occ=occ)["fine"]
+                img.append(one)
+                for n in SP_SEGMENTS:
+                    seg = sp.render_segments(field, scene, *args, cfg,
+                                             SP_SAMPLES, n, occ=occ)
+                    errs[n] = max(errs[n], float((seg - one).abs().max()))
+        torch.cuda.synchronize()
+        img = torch.cat(img)
+        print(f"parallel sample split ({mode}): {SP_HW}x{SP_HW} frame x "
+              f"{SP_SAMPLES} samples, segments {SP_SEGMENTS} rendered one "
+              f"after another and combined vs one pass: max_abs_err "
+              + ", ".join(f"n={n} {e:.2e}" for n, e in errs.items())
+              + f" (tol {SP_TOL:g}); frame range [{float(img.min()):.4f}, "
+              f"{float(img.max()):.4f}]; {time.perf_counter() - t0:.2f} s "
+              f"{tag}")
+        check(bool(torch.isfinite(img).all()) and float(img.std()) > 1e-3,
+              ("sample-split frame finite, not blank", mode))
+        check(max(errs.values()) <= SP_TOL, ("sample split", mode, errs))
+
+
+def multi_scene_check(flag_trainer, device, tag):
+    """MS_SCENES flagship-width fields (seeded apart) fitted together for
+    MS_STEPS unculled steps by ``multi_scene.make_multi_train_step`` (one
+    grouped optimizer, a loop of launches) against each scene's own
+    single-scene ``train_step`` run from the same generator: the first
+    step's losses bit for bit, every step's mean loss within MS_LOSS_RTOL,
+    each parameter group after within MS_PARAM_RTOL of its norm, a limit
+    below what each group's last update moves it in the single-scene runs
+    (the reading of a fault that skips it).  Returns the encoder kernels'
+    launches in the multi-scene run."""
+    from human_body_reconstruction_tpu_torch.models import nerf
+    from human_body_reconstruction_tpu_torch.parallel import multi_scene as ms
+    from human_body_reconstruction_tpu_torch.train import state as state_lib
+    from human_body_reconstruction_tpu_torch.train import step
+    from human_body_reconstruction_tpu_torch.utils.observability import (
+        param_groups)
+
+    cfg = dataclasses.replace(flag_trainer.cfg, render=dataclasses.replace(
+        flag_trainer.cfg.render, occupancy=False))
+    ds, scene, B = flag_trainer.ds, flag_trainer.scene, cfg.train.ray_batch
+    gen = torch.Generator(device).manual_seed(SEED + 14)
+    fields = [nerf.Field(cfg, generator=gen) for _ in range(MS_SCENES)]
+    data = [ds["images"]] * MS_SCENES, [ds["c2ws"]] * MS_SCENES, \
+        [ds["K"]] * MS_SCENES
+    multi = ms.create_multi_state([copy.deepcopy(f) for f in fields], cfg,
+                                  MS_STEPS)
+    step_fn = ms.make_multi_train_step(cfg, B)
+    gens = [torch.Generator(device).manual_seed(SEED + 20 + s)
+            for s in range(MS_SCENES)]
+
+    def run_multi():
+        return [step_fn(multi, [scene] * MS_SCENES, *data, gens)["loss"]
+                for _ in range(MS_STEPS)]
+
+    t0 = time.perf_counter()
+    m_losses, launches = counted(wrappers(*TRAIN_KERNELS), run_multi)
+    sec = time.perf_counter() - t0
+    def rel_norm(ps, qs):
+        num = sum(float(((p - q) ** 2).sum().detach()) for p, q in zip(ps, qs))
+        return math.sqrt(num / sum(float((p ** 2).sum().detach())
+                                   for p in ps))
+
+    singles, skipped = [], {}
+    for s in range(MS_SCENES):
+        st = state_lib.create_train_state(copy.deepcopy(fields[s]), cfg.train,
+                                          MS_STEPS)
+        g_s = torch.Generator(device).manual_seed(SEED + 20 + s)
+        losses = []
+        for i in range(MS_STEPS):
+            if i == MS_STEPS - 1:       # a fault's reading: the last update
+                before = {key: [p.detach().clone() for p in ps] for key, ps
+                          in param_groups(st.field).items()}
+            losses.append(step.train_step(st, scene, ds["images"],
+                                          ds["c2ws"], ds["K"], cfg, B,
+                                          g_s)["loss"])
+        for key, ps in param_groups(st.field).items():
+            skipped[key] = min(skipped.get(key, math.inf),
+                               rel_norm(ps, before[key]))
+        singles.append((st, losses))
+    torch.cuda.synchronize()
+    means = [torch.stack([ls[i] for _, ls in singles]).mean()
+             for i in range(MS_STEPS)]
+    rel = [abs(float(a) / float(b) - 1.0) for a, b in zip(m_losses, means)]
+    worst = max(rel_norm(ps, param_groups(f)[key])
+                for (st, _), f in zip(singles, multi.fields)
+                for key, ps in param_groups(st.field).items())
+    print(f"parallel multi-scene: {MS_SCENES} flagship-width scenes, "
+          f"{MS_STEPS} unculled steps of {B} rays each in {sec:.2f} s "
+          f"({1e3 * sec / MS_STEPS:.2f} ms/step); vs single-scene runs: "
+          f"first step's mean loss bit for bit "
+          f"{torch.equal(m_losses[0], means[0])}, worst loss rel "
+          f"{max(rel):.2e} (tol {MS_LOSS_RTOL:g}), worst parameter group "
+          f"rel {worst:.2e} (tol {MS_PARAM_RTOL:g}; a group's last update, "
+          f"which a skipped one would leave out, moves it "
+          + ", ".join(f"{k} {v:.2e}" for k, v in skipped.items())
+          + f"); launches {launches} {tag}")
+    check(torch.equal(m_losses[0], means[0]), "multi-scene first step")
+    check(max(rel) <= MS_LOSS_RTOL and worst <= MS_PARAM_RTOL,
+          ("multi-scene vs single-scene runs", rel, worst))
+    check(MS_PARAM_RTOL < min(skipped.values()),
+          ("a skipped update would pass the group limit", skipped))
+    check(all(n > 0 for n in launches.values()), launches)
+    return launches
+
+
+def parallel_phase(work: str, device: torch.device, tag: str):
+    """The parallel slice on the one card: (a) ``train_hash
+    --data_parallel`` at the flagship's full width and with ``--stochastic
+    --hw_rng``, each a world of one on NCCL, one data-parallel step and the
+    level-parallel steps (hash grid, ``--cp_rank 32``) on a world of one
+    against ``train_step``; (b) the level and rank shards; (c) the
+    sample-split render; (d) multi-scene fitting.  Returns the shard
+    shapes' kernel records and the launches of each run."""
+    flag, flag_launches = parallel_cli(
+        ["--steps", str(DP_STEPS), "--occ_warmup", str(DP_WARMUP),
+         "--log_every", "16"], wrappers(*TRAIN_KERNELS), work, "dp_flagship",
+        tag)
+    cfg = flag.cfg
+    check((cfg.hash.num_levels, cfg.hash.n_max, cfg.hash.cp_rank,
+           cfg.hash.dense_levels, cfg.train.ray_batch)
+          == (7, 1448, 25, 2, 16000) and flag.state.occ is not None,
+          "the flagship at full width, past its warmup")
+    hash_tr, hash_launches = parallel_cli(
+        ["--stochastic", "--hw_rng", "--steps", str(DP_HASH_STEPS),
+         "--log_every", "8"],
+        wrappers("uniform_bits", "hash_forward", "hash_backward"), work,
+        "dp_hash", tag)
+    dp_step_vs_single(flag, device, tag)
+    lp_steps_vs_single(hash_tr, flag, device, tag)
+    records = shard_records(device, tag, hash_tr, flag)
+    del hash_tr
+    torch.cuda.empty_cache()
+    sample_split_check(device, tag)
+    ms_launches = multi_scene_check(flag, device, tag)
+    return records, {"dp_flagship": flag_launches, "dp_hash": hash_launches,
+                     "multi_scene": ms_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2651,6 +3423,9 @@ def main() -> int:
     wide_rows = {mode: wide_mode_phase(mode, data, work.name, device, tag)
                  for mode in (*WIDE_MODES, HASH_MODE)}
     speedrun_phase(work.name, device, tag)
+    # PR 12: the parallel slice
+    shard_recs, parallel_launches = parallel_phase(work.name, device, tag)
+    print(f"launches in the parallel phase's runs: {parallel_launches}")
     work.cleanup()
     for key, (rec, launches, R) in sweep.items():
         nm = key.split("/")[0]
@@ -2709,6 +3484,16 @@ def main() -> int:
                 *rec,
                 f"{n} {label}, {where}; launches in its "
                 f"{MODE_STEPS[mode]}-step protocol run"))
+    for key, (rec, launches, shape) in shard_recs.items():
+        nm = key.split("/")[0]
+        report.append(entry(
+            key, {"uniform_bits": "human_body_reconstruction_tpu_torch/csrc/"
+                                  "rng.cu",
+                  "hash_forward": HASH_SOURCE,
+                  "hash_backward": HASH_SOURCE}.get(nm, SOURCE),
+            REPLACES.get(nm, "human_body_reconstruction_tpu/ops/"
+                             "pallas_rng.py:30"),
+            launches, *rec, shape))
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -18,15 +18,24 @@ continues the run in ``--out_dir`` (``<ckpt_name>_ckpt.npz``, else
 ``<model_name>_ckpt.npz``, written by either package) for ``--steps``
 more steps.  ``--plot_grads`` logs each group's gradient norm on a probe
 batch, ``--display`` writes every eval render to ``<model>_preview.png``
-too (and shows it where cv2 and a display exist).  What the port does not
-run yet is refused with a message: the ``cell`` variant, packed/int8
-gathers and the gradient subsampling and scatter options, data/level
-parallelism, fused multi-step dispatches and the compiled-executable
-cache.  ``--synthetic_subject tangle`` is the held-back scene, its
-capsules and texture drawn from ``--seed``.
+too (and shows it where cv2 and a display exist).  ``--data_parallel``
+splits the ray batch over a world of processes, one a card, joined by NCCL
+(gloo with ``--device cpu``); ``--level_parallel k`` splits the hash
+table's levels, or the CP lines' rank, over k of them (parallel/); under
+torchrun the world is torchrun's, otherwise the CLI starts it itself: one
+process a visible card with ``--data_parallel`` (k with ``--level_parallel
+k`` alone; on the CPU, k or 1), in this process when that is one.  What the
+port does not run yet is refused with a message: the ``cell`` variant,
+packed/int8 gathers and the gradient subsampling and scatter options,
+fused multi-step dispatches and the compiled-executable cache; a layout the
+model cannot split is refused as JAX refuses it (``cp_rank``, the hashed
+level count or the batch not divisible).  ``--synthetic_subject tangle`` is
+the held-back scene, its capsules and texture drawn from ``--seed``.
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.train_hash \\
           --synthetic --synthetic_subject textured --stochastic --hw_rng
+      torchrun --nproc_per_node 4 -m \\
+          human_body_reconstruction_tpu_torch.cli.train_hash --data_parallel
 """
 
 from __future__ import annotations
@@ -408,14 +417,15 @@ def make_config(args):
     )
 
 
-_NOT_PORTED = (("data_parallel", "--data_parallel"),
-               ("level_parallel", "--level_parallel"),
-               ("aot_cache", "--aot_cache"))
+_NOT_PORTED = (("aot_cache", "--aot_cache"),)
 
 
 def check_supported(args, cfg):
-    """Refuse what the port cannot run yet, before any work starts."""
+    """Refuse what the port cannot run yet, and a level extent that the
+    model cannot split (JAX ``_validate``'s message), before any work
+    starts."""
     from human_body_reconstruction_tpu_torch.ops import hash_encoding
+    from human_body_reconstruction_tpu_torch.parallel import level_parallel
 
     for flag, what in _NOT_PORTED:
         if getattr(args, flag):
@@ -426,6 +436,24 @@ def check_supported(args, cfg):
     unported = hash_encoding.unported(cfg.hash)
     if unported:
         raise SystemExit(unported)
+    if args.level_parallel > 1:
+        try:
+            level_parallel.validate(cfg, (1, args.level_parallel), None)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+
+
+def world_layout(args, devices: int) -> tuple:
+    """(n_data, n_level) over ``devices`` ranks (``comm.layout``), refused
+    before any work when the devices cannot hold it or the batch does not
+    divide."""
+    from human_body_reconstruction_tpu_torch.parallel import comm
+
+    try:
+        return comm.layout(devices, args.data_parallel, args.level_parallel,
+                           args.num_batch)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
 
 def load_dataset(args, device):
@@ -480,13 +508,69 @@ def load_dataset(args, device):
 
 
 def main(argv=None):
+    """Train; returns the trainer (None when the run was spread over
+    processes this one started)."""
+    import sys
+
+    import torch
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+
     from human_body_reconstruction_tpu_torch.cli import device_from_flag
-    from human_body_reconstruction_tpu_torch.train.trainer import Trainer
+    from human_body_reconstruction_tpu_torch.parallel import comm
 
     cfg = make_config(args)
     check_supported(args, cfg)
     device = device_from_flag(args.device)
+    if not (args.data_parallel or args.level_parallel > 1):
+        return train(args, cfg, device)
+    if comm.torchrun_env():
+        return _joined(device.type, argv, None)
+    # the cards, or on the CPU a process for each level rank
+    n_data, n_level = world_layout(args, (
+        torch.cuda.device_count() if device.type == "cuda"
+        else max(args.level_parallel, 1)))
+    world = n_data * n_level
+    if world == 1:
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="hbr_rdzv_") as tmp:
+            return _joined(device.type, argv,
+                           f"file://{os.path.join(tmp, 'rendezvous')}")
+    comm.spawn(_rank_main, world, (argv,), device.type)
+    return None
+
+
+def _joined(device_type: str, argv, init_method):
+    """Join the world (torchrun's, or a world of one at ``init_method``),
+    train, leave."""
+    import torch.distributed as dist
+
+    from human_body_reconstruction_tpu_torch.parallel import comm
+
+    kw = {} if init_method is None else dict(rank=0, world_size=1,
+                                             init_method=init_method)
+    device = comm.init(device_type, **kw)
+    try:
+        args = build_parser().parse_args(argv)
+        world_layout(args, dist.get_world_size())
+        return train(args, make_config(args), device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_main(device, argv):
+    """One spawned rank's run; returns its step count."""
+    args = build_parser().parse_args(argv)
+    return train(args, make_config(args), device).state.step
+
+
+def train(args, cfg, device):
+    """Load the data and run the trainer on ``device`` (one rank of a
+    joined world under ``--data_parallel``/``--level_parallel``)."""
+    from human_body_reconstruction_tpu_torch.train.trainer import Trainer
+
     ds, eval_ds = load_dataset(args, device)
 
     n_pixels = int(ds["images"].shape[0]) * ds["H"] * ds["W"]
@@ -496,13 +580,15 @@ def main(argv=None):
     trainer = Trainer(cfg=cfg, ds=ds, out_dir=args.out_dir,
                       model_name=args.model_name, eval_ds=eval_ds,
                       total_steps=steps, log_grad_norms=args.plot_grads,
-                      display=args.display)
+                      display=args.display,
+                      data_parallel=args.data_parallel,
+                      level_parallel=args.level_parallel)
     if args.load:
         path = os.path.join(args.out_dir, f"{args.ckpt_name}_ckpt.npz")
         if not os.path.exists(path):
             path = trainer.ckpt_path()
         trainer.load(path)
-        print(f"resumed from {path} at step {trainer.state.step}")
+        trainer.log_fn(f"resumed from {path} at step {trainer.state.step}")
     # ~100 eval renders over a long run, never more often than every 100
     # steps (an eval render costs many training steps)
     eval_every = args.eval_every or (max(100, steps // 100) if args.write
@@ -511,7 +597,7 @@ def main(argv=None):
     trainer.save()
     if args.write:
         trainer.eval_render(tag="final")
-    print(f"checkpoint: {trainer.ckpt_path()}")
+    trainer.log_fn(f"checkpoint: {trainer.ckpt_path()}")
     return trainer
 
 

@@ -55,7 +55,11 @@ class Field(nn.Module):
     generator's device and then moved to ``device``; without one they are
     zeros, to be loaded from a checkpoint.  ``table`` is None unless the
     variant hashes its fine levels; ``var_b`` (the SDF sharpness, 0.5 at
-    init) is None unless ``cfg.render.use_sdf``.
+    init) is None unless ``cfg.render.use_sdf``.  ``lp`` is None, or, on a
+    level-parallel rank (parallel/level_parallel.py ``shard_field``), the
+    ``hash_encoding.LevelShard`` whose slice ``lines`` or ``table`` hold:
+    the JAX ``params["lp_scales"]``, placement data beside the
+    parameters.
     """
 
     def __init__(self, cfg: PipelineConfig, *, device=None,
@@ -94,6 +98,7 @@ class Field(nn.Module):
             0.5, device=None if generator is None else generator.device))
             if cfg.render.use_sdf else None)
         self.variant = h.variant
+        self.lp = None
         if device is not None:
             self.to(device)
 
@@ -114,12 +119,14 @@ def encode_points(field: Field, scene, pts, cfg: PipelineConfig, *,
                   stochastic: bool = False, generator=None, enc_u=None):
     """(N, 3) world points -> (N, cfg.hash.out_dim) features; ``stochastic``
     (training) uses the single-corner estimator of the hashed levels, on
-    uniforms ``enc_u`` (3, L, N) or ones drawn from ``generator``."""
+    uniforms ``enc_u`` (3, L, N) or ones drawn from ``generator``.  A
+    level-parallel field (``field.lp``) encodes its slice and joins the
+    level group's (``cfg.hash.level_axis`` set)."""
     enc = {"dense": list(field.dense), "lines": list(field.lines),
            "table": field.table}
     return hash_encoding.encode_params(
         enc, pts, scene["mu"], scene["sigma"], cfg.hash,
-        stochastic=stochastic, generator=generator, u=enc_u)
+        stochastic=stochastic, generator=generator, u=enc_u, shard=field.lp)
 
 
 def field_forward(field: Field, scene, pts, dirs_enc, cfg: PipelineConfig,
@@ -216,14 +223,18 @@ def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
                 occ: Optional[occupancy.OccupancyGrid] = None,
                 compute_dtype=None, jitter: bool = False,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[dict] = None, placement=None):
+                draws: Optional[dict] = None, placement=None,
+                enc_generator: Optional[torch.Generator] = None):
     """Render a ray batch.  Returns {"coarse", "fine" (the second pass's
     colour, or the coarse one without ``hierarchical``, which defaults to
     ``cfg.render.hierarchical``), "weights", "t", "density"}, plus
     "fine_weights" with the second pass and "eikonal_norm" in SDF mode.
 
     ``jitter`` selects the training branch, whose random draws come from
-    ``generator``; ``draws`` may replace them: "u" (the ladder jitter, or
+    ``generator``, the stochastic encoder's from ``enc_generator`` when
+    given (a level-parallel rank's own stream, JAX ``_fold_level_axis``:
+    the ranks of one data shard draw the same rays and samples but not the
+    same corner bits); ``draws`` may replace them: "u" (the ladder jitter, or
     the iid quantiles of guided placement), "xi" (its stratified draw),
     "probe_u" (its probe jitter), "enc_u" and "fine_enc_u" (the stochastic
     encoder's uniforms of each pass, (3, L_hashed, points)), "fine_u" (the
@@ -261,10 +272,11 @@ def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
                 jitter=jitter, per_ray_jitter=r.per_ray_jitter,
                 generator=generator, u=draws.get("u"))
     stochastic = jitter and cfg.hash.stochastic_train
+    enc_gen = generator if enc_generator is None else enc_generator
     coarse, weights, density, pts, t = _render_pass(
         field, scene, rays_o, rays_d, dir_norm, t, cfg, occ, compute_dtype,
         dt_override=dt_guided, allow_compact=jitter, stochastic=stochastic,
-        generator=generator, enc_u=draws.get("enc_u"))
+        generator=enc_gen, enc_u=draws.get("enc_u"))
     out = {"coarse": coarse, "fine": coarse, "weights": weights, "t": t,
            "density": density}
     sdf_pts = pts
@@ -285,7 +297,7 @@ def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
         fine, fweights, _, sdf_pts, _ = _render_pass(
             field, scene, rays_o, rays_d, dir_norm, t_fine, cfg, occ,
             compute_dtype, allow_compact=jitter, stochastic=stochastic,
-            generator=generator, enc_u=draws.get("fine_enc_u"))
+            generator=enc_gen, enc_u=draws.get("fine_enc_u"))
         out["fine"], out["fine_weights"] = fine, fweights
     if r.use_sdf:
         mid = sdf_pts.reshape(-1, 3)

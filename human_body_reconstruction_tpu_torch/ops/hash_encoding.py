@@ -28,12 +28,24 @@ uniforms u (3, L, N): drawn by ``stoch_uniform`` (the Philox kernel of
 ops/rng_kernel.py when ``cfg.hw_rng``, else ``torch.rand``) or handed in.
 What is not ported raises with a message (``unported``): the ``cell``
 variant, packed bf16/int8 gathers, ``packed_exact``, gradient
-subsampling, the sorted scatter strategies and level parallelism.
+subsampling and the sorted scatter strategies.
+
+Level parallelism (``cfg.level_axis`` set; parallel/level_parallel.py):
+the call gets a ``shard`` (``LevelShard``), this rank's place in the level
+group.  The hashed table is the rank's contiguous level slice, encoded at
+the slice's scales, with uniforms (3, L/k, N) of its own; CP lines are the
+rank's (3, G_l, R/k) rank slices.  The dense levels are computed on every
+rank; the rank's CP or hashed block is joined with the others by the
+shard's ``gather`` and ``join_level_blocks`` (the CP blocks reordered
+[rank, level, r_local] -> [level, rank, r_local], JAX's ``[chip, n, l,
+r_local] -> [n, l, chip, r_local]``), so the MLP sees the single-device
+layout.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -45,8 +57,37 @@ _UNPORTED_FLAGS = (
     ("packed", "packed bf16/int8 gathers (--packed, --packed_exact)"),
     ("grad_subsample", "gradient feature subsampling (--grad_subsample)"),
     ("grad_level_subsample", "--grad_level_subsample"),
-    ("grad_level_pair", "--grad_level_pair"),
-    ("level_axis", "level parallelism"))
+    ("grad_level_pair", "--grad_level_pair"))
+
+
+@dataclasses.dataclass
+class LevelShard:
+    """This rank's place in the level group, as the encoder needs it (JAX
+    ``cfg.level_axis`` with ``params["lp_scales"]``): the group's size, the
+    f32 scales of a hashed table's level slice (None for CP, whose rank
+    slices span every level), ``gather`` ((N, c) -> (N, k * c), the group's
+    column blocks in rank order, whose backward hands each rank its own
+    block) and ``psum`` (the group's sum of a replicated value, whose
+    backward is the identity); parallel/level_parallel.py builds them on
+    the group.  Without ``gather`` the encode returns the rank's own
+    columns, for a caller that joins the blocks itself."""
+
+    extent: int
+    scales: Optional[torch.Tensor] = None
+    gather: Optional[Callable] = None
+    psum: Optional[Callable] = None
+
+
+def join_level_blocks(dense, fine, n_lines: int, extent: int):
+    """The single-device feature layout from the dense columns (N, D * F)
+    and the level group's gathered blocks (N, k * c) in rank order: a
+    hashed table's level blocks are already level-major; CP's k blocks of
+    (n_lines, R / k) columns become [level, rank, r_local]."""
+    if n_lines:
+        n = fine.shape[0]
+        fine = (fine.reshape(n, extent, n_lines, -1).transpose(1, 2)
+                .reshape(n, -1))
+    return torch.cat([dense, fine], dim=-1)
 
 
 def unported(cfg: HashConfig) -> Optional[str]:
@@ -99,12 +140,13 @@ def stoch_uniform(shape, cfg: HashConfig, device,
 
 
 class _Encode(torch.autograd.Function):
-    """(x, mu, sigma, u, cfg, n_dense, n_lines, *tables) -> (N, out_dim)
-    f32, where tables = grids + lines + (table,) and u (3, L, N) selects the
-    stochastic hashed path (None: exact)."""
+    """(x, mu, sigma, u, cfg, scales, n_dense, n_lines, *tables) -> (N,
+    width) f32, where tables = grids + lines + (table,), u (3, L, N) selects
+    the stochastic hashed path (None: exact) and ``scales`` are the table's
+    level scales (None: every hashed level's)."""
 
     @staticmethod
-    def forward(ctx, x, mu, sigma, u, cfg: HashConfig, n_dense: int,
+    def forward(ctx, x, mu, sigma, u, cfg: HashConfig, scales, n_dense: int,
                 n_lines: int, *tables):
         grids = tables[:n_dense]
         lines = tables[n_dense:n_dense + n_lines]
@@ -133,10 +175,12 @@ class _Encode(torch.autograd.Function):
         bits = None
         if table:
             res = hash_kernel.hash_encode_kernel(table[0], x, mu, sigma, cfg,
-                                                 u, out=out[:, d_dense:])
+                                                 u, out=out[:, d_dense:],
+                                                 scales=scales)
             bits = None if u is None else res[1]
         ctx.save_for_backward(x, mu, sigma, bits, *tables)
         ctx.cfg, ctx.n_dense, ctx.n_lines = cfg, n_dense, n_lines
+        ctx.scales = scales
         return out
 
     @staticmethod
@@ -149,7 +193,7 @@ class _Encode(torch.autograd.Function):
         table = tables[n_dense + n_lines:]
         if grad.stride(-1) != 1:
             grad = grad.contiguous()
-        need = ctx.needs_input_grad[7:]
+        need = ctx.needs_input_grad[8:]
         g_grids = [None] * len(grids)
         g_rest = [None] * (len(lines) + len(table))
         if grids and any(need[:n_dense]):
@@ -164,23 +208,31 @@ class _Encode(torch.autograd.Function):
             g_rest = cp_bwd(lines, x, mu, sigma, cfg, grad[:, d_dense:])
         if table and need[-1]:
             g_rest = [hash_kernel.hash_encode_backward_kernel(
-                table[0], x, mu, sigma, cfg, grad[:, d_dense:], bits)]
-        return (None,) * 7 + (*g_grids, *g_rest)
+                table[0], x, mu, sigma, cfg, grad[:, d_dense:], bits,
+                scales=ctx.scales)]
+        return (None,) * 8 + (*g_grids, *g_rest)
 
 
 def encode_params(enc_params, x, mu, sigma, cfg: HashConfig, *,
                   stochastic: bool = False,
-                  generator: Optional[torch.Generator] = None, u=None):
+                  generator: Optional[torch.Generator] = None, u=None,
+                  shard: Optional[LevelShard] = None):
     """enc_params: {"dense": sequence of (G, G, G, F) grids (when
     cfg.dense_levels > 0), "lines": sequence of (3, G_l, R) lines (variant
     "cp") or "table": (L_hashed, T, F) (variant "corner")}.  ``stochastic``
     (training, corner variant) picks one corner per (point, level) from
     uniforms ``u`` (3, L_hashed, N), drawn from ``generator`` when not given.
+    Under ``cfg.level_axis`` the lines or table are this rank's slices and
+    ``shard`` says which (u is then (3, L_hashed / k, N)); the blocks are
+    joined by ``shard.gather`` (without it: the rank's own columns).
     Returns (N, cfg.out_dim) f32 features, differentiable w.r.t. every grid,
     line and table on both devices."""
     msg = unported(cfg)
     if msg:
         raise NotImplementedError(msg)
+    if (cfg.level_axis is None) != (shard is None):
+        raise ValueError("a level shard goes with cfg.level_axis, and only "
+                         "with it")
     grids, lines, table = [], [], []
     if cfg.dense_levels > 0:
         if "dense" not in enc_params:
@@ -192,12 +244,20 @@ def encode_params(enc_params, x, mu, sigma, cfg: HashConfig, *,
             lines = list(enc_params["lines"])
         else:
             table = [enc_params["table"]]
+    scales = None if shard is None or not table else shard.scales
     if not (stochastic and table):
         u = None
     elif u is None:
-        u = stoch_uniform((3, cfg.num_hashed_levels, x.shape[0]), cfg,
-                          x.device, generator)
+        n_levels = table[0].shape[0]
+        u = stoch_uniform((3, n_levels, x.shape[0]), cfg, x.device,
+                          generator)
     mu, sigma = (torch.as_tensor(v, dtype=torch.float32, device=x.device)
                  for v in (mu, sigma))
-    return _Encode.apply(x, mu, sigma, u, cfg, len(grids), len(lines),
-                         *grids, *lines, *table)
+    out = _Encode.apply(x, mu, sigma, u, cfg, scales, len(grids), len(lines),
+                        *grids, *lines, *table)
+    if shard is None or shard.gather is None or not (lines or table):
+        return out
+    d_dense = len(grids) * cfg.features_per_level
+    return join_level_blocks(out[:, :d_dense],
+                             shard.gather(out[:, d_dense:]), len(lines),
+                             shard.extent)

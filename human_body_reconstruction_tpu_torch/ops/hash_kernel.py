@@ -26,6 +26,10 @@ and the table gradient adds w * g (exact) or g (stochastic) at each row.
 In the plain version the coordinates are int64 holding uint32 values, and a
 product by a prime is taken as two 16-bit halves so that it never overflows
 int64; only its low 32 bits matter.  Positions get no gradient.
+Every function takes ``scales``, the f32 resolutions of the table's levels,
+for a table that holds a contiguous slice of the ladder (a level shard of
+parallel/level_parallel.py, JAX ``level_scales_array``); by default the
+table holds every hashed level at ``fine_scales(cfg)``.
 ``hash_encode_kernel`` and ``hash_encode_backward_kernel`` are the wrappers:
 for tensors on the CPU they run ``hash_encode_plain`` and
 ``hash_encode_plain_backward``; for tensors on a CUDA device they launch the
@@ -89,14 +93,18 @@ def _corner_offsets(dim: int):
     return [tuple((c >> d) & 1 for d in range(dim)) for c in range(2 ** dim)]
 
 
-def _level_terms(xn, cfg: HashConfig, u=None, bits=None):
+def _scales(cfg: HashConfig, scales=None):
+    return fine_scales(cfg) if scales is None else scales
+
+
+def _level_terms(xn, cfg: HashConfig, u=None, bits=None, scales=None):
     """Per level: ([(flat row index into (L*T) (N,), weight (N,) or None)],
     picked offset bits (N,) int64 or None): one term per corner (exact) or
     the picked corner's (stochastic: from ``bits`` (L, N) when given, else
     from u (3, L, N))."""
     T = cfg.table_size
     out = []
-    for l, scale in enumerate(fine_scales(cfg)):
+    for l, scale in enumerate(_scales(cfg, scales)):
         x0, frac = level_coords(xn, float(scale))
         if u is None and bits is None:
             terms = []
@@ -115,14 +123,16 @@ def _level_terms(xn, cfg: HashConfig, u=None, bits=None):
     return out
 
 
-def hash_encode_plain(table, x, mu, sigma, cfg: HashConfig, u=None):
+def hash_encode_plain(table, x, mu, sigma, cfg: HashConfig, u=None,
+                      scales=None):
     """(N, cfg.dim) world points -> (N, L*F) f32 features of the hashed
     levels (exact), or, given u (3, L, N), (features, the picked corners'
     offset bits, uint8 (L, N)) (stochastic, 3-D)."""
     L, T, F = table.shape
     flat = table.reshape(L * T, F).to(torch.float32)
     cols, picked = [], []
-    for terms, bits in _level_terms(normalise(x, mu, sigma), cfg, u):
+    for terms, bits in _level_terms(normalise(x, mu, sigma), cfg, u,
+                                    scales=scales):
         if u is not None:
             cols.append(flat[terms[0][0]])
             picked.append(bits)
@@ -139,7 +149,7 @@ def hash_encode_plain(table, x, mu, sigma, cfg: HashConfig, u=None):
 
 
 def hash_encode_plain_backward(table, x, mu, sigma, cfg: HashConfig, grad,
-                               u=None, bits=None):
+                               u=None, bits=None, scales=None):
     """Gradient of ``hash_encode_plain`` w.r.t. the table, given the
     gradient ``grad`` (N, L*F) of its output; stochastic given the picked
     corners' ``bits`` (L, N) or the uniforms u they came from.  Returns an
@@ -148,16 +158,17 @@ def hash_encode_plain_backward(table, x, mu, sigma, cfg: HashConfig, grad,
     L, T, F = table.shape
     dflat = torch.zeros((L * T, F), dtype=torch.float32, device=x.device)
     for l, (terms, _) in enumerate(_level_terms(normalise(x, mu, sigma), cfg,
-                                                u, bits)):
+                                                u, bits, scales)):
         gl = grad[:, l * F:(l + 1) * F]
         for rows, w in terms:
             dflat.index_add_(0, rows, gl if w is None else gl * w[:, None])
     return dflat.reshape(L, T, F)
 
 
-def _check_args(table, x, cfg: HashConfig, u=None, bits=None):
+def _check_args(table, x, cfg: HashConfig, u=None, bits=None, scales=None):
     """Shapes and devices the kernels rely on; returns (n, L*F)."""
-    want = (cfg.num_hashed_levels, cfg.table_size, cfg.features_per_level)
+    want = (len(_scales(cfg, scales)), cfg.table_size,
+            cfg.features_per_level)
     if cfg.dim not in (2, 3) or tuple(table.shape) != want:
         raise ValueError(f"the table must be {want} (2-D or 3-D points), got "
                          f"{tuple(table.shape)} for dim {cfg.dim}")
@@ -186,7 +197,7 @@ def _check_args(table, x, cfg: HashConfig, u=None, bits=None):
     return n, c
 
 
-def _launch_args(table, x, mu, sigma, cfg: HashConfig):
+def _launch_args(table, x, mu, sigma, cfg: HashConfig, scales=None):
     """(table from a 16-byte aligned address, points, mu (dim,), sigma
     (dim,), level struct) for a launch: f32, contiguous, on the points'
     device (no host synchronisation)."""
@@ -195,9 +206,9 @@ def _launch_args(table, x, mu, sigma, cfg: HashConfig):
                                device=x.device).expand(cfg.dim).contiguous()
 
     T = cfg.table_size
-    L = cfg.num_hashed_levels
-    lv = cuda_lib.make_levels([T] * L, [l * T for l in range(L)],
-                              fine_scales(cfg))
+    scales = _scales(cfg, scales)
+    L = len(scales)
+    lv = cuda_lib.make_levels([T] * L, [l * T for l in range(L)], scales)
     tc = table.detach().contiguous()
     if tc.data_ptr() % 16:
         tc = tc.clone()
@@ -205,18 +216,18 @@ def _launch_args(table, x, mu, sigma, cfg: HashConfig):
 
 
 def hash_encode_kernel(table, x, mu, sigma, cfg: HashConfig, u=None,
-                       out=None):
+                       out=None, scales=None):
     """Forward wrapper: CPU tensors -> ``hash_encode_plain``; CUDA tensors ->
     ``hbr_hash_forward``.  ``out`` (optional) is an (N, L*F) f32 view with
     unit column stride to write into (a column block of the encoder's
     feature matrix).  Returns the features (exact), or, given u (3, L, N),
     (features, the picked corners' offset bits, uint8 (L, N))
     (stochastic)."""
-    n, c = _check_args(table, x, cfg, u=u)
+    n, c = _check_args(table, x, cfg, u=u, scales=scales)
     if out is not None:
         cuda_lib.check_out(out, n, c, x.device)
     if x.device.type == "cpu":
-        res = hash_encode_plain(table, x, mu, sigma, cfg, u)
+        res = hash_encode_plain(table, x, mu, sigma, cfg, u, scales)
         feats, bits = (res, None) if u is None else res
         if out is not None:
             feats = out.copy_(feats)
@@ -224,10 +235,11 @@ def hash_encode_kernel(table, x, mu, sigma, cfg: HashConfig, u=None,
     if out is None:
         out = torch.empty((n, c), dtype=torch.float32, device=x.device)
     bits = (None if u is None else
-            torch.empty((cfg.num_hashed_levels, n), dtype=torch.uint8,
+            torch.empty((table.shape[0], n), dtype=torch.uint8,
                         device=x.device))
     if n > 0:
-        tc, xc, muv, sigmav, lv = _launch_args(table, x, mu, sigma, cfg)
+        tc, xc, muv, sigmav, lv = _launch_args(table, x, mu, sigma, cfg,
+                                               scales)
         uc = None if u is None else u.contiguous()
         code = cuda_lib.library().hbr_hash_forward(
             xc.data_ptr(), muv.data_ptr(), sigmav.data_ptr(), tc.data_ptr(),
@@ -241,22 +253,23 @@ def hash_encode_kernel(table, x, mu, sigma, cfg: HashConfig, u=None,
 
 
 def hash_encode_backward_kernel(table, x, mu, sigma, cfg: HashConfig, grad,
-                                bits=None):
+                                bits=None, scales=None):
     """Backward wrapper: the table gradient given ``grad``, the (N, L*F) f32
     gradient of the features (any row stride, unit column stride: a column
     block of the encoder's gradient), exact, or stochastic given the picked
     corners' ``bits`` (L, N) from the forward.  CPU tensors ->
     ``hash_encode_plain_backward``; CUDA tensors -> ``hbr_hash_backward``.
     Returns an f32 (L, T, F) tensor."""
-    n, c = _check_args(table, x, cfg, bits=bits)
+    n, c = _check_args(table, x, cfg, bits=bits, scales=scales)
     cuda_lib.check_out(grad, n, c, x.device, name="grad")
     if x.device.type == "cpu":
         return hash_encode_plain_backward(table, x, mu, sigma, cfg, grad,
-                                          bits=bits)
+                                          bits=bits, scales=scales)
     dtable = torch.zeros(tuple(table.shape), dtype=torch.float32,
                          device=x.device)
     if n > 0:
-        _, xc, muv, sigmav, lv = _launch_args(table, x, mu, sigma, cfg)
+        _, xc, muv, sigmav, lv = _launch_args(table, x, mu, sigma, cfg,
+                                              scales)
         bc = None if bits is None else bits.contiguous()
         code = cuda_lib.library().hbr_hash_backward(
             xc.data_ptr(), muv.data_ptr(), sigmav.data_ptr(),

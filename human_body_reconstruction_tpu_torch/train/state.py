@@ -78,22 +78,25 @@ OPTAX_ADAMW_DECAY = 1e-4     # optax.adamw's default weight_decay
 
 class GroupedOptimizer:
     """Adam on the encoder tables, AdamW on the MLP, both on
-    ``cfg.schedule``; AdamW on the SDF sharpness at a constant rate."""
+    ``cfg.schedule``; AdamW on the SDF sharpness at a constant rate.
+    ``field`` may be a list of fields (the scenes of a multi-scene fit),
+    each group then holding every field's parameters of its kind."""
 
     def __init__(self, cfg: TrainConfig, total_steps: int, field):
-        tables = list(field.dense) + list(field.lines)
-        if field.table is not None:
-            tables.append(field.table)
+        fields = field if isinstance(field, (list, tuple)) else [field]
+        tables = [p for f in fields for p in (
+            *f.dense, *f.lines, *([] if f.table is None else [f.table]))]
         self.groups = [
             (torch.optim.Adam(tables, lr=cfg.lr_hash, eps=1e-15),
              make_schedule(cfg, cfg.lr_hash, total_steps)),
-            (torch.optim.AdamW(field.mlp.parameters(), lr=cfg.lr_mlp,
-                               weight_decay=cfg.weight_decay),
+            (torch.optim.AdamW([p for f in fields for p in f.mlp.parameters()],
+                               lr=cfg.lr_mlp, weight_decay=cfg.weight_decay),
              make_schedule(cfg, cfg.lr_mlp, total_steps)),
         ]
-        if field.var_b is not None:
+        var = [f.var_b for f in fields if f.var_b is not None]
+        if var:
             self.groups.append(
-                (torch.optim.AdamW([field.var_b], lr=cfg.lr_var,
+                (torch.optim.AdamW(var, lr=cfg.lr_var,
                                    weight_decay=OPTAX_ADAMW_DECAY),
                  lambda count: cfg.lr_var))
 
@@ -112,6 +115,10 @@ class GroupedOptimizer:
         return next(opt for opt, _ in self.groups
                     if any(q is p for g in opt.param_groups
                            for q in g["params"]))
+
+    def has_state(self, p) -> bool:
+        """Has parameter p had an update (so that it has Adam moments)?"""
+        return bool(self._owner(p).state.get(p))
 
     def moments(self, p):
         """(first moment, second moment) of parameter p: zeros before its

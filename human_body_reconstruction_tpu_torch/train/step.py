@@ -47,15 +47,19 @@ def sample_ray_batch(images, c2ws, K, batch: int, generator=None,
 
 def loss_fn(field, scene, batch, cfg: PipelineConfig, occ=None,
             compute_dtype=None, step=None, generator=None, draws=None,
-            placement=None):
+            placement=None, enc_generator=None):
     """(loss, aux) of one ray batch, as the JAX ``loss_fn``.  ``step``
     (the update count) gates the factor-line TV by ``cfg.train.cp_tv_warmup``;
-    ``draws`` and ``placement`` go to ``render_rays``."""
+    ``draws``, ``placement`` and ``enc_generator`` go to ``render_rays``.
+    On a rank-parallel field (``field.lp``) the TV of the rank's line
+    slices, normalised by the global rank, is summed over the level group
+    (``field.lp.psum``), so loss and aux are the single-device values on
+    every rank."""
     rays_o, rays_d, dir_norm, gt = batch
     out = nerf.render_rays(field, scene, rays_o, rays_d, dir_norm, cfg,
                            occ=occ, compute_dtype=compute_dtype, jitter=True,
                            generator=generator, draws=draws,
-                           placement=placement)
+                           placement=placement, enc_generator=enc_generator)
     mse = torch.mean((out["fine"] - gt) ** 2)
     loss = torch.mean((out["coarse"] - gt) ** 2) + mse
     aux = {"mse": mse}
@@ -70,6 +74,8 @@ def loss_fn(field, scene, batch, cfg: PipelineConfig, occ=None,
         tv = sum(torch.sum((ln[:, 1:, :] - ln[:, :-1, :]) ** 2)
                  / (ln.shape[0] * (ln.shape[1] - 1) * rank)
                  for ln in field.lines) / len(field.lines)
+        if field.lp is not None:
+            tv = field.lp.psum(tv)
         if tc.cp_tv_warmup <= 0 or step is None or step >= tc.cp_tv_warmup:
             loss = loss + tc.cp_tv_weight * tv
         aux["cp_tv"] = tv
@@ -82,15 +88,18 @@ def loss_fn(field, scene, batch, cfg: PipelineConfig, occ=None,
 
 
 def train_step(state, scene, images, c2ws, K, cfg: PipelineConfig,
-               batch_size: int, generator=None):
+               batch_size: int, generator=None, enc_generator=None):
     """One optimization step, in place on ``state`` (its field, optimizer
-    and step count).  Returns the metrics (detached tensors)."""
+    and step count).  Returns the metrics (detached tensors).  The
+    stochastic encoder draws from ``enc_generator`` when given, else from
+    ``generator``."""
     batch = sample_ray_batch(images, c2ws, K, batch_size, generator)
     state.opt.zero_grad()
     compute_dtype = (torch.bfloat16 if cfg.train.compute_dtype == "bfloat16"
                      else None)
     loss, aux = loss_fn(state.field, scene, batch, cfg, state.occ,
-                        compute_dtype, step=state.step, generator=generator)
+                        compute_dtype, step=state.step, generator=generator,
+                        enc_generator=enc_generator)
     loss.backward()
     state.opt.step(state.step)
     state.step += 1

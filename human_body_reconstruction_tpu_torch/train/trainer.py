@@ -2,9 +2,22 @@
 model, grouped optimizer, occupancy warmup and refreshes, periodic eval
 renders, checkpoints and metrics.
 
-One process on one device.  The JAX trainer's data- and level-parallel
-branches, its compiled-executable cache and fused multi-step dispatches
-are not ported.  ``log_grad_norms`` adds each group's gradient norm on a
+One process on one device, or, with ``data_parallel`` or
+``level_parallel`` k > 1, one rank of a world of processes that
+``parallel.comm`` has joined (JAX: a mesh over the visible devices): the
+world is laid out (n_data, k), n_data the world's size over k with
+``data_parallel``, else 1, and the step is ``parallel.data_parallel``'s or
+``parallel.level_parallel``'s; even a world of one runs the data-parallel
+step through its group.  Every rank starts from the same seeded field (then
+rank 0's is broadcast, or each level rank keeps its slice), refreshes the
+occupancy grid from a generator folded from (seed, 10000 + step), as JAX
+folds its key, and then takes rank 0's grid; under level parallelism the
+eval render splits rays over the data group (``make_lp_render``) and the
+checkpoint joins the level shards into the single-device file that the
+other entry points and ``load`` read (``load`` shards it again).  Only rank
+0 logs and writes.  The JAX trainer's compiled-executable cache and fused
+multi-step dispatches are not ported.  ``log_grad_norms`` adds each group's
+gradient norm (of the whole field, joined under level parallelism) on a
 256-ray probe batch to every log record, as the JAX trainer does; the
 probe draws from its own generator, seeded with ``cfg.train.seed`` at each
 log (the JAX probe reuses one key), so the training draws are untouched.
@@ -28,10 +41,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from human_body_reconstruction_tpu_torch.models import nerf
 from human_body_reconstruction_tpu_torch.ops import occupancy
 from human_body_reconstruction_tpu_torch.ops import rays as rays_lib
+from human_body_reconstruction_tpu_torch.parallel import comm
 from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt_lib
 from human_body_reconstruction_tpu_torch.train import state as state_lib
 from human_body_reconstruction_tpu_torch.train import step as step_lib
@@ -87,16 +102,37 @@ class Trainer:
                                        # num_epochs * steps per epoch
     log_grad_norms: bool = False       # --plot_grads
     display: bool = False              # --display
+    data_parallel: bool = False        # --data_parallel
+    level_parallel: int = 0            # --level_parallel
 
     def __post_init__(self):
         cfg = self.cfg
         self.device = self.ds["images"].device
+        self.mesh, self._step_fn, self.run_cfg = None, None, cfg
+        self._lp = self.level_parallel > 1
+        if self.data_parallel or self._lp:
+            if not dist.is_initialized():
+                raise RuntimeError("data or level parallelism runs in a "
+                                   "world of processes (parallel.comm.init "
+                                   "or spawn); none is joined")
+            n_data, n_level = comm.layout(dist.get_world_size(),
+                                          self.data_parallel,
+                                          self.level_parallel,
+                                          cfg.train.ray_batch)
+            if n_data * n_level != dist.get_world_size():
+                raise ValueError(f"mesh {n_data}x{n_level} != "
+                                 f"{dist.get_world_size()} ranks")
+            self.mesh = comm.make_mesh(n_data, n_level, "level")
+        self.rank0 = self.mesh is None or dist.get_rank() == 0
+        if not self.rank0:
+            self.log_fn = lambda line: None
         os.makedirs(self.out_dir, exist_ok=True)
         self.scene = scene_from_dataset(self.ds, cfg)
-        ckpt_lib.save_bounds(
-            os.path.join(self.out_dir, self.bounds_path),
-            self.scene["min_bound"].cpu().numpy(),
-            self.scene["max_bound"].cpu().numpy())
+        if self.rank0:
+            ckpt_lib.save_bounds(
+                os.path.join(self.out_dir, self.bounds_path),
+                self.scene["min_bound"].cpu().numpy(),
+                self.scene["max_bound"].cpu().numpy())
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.train.seed)
         field = init_params(cfg, self.generator)
@@ -113,6 +149,29 @@ class Trainer:
                 1, (self.ds["images"].numel() // 3) // cfg.train.ray_batch)
         self.state = state_lib.create_train_state(
             field, cfg.train, self.total_steps, occ=occ)
+        if self._lp:
+            from human_body_reconstruction_tpu_torch.parallel import (
+                level_parallel as lp)
+
+            self.state = lp.shard_lp_state(self.state, cfg, self.mesh,
+                                           self.total_steps)
+            self._step_fn = lp.make_lp_train_step(cfg, cfg.train.ray_batch,
+                                                  self.mesh)
+            self.run_cfg = lp.lp_cfg(cfg)
+            self._lp_render = lp.make_lp_render(
+                cfg, self.mesh, num_samples=256,
+                hierarchical=cfg.render.hierarchical)
+            self.log_fn(f"level-parallel over {self.mesh.n_inner} ranks"
+                        + (f" x {self.mesh.n_data} data shards"
+                           if self.mesh.n_data > 1 else ""))
+        elif self.mesh is not None:
+            from human_body_reconstruction_tpu_torch.parallel import (
+                data_parallel as dp)
+
+            dp.replicate(self.state)
+            self._step_fn = dp.make_dp_train_step(cfg, cfg.train.ray_batch,
+                                                  self.mesh)
+            self.log_fn(f"data-parallel over {self.mesh.n_data} ranks")
         self.history = []
         self.metrics = obs.MetricsLogger(self.out_dir,
                                          name=f"{self.model_name}_metrics")
@@ -121,11 +180,26 @@ class Trainer:
     def ckpt_path(self):
         return os.path.join(self.out_dir, f"{self.model_name}_ckpt.npz")
 
+    def whole_state(self):
+        """The single-device train state: this rank's, or, under level
+        parallelism, the level group's shards joined (every rank calls
+        it)."""
+        if not self._lp:
+            return self.state
+        from human_body_reconstruction_tpu_torch.parallel import (
+            level_parallel as lp)
+
+        return lp.gather_lp_state(self.state, self.cfg, self.mesh,
+                                  self.total_steps)
+
     def save(self):
         """The checkpoint (params, optimizer state, step, occupancy grid,
-        generator) and the config JSON; the bounds were written at
-        construction."""
-        ckpt_lib.save_train_state(self.ckpt_path(), self.state,
+        generator) and the config JSON, by rank 0; the bounds were written
+        at construction."""
+        state = self.whole_state()
+        if not self.rank0:
+            return
+        ckpt_lib.save_train_state(self.ckpt_path(), state,
                                   generator=self.generator)
         C.to_json(self.cfg, os.path.join(
             self.out_dir, f"{self.model_name}_config.json"))
@@ -135,10 +209,21 @@ class Trainer:
         A saved grid comes back when the config has occupancy, and then no
         install is pending; a run loaded past its warmup without one
         installs the grid at its first step."""
+        whole = self.state
+        if self._lp:
+            whole = state_lib.create_train_state(
+                nerf.Field(self.cfg, device=self.device), self.cfg.train,
+                self.total_steps, occ=self.state.occ)
         ckpt_lib.load_train_state(
-            path or self.ckpt_path(), self.state,
+            path or self.ckpt_path(), whole,
             allow_occ=self.cfg.render.occupancy, generator=self.generator,
             seed=self.cfg.train.seed)
+        if self._lp:           # every rank read the whole file: cut it again
+            from human_body_reconstruction_tpu_torch.parallel import (
+                level_parallel as lp)
+
+            self.state = lp.shard_lp_state(whole, self.cfg, self.mesh,
+                                           self.total_steps)
         if self.state.occ is not None:
             self._occ_pending = None
 
@@ -151,10 +236,17 @@ class Trainer:
         self.log_fn(f"occupancy culling engaged at step {step_no}")
 
     def update_occupancy(self):
-        if self.state.occ is not None:
-            self.state.occ = occupancy.update_from_field(
-                self.state.occ, self.state.field, self.scene, self.cfg,
-                generator=self.generator)
+        if self.state.occ is None:
+            return
+        gen = self.generator
+        if self.mesh is not None:
+            gen = comm.fold_generator(self.device, self.cfg.train.seed,
+                                      10_000 + self.state.step)
+        self.state.occ = occupancy.update_from_field(
+            self.state.occ, self.state.field, self.scene, self.run_cfg,
+            generator=gen)
+        if self.mesh is not None:       # hold the ranks' grids equal
+            comm.broadcast_(self.state.occ[:2])
 
     # -- training ---------------------------------------------------------
     def run(self, steps: int, log_every: int = 100,
@@ -172,34 +264,27 @@ class Trainer:
             if self._occ_pending is not None and (
                     start_step + i - 1 >= cfg.train.occ_warmup_steps):
                 self._install_occ(start_step + i - 1)
-            metrics = step_lib.train_step(
-                self.state, self.scene, self.ds["images"], self.ds["c2ws"],
-                self.ds["K"], cfg, cfg.train.ray_batch, self.generator)
+            if self._step_fn is not None:
+                metrics = self._step_fn(self.state, self.scene,
+                                        self.ds["images"], self.ds["c2ws"],
+                                        self.ds["K"])
+            else:
+                metrics = step_lib.train_step(
+                    self.state, self.scene, self.ds["images"],
+                    self.ds["c2ws"], self.ds["K"], cfg, cfg.train.ray_batch,
+                    self.generator)
             rays_done += cfg.train.ray_batch
             step_no = start_step + i
             if cfg.render.occupancy and crossed(step_no, 1,
                                                 cfg.train.update_rate):
                 self.update_occupancy()
             if log_every and crossed(i, 1, log_every):
-                rec = {"step": step_no, "loss": float(metrics["loss"]),
-                       "psnr": float(metrics["psnr"])}
-                dt = time.perf_counter() - t_last     # after the sync above
-                rec["rays_per_sec"] = rays_done / dt
-                if self.state.occ is not None:
-                    rec["occupied_frac"] = float(
-                        occupancy.occupied_fraction(self.state.occ))
-                if self.log_grad_norms:
-                    norms = probe_grad_norms(
-                        self.state.field, self.scene, self.ds, cfg,
-                        self.state.occ, torch.Generator(
-                            self.device).manual_seed(cfg.train.seed))
-                    rec.update({k: float(v) for k, v in norms.items()})
-                self.history.append(rec)
-                self.metrics.log(rec)
-                self.log_fn(
-                    f"step {rec['step']:7d}  loss {rec['loss']:.5f}  "
-                    f"psnr {rec['psnr']:6.2f}  "
-                    f"{rec['rays_per_sec'] / 1e6:7.3f} Mrays/s")
+                # the probe field: under level parallelism every rank joins
+                # the shards, then rank 0 alone logs
+                probe = (self.whole_state().field if self.log_grad_norms
+                         else None)
+                if self.rank0:
+                    self._log(step_no, metrics, rays_done, t_last, probe)
                 t_last = time.perf_counter()
                 rays_done = 0
             if eval_every and crossed(i, 1, eval_every):
@@ -207,18 +292,51 @@ class Trainer:
                 self.save()
         return self.state
 
+    def _log(self, step_no: int, metrics, rays_done: int, t_last: float,
+             probe):
+        """One log record; the rate of the rays since ``t_last``, timed
+        after the sync of reading the loss."""
+        rec = {"step": step_no, "loss": float(metrics["loss"]),
+               "psnr": float(metrics["psnr"])}
+        rec["rays_per_sec"] = rays_done / (time.perf_counter() - t_last)
+        if self.state.occ is not None:
+            rec["occupied_frac"] = float(
+                occupancy.occupied_fraction(self.state.occ))
+        if probe is not None:
+            norms = probe_grad_norms(
+                probe, self.scene, self.ds, self.cfg, self.state.occ,
+                torch.Generator(self.device).manual_seed(self.cfg.train.seed))
+            rec.update({k: float(v) for k, v in norms.items()})
+        self.history.append(rec)
+        self.metrics.log(rec)
+        self.log_fn(f"step {rec['step']:7d}  loss {rec['loss']:.5f}  "
+                    f"psnr {rec['psnr']:6.2f}  "
+                    f"{rec['rays_per_sec'] / 1e6:7.3f} Mrays/s")
+
     def eval_render(self, tag: str = "final"):
         """Render view 0 of the eval (else the training) dataset in f32 on
         the eval branch with 256 samples; write a PNG and return the PSNR
-        against the dataset image."""
+        against the dataset image (rank 0; None on the other ranks, which
+        take part in a level-parallel render)."""
         from human_body_reconstruction_tpu_torch.data import png
 
         ds = self.eval_ds if self.eval_ds is not None else self.ds
-        img = step_lib.render_image(
-            self.state.field, self.scene, ds["H"], ds["W"], ds["K"],
-            ds["c2ws"][0], self.cfg, occ=self.state.occ,
-            num_samples=256,
-            hierarchical=self.cfg.render.hierarchical).cpu().numpy()
+        hier = self.cfg.render.hierarchical
+        if self._lp:              # every rank: rays over the data group
+            o, d, n = rays_lib.full_image_rays(ds["H"], ds["W"], ds["K"],
+                                               ds["c2ws"][0])
+            img = self._lp_render(
+                self.state.field, self.scene, o.reshape(-1, 3),
+                d.reshape(-1, 3), n.reshape(-1, 1), occ=self.state.occ)
+            img = img.reshape(ds["H"], ds["W"], 3)
+        elif self.rank0:
+            img = step_lib.render_image(
+                self.state.field, self.scene, ds["H"], ds["W"], ds["K"],
+                ds["c2ws"][0], self.cfg, occ=self.state.occ,
+                num_samples=256, hierarchical=hier)
+        if not self.rank0:
+            return None
+        img = img.cpu().numpy()
         gt = ds["images"][0].cpu().numpy()
         mse = float(np.mean((img - gt) ** 2))
         psnr = 10 * np.log10(1.0 / max(mse, 1e-12))

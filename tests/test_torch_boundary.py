@@ -240,6 +240,9 @@ def test_port_imports_nothing_of_the_jax_package():
                                                        pkg.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
+        assert {{pkg.__name__ + ".parallel." + m for m in (
+            "comm", "data_parallel", "level_parallel", "sample_parallel",
+            "multi_scene", "dryrun")}} <= set(names), names
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
