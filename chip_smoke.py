@@ -171,6 +171,26 @@
     together for 4 steps against two single-scene runs from the same
     generators, the parameter limit held below what one skipped update
     moves a group.
+22. The hash-grid variants: ``cli/quality_holdout.py`` in four
+    modes cut in depth (``cell`` and ``packed_gsub`` 64 unculled steps,
+    ``int8_dense_guided_lvl`` and ``int8_dense_guided_k32_mass_lpair`` 288,
+    past the grid's install at 256): finite holdout PSNRs, 0 < occ_frac < 1
+    where the mode culls, each path's kernels launched;
+    ``cli/speedrun.py --encoder int8`` capped after its third gate;
+    ``train_hash --stochastic --hw_rng --packed --grad_subsample
+    --scatter_strategy sorted`` and ``segsum`` for SCATTER_STEPS steps; a
+    frame of the int8 run served through the packed-exact read.  Then each
+    new kernel against its plain version, forwards and packs bit for bit,
+    backwards within the sum-order tolerance: on the hash path's 1,024,000
+    points (L 16, F 2, T 2^16) the bf16 pack (beside the bf16 cast), the
+    bf16 stochastic forward (beside ``embedding_bag`` on the unpacked
+    table), its 1-of-2 backward, the pairs and the sorted and segsum adds
+    (beside ``torch.sort`` of the pairs), the cell pair (beside
+    ``embedding_bag``/``index_add_`` given its rows and weights); on the
+    int8 modes' own first-pass points (6 hashed levels, F 4) the int8 pack,
+    the stochastic and packed-exact forwards and the lpair and lvl
+    backwards (beside ``index_add_`` given the pairs); and, on the same
+    hash-path points, the f32 stochastic and exact kernels for the A/B.
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
@@ -205,6 +225,9 @@ uniform_bits/level_shard_k2 and _k4, cp_{forward,backward}/rank_shard_k2
 and _k4, with the launches of the phase that runs each shape; a shard
 shape runs on a step only under ``--level_parallel`` on 2 or 4 cards, so
 its row gives the launches of the serial drive of its k ranks' encodes),
+and the hash-variant kernels' records, named for their kernel and
+path (``hash_pack/bf16_table``, ``packed_forward/int8_exact_path``,
+``hash_backward/int8_lpair_path``, ``add_sorted/segsum_train_path``, ...),
 and last
 ``{"ok": true, "device": {...}}``.
 
@@ -2455,6 +2478,447 @@ def plot_grads_phase(work: str, device: torch.device, tag: str):
           and all(math.isfinite(v) for v in losses), "onecycle rates")
 
 
+# the hash-grid variants: four protocol modes cut in depth (the cell
+# grid and the bf16 grid unculled, the int8 ones past their grid's install
+# at 256), the int8 speedrun capped after its third gate, and train_hash's
+# two sorted scatter strategies for a few steps
+VARIANT_MODES = {"cell": 64, "packed_gsub": 64, "int8_dense_guided_lvl": 288,
+                 "int8_dense_guided_k32_mass_lpair": 288}
+INT8_SPEEDRUN_ARGS = ("--encoder", "int8", "--eval_every", "125",
+                      "--max_steps", "375", "--eval_after_train_db", "0")
+SCATTER_STEPS = 12
+VARIANT_REPLACES = {
+    "hash_pack": "none (no TPU kernel: human_body_reconstruction_tpu/ops/"
+                 "hash_encoding.py:389,516 pack_table_bf16/int8 in jnp)",
+    "packed_forward": "none (no TPU kernel: human_body_reconstruction_tpu/"
+                      "ops/hash_encoding.py:312,411,545 packed gathers in "
+                      "jnp)",
+    "hash_backward": "none (no TPU kernel: human_body_reconstruction_tpu/"
+                     "ops/hash_encoding.py:483,589 the subsampled VJP "
+                     "scatters)",
+    "cell_forward": "none (no TPU kernel: human_body_reconstruction_tpu/ops/"
+                    "hash_encoding.py:195 hash_encode_cell, a jnp row gather)",
+    "cell_backward": "none (no TPU kernel: the autodiff scatter of "
+                     "human_body_reconstruction_tpu/ops/hash_encoding.py:195)",
+    "hash_pairs": "none (no TPU kernel: the (index, value) pairs of "
+                  "human_body_reconstruction_tpu/ops/hash_encoding.py:483,589)",
+    "add_sorted": "none (no TPU kernel: human_body_reconstruction_tpu/ops/"
+                  "hash_encoding.py:102 scatter_add_flat, sorted and segsum)"}
+
+
+def variant_wrappers(*names):
+    """(name, wrapper) of the hash-variant kernels (and, by their names in
+    ``wrappers``, the earlier kernels), in the order given."""
+    from human_body_reconstruction_tpu_torch.ops import hash_variants as hv
+
+    table = {"hash_pack": hv.pack_kernel,
+             "packed_forward": hv.packed_encode_kernel,
+             "cell_forward": hv.cell_encode_kernel,
+             "cell_backward": hv.cell_encode_backward_kernel,
+             "hash_pairs": hv.pairs_kernel,
+             "add_sorted": hv.add_sorted_kernel}
+    return [(nm, table[nm]) if nm in table else wrappers(nm)[0]
+            for nm in names]
+
+
+def variant_mode_phase(mode: str, work: str, device: torch.device, tag: str):
+    """``quality_holdout --mode mode --save_params`` cut to
+    VARIANT_MODES[mode] steps: finite holdout PSNRs, 0 < occ_frac < 1 where
+    the mode culls, and the launches of the kernels of its path.  Returns
+    (row, launches, the saved run restored with its grid)."""
+    from human_body_reconstruction_tpu_torch.cli import quality_holdout
+    from human_body_reconstruction_tpu_torch.pipeline import restore
+
+    steps = VARIANT_MODES[mode]
+    cfg = quality_holdout.make_modes()[mode]
+    kernels = {"cell": ("cell_forward", "cell_backward")}.get(
+        mode, ("uniform_bits", "hash_pack", "packed_forward", "hash_backward")
+        + (("dense_forward", "dense_backward") if cfg.hash.dense_levels
+           else ()))
+    argv = ["--mode", mode, "--steps", str(steps), "--device", str(device),
+            "--out", f"{work}/{mode}.json", "--save_params"]
+    t0 = time.perf_counter()
+    row, launches = counted(variant_wrappers(*kernels),
+                            lambda: quality_holdout.main(argv,
+                                                         log=lambda s: None))
+    print(f"quality protocol ({mode}): {row['steps']} steps, "
+          f"{1e3 * PROTOCOL_RAYS / row['rays_per_sec']:.2f} ms/step, "
+          f"{row['rays_per_sec']} rays/s, train PSNR {row['train_psnr']} dB, "
+          f"occ_frac {row.get('occ_frac')}; holdout "
+          + ", ".join(f"{k} {v}" for k, v in row["holdout_per_pose"].items())
+          + f" dB, mean {row['holdout_psnr']}; launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s with the ground truth {tag}")
+    check(row["steps"] == steps and all(
+        math.isfinite(v) for v in row["holdout_per_pose"].values())
+        and row["holdout_psnr"] > 10.0, (mode, row))
+    check(not cfg.render.occupancy or 0.0 < row.get("occ_frac", 0.0) < 1.0,
+          (mode, "occ_frac", row.get("occ_frac")))
+    check(all(n > 0 for n in launches.values()), (mode, launches))
+    res = restore.restore(f"{work}/{mode}", mode, device=device,
+                          with_occ=True, log_fn=lambda s: None)
+    return row, launches, res
+
+
+def variant_record(nm, run, kern, plain, compare, n_bytes, ops, library=None,
+                   plain_reps=3):
+    """Time kernel ``kern`` against its plain version and the library call;
+    ``compare(got, want)`` -> (max_abs_err, passed, note).  Returns
+    (max_abs_err, ms, plain_ms, library_ms, bound)."""
+    with torch.no_grad():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, ok, note = compare(got, want)
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, reps=plain_reps)
+        lib_ms = None if library is None else time_ms(library)
+    bnd = bound(n_bytes, ops)
+    lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+    print(f"kernel {nm} ({run}): {note}, max_abs_err {err:.3e}, {ms:.4f} ms "
+          f"vs plain {plain_ms:.4f} ms{lib}, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})")
+    check(ok, (nm, run, err, note))
+    return err, ms, plain_ms, lib_ms, bnd
+
+
+def bit_for_bit(got, want):
+    """compare() of a forward or a pack: each tensor equal to its plain
+    twin, integers compared as int64 and floats as float64 (an int8 word
+    is past float32's 2^24, where a float32 cast hides its low bytes)."""
+    pairs = (list(zip(got, want)) if isinstance(got, (tuple, list))
+             else [(got, want)])
+    same, err = True, 0.0
+    for g, w in pairs:
+        kinds = g.is_floating_point() == w.is_floating_point()
+        wide = torch.float64 if g.is_floating_point() else torch.int64
+        g, w = g.to(wide), w.to(wide)
+        same = same and kinds and torch.equal(g, w)
+        err = max(err, float((g - w).abs().max()))
+    return err, same, f"bit for bit {same}"
+
+
+def within_sum_order(abs_sum):
+    """compare() of a backward: within ``cuda_lib.sum_order_tolerance``."""
+    from human_body_reconstruction_tpu_torch.ops import cuda_lib
+
+    def compare(got, want):
+        ratio = float(((got - want).abs() / cuda_lib.sum_order_tolerance(
+            want, abs_sum, False)).max())
+        ok = ratio <= 1.0 and bool(torch.isfinite(got).all())
+        return (float((got - want).abs().max()), ok,
+                f"worst |err| / tolerance {ratio:.3f}")
+    return compare
+
+
+def abs_sums(size, idx, val):
+    """The sum of |val| at each index: the tolerance's S of a scatter."""
+    return torch.zeros(size, device=val.device).index_add_(
+        0, idx.long(), val.abs())
+
+
+def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
+    """The hash-variant kernels against their plain versions, timed beside
+    their bounds and library calls, and the A/B against the f32 kernels on
+    the same points: on the hash path's 1,024,000 points (L 16, F 2, T 2^16:
+    the bf16 pack and stochastic forward, its 1-of-2 backward and the full
+    one, the pairs and both sorted adds, the cell pair against the exact
+    pair), and on the int8 modes' own first-pass points (6 hashed levels, F
+    4: the int8 pack, the stochastic and packed-exact forwards, the lvl and
+    lpair backwards).  Returns ({record name: record}, the A/B times, the
+    int8 modes' point counts)."""
+    from human_body_reconstruction_tpu_torch.ops import (
+        hash_encoding, hash_kernel, hash_variants as hv, rng_kernel)
+
+    out, points = {}, {}
+    gen = torch.Generator(device).manual_seed(SEED + 20)
+    n = hash_pts.shape[0]
+    mu, sigma = hash_scene["mu"], hash_scene["sigma"]
+    packed = runs["packed_gsub"][2]
+    h = packed.cfg.hash
+    table = packed.field.table.detach()
+    L, T, F = table.shape
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=device,
+                         dtype=torch.int32)
+    u = rng_kernel.uniform(seed, (3, L, n))
+    g = torch.randn((n, L * F + 3), generator=gen, device=device)[:, 3:]
+    a = (hash_pts, mu, sigma, h)
+    print(f"hash path: {n} points, table {tuple(table.shape)} ({mode_name(h)})")
+    # the pack
+    words, scale = hv.pack_kernel(table, "bf16")
+    out["hash_pack/bf16_table"] = variant_record(
+        "hash_pack", "bf16, the packed_gsub table",
+        lambda: hv.pack_kernel(table, "bf16")[0],
+        lambda: hv.pack_plain(table, "bf16")[0], bit_for_bit,
+        nbytes(table, words), L * T * F * 2,
+        library=lambda: table.to(torch.bfloat16).view(torch.int32))
+    check(torch.equal(table.to(torch.bfloat16).view(torch.int32).reshape(-1),
+                      words), "bf16 words are the bf16 cast's bits")
+    # the packed stochastic forward vs the f32 stochastic one
+    feats, bits = hv.packed_encode_kernel(words, scale, *a, u=u)
+    rows, _ = hash_rows_weights(hash_pts, mu, sigma, h, bits)
+    unpacked = hv.unpack_plain(words, None, "bf16", 2, 0)
+    out["packed_forward/bf16_train_path"] = variant_record(
+        "packed_forward", "bf16 stochastic, hash path",
+        lambda: hv.packed_encode_kernel(words, scale, *a, u=u),
+        lambda: hv.packed_encode_plain(words, scale, *a, u=u), bit_for_bit,
+        nbytes(hash_pts, words, u, feats, bits),
+        forward_ops("hash_forward", table, h, n, True),
+        library=embedding_bag_call(unpacked, rows, None))
+    ab = {"hash_forward/stochastic_same_points": time_ms(
+        lambda: hash_kernel.hash_encode_kernel(table, *a, u=u))}
+    # the 1-of-2 backward vs the full one
+    draws = hash_encoding.draw_subsample(
+        "hash_encode_stochastic_packed", h, L, n, device, gen)
+    pick = draws["pick"]
+    idx, val = hv.pairs_kernel(table, *a, g, bits, pick)
+    out["hash_backward/bf16_gsub_train_path"] = variant_record(
+        "hash_backward", "bf16 1-of-2, hash path",
+        lambda: hash_kernel.hash_encode_backward_kernel(table, *a, g, bits,
+                                                        pick=pick),
+        lambda: hv.scatter_plain(table.numel(), *hv.pairs_plain(
+            table, *a, g, bits, pick)).reshape(table.shape),
+        within_sum_order(abs_sums(table.numel(), idx, val).reshape(
+            table.shape)),
+        nbytes(hash_pts, g, bits, pick, table), n * L * 14,
+        library=index_add_pairs_call(table.numel(), idx, val))
+    ab["hash_backward/stochastic_same_points"] = time_ms(
+        lambda: hash_kernel.hash_encode_backward_kernel(table, *a, g, bits))
+    # the pairs and the sorted adds (train_hash --scatter_strategy)
+    out["hash_pairs/bf16_gsub_train_path"] = variant_record(
+        "hash_pairs", "bf16 1-of-2, hash path",
+        lambda: hv.pairs_kernel(table, *a, g, bits, pick),
+        lambda: hv.pairs_plain(table, *a, g, bits, pick),
+        bit_for_bit, nbytes(hash_pts, g, bits, pick, idx, val), n * L * 14)
+    si, sv = hv.sort_pairs(idx, val)
+    sort_ms = time_ms(lambda: hv.sort_pairs(idx, val))
+    for strategy in ("sorted", "segsum"):
+        out[f"add_sorted/{strategy}_train_path"] = variant_record(
+            "add_sorted", f"{strategy}, {si.numel()} sorted pairs",
+            lambda: hv.add_sorted_kernel(table.numel(), si, sv, strategy),
+            lambda: hv.scatter_plain(table.numel(), si, sv, strategy),
+            within_sum_order(abs_sums(table.numel(), idx, val)),
+            nbytes(si, sv, table), si.numel(),
+            library=lambda: hv.sort_pairs(idx, val))
+    # the cell pair vs the exact pair
+    cell = runs["cell"][2]
+    ctab = cell.field.table.detach()
+    ch = cell.cfg.hash
+    ca = (hash_pts, mu, sigma, ch)
+    cfeats = hv.cell_encode_kernel(ctab, *ca)
+    crow, cw = cell_rows_weights(hash_pts, mu, sigma, ch)
+    out["cell_forward/train_path"] = variant_record(
+        "cell_forward", "cell, hash path",
+        lambda: hv.cell_encode_kernel(ctab, *ca),
+        lambda: hv.cell_encode_plain(ctab, *ca), bit_for_bit,
+        nbytes(hash_pts, ctab, cfeats), n * L * (15 + 8 * (10 + 2 * F)),
+        library=embedding_bag_call(ctab.reshape(-1, F)[None], crow, cw))
+    out["cell_backward/train_path"] = variant_record(
+        "cell_backward", "cell, hash path",
+        lambda: hv.cell_encode_backward_kernel(ctab, *ca, g),
+        lambda: hv.cell_encode_plain_backward(ctab, *ca, g),
+        within_sum_order(hv.cell_encode_plain_backward(ctab, *ca, g.abs())),
+        nbytes(hash_pts, g, ctab), n * L * (15 + 8 * (10 + 2 * F)),
+        library=index_add_call(ctab.reshape(-1, F)[None], crow, cw, g))
+    ab["hash_forward/exact_same_points"] = time_ms(
+        lambda: hash_kernel.hash_encode_kernel(table, *a))
+    ab["hash_backward/exact_same_points"] = time_ms(
+        lambda: hash_kernel.hash_encode_backward_kernel(table, *a, g))
+    del rows, idx, val, si, sv, crow, cw
+    torch.cuda.empty_cache()
+    # int8: each mode's own first-pass points
+    for mode, kind in (("int8_dense_guided_k32_mass_lpair", "lpair"),
+                       ("int8_dense_guided_lvl", "lvl")):
+        res, data = runs[mode][2], runs["data"]
+        pts = pass_points(res, data, device, 0)
+        ih, itab = res.cfg.hash, res.field.table.detach()
+        iL, _, iF = itab.shape
+        ia = (pts, res.scene["mu"], res.scene["sigma"], ih)
+        m = points[f"int8_{kind}"] = pts.shape[0]
+        iu = rng_kernel.uniform(seed, (3, iL, m))
+        ig = torch.randn((m, iL * iF), generator=gen, device=device)
+        iw, isc = hv.pack_kernel(itab, "int8")
+        ifeats, ibits = hv.packed_encode_kernel(iw, isc, *ia, u=iu)
+        label = f"{mode}'s {m} first-pass points"
+        if kind == "lpair":
+            print(f"int8 path: {label}, table {tuple(itab.shape)}")
+            out["hash_pack/int8_table"] = variant_record(
+                "hash_pack", f"int8, the {mode} table",
+                lambda: hv.pack_kernel(itab, "int8"),
+                lambda: hv.pack_plain(itab, "int8"), bit_for_bit,
+                nbytes(itab, iw, isc), itab.numel() * 8)
+            irows, _ = hash_rows_weights(pts, ia[1], ia[2], ih, ibits)
+            flat = torch.cat([hv.unpack_plain(
+                iw.reshape(iL, -1)[l], isc, "int8", iF, l)
+                for l in range(iL)])
+            out["packed_forward/int8_train_path"] = variant_record(
+                "packed_forward", f"int8 stochastic, {label}",
+                lambda: hv.packed_encode_kernel(iw, isc, *ia, u=iu),
+                lambda: hv.packed_encode_plain(iw, isc, *ia, u=iu),
+                bit_for_bit, nbytes(pts, iw, isc, iu, ifeats, ibits),
+                forward_ops("hash_forward", itab, ih, m, True),
+                library=embedding_bag_call(flat, irows, None))
+            erows, ew = hash_rows_weights(pts, ia[1], ia[2], ih)
+            efeats = hv.packed_encode_kernel(iw, isc, *ia)
+            out["packed_forward/int8_exact_path"] = variant_record(
+                "packed_forward", f"int8 packed-exact, {label}",
+                lambda: hv.packed_encode_kernel(iw, isc, *ia),
+                lambda: hv.packed_encode_plain(iw, isc, *ia), bit_for_bit,
+                nbytes(pts, iw, isc, efeats),
+                forward_ops("hash_forward", itab, ih, m),
+                library=embedding_bag_call(flat, erows, ew))
+            del irows, erows, ew, flat
+        sub = hash_encoding.draw_subsample(
+            "hash_encode_stochastic_int8", ih, iL, m, device, gen)
+        sel = (sub["pick"], sub.get("lsel"), sub.get("psel"))
+        iidx, ival = hv.pairs_kernel(itab, *ia, ig, ibits, *sel)
+        out[f"hash_backward/int8_{kind}_path"] = variant_record(
+            "hash_backward", f"int8 {kind}, {label}",
+            lambda: hash_kernel.hash_encode_backward_kernel(
+                itab, *ia, ig, ibits, pick=sel[0], lsel=sel[1], psel=sel[2]),
+            lambda: hv.scatter_plain(itab.numel(), *hv.pairs_plain(
+                itab, *ia, ig, ibits, *sel)).reshape(itab.shape),
+            within_sum_order(abs_sums(itab.numel(), iidx, ival)
+                             .reshape(itab.shape)),
+            nbytes(pts, ig, ibits, *[v for v in sel if v is not None], itab),
+            ival.numel() * 14,
+            library=index_add_pairs_call(itab.numel(), iidx, ival))
+        del pts, iu, ig, iidx, ival
+        torch.cuda.empty_cache()
+    print("A/B on the hash path's points (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ab.items())
+          + f"; torch.sort of the 1-of-2 pairs {sort_ms:.4f} {tag}")
+    return out, ab, points
+
+
+def mode_name(h) -> str:
+    return (f"L {h.num_hashed_levels}, F {h.features_per_level}, T "
+            f"2^{h.log2_table_size}, {h.variant}")
+
+
+def cell_rows_weights(pts, mu, sigma, h):
+    """The cell forward as a bag of 8 a (point, level) over the (L*T*8, F)
+    view of the cell table: rows (N*L, 8) = row * 8 + c and weights w_c."""
+    from human_body_reconstruction_tpu_torch.ops import hash_variants as hv
+    from human_body_reconstruction_tpu_torch.ops.dense_grid import normalise
+
+    per_level = hv._cell_rows(normalise(pts, mu, sigma), h)
+    c = torch.arange(8, device=pts.device)
+    rows = torch.stack([r[:, None] * 8 + c for r, _ in per_level], 1)
+    w = torch.stack([torch.stack(ws, -1) for _, ws in per_level], 1)
+    return rows.reshape(-1, 8), w.reshape(-1, 8)
+
+
+def index_add_pairs_call(size, idx, val):
+    """A backward's pairs added by one library call, ``index_add_``."""
+    acc = torch.zeros(size, device=val.device)
+    idx = idx.long()
+    return lambda: acc.index_add_(0, idx, val)
+
+
+def variants_phase(work: str, device: torch.device, tag: str, hash_pts,
+                   hash_scene):
+    """Phase 22: the hash-grid variants through their entry points, then
+    their kernels held to their plain versions.  Returns (kernel records by
+    name with their launches and shapes, the A/B times)."""
+    from human_body_reconstruction_tpu_torch.cli import (
+        quality_holdout, serve, speedrun, train_hash)
+
+    t0 = time.perf_counter()
+    runs = {mode: variant_mode_phase(mode, work, device, tag)
+            for mode in VARIANT_MODES}
+    launches = {m: r[1] for m, r in runs.items()}
+    # the int8 speedrun, capped after its third gate (the grid at 256)
+    argv = [*INT8_SPEEDRUN_ARGS, "--device", str(device), "--out",
+            f"{work}/speedrun_int8.json"]
+    res, launches["speedrun_int8"] = counted(
+        variant_wrappers("hash_pack", "packed_forward", "hash_backward"),
+        lambda: speedrun.main(argv, log=lambda s: None))
+    print(f"speedrun ({' '.join(INT8_SPEEDRUN_ARGS)}): {res['steps']} steps, "
+          "gates " + ", ".join(f"step {e['steps']} {e['gate']} {e['gate_db']}"
+                               f" dB" for e in res["evals"])
+          + f"; crossed {json.dumps(res['crossed'])}; launches "
+          f"{launches['speedrun_int8']} {tag}")
+    check(len(res["evals"]) == 3 and all(
+        math.isfinite(e["gate_db"]) for e in res["evals"]), res["evals"])
+    check(all(v > 0 for v in launches["speedrun_int8"].values()),
+          launches["speedrun_int8"])
+    # train_hash's sorted strategies
+    for strategy in ("sorted", "segsum"):
+        out_dir = f"{work}/scatter_{strategy}"
+        args = ["--synthetic", "--synthetic_subject", "textured",
+                "--stochastic", "--hw_rng", "--packed", "--grad_subsample",
+                "--scatter_strategy", strategy, "--steps", str(SCATTER_STEPS),
+                "--log_every", str(SCATTER_STEPS), "--device", str(device),
+                "--out_dir", out_dir, "--model_name", "s"]
+        tr, n = counted(variant_wrappers("hash_pairs", "add_sorted",
+                                         "packed_forward"),
+                        lambda: train_hash.main(args))
+        launches[f"train_hash_{strategy}"] = n
+        print(f"train_hash --packed --grad_subsample --scatter_strategy "
+              f"{strategy}: {tr.state.step} steps, PSNR "
+              f"{tr.history[-1]['psnr']:.2f} dB, launches {n} {tag}")
+        check(tr.state.step == SCATTER_STEPS and all(
+            math.isfinite(r["loss"]) for r in tr.history)
+            and all(v >= SCATTER_STEPS for v in n.values()), (strategy, n))
+        del tr
+    # a frame of the int8 run served through the packed-exact read
+    lpair = "int8_dense_guided_k32_mass_lpair"
+    server = serve.RenderServer(serve.build_parser().parse_args([
+        "--ckpt_dir", f"{work}/{lpair}", "--model_name", lpair,
+        "--device", str(device)]))
+    resp, launches["serve_int8"] = counted(
+        variant_wrappers("hash_pack", "packed_forward"),
+        lambda: server.handle({"orbit": {"index": 0, "count": 4},
+                               "no_image": True}))
+    print(f"served the {lpair} run: {resp.get('wall_s')} s, "
+          f"{resp.get('rays_per_sec')} rays/s, launches "
+          f"{launches['serve_int8']} {tag}")
+    check(resp["ok"] and all(v > 0 for v in launches["serve_int8"].values()),
+          (resp, launches["serve_int8"]))
+    del server
+    runs["data"] = quality_holdout.protocol_data(400, 400, 20, "textured",
+                                                 device)
+    recs, ab, points = variant_kernel_checks(hash_pts, hash_scene, runs,
+                                             device, tag)
+    del runs
+    torch.cuda.empty_cache()
+    which = {"hash_pack/bf16_table": "packed_gsub",
+             "packed_forward/bf16_train_path": "packed_gsub",
+             "hash_backward/bf16_gsub_train_path": "packed_gsub",
+             "cell_forward/train_path": "cell",
+             "cell_backward/train_path": "cell",
+             "hash_pack/int8_table": lpair,
+             "packed_forward/int8_train_path": lpair,
+             "packed_forward/int8_exact_path": "serve_int8",
+             "hash_backward/int8_lpair_path": lpair,
+             "hash_backward/int8_lvl_path": "int8_dense_guided_lvl",
+             "hash_pairs/bf16_gsub_train_path": "train_hash_segsum",
+             "add_sorted/sorted_train_path": "train_hash_sorted",
+             "add_sorted/segsum_train_path": "train_hash_segsum"}
+    report = []
+    for key, rec in recs.items():
+        nm, run = key.split("/")[0], which[key]
+        report.append(entry(
+            key, HASH_SOURCE, VARIANT_REPLACES[nm], launches[run][nm], *rec,
+            f"{run_shape(key, points)}; launches in the {run} run"))
+    print(f"hash-variant phase: {time.perf_counter() - t0:.1f} s")
+    return report, ab
+
+
+def run_shape(key: str, points: dict) -> str:
+    """The shape of a phase-22 record: ``points`` {"int8_lpair": count,
+    "int8_lvl": count} of the int8 modes' first-pass points."""
+    table = " (the table)" if key.startswith("hash_pack") else ""
+    if "int8" not in key:
+        return (f"{HASH_POINTS} points of a hash-grid training step (16000 "
+                f"rays x 64 samples), L 16, F 2, T 2^16{table}")
+    kind = "int8_lvl" if key.endswith("lvl_path") else "int8_lpair"
+    mode = ("int8_dense_guided_lvl" if kind == "int8_lvl"
+            else "int8_dense_guided_k32_mass_lpair")
+    return (f"{points[kind]} first-pass points of a {PROTOCOL_RAYS}-ray batch "
+            f"of {mode} (guided placement), 6 hashed levels, F 4, T "
+            f"2^16{table}")
+
+
 # the parallel slice (PR 12): the world-1 NCCL data-parallel runs (the
 # flagship cut to DP_STEPS with its warmup at DP_WARMUP, and the hash grid),
 # the world-1 level-parallel steps, the level and rank shards of LP_EXTENTS,
@@ -3230,8 +3694,9 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     trainer, hash_launches = train_hash_grid(hash_dir, ds, device, tag)
+    hash_pts, hash_scene = hash_path_points(trainer, device), trainer.scene
     hash_report = hash_kernel_checks(
-        trainer, device, tag, hash_path_points(trainer, device),
+        trainer, device, tag, hash_pts,
         serving_chunk_points(trainer.cfg.render, ds["K"], ds["c2ws"][1],
                              device, 64))
     hash_step_on_card_vs_cpu(trainer, ds, device)
@@ -3426,6 +3891,10 @@ def main() -> int:
     # PR 12: the parallel slice
     shard_recs, parallel_launches = parallel_phase(work.name, device, tag)
     print(f"launches in the parallel phase's runs: {parallel_launches}")
+    # the hash-grid variants
+    variant_report, _ = variants_phase(work.name, device, tag, hash_pts,
+                                       hash_scene)
+    del hash_pts
     work.cleanup()
     for key, (rec, launches, R) in sweep.items():
         nm = key.split("/")[0]
@@ -3494,6 +3963,7 @@ def main() -> int:
             REPLACES.get(nm, "human_body_reconstruction_tpu/ops/"
                              "pallas_rng.py:30"),
             launches, *rec, shape))
+    report.extend(variant_report)
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -29,11 +29,13 @@ term and the sharpness ``var_b``, by default under ``results/``
 that ``render``, ``nerf2mesh`` and ``occ_report`` restore.
 
 Modes: ``all_modes`` builds the 60 configs of the JAX ``make_modes`` as it
-builds them; ``make_modes`` keeps the 44 whose encoder the port runs (the
+builds them, and the port runs every one (``make_modes``; ``refused_modes``
+names those whose encoder ``hash_encoding.unported`` refuses: none): the
 CP modes, dense and CP levels on every ladder and rank, the SDF and
-hierarchical ones, and the ``exact`` and ``stochastic`` corner hash grids)
-and ``refused_modes`` names the other 16 (``cell``, the ``packed`` and
-``int8`` hash variants) with ``hash_encoding.unported``'s reason.  An
+hierarchical ones, the ``exact``, ``stochastic`` and ``cell`` hash grids,
+the packed bf16 ones and the int8 ones with dense coarse levels (their
+holdout reads the f32 master table exactly, as the JAX protocol's, whose
+``eval_config`` turns ``stochastic_train`` off).  An
 ``_xla`` mode differs from its twin only in the JAX implementation switch
 (``cp_impl``/``dense_impl``): the port runs it in plain PyTorch with the
 JAX XLA path's roundings (``ops/xla_encoders.py``) and its twin through
@@ -512,7 +514,9 @@ def build_parser():
     return p
 
 
-def main(argv=None, log=print) -> dict:
+def main(argv=None, log=print, edit=None) -> dict:
+    """One mode through the protocol; ``edit`` (a function of the mode's
+    PipelineConfig returning the config to run) changes it first."""
     args = build_parser().parse_args(argv)
     from human_body_reconstruction_tpu_torch.cli import device_from_flag
 
@@ -538,7 +542,8 @@ def main(argv=None, log=print) -> dict:
                          scene_seed=args.scene_seed)
     log(f"ground truth: {args.views}+{len(HOLDOUT_NAMES)} views at {H}x{H} "
         f"({args.scene}) in {time.perf_counter() - t0:.1f}s")
-    row = run_mode(args.mode, modes[args.mode], args, data, device, log=log)
+    cfg = modes[args.mode] if edit is None else edit(modes[args.mode])
+    row = run_mode(args.mode, cfg, args, data, device, log=log)
     with open(args.out, "w") as f:
         json.dump({args.mode: row}, f, indent=2)
     log(json.dumps(row))

@@ -32,9 +32,11 @@ gate dB, the exact confirmation's dB or None, the wall second), ``steps`` run,
 ``seed`` and ``card`` (the card's name and power limit), by default under
 ``results/`` (git-ignored).  The flags are the JAX script's, plus
 ``--device`` (default cuda) and ``--seed`` (the generator of init and
-sampling; JAX fixes its keys).  Refused by name: ``--encoder int8`` (the
-packed int8 hash grid is not ported), ``--steps_per_call`` other than 1
-and ``--aot_cache`` (JAX dispatch devices; PyTorch runs one eager step per
+sampling; JAX fixes its keys).  ``--encoder int8`` is the hash flagship of
+the JAX record ``speedrun_30db.json``: 8 levels (2 dense, 6 hashed at F 4,
+T 2^16), int8 packed gathers with the Philox uniforms and 1-of-F gradient
+subsampling.  Refused by name: ``--steps_per_call`` other than 1 and
+``--aot_cache`` (JAX dispatch devices; PyTorch runs one eager step per
 call, and the step counts compare as they are).
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.speedrun \\
@@ -79,8 +81,9 @@ def build_parser():
                         "on the exact confirmation render")
     p.add_argument("--encoder", type=str, default="cp",
                    choices=["int8", "cp"],
-                   help="cp: the CP factor-line encoder; int8 (the packed "
-                        "int8 hash grid) is not ported")
+                   help="int8: the hash flagship (int8 packed gathers + "
+                        "dense coarse levels); cp: the CP factor-line "
+                        "encoder")
     p.add_argument("--cp_rank", type=int, default=32)
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the generator for init and sampling")

@@ -12,7 +12,11 @@ factor-line TV 1e-2 from step 320.  Any hash-path flag (``--stochastic``,
 ``--hw_rng``, ...) switches the preset to the reference's ``corner`` hash
 grid (L 16, F 2, T 2^16, n_max 2048, 64 samples, no culling); the port runs
 it exact or with ``--stochastic`` (single-corner training, exact eval),
-with or without ``--hw_rng``.  ``--use_sdf`` trains the SDF head with its
+with or without ``--hw_rng``, and every variant of the JAX trainer:
+``--encoder_variant cell``, ``--packed`` (bf16 pairs, or ``--pack_format
+int8`` words; evaluated through the packed-exact read), ``--packed_exact``,
+``--grad_subsample``, ``--grad_level_subsample``, ``--grad_level_pair``
+and ``--scatter_strategy sorted|segsum`` (ops/hash_variants.py).  ``--use_sdf`` trains the SDF head with its
 eikonal term, ``--hierarchical`` adds the second pass, and ``--load``
 continues the run in ``--out_dir`` (``<ckpt_name>_ckpt.npz``, else
 ``<model_name>_ckpt.npz``, written by either package) for ``--steps``
@@ -25,11 +29,11 @@ table's levels, or the CP lines' rank, over k of them (parallel/); under
 torchrun the world is torchrun's, otherwise the CLI starts it itself: one
 process a visible card with ``--data_parallel`` (k with ``--level_parallel
 k`` alone; on the CPU, k or 1), in this process when that is one.  What the
-port does not run yet is refused with a message: the ``cell`` variant,
-packed/int8 gathers and the gradient subsampling and scatter options,
-fused multi-step dispatches and the compiled-executable cache; a layout the
-model cannot split is refused as JAX refuses it (``cp_rank``, the hashed
-level count or the batch not divisible).  ``--synthetic_subject tangle`` is
+port does not run is refused with a message: fused multi-step dispatches
+and the compiled-executable cache; a layout the model cannot split is
+refused as JAX refuses it (``cp_rank``, the hashed level count or the batch
+not divisible), and one whose level slice holds an odd number of levels
+under ``--grad_level_pair``.  ``--synthetic_subject tangle`` is
 the held-back scene, its capsules and texture drawn from ``--seed``.
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.train_hash \\

@@ -100,7 +100,47 @@
 // only 8 bits of fraction, so xn * scale and 1 - frac must round as the
 // plain version's do.  The backward's terms are g * w (exact) or g, as
 // the plain version's; only the order of their f32 sums differs.
+//
+// The hash-grid variants (the JAX ops/hash_encoding.py cell, packed,
+// packed-exact, int8, gradient-subsampling and scatter-strategy paths, all
+// plain jnp there) are built from the same pieces:
+//  * hbr_hash_pack: the f32 table as one uint32 word a row, bf16 pairs
+//    (__float2bfloat16_rn, feature f in bits [16f, 16f + 16)) or int8 bytes
+//    (per-level scale s_l = max|table_l| + 1e-12, taken by atomicMax on the
+//    bits of the non-negative |t|, then rint(t / s_l * 127) clipped to
+//    +-127, feature f in byte f), once a forward as JAX packs once a step;
+//  * hbr_hash_packed_forward: hbr_hash_forward's kernel reading one word a
+//    (corner, level) through a row source that unpacks it (bf16: the half
+//    shifted into an f32; int8: the signed byte times s_l / 127), in
+//    stochastic mode (the same corner bits) or exact (the packed-exact
+//    trilerp: f32 weights, the sum over c = 0..7 from 0).  Its backward is
+//    hbr_hash_backward's (straight-through: the f32 master table's
+//    gradient);
+//  * hbr_hash_cell_forward / _backward: the "cell" variant, one hash of the
+//    cell's corner 0 and one row of 8F floats a (point, level) (64 B at F
+//    2), slot c * F + f holding corner c's feature f; the forward sums row
+//    * w_c over c = 0..7, the backward adds w_c * g into the row's slots,
+//    merged over a run of points as hbr_hash_backward merges them, and sent
+//    as float4 reductions;
+//  * the subsampled stochastic backwards are hbr_hash_backward's, given the
+//    draws (pick (L, n), lsel (n,), psel (L / 2, n), uint8, made by the
+//    caller): each (point, level) term is (g[pick] * F) * s in feature pick
+//    alone (grad_subsample), on the drawn levels alone, one a point
+//    (grad_level_subsample, s = L) or one of each consecutive pair
+//    (grad_level_pair, s = 2), else s = 1; a point whose level was not
+//    drawn is skipped in that level's walk.  On this card a scalar
+//    reduction costs what a float2 one does (the L2 counts requests), so
+//    1-of-F routing alone buys no time (PERF.md);
+//  * hbr_hash_pairs, then hbr_scatter_sorted / hbr_scatter_segsum: the
+//    "sorted" and "segsum" strategies of JAX scatter_add_flat.  The pairs
+//    (flat index, value) are written in JAX's order ([f][l][n] unsampled,
+//    [l][n], [n] or [j][n] subsampled), the caller sorts them by index
+//    (torch.sort, stable, as lax.sort), then "sorted" adds a thread's 16
+//    consecutive pairs run by run with one atomic a run, and "segsum" gives
+//    each run of equal indices to the thread at its start, which sums it in
+//    order and stores the total once (no atomics: the index is unique).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "levels.cuh"
@@ -190,14 +230,50 @@ __device__ __forceinline__ void load_row(const float* p, float* v) {
   }
 }
 
+// Row sources of the forward: load<F>(l, row, v) reads row ``row`` (level l's
+// first row at lv.offset[l]) as F f32 features.
+struct F32Rows {  // the (L, T, F) f32 table
+  const float* __restrict__ table;
+  template <int F>
+  __device__ __forceinline__ void load(int, long long row, float* v) const {
+    load_row<F>(table + row * F, v);
+  }
+};
+
+struct Bf16Words {  // (L * T,) uint32: feature f in bits [16f, 16f + 16)
+  const unsigned* __restrict__ words;
+  template <int F>
+  __device__ __forceinline__ void load(int, long long row, float* v) const {
+    static_assert(F == 2, "bf16 words hold two features");
+    const unsigned w = __ldg(words + row);
+    v[0] = __uint_as_float(w << 16);
+    v[1] = __uint_as_float(w & 0xFFFF0000u);
+  }
+};
+
+struct Int8Words {  // (L * T,) uint32: feature f in byte f; scale (L,)
+  const unsigned* __restrict__ words;
+  const float* __restrict__ scale;
+  template <int F>
+  __device__ __forceinline__ void load(int l, long long row, float* v) const {
+    static_assert(F <= 4, "int8 words hold at most four features");
+    const unsigned w = __ldg(words + row);
+    const float m = __fdiv_rn(__ldg(scale + l), 127.0f);  // JAX scale / 127.0
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      v[f] = __fmul_rn((float)(int)(signed char)((w >> (8 * f)) & 0xFFu), m);
+  }
+};
+
 // The 2^DIM corner rows of one (point, level), corner c's offset bit d
-// being (c >> d) & 1.
-template <int F, int DIM>
-__device__ __forceinline__ void load_corners(const float* tl, const int* x0,
-                                             unsigned mask, float (*v)[F]) {
+// being (c >> d) & 1; base is the level's first row.
+template <int F, int DIM, class Rows>
+__device__ __forceinline__ void load_corners(const Rows& rows, int l, long long base,
+                                             const int* x0, unsigned mask,
+                                             float (*v)[F]) {
 #pragma unroll
   for (int c = 0; c < (1 << DIM); ++c)
-    load_row<F>(tl + (long long)corner_row<DIM>(x0, c, mask) * F, v[c]);
+    rows.template load<F>(l, base + corner_row<DIM>(x0, c, mask), v[c]);
 }
 
 // The exact features: the sum over corners c = 0..2^DIM - 1 of row_c * w_c
@@ -217,13 +293,26 @@ __device__ __forceinline__ void exact_sum(const float (*v)[F], const float* fr,
   }
 }
 
-// table: (L, T, F) f32, level l from row lv.offset[l].  out[p, l*F + f], row
-// stride out_stride.  STOCH (3-D only): u (3, L, n) picks the corners, and
-// bits (L, n) gets their offset bits.  A block takes P points; the G threads
-// of a point take every G-th level.
-template <int F, bool STOCH, int DIM>
+// Writes a block's staged rows s_rows (P points x (C + 1) words) to out[p0 +
+// r, c], row stride out_stride, consecutive threads on consecutive columns.
+__device__ __forceinline__ void store_rows(const float* s_rows, int C, long long p0,
+                                           long long n, int P, float* out,
+                                           long long out_stride) {
+  const int np = (int)min((long long)P, n - p0);
+  for (int k = threadIdx.x; k < np * C; k += blockDim.x) {
+    const int r = k / C;
+    const int c = k - r * C;
+    out[(p0 + r) * out_stride + c] = s_rows[r * (C + 1) + c];
+  }
+}
+
+// rows: the table's row source (F32Rows, or packed words), level l from row
+// lv.offset[l].  out[p, l*F + f], row stride out_stride.  STOCH (3-D only): u
+// (3, L, n) picks the corners, and bits (L, n) gets their offset bits.  A
+// block takes P points; the G threads of a point take every G-th level.
+template <int F, bool STOCH, int DIM, class Rows>
 __global__ void __launch_bounds__(HASH_FWD_THREADS)
-hash_forward_kernel(WorldPoints pts, const float* __restrict__ table,
+hash_forward_kernel(WorldPoints pts, Rows rows,
                     const float* __restrict__ u, long long n, int T, HbrLevels lv,
                     float* __restrict__ out, long long out_stride,
                     unsigned char* __restrict__ bits) {
@@ -255,8 +344,8 @@ hash_forward_kernel(WorldPoints pts, const float* __restrict__ table,
           b |= up << d;
         }
         float v[F];
-        load_row<F>(table + ((long long)lv.offset[l] + hash3(c[0], c[1], c[2], mask)) * F,
-                    v);
+        rows.template load<F>(l, (long long)lv.offset[l] + hash3(c[0], c[1], c[2], mask),
+                              v);
         bits[(long long)l * n + p] = (unsigned char)b;
 #pragma unroll
         for (int f = 0; f < F; ++f) dst[l * F + f] = v[f];
@@ -267,12 +356,12 @@ hash_forward_kernel(WorldPoints pts, const float* __restrict__ table,
       int x0[DIM];
       float fr[DIM], v[NC][F];
       level_cell<DIM>(xn, lv.scale[0], x0, fr);
-      load_corners<F, DIM>(table + (long long)lv.offset[0] * F, x0, mask, v);
+      load_corners<F, DIM>(rows, 0, lv.offset[0], x0, mask, v);
       for (int l = 0;; ++l) {
         float nfr[DIM], nv[NC][F];
         if (l + 1 < L) {
           level_cell<DIM>(xn, lv.scale[l + 1], x0, nfr);
-          load_corners<F, DIM>(table + (long long)lv.offset[l + 1] * F, x0, mask, nv);
+          load_corners<F, DIM>(rows, l + 1, lv.offset[l + 1], x0, mask, nv);
         }
         float acc[F];
         exact_sum<F, DIM>(v, fr, acc);
@@ -289,12 +378,62 @@ hash_forward_kernel(WorldPoints pts, const float* __restrict__ table,
     }
   }
   __syncthreads();
-  const int np = (int)min((long long)P, n - p0);
-  for (int k = threadIdx.x; k < np * C; k += blockDim.x) {
-    const int r = k / C;
-    const int c = k - r * C;
-    out[(p0 + r) * out_stride + c] = s_rows[r * row_words + c];
+  store_rows(s_rows, C, p0, n, P, out, out_stride);
+}
+
+// The cell variant: table (L, T, 8F) f32, row h of level l holding corner c's
+// feature f at slot c * F + f, h the hash of the cell's corner 0.  One thread
+// a point walks the levels, asking for the next level's row before it sums
+// this one's; out[p, l*F + f] = sum over c = 0..7 of row[c*F + f] * w_c from
+// 0 (JAX hash_encode_cell).
+template <int F>
+__global__ void __launch_bounds__(HASH_FWD_THREADS)
+cell_forward_kernel(WorldPoints pts, const float* __restrict__ table, long long n, int T,
+                    HbrLevels lv, float* __restrict__ out, long long out_stride) {
+  constexpr int P = HASH_FWD_THREADS;
+  constexpr int W = 8 * F;  // a row's floats
+  extern __shared__ float s_rows[];  // (P, L * F + 1)
+  const int L = lv.n_levels;
+  const int C = L * F;
+  const long long p0 = (long long)blockIdx.x * P;
+  const long long p = p0 + threadIdx.x;
+  const unsigned mask = (unsigned)(T - 1);
+  if (p < n) {
+    float xn[3];
+    pts.at<3>(p, xn);
+    float* dst = s_rows + threadIdx.x * (C + 1);
+    int x0[3];
+    float fr[3], v[W];
+    level_cell<3>(xn, lv.scale[0], x0, fr);
+    load_row<W>(table + ((long long)lv.offset[0] + corner_row<3>(x0, 0, mask)) * W, v);
+    for (int l = 0;; ++l) {
+      float nfr[3], nv[W];
+      if (l + 1 < L) {
+        level_cell<3>(xn, lv.scale[l + 1], x0, nfr);
+        load_row<W>(table + ((long long)lv.offset[l + 1] + corner_row<3>(x0, 0, mask)) * W,
+                    nv);
+      }
+      float w[3][2], acc[F];
+      axis_weights<3>(fr, w);
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float wc = corner_weight<3>(w, c);
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(v[c * F + f], wc));
+      }
+#pragma unroll
+      for (int f = 0; f < F; ++f) dst[l * F + f] = acc[f];
+      if (l + 1 == L) break;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) fr[d] = nfr[d];
+#pragma unroll
+      for (int k = 0; k < W; ++k) v[k] = nv[k];
+    }
   }
+  __syncthreads();
+  store_rows(s_rows, C, p0, n, P, out, out_stride);
 }
 
 // Adds a row's F values into a level's gradient in L2 (all-zero skipped:
@@ -368,13 +507,30 @@ __device__ __forceinline__ void flush_cell(float* dl, const int* cell, unsigned 
   }
 }
 
+// The draws of a subsampled stochastic backward: pick (L, n), the feature
+// of each (point, level), or null (no subsampling); at most one of lsel
+// (n,), a point's one level, and psel (L / 2, n), the level of each pair.
+struct Routing {
+  const unsigned char* __restrict__ pick;
+  const unsigned char* __restrict__ lsel;
+  const unsigned char* __restrict__ psel;
+  float sub_scale, lvl_scale;
+  __device__ __forceinline__ bool drawn(int l, long long p, long long n) const {
+    if (lsel != nullptr) return __ldg(lsel + p) == l;
+    if (psel != nullptr) return __ldg(psel + (long long)(l >> 1) * n + p) == (l & 1);
+    return true;
+  }
+};
+
 // dtable: (L, T, F) f32, zeroed by the caller.  g: (n, L*F), row stride
-// g_stride.  STOCH (3-D only): bits (L, n) hold the picked corners.  A unit
-// is one (run of HASH_RUN points, level), the level fastest, so a warp's
-// gradient reads are two rows.
+// g_stride.  STOCH (3-D only): bits (L, n) hold the picked corners, and
+// with rt.pick a point's term at level l is (g[pick] * sub_scale) *
+// lvl_scale in feature pick, on its drawn levels only.  A unit is one (run
+// of HASH_RUN points, level), the level fastest, so a warp's gradient
+// reads are two rows.
 template <int F, bool STOCH, int DIM>
 __global__ void __launch_bounds__(HASH_BWD_THREADS)
-hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
+hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits, Routing rt,
                      const float* __restrict__ g, long long g_stride, long long n,
                      int T, HbrLevels lv, float* __restrict__ dtable) {
   const int L = lv.n_levels;
@@ -405,11 +561,22 @@ hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
       float fr[DIM] = {}, gf[F];
       unsigned b = 0;
       if (live) {
+        const bool routed = STOCH && rt.pick != nullptr;
+        if (routed && !rt.drawn(l, p, n)) continue;  // no term at this level
         float xn[DIM];
         pts.at<DIM>(p, xn);
         level_cell<DIM>(xn, scale, x0, fr);
+        if (routed) {
+          const int pk = __ldg(rt.pick + (long long)l * n + p);
+          const float term = __fmul_rn(
+              __fmul_rn(__ldg(g + p * g_stride + l * F + pk), rt.sub_scale),
+              rt.lvl_scale);
 #pragma unroll
-        for (int f = 0; f < F; ++f) gf[f] = __ldg(g + p * g_stride + l * F + f);
+          for (int f = 0; f < F; ++f) gf[f] = f == pk ? term : 0.0f;
+        } else {
+#pragma unroll
+          for (int f = 0; f < F; ++f) gf[f] = __ldg(g + p * g_stride + l * F + f);
+        }
         if (STOCH) b = __ldg(bits + (long long)l * n + p);
       }
       bool moved = !live;
@@ -447,8 +614,224 @@ hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
   }
 }
 
-template <int F, bool STOCH, int DIM>
-static int launch_hash_forward(const WorldPoints& pts, const float* table,
+// The cell variant's gradient: dtable (L, T, 8F) f32, zeroed by the caller;
+// g (n, L*F), row stride g_stride.  As hash_backward_kernel's exact mode, a
+// thread walks a run of HASH_RUN points for one level and keeps the cell's
+// 8 x F partials w_c * g_f in registers, here adding them to the cell's one
+// row (slot c * F + f) when the cell changes or the run ends.
+template <int F>
+__global__ void __launch_bounds__(HASH_BWD_THREADS)
+cell_backward_kernel(WorldPoints pts, const float* __restrict__ g, long long g_stride,
+                     long long n, int T, HbrLevels lv, float* __restrict__ dtable) {
+  constexpr int W = 8 * F;
+  const int L = lv.n_levels;
+  const unsigned mask = (unsigned)(T - 1);
+  const long long units = (n + HASH_RUN - 1) / HASH_RUN * L;
+  for (long long unit = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       unit < units; unit += (long long)gridDim.x * blockDim.x) {
+    const long long run = unit / L;
+    const int l = (int)(unit - run * L);
+    float* dl = dtable + (long long)lv.offset[l] * W;
+    int cell[3] = {};
+    bool have = false;
+    float acc[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) acc[k] = 0.0f;
+    const long long p0 = run * HASH_RUN;
+    const int np = (int)min((long long)HASH_RUN, n - p0);
+    for (int k = 0; k < np; ++k) {
+      const long long p = p0 + k;
+      float xn[3], fr[3], gf[F];
+      int x0[3];
+      pts.at<3>(p, xn);
+      level_cell<3>(xn, lv.scale[l], x0, fr);
+#pragma unroll
+      for (int f = 0; f < F; ++f) gf[f] = __ldg(g + p * g_stride + l * F + f);
+      if (have && (x0[0] != cell[0] || x0[1] != cell[1] || x0[2] != cell[2])) {
+        add_row<W>(dl, corner_row<3>(cell, 0, mask), acc);
+#pragma unroll
+        for (int i = 0; i < W; ++i) acc[i] = 0.0f;
+      }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) cell[d] = x0[d];
+      have = true;
+      float w[3][2];
+      axis_weights<3>(fr, w);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float wc = corner_weight<3>(w, c);
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          acc[c * F + f] = __fadd_rn(acc[c * F + f], __fmul_rn(gf[f], wc));
+      }
+    }
+    if (have) add_row<W>(dl, corner_row<3>(cell, 0, mask), acc);
+  }
+}
+
+// The level that point p's gradient goes to in routing group j: level j (no
+// routing, L groups), the drawn one (lsel (n,), one group) or the drawn one
+// of pair j (psel (L/2, n), L/2 groups).
+__device__ __forceinline__ int routed_level(const unsigned char* __restrict__ lsel,
+                                            const unsigned char* __restrict__ psel,
+                                            int j, long long p, long long n) {
+  if (lsel != nullptr) return __ldg(lsel + p);
+  if (psel != nullptr) return 2 * j + __ldg(psel + (long long)j * n + p);
+  return j;
+}
+
+// The routing groups of a subsampled backward: L, L / 2 (psel) or 1 (lsel).
+__host__ __device__ __forceinline__ int routing_groups(const void* lsel, const void* psel,
+                                                       int L) {
+  return lsel != nullptr ? 1 : psel != nullptr ? L / 2 : L;
+}
+
+// The (flat index, value) pairs of a stochastic backward, in JAX's order: pick
+// null, F a (point, level) at [f][l][n] (value g); pick alone, one a (point,
+// level) at [l][n]; with lsel one a point at [n]; with psel one a (pair,
+// point) at [j][n] (value (g[pick] * sub_scale) * lvl_scale).  The index is
+// (lv.offset[l] + row) * F + f of the picked corner's row.
+template <int F>
+__global__ void __launch_bounds__(HASH_BWD_THREADS)
+pairs_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
+             const unsigned char* __restrict__ pick, const unsigned char* __restrict__ lsel,
+             const unsigned char* __restrict__ psel, const float* __restrict__ g,
+             long long g_stride, long long n, int T, float sub_scale, float lvl_scale,
+             HbrLevels lv, int* __restrict__ idx, float* __restrict__ val) {
+  const unsigned mask = (unsigned)(T - 1);
+  const long long items = (long long)routing_groups(lsel, psel, lv.n_levels) * n;
+  for (long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x; it < items;
+       it += (long long)gridDim.x * blockDim.x) {
+    const long long j = it / n;
+    const long long p = it - j * n;
+    const int l = routed_level(lsel, psel, (int)j, p, n);
+    float xn[3], fr[3];
+    int x0[3];
+    pts.at<3>(p, xn);
+    level_cell<3>(xn, lv.scale[l], x0, fr);
+    const int b = __ldg(bits + (long long)l * n + p);
+    const long long row = (long long)lv.offset[l] + corner_row<3>(x0, b, mask);
+    if (pick == nullptr) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        idx[(long long)f * items + it] = (int)(row * F + f);
+        val[(long long)f * items + it] = __ldg(g + p * g_stride + l * F + f);
+      }
+    } else {
+      const int pk = __ldg(pick + (long long)l * n + p);
+      idx[it] = (int)(row * F + pk);
+      val[it] = __fmul_rn(__fmul_rn(__ldg(g + p * g_stride + l * F + pk), sub_scale),
+                          lvl_scale);
+    }
+  }
+}
+
+constexpr int SCATTER_THREADS = 256;
+constexpr int SCATTER_RUN = 16;  // sorted pairs a thread merges ("sorted")
+
+// "sorted": out[idx[k]] += val[k] for m pairs sorted by idx; a thread merges
+// its SCATTER_RUN consecutive pairs run by run, one atomic a run.
+__global__ void __launch_bounds__(SCATTER_THREADS)
+scatter_sorted_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                      long long m, float* __restrict__ out) {
+  const long long k0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * SCATTER_RUN;
+  if (k0 >= m) return;
+  const long long k1 = min(k0 + SCATTER_RUN, m);
+  int cur = __ldg(idx + k0);
+  float s = __ldg(val + k0);
+  for (long long k = k0 + 1; k < k1; ++k) {
+    const int i = __ldg(idx + k);
+    if (i != cur) {
+      atomicAdd(out + cur, s);
+      cur = i;
+      s = 0.0f;
+    }
+    s = __fadd_rn(s, __ldg(val + k));
+  }
+  atomicAdd(out + cur, s);
+}
+
+// "segsum": each run of equal indices in the sorted pairs is summed in order
+// from 0 by the thread at its start, which stores the total once.
+__global__ void __launch_bounds__(SCATTER_THREADS)
+scatter_segsum_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                      long long m, float* __restrict__ out) {
+  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < m;
+       k += (long long)gridDim.x * blockDim.x) {
+    const int i = __ldg(idx + k);
+    if (k > 0 && __ldg(idx + k - 1) == i) continue;
+    float s = 0.0f;
+    for (long long j = k; j < m && __ldg(idx + j) == i; ++j) s = __fadd_rn(s, __ldg(val + j));
+    out[i] = s;
+  }
+}
+
+constexpr int PACK_THREADS = 256;
+
+// bf16 words: table (R, 2) f32 -> words (R,), feature f in bits [16f, 16f+16).
+__global__ void __launch_bounds__(PACK_THREADS)
+pack_bf16_kernel(const float2* __restrict__ table, long long rows,
+                 unsigned* __restrict__ words) {
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
+       r += (long long)gridDim.x * blockDim.x) {
+    const float2 t = __ldg(table + r);
+    words[r] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(t.x)) |
+               ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(t.y)) << 16);
+  }
+}
+
+// Per-level max |t| of table (L, per) f32 into maxbits (L,), zeroed by the
+// caller, as the bits of a non-negative float (whose order is the unsigned
+// order of its bits).  blockIdx.y is the level.
+__global__ void __launch_bounds__(PACK_THREADS)
+max_abs_kernel(const float* __restrict__ table, long long per,
+               unsigned* __restrict__ maxbits) {
+  const float* tl = table + (long long)blockIdx.y * per;
+  float m = 0.0f;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < per;
+       i += (long long)gridDim.x * blockDim.x)
+    m = fmaxf(m, fabsf(__ldg(tl + i)));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
+  if ((threadIdx.x & 31) == 0) atomicMax(maxbits + blockIdx.y, __float_as_uint(m));
+}
+
+// scale[l] = max_l + 1e-12 in place, the max read as the bits max_abs_kernel
+// wrote.
+__global__ void scale_kernel(float* scale, int L) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l < L) scale[l] = __fadd_rn(scale[l], 1e-12f);
+}
+
+// int8 words: table (L, T, F) f32 -> words (L*T,), byte f = rint(t / s_l *
+// 127) clipped to +-127 (rint: half to even, as jnp.round).
+template <int F>
+__global__ void __launch_bounds__(PACK_THREADS)
+pack_int8_kernel(const float* __restrict__ table, long long T, int L,
+                 const float* __restrict__ scale, unsigned* __restrict__ words) {
+  const long long rows = (long long)L * T;
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
+       r += (long long)gridDim.x * blockDim.x) {
+    const float s = __ldg(scale + r / T);
+    unsigned w = 0;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      float q = rintf(__fmul_rn(__fdiv_rn(__ldg(table + r * F + f), s), 127.0f));
+      q = fminf(fmaxf(q, -127.0f), 127.0f);
+      w |= ((unsigned)(int)q & 0xFFu) << (8 * f);
+    }
+    words[r] = w;
+  }
+}
+
+// Blocks of ``threads`` for one thread an item (at least one block).
+static unsigned int item_blocks(long long items, int threads) {
+  const long long b = (items + threads - 1) / threads;
+  return (unsigned int)(b > 0 ? b : 1);
+}
+
+template <int F, bool STOCH, int DIM, class Rows>
+static int launch_hash_forward(const WorldPoints& pts, const Rows& rows,
                                const float* u, long long n, int T,
                                const HbrLevels& lv, float* out, long long out_stride,
                                unsigned char* bits, cudaStream_t s) {
@@ -456,23 +839,44 @@ static int launch_hash_forward(const WorldPoints& pts, const float* table,
   const size_t smem = (size_t)P * (lv.n_levels * F + 1) * sizeof(float);
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024)
-    e = cudaFuncSetAttribute(hash_forward_kernel<F, STOCH, DIM>,
+    e = cudaFuncSetAttribute(hash_forward_kernel<F, STOCH, DIM, Rows>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess && !STOCH)
-    e = cudaFuncSetAttribute(hash_forward_kernel<F, STOCH, DIM>,
+    e = cudaFuncSetAttribute(hash_forward_kernel<F, STOCH, DIM, Rows>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              HASH_FWD_EXACT_CARVEOUT);
   if (e != cudaSuccess) return (int)e;
   const unsigned int blocks = (unsigned int)((n + P - 1) / P);
-  hash_forward_kernel<F, STOCH, DIM><<<blocks, HASH_FWD_THREADS, smem, s>>>(
-      pts, table, u, n, T, lv, out, out_stride, bits);
+  hash_forward_kernel<F, STOCH, DIM, Rows><<<blocks, HASH_FWD_THREADS, smem, s>>>(
+      pts, rows, u, n, T, lv, out, out_stride, bits);
+  return (int)cudaGetLastError();
+}
+
+template <int F>
+static int launch_cell_forward(const WorldPoints& pts, const float* table, long long n,
+                               int T, const HbrLevels& lv, float* out,
+                               long long out_stride, cudaStream_t s) {
+  constexpr int P = HASH_FWD_THREADS;
+  const size_t smem = (size_t)P * (lv.n_levels * F + 1) * sizeof(float);
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(cell_forward_kernel<F>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(cell_forward_kernel<F>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             HASH_FWD_EXACT_CARVEOUT);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned int blocks = (unsigned int)((n + P - 1) / P);
+  cell_forward_kernel<F><<<blocks, P, smem, s>>>(pts, table, n, T, lv, out, out_stride);
   return (int)cudaGetLastError();
 }
 
 template <int F, bool STOCH, int DIM>
 static int launch_hash_backward(const WorldPoints& pts, const unsigned char* bits,
-                                const float* g, long long g_stride, long long n, int T,
-                                const HbrLevels& lv, float* dtable, cudaStream_t s) {
+                                const Routing& rt, const float* g, long long g_stride,
+                                long long n, int T, const HbrLevels& lv, float* dtable,
+                                cudaStream_t s) {
   const long long units = (n + HASH_RUN - 1) / HASH_RUN * lv.n_levels;
   int blocks = 0;
   const int err = persistent_blocks(hash_backward_kernel<F, STOCH, DIM>,
@@ -481,8 +885,44 @@ static int launch_hash_backward(const WorldPoints& pts, const unsigned char* bit
                                     &blocks);
   if (err) return err;
   hash_backward_kernel<F, STOCH, DIM><<<blocks, HASH_BWD_THREADS, 0, s>>>(
-      pts, bits, g, g_stride, n, T, lv, dtable);
+      pts, bits, rt, g, g_stride, n, T, lv, dtable);
   return (int)cudaGetLastError();
+}
+
+
+template <int F>
+static int launch_cell_backward(const WorldPoints& pts, const float* g, long long g_stride,
+                                long long n, int T, const HbrLevels& lv, float* dtable,
+                                cudaStream_t s) {
+  const long long units = (n + HASH_RUN - 1) / HASH_RUN * lv.n_levels;
+  int blocks = 0;
+  const int err = persistent_blocks(cell_backward_kernel<F>, HASH_BWD_THREADS, 0,
+                                    (units + HASH_BWD_THREADS - 1) / HASH_BWD_THREADS,
+                                    &blocks);
+  if (err) return err;
+  cell_backward_kernel<F><<<blocks, HASH_BWD_THREADS, 0, s>>>(pts, g, g_stride, n, T, lv,
+                                                              dtable);
+  return (int)cudaGetLastError();
+}
+
+// fn(std::integral_constant<int, F>()) for F = features, 1 to 4 (a word's
+// bytes).
+template <typename Fn>
+static int with_word_features(int features, Fn fn) {
+  switch (features) {
+    case 1: return fn(std::integral_constant<int, 1>());
+    case 2: return fn(std::integral_constant<int, 2>());
+    case 3: return fn(std::integral_constant<int, 3>());
+    case 4: return fn(std::integral_constant<int, 4>());
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The level routing of a subsampled backward: (lvl_scale, valid).
+static bool level_routing(const unsigned char* lsel, const unsigned char* psel, int L,
+                          float* lvl_scale) {
+  *lvl_scale = lsel != nullptr ? (float)L : psel != nullptr ? 2.0f : 1.0f;
+  return !(lsel != nullptr && psel != nullptr) && !(psel != nullptr && L % 2);
 }
 
 }  // namespace
@@ -506,42 +946,192 @@ int hbr_hash_forward(const float* x, const float* mu, const float* sigma,
       (dim == 2 && u != nullptr))
     return (int)cudaErrorInvalidValue;
   const WorldPoints pts{x, mu, sigma, 1};
+  const F32Rows rows{table};
   return with_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
     const cudaStream_t s = (cudaStream_t)stream;
     if (dim == 2)
-      return launch_hash_forward<F, false, 2>(pts, table, u, n, table_size, *lv, out,
+      return launch_hash_forward<F, false, 2>(pts, rows, u, n, table_size, *lv, out,
                                               out_stride, bits, s);
     if (u != nullptr)
-      return launch_hash_forward<F, true, 3>(pts, table, u, n, table_size, *lv, out,
+      return launch_hash_forward<F, true, 3>(pts, rows, u, n, table_size, *lv, out,
                                              out_stride, bits, s);
-    return launch_hash_forward<F, false, 3>(pts, table, u, n, table_size, *lv, out,
+    return launch_hash_forward<F, false, 3>(pts, rows, u, n, table_size, *lv, out,
                                             out_stride, bits, s);
   });
 }
 
 // bits: (L, n) uint8 from the stochastic forward (3-D), or null (exact).
-// dtable (L, T, F) f32 must be zeroed.
+// pick (L, n) uint8, with bits: the subsampled backward, each term
+// (g[pick] * sub_scale) * s in feature pick, s = L on the level lsel (n,)
+// draws, 2 on the level of each pair psel (L / 2, n) draws (at most one of
+// the two), else 1.  dtable (L, T, F) f32 must be zeroed.
 int hbr_hash_backward(const float* x, const float* mu, const float* sigma,
-                      const unsigned char* bits, const float* g, long long g_stride,
-                      long long n, int dim, int table_size, int features,
+                      const unsigned char* bits, const unsigned char* pick,
+                      const unsigned char* lsel, const unsigned char* psel,
+                      const float* g, long long g_stride, long long n, int dim,
+                      int table_size, int features, float sub_scale,
                       const HbrLevels* lv, float* dtable, void* stream) {
   if (n <= 0) return 0;
-  if ((dim != 2 && dim != 3) || (dim == 2 && bits != nullptr))
+  Routing rt{pick, lsel, psel, sub_scale, 1.0f};
+  if ((dim != 2 && dim != 3) || (dim == 2 && bits != nullptr) ||
+      (pick != nullptr && bits == nullptr) ||
+      (pick == nullptr && (lsel != nullptr || psel != nullptr)) ||
+      !level_routing(lsel, psel, lv->n_levels, &rt.lvl_scale))
     return (int)cudaErrorInvalidValue;
   const WorldPoints pts{x, mu, sigma, 1};
   return with_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
     const cudaStream_t s = (cudaStream_t)stream;
     if (dim == 2)
-      return launch_hash_backward<F, false, 2>(pts, bits, g, g_stride, n, table_size,
-                                               *lv, dtable, s);
+      return launch_hash_backward<F, false, 2>(pts, bits, rt, g, g_stride, n,
+                                               table_size, *lv, dtable, s);
     if (bits != nullptr)
-      return launch_hash_backward<F, true, 3>(pts, bits, g, g_stride, n, table_size,
-                                              *lv, dtable, s);
-    return launch_hash_backward<F, false, 3>(pts, bits, g, g_stride, n, table_size,
-                                             *lv, dtable, s);
+      return launch_hash_backward<F, true, 3>(pts, bits, rt, g, g_stride, n,
+                                              table_size, *lv, dtable, s);
+    return launch_hash_backward<F, false, 3>(pts, bits, rt, g, g_stride, n,
+                                             table_size, *lv, dtable, s);
   });
+}
+
+
+// Packs the table (L, T, F) f32 into words (L * T,) uint32: format 0, bf16
+// pairs (F 2); format 1, int8 bytes (F 1 to 4), writing scale (L,) f32 too.
+int hbr_hash_pack(const float* table, long long L, long long T, int features,
+                  int format, unsigned* words, float* scale, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long rows = L * T;
+  if (rows <= 0) return 0;
+  if (format == 0) {
+    if (features != 2) return (int)cudaErrorInvalidValue;
+    pack_bf16_kernel<<<item_blocks(rows, PACK_THREADS), PACK_THREADS, 0, s>>>(
+        reinterpret_cast<const float2*>(table), rows, words);
+    return (int)cudaGetLastError();
+  }
+  if (format != 1 || scale == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(scale, 0, L * sizeof(float), s);
+  if (e != cudaSuccess) return (int)e;
+  const long long per = T * features;
+  const long long per_blocks = (per + PACK_THREADS - 1) / PACK_THREADS;
+  const dim3 grid((unsigned)(per_blocks < 264 ? per_blocks : 264), (unsigned)L);
+  max_abs_kernel<<<grid, PACK_THREADS, 0, s>>>(table, per,
+                                               reinterpret_cast<unsigned*>(scale));
+  scale_kernel<<<1, 32, 0, s>>>(scale, (int)L);
+  return with_word_features(features, [&](auto f) {
+    constexpr int F = decltype(f)::value;
+    pack_int8_kernel<F><<<item_blocks(rows, PACK_THREADS), PACK_THREADS, 0, s>>>(
+        table, T, (int)L, scale, words);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The packed forward (3-D): words (L * T,) uint32 from hbr_hash_pack (format
+// 0 bf16, F 2; 1 int8, F 1 to 4, with its scale (L,)); stochastic given u (3,
+// L, n) and bits (L, n), packed-exact with both null.
+int hbr_hash_packed_forward(const float* x, const float* mu, const float* sigma,
+                            const unsigned* words, const float* scale, const float* u,
+                            long long n, int table_size, int features, int format,
+                            const HbrLevels* lv, float* out, long long out_stride,
+                            unsigned char* bits, void* stream) {
+  if (n <= 0) return 0;
+  if ((u == nullptr) != (bits == nullptr) || (format == 0 && features != 2) ||
+      (format == 1 && scale == nullptr) || (format != 0 && format != 1))
+    return (int)cudaErrorInvalidValue;
+  const WorldPoints pts{x, mu, sigma, 1};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (format == 0) {
+    const Bf16Words rows{words};
+    if (u != nullptr)
+      return launch_hash_forward<2, true, 3>(pts, rows, u, n, table_size, *lv, out,
+                                             out_stride, bits, s);
+    return launch_hash_forward<2, false, 3>(pts, rows, u, n, table_size, *lv, out,
+                                            out_stride, bits, s);
+  }
+  const Int8Words rows{words, scale};
+  return with_word_features(features, [&](auto f) {
+    constexpr int F = decltype(f)::value;
+    if (u != nullptr)
+      return launch_hash_forward<F, true, 3>(pts, rows, u, n, table_size, *lv, out,
+                                             out_stride, bits, s);
+    return launch_hash_forward<F, false, 3>(pts, rows, u, n, table_size, *lv, out,
+                                            out_stride, bits, s);
+  });
+}
+
+// The cell variant (3-D): table (L, T, 8 * features) f32 from a 16-byte
+// aligned address.
+int hbr_hash_cell_forward(const float* x, const float* mu, const float* sigma,
+                          const float* table, long long n, int table_size, int features,
+                          const HbrLevels* lv, float* out, long long out_stride,
+                          void* stream) {
+  if (n <= 0) return 0;
+  const WorldPoints pts{x, mu, sigma, 1};
+  return with_features(features, [&](auto f) {
+    constexpr int F = decltype(f)::value;
+    return launch_cell_forward<F>(pts, table, n, table_size, *lv, out, out_stride,
+                                  (cudaStream_t)stream);
+  });
+}
+
+// dtable (L, T, 8 * features) f32 must be zeroed.
+int hbr_hash_cell_backward(const float* x, const float* mu, const float* sigma,
+                           const float* g, long long g_stride, long long n,
+                           int table_size, int features, const HbrLevels* lv,
+                           float* dtable, void* stream) {
+  if (n <= 0) return 0;
+  const WorldPoints pts{x, mu, sigma, 1};
+  return with_features(features, [&](auto f) {
+    constexpr int F = decltype(f)::value;
+    return launch_cell_backward<F>(pts, g, g_stride, n, table_size, *lv, dtable,
+                                   (cudaStream_t)stream);
+  });
+}
+
+// The (flat index, value) pairs of a stochastic backward (3-D), for the sorted
+// strategies: pick null (then lsel and psel null too), F a (point, level);
+// else as hbr_hash_backward routes them.  idx (int32) and val (f32) hold
+// F * L * n, L * n, n or L / 2 * n pairs.
+int hbr_hash_pairs(const float* x, const float* mu, const float* sigma,
+                   const unsigned char* bits, const unsigned char* pick,
+                   const unsigned char* lsel, const unsigned char* psel, const float* g,
+                   long long g_stride, long long n, int table_size, int features,
+                   float sub_scale, const HbrLevels* lv, int* idx, float* val,
+                   void* stream) {
+  if (n <= 0) return 0;
+  float lvl_scale = 1.0f;
+  if (bits == nullptr || !level_routing(lsel, psel, lv->n_levels, &lvl_scale) ||
+      (pick == nullptr && (lsel != nullptr || psel != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const WorldPoints pts{x, mu, sigma, 1};
+  const long long items = (long long)routing_groups(lsel, psel, lv->n_levels) * n;
+  return with_word_features(features, [&](auto f) {
+    constexpr int F = decltype(f)::value;
+    pairs_kernel<F><<<item_blocks(items, HASH_BWD_THREADS), HASH_BWD_THREADS, 0,
+                      (cudaStream_t)stream>>>(pts, bits, pick, lsel, psel, g, g_stride, n,
+                                              table_size, sub_scale, lvl_scale, *lv, idx,
+                                              val);
+    return (int)cudaGetLastError();
+  });
+}
+
+// out (f32, zeroed) += the m pairs (idx, val) sorted by idx: strategy 0
+// "sorted" (a thread's 16 consecutive pairs merged run by run, one atomic a
+// run), 1 "segsum" (each run summed by the thread at its start, stored once).
+int hbr_scatter_sorted(const int* idx, const float* val, long long m, int strategy,
+                       float* out, void* stream) {
+  if (m <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (strategy == 0) {
+    scatter_sorted_kernel<<<item_blocks((m + SCATTER_RUN - 1) / SCATTER_RUN,
+                                        SCATTER_THREADS),
+                            SCATTER_THREADS, 0, s>>>(idx, val, m, out);
+  } else if (strategy == 1) {
+    scatter_segsum_kernel<<<item_blocks(m, SCATTER_THREADS), SCATTER_THREADS, 0, s>>>(
+        idx, val, m, out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

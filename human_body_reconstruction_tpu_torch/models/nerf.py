@@ -18,7 +18,8 @@ without guided placement, the masked ladder cut to each ray's first
 ``compact_samples`` occupied samples (top-K compaction; never in SDF
 mode).  With ``cfg.hash.stochastic_train`` the training branch encodes the
 hashed levels with the single-corner estimator, as JAX ``render_rays``
-does; the eval branch, ``density_only`` and serving always encode exactly.
+does; the eval branch, ``density_only`` and serving always encode exactly
+(a packed config through its packed words, JAX's ``packed_eval``).
 
 SDF mode composites the 2·sigmoid−1 head with ``composite_sdf`` and adds
 ``out["eikonal_norm"]``, the finite-difference gradient norm of the field
@@ -116,17 +117,19 @@ def scene_from_bounds(lo, hi, normalization: str = "diagonal", device=None):
 
 
 def encode_points(field: Field, scene, pts, cfg: PipelineConfig, *,
-                  stochastic: bool = False, generator=None, enc_u=None):
+                  stochastic: bool = False, generator=None, enc_draws=None):
     """(N, 3) world points -> (N, cfg.hash.out_dim) features; ``stochastic``
-    (training) uses the single-corner estimator of the hashed levels, on
-    uniforms ``enc_u`` (3, L, N) or ones drawn from ``generator``.  A
+    (training) uses the single-corner estimator of the hashed levels, on the
+    draws ``enc_draws`` ({"u": (3, L, N) uniforms, and a subsampled
+    backward's "pick", "lsel", "psel"}) or ones drawn from ``generator``.  A
     level-parallel field (``field.lp``) encodes its slice and joins the
     level group's (``cfg.hash.level_axis`` set)."""
     enc = {"dense": list(field.dense), "lines": list(field.lines),
            "table": field.table}
     return hash_encoding.encode_params(
         enc, pts, scene["mu"], scene["sigma"], cfg.hash,
-        stochastic=stochastic, generator=generator, u=enc_u, shard=field.lp)
+        stochastic=stochastic, generator=generator, shard=field.lp,
+        **(enc_draws or {}))
 
 
 def field_forward(field: Field, scene, pts, dirs_enc, cfg: PipelineConfig,
@@ -217,6 +220,12 @@ def _render_pass(field, scene, rays_o, rays_d, dir_norm, t,
     return color, weights, density, pts, t
 
 
+def _enc_draws(draws: dict, prefix: str) -> dict:
+    """The encoder's draws of one pass: {"u", "pick", "lsel", "psel"} from
+    ``draws[prefix + name]``, None where not given."""
+    return {k: draws.get(prefix + k) for k in ("u", "pick", "lsel", "psel")}
+
+
 def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
                 cfg: PipelineConfig, *, num_samples: Optional[int] = None,
                 hierarchical: Optional[bool] = None,
@@ -237,7 +246,9 @@ def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
     same corner bits); ``draws`` may replace them: "u" (the ladder jitter, or
     the iid quantiles of guided placement), "xi" (its stratified draw),
     "probe_u" (its probe jitter), "enc_u" and "fine_enc_u" (the stochastic
-    encoder's uniforms of each pass, (3, L_hashed, points)), "fine_u" (the
+    encoder's uniforms of each pass, (3, L_hashed, points)), "enc_pick",
+    "enc_lsel", "enc_psel" and their "fine_" twins (a subsampled packed
+    backward's draws, ``hash_encoding.draw_subsample``), "fine_u" (the
     second pass's quantiles, (B, n_fine)) and "eik_idx" (the eikonal
     subsample's point indices).  At evaluation the second pass draws from
     ``generator``, else from one seeded 0.  ``placement`` (t (B, S), dt
@@ -276,7 +287,7 @@ def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
     coarse, weights, density, pts, t = _render_pass(
         field, scene, rays_o, rays_d, dir_norm, t, cfg, occ, compute_dtype,
         dt_override=dt_guided, allow_compact=jitter, stochastic=stochastic,
-        generator=enc_gen, enc_u=draws.get("enc_u"))
+        generator=enc_gen, enc_draws=_enc_draws(draws, "enc_"))
     out = {"coarse": coarse, "fine": coarse, "weights": weights, "t": t,
            "density": density}
     sdf_pts = pts
@@ -297,7 +308,7 @@ def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
         fine, fweights, _, sdf_pts, _ = _render_pass(
             field, scene, rays_o, rays_d, dir_norm, t_fine, cfg, occ,
             compute_dtype, allow_compact=jitter, stochastic=stochastic,
-            generator=enc_gen, enc_u=draws.get("fine_enc_u"))
+            generator=enc_gen, enc_draws=_enc_draws(draws, "fine_enc_"))
         out["fine"], out["fine_weights"] = fine, fweights
     if r.use_sdf:
         mid = sdf_pts.reshape(-1, 3)

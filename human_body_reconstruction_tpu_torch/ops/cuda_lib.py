@@ -135,9 +135,22 @@ def library() -> ctypes.CDLL:
     lib.hbr_hash_forward.argtypes = [p, p, p, p, p, ll, i, i, i,
                                      ctypes.POINTER(HbrLevels), p, ll, p, p]
     lib.hbr_hash_forward.restype = i
-    lib.hbr_hash_backward.argtypes = [p, p, p, p, p, ll, ll, i, i, i,
-                                      ctypes.POINTER(HbrLevels), p, p]
+    f32 = ctypes.c_float
+    lv = ctypes.POINTER(HbrLevels)
+    lib.hbr_hash_backward.argtypes = [p, p, p, p, p, p, p, p, ll, ll, i, i, i,
+                                      f32, lv, p, p]
     lib.hbr_hash_backward.restype = i
+    for name, args in (
+            ("hbr_hash_pack", [p, ll, ll, i, i, p, p, p]),
+            ("hbr_hash_packed_forward", [p, p, p, p, p, p, ll, i, i, i, lv, p,
+                                         ll, p, p]),
+            ("hbr_hash_cell_forward", [p, p, p, p, ll, i, i, lv, p, ll, p]),
+            ("hbr_hash_cell_backward", [p, p, p, p, ll, ll, i, i, lv, p, p]),
+            ("hbr_hash_pairs", [p, p, p, p, p, p, p, p, ll, ll, i, i, f32, lv,
+                                p, p, p]),
+            ("hbr_scatter_sorted", [p, p, ll, i, p, p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
     lib.hbr_uniform_bits.argtypes = [p, ll, i, p, p]
     lib.hbr_uniform_bits.restype = i
     lib.hbr_error_string.argtypes = [i]

@@ -1,6 +1,6 @@
 """Full encoder (counterpart of ``encode_params`` in the JAX
 ops/hash_encoding.py): dense coarse grids, then CP factor lines or the
-hashed levels of the ``corner`` variant.
+hashed levels of the ``corner`` or ``cell`` variant.
 
 Feature order: the dense (coarsest) levels first, then the CP or hashed
 levels (hashed level l, feature f at column ``l * F + f``), as in the JAX
@@ -21,14 +21,24 @@ hash path's 1,024,000 points).  The backward recomputes the per-axis lerps
 and the cells instead of keeping them (the (3, N, C) CP products are 1.15
 GB at 768k points).  Positions get no gradient.
 
-The hashed levels run exact (8 corners, or 4 for the 2-D points of the
-image fit, whose encoder is the table alone; ops/hash_kernel.py) or, when
-training with ``stochastic``, the single-corner estimator driven by
-uniforms u (3, L, N): drawn by ``stoch_uniform`` (the Philox kernel of
-ops/rng_kernel.py when ``cfg.hw_rng``, else ``torch.rand``) or handed in.
-What is not ported raises with a message (``unported``): the ``cell``
-variant, packed bf16/int8 gathers, ``packed_exact``, gradient
-subsampling and the sorted scatter strategies.
+The hashed levels take the branch of JAX ``encode`` (``hash_route``, named
+for the JAX function it stands for): the cell variant
+(ops/hash_variants.py), whether or not ``stochastic``; when training with
+``stochastic``, the single-corner estimator driven by uniforms u (3, L, N)
+(drawn by ``stoch_uniform``: the Philox kernel of ops/rng_kernel.py when
+``cfg.hw_rng``, else ``torch.rand``; or handed in), reading the f32 table
+(ops/hash_kernel.py) or, with ``cfg.packed``, int8 words or (F 2) bf16
+pairs packed from it each call (ops/hash_variants.py); otherwise exact (8
+corners, or 4 for the 2-D points of the image fit, whose encoder is the
+table alone), through packed words when the config is packed and either
+trains stochastically (``packed_eval``, the eval read of a packed model) or
+trains the packed-exact read itself (``packed_exact_train``).  The packed
+backwards are straight-through; with ``grad_subsample`` they route the
+draws ``pick`` (L, N), ``lsel`` (N,) and ``psel`` (L / 2, N) that
+``draw_subsample`` makes from the caller's generator (or that are handed
+in), and ``cfg.scatter_strategy`` picks their scatter.  ``unported`` names
+what is not ported: points of other dimensions than 2 and 3, and on 2-D
+points anything but the exact f32 corner grid alone.
 
 Level parallelism (``cfg.level_axis`` set; parallel/level_parallel.py):
 the call gets a ``shard`` (``LevelShard``), this rank's place in the level
@@ -50,14 +60,16 @@ from typing import Callable, Optional
 import torch
 
 from human_body_reconstruction_tpu_torch.ops import (
-    cp_kernel, dense_kernel, hash_kernel, rng_kernel, xla_encoders)
+    cp_kernel, dense_kernel, hash_kernel, hash_variants, rng_kernel,
+    xla_encoders)
 from human_body_reconstruction_tpu_torch.utils.config import HashConfig
 
-_UNPORTED_FLAGS = (
-    ("packed", "packed bf16/int8 gathers (--packed, --packed_exact)"),
-    ("grad_subsample", "gradient feature subsampling (--grad_subsample)"),
-    ("grad_level_subsample", "--grad_level_subsample"),
-    ("grad_level_pair", "--grad_level_pair"))
+# the routes of the hashed levels (``hash_route``) that read packed words
+# stochastically, that draw uniforms, and that read packed words
+PACKED_STOCHASTIC_ROUTES = ("hash_encode_stochastic_int8",
+                            "hash_encode_stochastic_packed")
+STOCHASTIC_ROUTES = PACKED_STOCHASTIC_ROUTES + ("hash_encode_stochastic",)
+PACKED_ROUTES = PACKED_STOCHASTIC_ROUTES + ("hash_encode_packed_exact",)
 
 
 @dataclasses.dataclass
@@ -92,29 +104,71 @@ def join_level_blocks(dense, fine, n_lines: int, extent: int):
 
 def unported(cfg: HashConfig) -> Optional[str]:
     """Why the port cannot run this encoder config, or None when it can.
-    2-D points (the image fit's) go through the exact corner hash grid
+    2-D points (the image fit's) go through the exact f32 corner hash grid
     alone."""
     if cfg.dim == 2 and (cfg.variant != "corner" or cfg.dense_levels
-                         or cfg.num_hashed_levels == 0):
+                         or cfg.num_hashed_levels == 0 or cfg.packed):
         return ("2-D points are ported for the corner hash grid alone (no "
-                "dense levels, no CP)")
+                "dense levels, no CP, no packed words)")
     if cfg.dim == 2 and cfg.stochastic_train:
         return ("the stochastic hash grid on 2-D points (stochastic_train "
                 "with dim 2) is not ported; no entry point runs it")
     if cfg.dim not in (2, 3):
         return f"{cfg.dim}-D points are not ported; 2-D and 3-D are"
-    if cfg.num_hashed_levels == 0 or cfg.variant == "cp":
-        return None
-    if cfg.variant != "corner":
-        return (f"encoder variant {cfg.variant!r} is not ported; 'cp' and "
-                "'corner' are")
-    for flag, what in _UNPORTED_FLAGS:
-        if getattr(cfg, flag):
-            return f"{what} is not ported to the PyTorch encoder yet"
-    if cfg.scatter_strategy != "random":
-        return (f"scatter strategy {cfg.scatter_strategy!r} is not ported; "
-                "the port's backward adds with atomics ('random')")
     return None
+
+
+def hash_route(cfg: HashConfig, stochastic: bool) -> str:
+    """The hashed levels' branch of JAX ``encode``, by the name of the JAX
+    function it takes: the cell variant first, then the stochastic paths
+    (int8, bf16 pairs at F 2, else the f32 single corner), then the
+    packed-exact read of a packed config that trains stochastically
+    (``packed_eval``) or trains it (``packed_exact_train``), else exact."""
+    if cfg.variant == "cell":
+        return "hash_encode_cell"
+    F = cfg.features_per_level
+    if stochastic:
+        if cfg.packed and cfg.pack_format == "int8":
+            return "hash_encode_stochastic_int8"
+        if cfg.packed and F == 2:
+            return "hash_encode_stochastic_packed"
+        return "hash_encode_stochastic"
+    if (cfg.packed and (cfg.pack_format == "int8" or F == 2)
+            and ((cfg.packed_eval and cfg.stochastic_train)
+                 or cfg.packed_exact_train)):
+        return "hash_encode_packed_exact"
+    return "hash_encode"
+
+
+def subsample_draws(route: str, cfg: HashConfig) -> tuple:
+    """The draws a subsampled packed backward routes (JAX
+    ``_stoch_packed_fwd``, ``_stoch_int8_fwd``): "pick" with
+    ``grad_subsample``, then on the int8 route "psel" with
+    ``grad_level_pair`` or "lsel" with ``grad_level_subsample``."""
+    if route not in PACKED_STOCHASTIC_ROUTES or not cfg.grad_subsample:
+        return ()
+    if route == "hash_encode_stochastic_packed":
+        return ("pick",)
+    return ("pick",) + (("psel",) if cfg.grad_level_pair else ("lsel",)
+                        if cfg.grad_level_subsample else ())
+
+
+def draw_subsample(route: str, cfg: HashConfig, n_levels: int, n: int,
+                   device, generator: Optional[torch.Generator] = None,
+                   given: Optional[dict] = None) -> dict:
+    """{name: draw} of ``subsample_draws``, uint8 on ``device``, each taken
+    from ``given`` or drawn from ``generator``: pick (L, N), the feature of
+    each (point, level) (bf16: bernoulli(0.5); int8: randint(0, F)); lsel
+    (N,), one level a point; psel (L / 2, N), one level of each consecutive
+    pair.  L is the table's level count (a level shard's own)."""
+    given = given or {}
+    high = {"pick": (cfg.features_per_level
+                     if route == "hash_encode_stochastic_int8" else 2),
+            "lsel": n_levels, "psel": 2}
+    shape = {"pick": (n_levels, n), "lsel": (n,), "psel": (n_levels // 2, n)}
+    return {k: given[k] if given.get(k) is not None else torch.randint(
+        0, high[k], shape[k], generator=generator, device=device,
+        dtype=torch.uint8) for k in subsample_draws(route, cfg)}
 
 
 def init_table(cfg: HashConfig, generator: torch.Generator):
@@ -139,15 +193,49 @@ def stoch_uniform(shape, cfg: HashConfig, device,
     return torch.rand(shape, generator=generator, device=device)
 
 
+def _table_forward(route, table, x, mu, sigma, cfg: HashConfig, u, out,
+                   scales):
+    """The hashed levels of ``route`` into ``out``; returns the picked
+    corners' bits (stochastic routes) or None."""
+    if route == "hash_encode_cell":
+        hash_variants.cell_encode_kernel(table, x, mu, sigma, cfg, out=out,
+                                         scales=scales)
+        return None
+    if route in PACKED_ROUTES:
+        words, scale = hash_variants.pack_kernel(table, cfg.pack_format)
+        res = hash_variants.packed_encode_kernel(
+            words, scale, x, mu, sigma, cfg, u, out=out, scales=scales)
+    else:
+        res = hash_kernel.hash_encode_kernel(table, x, mu, sigma, cfg, u,
+                                             out=out, scales=scales)
+    return None if u is None else res[1]
+
+
+def _table_backward(route, table, x, mu, sigma, cfg: HashConfig, grad, bits,
+                    sub, scales):
+    """The f32 table gradient of ``route`` (the packed ones
+    straight-through; ``sub``: pick, lsel, psel)."""
+    if route == "hash_encode_cell":
+        return hash_variants.cell_encode_backward_kernel(
+            table, x, mu, sigma, cfg, grad, scales=scales)
+    if route in PACKED_STOCHASTIC_ROUTES:
+        return hash_variants.stochastic_backward(
+            table, x, mu, sigma, cfg, grad, bits, *sub, scales=scales)
+    return hash_kernel.hash_encode_backward_kernel(
+        table, x, mu, sigma, cfg, grad, bits, scales=scales)
+
+
 class _Encode(torch.autograd.Function):
-    """(x, mu, sigma, u, cfg, scales, n_dense, n_lines, *tables) -> (N,
-    width) f32, where tables = grids + lines + (table,), u (3, L, N) selects
-    the stochastic hashed path (None: exact) and ``scales`` are the table's
-    level scales (None: every hashed level's)."""
+    """(x, mu, sigma, draws, cfg, scales, n_dense, n_lines, *tables) -> (N,
+    width) f32, where tables = grids + lines + (table,), ``draws`` {"route":
+    the hashed levels' ``hash_route``, "u": the uniforms (3, L, N) of a
+    stochastic route, "pick", "lsel", "psel": a subsampled backward's draws}
+    and ``scales`` are the table's level scales (None: every hashed
+    level's)."""
 
     @staticmethod
-    def forward(ctx, x, mu, sigma, u, cfg: HashConfig, scales, n_dense: int,
-                n_lines: int, *tables):
+    def forward(ctx, x, mu, sigma, draws, cfg: HashConfig, scales,
+                n_dense: int, n_lines: int, *tables):
         grids = tables[:n_dense]
         lines = tables[n_dense:n_dense + n_lines]
         table = tables[n_dense + n_lines:]
@@ -155,7 +243,7 @@ class _Encode(torch.autograd.Function):
         if lines:
             width = len(lines) * lines[0].shape[-1]
         elif table:
-            width = table[0].shape[0] * table[0].shape[2]
+            width = table[0].shape[0] * cfg.features_per_level
         else:
             width = 0
         out = torch.empty((x.shape[0], d_dense + width), dtype=torch.float32,
@@ -174,18 +262,17 @@ class _Encode(torch.autograd.Function):
                                        out=out[:, d_dense:])
         bits = None
         if table:
-            res = hash_kernel.hash_encode_kernel(table[0], x, mu, sigma, cfg,
-                                                 u, out=out[:, d_dense:],
-                                                 scales=scales)
-            bits = None if u is None else res[1]
-        ctx.save_for_backward(x, mu, sigma, bits, *tables)
+            bits = _table_forward(draws["route"], table[0], x, mu, sigma, cfg,
+                                  draws["u"], out[:, d_dense:], scales)
+        ctx.save_for_backward(x, mu, sigma, bits, draws["pick"],
+                              draws["lsel"], draws["psel"], *tables)
         ctx.cfg, ctx.n_dense, ctx.n_lines = cfg, n_dense, n_lines
-        ctx.scales = scales
+        ctx.scales, ctx.route = scales, draws["route"]
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        x, mu, sigma, bits, *tables = ctx.saved_tensors
+        x, mu, sigma, bits, pick, lsel, psel, *tables = ctx.saved_tensors
         cfg, n_dense, n_lines = ctx.cfg, ctx.n_dense, ctx.n_lines
         d_dense = n_dense * cfg.features_per_level
         grids = tables[:n_dense]
@@ -207,24 +294,28 @@ class _Encode(torch.autograd.Function):
                       else cp_kernel.cp_encode_backward_kernel)
             g_rest = cp_bwd(lines, x, mu, sigma, cfg, grad[:, d_dense:])
         if table and need[-1]:
-            g_rest = [hash_kernel.hash_encode_backward_kernel(
-                table[0], x, mu, sigma, cfg, grad[:, d_dense:], bits,
-                scales=ctx.scales)]
+            g_rest = [_table_backward(ctx.route, table[0], x, mu, sigma, cfg,
+                                      grad[:, d_dense:], bits,
+                                      (pick, lsel, psel), ctx.scales)]
         return (None,) * 8 + (*g_grids, *g_rest)
 
 
 def encode_params(enc_params, x, mu, sigma, cfg: HashConfig, *,
                   stochastic: bool = False,
                   generator: Optional[torch.Generator] = None, u=None,
+                  pick=None, lsel=None, psel=None,
                   shard: Optional[LevelShard] = None):
     """enc_params: {"dense": sequence of (G, G, G, F) grids (when
     cfg.dense_levels > 0), "lines": sequence of (3, G_l, R) lines (variant
-    "cp") or "table": (L_hashed, T, F) (variant "corner")}.  ``stochastic``
-    (training, corner variant) picks one corner per (point, level) from
-    uniforms ``u`` (3, L_hashed, N), drawn from ``generator`` when not given.
+    "cp") or "table": (L_hashed, T, F) (variant "corner"; (L_hashed, T, 8F)
+    "cell")}.  ``stochastic`` (training, corner variant) picks one corner
+    per (point, level) from uniforms ``u`` (3, L_hashed, N), and a
+    subsampled packed backward routes ``pick``, ``lsel`` and ``psel``
+    (``draw_subsample``), each drawn from ``generator`` when not given.
     Under ``cfg.level_axis`` the lines or table are this rank's slices and
-    ``shard`` says which (u is then (3, L_hashed / k, N)); the blocks are
-    joined by ``shard.gather`` (without it: the rank's own columns).
+    ``shard`` says which (u is then (3, L_hashed / k, N), and the draws of
+    the slice's L_hashed / k levels); the blocks are joined by
+    ``shard.gather`` (without it: the rank's own columns).
     Returns (N, cfg.out_dim) f32 features, differentiable w.r.t. every grid,
     line and table on both devices."""
     msg = unported(cfg)
@@ -245,16 +336,20 @@ def encode_params(enc_params, x, mu, sigma, cfg: HashConfig, *,
         else:
             table = [enc_params["table"]]
     scales = None if shard is None or not table else shard.scales
-    if not (stochastic and table):
-        u = None
-    elif u is None:
-        n_levels = table[0].shape[0]
-        u = stoch_uniform((3, n_levels, x.shape[0]), cfg, x.device,
-                          generator)
+    route = hash_route(cfg, stochastic) if table else None
+    draws = {"route": route, "u": None, "pick": None, "lsel": None,
+             "psel": None}
+    if route in STOCHASTIC_ROUTES:
+        n_levels, n = table[0].shape[0], x.shape[0]
+        draws["u"] = (stoch_uniform((3, n_levels, n), cfg, x.device,
+                                    generator) if u is None else u)
+        draws.update(draw_subsample(
+            route, cfg, n_levels, n, x.device, generator,
+            {"pick": pick, "lsel": lsel, "psel": psel}))
     mu, sigma = (torch.as_tensor(v, dtype=torch.float32, device=x.device)
                  for v in (mu, sigma))
-    out = _Encode.apply(x, mu, sigma, u, cfg, scales, len(grids), len(lines),
-                        *grids, *lines, *table)
+    out = _Encode.apply(x, mu, sigma, draws, cfg, scales, len(grids),
+                        len(lines), *grids, *lines, *table)
     if shard is None or shard.gather is None or not (lines or table):
         return out
     d_dense = len(grids) * cfg.features_per_level

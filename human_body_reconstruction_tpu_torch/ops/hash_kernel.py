@@ -22,7 +22,12 @@ versions compute hash_encode's numerics step for step:
          (2-D: c = 0..3, weight w_0 * w_1)
   stochastic: bit_d = u[d, l, n] < frac_d; out = table[l, row, f]
 
-and the table gradient adds w * g (exact) or g (stochastic) at each row.
+and the table gradient adds w * g (exact) or g (stochastic) at each row;
+the subsampled stochastic backwards (JAX ``grad_subsample``,
+``grad_level_subsample``, ``grad_level_pair``) add, given the draws pick
+(L, N), lsel (N,) or psel (L / 2, N), uint8, the routed gradient
+``routed_grad``: (g[pick] * F) * s in feature pick alone, on the drawn
+levels alone (s = L under lsel, 2 under psel, else 1).
 In the plain version the coordinates are int64 holding uint32 values, and a
 product by a prime is taken as two 16-bit halves so that it never overflows
 int64; only its low 32 bits matter.  Positions get no gradient.
@@ -148,14 +153,37 @@ def hash_encode_plain(table, x, mu, sigma, cfg: HashConfig, u=None,
     return feats, torch.stack(picked).to(torch.uint8)
 
 
+def routed_grad(grad, F: int, pick, lsel=None, psel=None):
+    """The (N, L*F) gradient that a subsampled backward scatters: at each
+    (point, level) (g[pick] * F) * s in feature pick and 0 in the others,
+    and 0 on the levels not drawn (s = L on level lsel[n], 2 on level
+    2j + psel[j, n] of pair j, else 1)."""
+    L, n = pick.shape
+    g = grad.reshape(n, L, F)
+    pk = pick.long().T[..., None]                                 # (N, L, 1)
+    val = torch.gather(g, 2, pk) * float(F)
+    level = torch.arange(L, device=grad.device)
+    if lsel is not None:
+        val = torch.where((lsel.long()[:, None] == level)[..., None],
+                          val * float(L), 0.0)
+    elif psel is not None:
+        drawn = psel.long().T[:, level // 2] == level % 2         # (N, L)
+        val = torch.where(drawn[..., None], val * 2.0, 0.0)
+    return torch.zeros_like(g).scatter_(2, pk, val).reshape(n, L * F)
+
+
 def hash_encode_plain_backward(table, x, mu, sigma, cfg: HashConfig, grad,
-                               u=None, bits=None, scales=None):
+                               u=None, bits=None, scales=None, pick=None,
+                               lsel=None, psel=None):
     """Gradient of ``hash_encode_plain`` w.r.t. the table, given the
     gradient ``grad`` (N, L*F) of its output; stochastic given the picked
-    corners' ``bits`` (L, N) or the uniforms u they came from.  Returns an
-    f32 (L, T, F) tensor.  The table's values are not read (the encoding is
-    linear in them); only its shape is."""
+    corners' ``bits`` (L, N) or the uniforms u they came from, and
+    subsampled given ``pick`` (and ``lsel`` or ``psel``): ``routed_grad``.
+    Returns an f32 (L, T, F) tensor.  The table's values are not read (the
+    encoding is linear in them); only its shape is."""
     L, T, F = table.shape
+    if pick is not None:
+        grad = routed_grad(grad, F, pick, lsel, psel)
     dflat = torch.zeros((L * T, F), dtype=torch.float32, device=x.device)
     for l, (terms, _) in enumerate(_level_terms(normalise(x, mu, sigma), cfg,
                                                 u, bits, scales)):
@@ -165,7 +193,8 @@ def hash_encode_plain_backward(table, x, mu, sigma, cfg: HashConfig, grad,
     return dflat.reshape(L, T, F)
 
 
-def _check_args(table, x, cfg: HashConfig, u=None, bits=None, scales=None):
+def _check_args(table, x, cfg: HashConfig, u=None, bits=None, scales=None,
+                pick=None, lsel=None, psel=None):
     """Shapes and devices the kernels rely on; returns (n, L*F)."""
     want = (len(_scales(cfg, scales)), cfg.table_size,
             cfg.features_per_level)
@@ -181,8 +210,21 @@ def _check_args(table, x, cfg: HashConfig, u=None, bits=None, scales=None):
         raise ValueError(f"the table must be float32 on the points' device, "
                          f"got {table.dtype} on {table.device}")
     n, c = x.shape[0], want[0] * want[2]
+    if pick is None and (lsel is not None or psel is not None) or (
+            pick is not None and bits is None):
+        raise ValueError("the level draws (lsel, psel) go with pick, and "
+                         "pick with the picked corners' bits")
+    if lsel is not None and psel is not None:
+        raise ValueError("lsel and psel are exclusive")
+    if psel is not None and want[0] % 2:
+        raise ValueError(f"level pairs need an even level count, got "
+                         f"{want[0]}")
+    u8 = torch.uint8
     for name, v, dtype, shape in (("u", u, torch.float32, (3, want[0], n)),
-                                  ("bits", bits, torch.uint8, (want[0], n))):
+                                  ("bits", bits, u8, (want[0], n)),
+                                  ("pick", pick, u8, (want[0], n)),
+                                  ("lsel", lsel, u8, (n,)),
+                                  ("psel", psel, u8, (want[0] // 2, n))):
         if v is not None and (tuple(v.shape) != shape or v.device != x.device
                               or v.dtype != dtype):
             raise ValueError(f"{name} must be {dtype} {shape} on the points' "
@@ -197,10 +239,9 @@ def _check_args(table, x, cfg: HashConfig, u=None, bits=None, scales=None):
     return n, c
 
 
-def _launch_args(table, x, mu, sigma, cfg: HashConfig, scales=None):
-    """(table from a 16-byte aligned address, points, mu (dim,), sigma
-    (dim,), level struct) for a launch: f32, contiguous, on the points'
-    device (no host synchronisation)."""
+def launch_points(x, mu, sigma, cfg: HashConfig, scales=None):
+    """(points, mu (dim,), sigma (dim,), level struct) for a launch: f32,
+    contiguous, on the points' device (no host synchronisation)."""
     def vec(v):
         return torch.as_tensor(v, dtype=torch.float32,
                                device=x.device).expand(cfg.dim).contiguous()
@@ -209,10 +250,19 @@ def _launch_args(table, x, mu, sigma, cfg: HashConfig, scales=None):
     scales = _scales(cfg, scales)
     L = len(scales)
     lv = cuda_lib.make_levels([T] * L, [l * T for l in range(L)], scales)
-    tc = table.detach().contiguous()
-    if tc.data_ptr() % 16:
-        tc = tc.clone()
-    return tc, x.to(torch.float32).contiguous(), vec(mu), vec(sigma), lv
+    return x.to(torch.float32).contiguous(), vec(mu), vec(sigma), lv
+
+
+def aligned(t):
+    """``t`` detached and contiguous, from a 16-byte aligned address."""
+    tc = t.detach().contiguous()
+    return tc.clone() if tc.data_ptr() % 16 else tc
+
+
+def _launch_args(table, x, mu, sigma, cfg: HashConfig, scales=None):
+    """(table from a 16-byte aligned address, points, mu (dim,), sigma
+    (dim,), level struct) for a launch."""
+    return (aligned(table), *launch_points(x, mu, sigma, cfg, scales))
 
 
 def hash_encode_kernel(table, x, mu, sigma, cfg: HashConfig, u=None,
@@ -253,31 +303,36 @@ def hash_encode_kernel(table, x, mu, sigma, cfg: HashConfig, u=None,
 
 
 def hash_encode_backward_kernel(table, x, mu, sigma, cfg: HashConfig, grad,
-                                bits=None, scales=None):
+                                bits=None, scales=None, pick=None, lsel=None,
+                                psel=None):
     """Backward wrapper: the table gradient given ``grad``, the (N, L*F) f32
     gradient of the features (any row stride, unit column stride: a column
     block of the encoder's gradient), exact, or stochastic given the picked
-    corners' ``bits`` (L, N) from the forward.  CPU tensors ->
+    corners' ``bits`` (L, N) from the forward, subsampled given the draws
+    ``pick`` (and ``lsel`` or ``psel``).  CPU tensors ->
     ``hash_encode_plain_backward``; CUDA tensors -> ``hbr_hash_backward``.
     Returns an f32 (L, T, F) tensor."""
-    n, c = _check_args(table, x, cfg, bits=bits, scales=scales)
+    draws = (pick, lsel, psel)
+    n, c = _check_args(table, x, cfg, bits=bits, scales=scales, pick=pick,
+                       lsel=lsel, psel=psel)
     cuda_lib.check_out(grad, n, c, x.device, name="grad")
     if x.device.type == "cpu":
         return hash_encode_plain_backward(table, x, mu, sigma, cfg, grad,
-                                          bits=bits, scales=scales)
+                                          bits=bits, scales=scales, pick=pick,
+                                          lsel=lsel, psel=psel)
     dtable = torch.zeros(tuple(table.shape), dtype=torch.float32,
                          device=x.device)
     if n > 0:
         _, xc, muv, sigmav, lv = _launch_args(table, x, mu, sigma, cfg,
                                               scales)
-        bc = None if bits is None else bits.contiguous()
+        held = [None if v is None else v.contiguous()
+                for v in (bits, *draws)]
+        ptr = [None if v is None else v.data_ptr() for v in held]
         code = cuda_lib.library().hbr_hash_backward(
-            xc.data_ptr(), muv.data_ptr(), sigmav.data_ptr(),
-            None if bc is None else bc.data_ptr(), grad.data_ptr(),
-            grad.stride(0), n, cfg.dim, cfg.table_size,
-            cfg.features_per_level, lv,
-            dtable.data_ptr(),
-            cuda_lib.stream_handle(x.device))
+            xc.data_ptr(), muv.data_ptr(), sigmav.data_ptr(), *ptr,
+            grad.data_ptr(), grad.stride(0), n, cfg.dim, cfg.table_size,
+            cfg.features_per_level, float(cfg.features_per_level), lv,
+            dtable.data_ptr(), cuda_lib.stream_handle(x.device))
         hash_encode_backward_kernel.launches += 1
         cuda_lib.check(code, "hbr_hash_backward")
     return dtable

@@ -66,6 +66,14 @@ def validate(cfg: PipelineConfig, shape, batch_size: Optional[int]):
             f"hashed level count {h.num_hashed_levels} not divisible by "
             f"the level-axis extent {n_level} (dense levels are "
             "replicated; only the hashed ladder shards)")
+    elif h.grad_level_pair and (h.num_hashed_levels // n_level) % 2:
+        # a rank pairs the levels of its own slice (JAX reshapes the
+        # slice's (L / k, N) draws to pairs and fails on an odd count);
+        # the message is HashConfig's for an odd pair count
+        raise ValueError(
+            "grad_level_pair needs an even number of hashed levels, got "
+            f"{h.num_hashed_levels // n_level} in each of the {n_level} "
+            "level slices")
     if batch_size is not None and batch_size % n_data:
         raise ValueError(f"batch_size {batch_size} not divisible by the "
                          f"data-axis extent {n_data}")

@@ -294,16 +294,37 @@ def test_encode_params_dense_plus_table():
 
 
 def test_unported_hash_options_raise():
+    """The hash options the port refused before it ported them now encode
+    as JAX ``encode`` does (the cell variant, the packed bf16 and int8
+    stochastic gathers on JAX's uniforms, the packed-exact read, the
+    sorted scatter; rtol 0, atol 1e-6: the same sums in the same order);
+    what still raises: packed words on 2-D points, and uniforms of the
+    wrong shape."""
     cfg = hash_cfg()
     table, x, mu, sigma = inputs(cfg)
-    for bad in (dict(variant="cell"), dict(packed=True, stochastic_train=True),
-                dict(packed=True, packed_exact_train=True),
-                dict(packed=True, grad_subsample=True),
-                dict(scatter_strategy="sorted")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            hash_encoding.encode_params(
-                {"table": t(table)}, t(x), t(mu), t(sigma),
-                dataclasses.replace(cfg, **bad))
+    key = jax.random.PRNGKey(6)
+    for opts in (dict(variant="cell"), dict(packed=True, stochastic_train=True),
+                 dict(packed=True, packed_exact_train=True),
+                 dict(packed=True, grad_subsample=True, stochastic_train=True,
+                      pack_format="int8"),
+                 dict(scatter_strategy="sorted", stochastic_train=True)):
+        c = dataclasses.replace(cfg, **opts)
+        tab = (np.tile(table, (1, 1, 8)) if c.variant == "cell" else table)
+        stochastic = c.stochastic_train
+        ref = np.asarray(jhe.encode(
+            jnp.asarray(tab), jnp.asarray(x), jnp.asarray(mu),
+            jnp.asarray(sigma), c, key=key, stochastic=stochastic))
+        port = hash_encoding.encode_params(
+            {"table": t(tab)}, t(x), t(mu), t(sigma), c,
+            stochastic=stochastic,
+            u=t(jax_u(c, key)) if stochastic else None)
+        np.testing.assert_allclose(port.numpy(), ref, rtol=0, atol=1e-6)
+    two_d = C.HashConfig(num_levels=2, log2_table_size=8, n_max=64, dim=2,
+                         packed=True, packed_exact_train=True)
+    with pytest.raises(NotImplementedError, match="no packed words"):
+        hash_encoding.encode_params(
+            {"table": torch.zeros((2, 256, 2))}, torch.zeros((5, 2)), 0.0,
+            1.0, two_d)
     with pytest.raises(ValueError):          # u of the wrong shape
         hash_kernel.hash_encode_kernel(t(table), t(x), t(mu), t(sigma), cfg,
                                        u=torch.zeros((3, 4, N - 1)))

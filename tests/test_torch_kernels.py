@@ -30,7 +30,7 @@ import torch
 
 from human_body_reconstruction_tpu_torch.ops import (
     cp_kernel, cuda_lib, dense_grid, dense_kernel, hash_encoding, hash_kernel,
-    lowrank, rng_kernel)
+    hash_variants, lowrank, rng_kernel)
 from human_body_reconstruction_tpu_torch.utils import config as C
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -879,3 +879,215 @@ def test_forward_kernels_match_plain_on_sweep_chunks(cuda_device, encoder):
         rest = torch.ones(h.out_dim, dtype=torch.bool)
         rest[cols] = False
         assert bool(mat[:, rest.to(cuda_device)].isnan().all())
+
+
+# ------------------------------------------------------- the hash variants
+
+def variant_inputs(device, n, order, features=2, levels=4, log2_t=10,
+                   seed=0, **flags):
+    """A packed/cell config, a U(-1, 1) table of its payload, points in ray
+    order or at random (a quarter outside the unit box), uniforms, and the
+    subsampling draws the config routes (``hash_encoding.draw_subsample``)."""
+    cfg = C.HashConfig(num_levels=levels, log2_table_size=log2_t, n_max=512,
+                       features_per_level=features, **flags)
+    table, args, u = hash_inputs(device, n=n, levels=levels, log2_t=log2_t,
+                                 seed=seed, features=features)
+    if cfg.payload != features:
+        table = torch.tensor(np.random.default_rng(seed).uniform(
+            -1, 1, (levels, 2 ** log2_t, cfg.payload)), dtype=torch.float32,
+            device=device)
+    if order == "rays":
+        args = ray_points(n, 64, device) + args[3:]
+    args = args[:3] + (cfg,)
+    route = hash_encoding.hash_route(cfg, cfg.stochastic_train)
+    draws = hash_encoding.draw_subsample(
+        route, cfg, levels, n, device, torch.Generator(device).manual_seed(seed))
+    return table, args, u, draws
+
+
+INT8_FLAGS = dict(stochastic_train=True, packed=True, pack_format="int8")
+BF16_FLAGS = dict(stochastic_train=True, packed=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,features", [("bf16", 2), ("int8", 1),
+                                          ("int8", 2), ("int8", 3),
+                                          ("int8", 4)])
+def test_pack_kernel_matches_plain_bit_for_bit(cuda_device, fmt, features):
+    """Words and scales bit for bit, on a small table with ties (scaled
+    values k + 0.5; bf16 halves 0x8000) and the hash path's width."""
+    n_p = hash_variants.pack_kernel.launches
+    for levels, log2_t in ((4, 10), (16, 16)):
+        rng = np.random.default_rng(levels)
+        tab = rng.uniform(-1, 1, (levels, 2 ** log2_t, features)).astype(
+            np.float32)
+        if fmt == "int8":
+            tab[:, 0, 0] = 127.0
+            tab[:, 1:300] = (rng.integers(-126, 126, (levels, 299, features))
+                             + 0.5)
+            tab[1] *= -1e-3
+        else:
+            bits = tab.view(np.uint32)
+            bits[:, :300] = (bits[:, :300] & 0xFFFF0000) | 0x8000
+        table = torch.tensor(tab, device=cuda_device)
+        words, scale = hash_variants.pack_kernel(table, fmt)
+        want_w, want_s = hash_variants.pack_plain(table, fmt)
+        torch.cuda.synchronize()
+        assert torch.equal(words, want_w)
+        assert (scale is None) == (fmt == "bf16")
+        if scale is not None:
+            assert torch.equal(scale, want_s)
+    assert hash_variants.pack_kernel.launches == n_p + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["rays", "random"])
+@pytest.mark.parametrize("mode", ["exact", "stoch"])
+@pytest.mark.parametrize("fmt,features", [("bf16", 2), ("int8", 2),
+                                          ("int8", 4)])
+def test_packed_forward_kernel_matches_plain(cuda_device, fmt, features, mode,
+                                             order):
+    """The packed forward (stochastic, and the packed-exact read) bit for
+    bit with its plain version into a column block of a NaN-filled wider
+    matrix, the stochastic corner bits too; N below a block, not a
+    multiple of one, and larger."""
+    n_f = hash_variants.packed_encode_kernel.launches
+    for n in (5, 1000, 20_011):
+        table, args, u, _ = variant_inputs(
+            cuda_device, n, order, features, seed=n,
+            **(INT8_FLAGS if fmt == "int8" else BF16_FLAGS))
+        words, scale = hash_variants.pack_kernel(table, fmt)
+        uu = u if mode == "stoch" else None
+        c = 4 * features
+        out = torch.full((n, c + 6), float("nan"), device=cuda_device)
+        got = hash_variants.packed_encode_kernel(words, scale, *args, u=uu,
+                                                 out=out[:, 2:2 + c])
+        want = hash_variants.packed_encode_plain(words, scale, *args, u=uu)
+        torch.cuda.synchronize()
+        if uu is not None:
+            assert torch.equal(got[1], want[1])
+            want = want[0]
+        assert torch.equal(out[:, 2:2 + c], want)
+        assert torch.isnan(out[:, :2]).all() and torch.isnan(out[:, 2 + c:]).all()
+    assert hash_variants.packed_encode_kernel.launches == n_f + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["rays", "random"])
+@pytest.mark.parametrize("features", [2, 4])
+def test_cell_kernels_match_plain(cuda_device, features, order):
+    """The cell forward bit for bit into a column block, its backward within
+    the sum-order tolerance from a row-strided gradient."""
+    n_f = hash_variants.cell_encode_kernel.launches
+    n_b = hash_variants.cell_encode_backward_kernel.launches
+    for n in (5, 1000, 20_011):
+        table, args, _, _ = variant_inputs(cuda_device, n, order, features,
+                                           seed=n, variant="cell")
+        c = 4 * features
+        out = torch.full((n, c + 3), float("nan"), device=cuda_device)
+        hash_variants.cell_encode_kernel(table, *args, out=out[:, 3:])
+        want = hash_variants.cell_encode_plain(table, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, 3:], want) and torch.isnan(out[:, :3]).all()
+        g = cotangent(n, c, cuda_device, seed=n, extra=5)
+        assert grads_close(
+            lambda tb, *a: [hash_variants.cell_encode_backward_kernel(
+                tb[0], *a)],
+            lambda tb, *a: [hash_variants.cell_encode_plain_backward(
+                tb[0], *a)],
+            [table], args, g, False)
+    assert hash_variants.cell_encode_kernel.launches == n_f + 3
+    assert hash_variants.cell_encode_backward_kernel.launches == n_b + 3
+
+
+SUB_FLAGS = {"gsub": dict(grad_subsample=True),
+             "lvl": dict(grad_subsample=True, grad_level_subsample=True),
+             "lpair": dict(grad_subsample=True, grad_level_pair=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["rays", "random"])
+# level routing is an int8 option (HashConfig refuses it with bf16)
+@pytest.mark.parametrize("fmt,features,routing",
+                         [("bf16", 2, "gsub")]
+                         + [("int8", 4, r) for r in sorted(SUB_FLAGS)])
+def test_sub_backward_and_sorted_scatters_match_plain(cuda_device, fmt,
+                                                      features, routing,
+                                                      order):
+    """The subsampled backward (random strategy: hash_kernel's stochastic
+    backward given the draws) within the sum-order tolerance of its plain
+    version, from the forward kernel's bits and the drawn pick/lsel/psel;
+    the pairs kernel equal to its plain version (indices and values bit for
+    bit); the sorted and segsum scatters of them within the tolerance, and
+    also of the unsubsampled pairs."""
+    flags = dict(INT8_FLAGS if fmt == "int8" else BF16_FLAGS,
+                 **SUB_FLAGS[routing])
+    n = 20_011
+    table, args, u, draws = variant_inputs(cuda_device, n, order, features,
+                                           seed=5, **flags)
+    words, scale = hash_variants.pack_kernel(table, fmt)
+    _, bits = hash_variants.packed_encode_kernel(words, scale, *args, u=u)
+    sub = (draws["pick"], draws.get("lsel"), draws.get("psel"))
+    g = cotangent(n, 4 * features, cuda_device, seed=6, extra=5)
+    n_b = hash_kernel.hash_encode_backward_kernel.launches
+
+    def routed(tb, *a, dev=None):
+        to = (lambda v: v) if dev is None else (
+            lambda v: v.to(dev) if torch.is_tensor(v) else v)
+        return [hash_kernel.hash_encode_backward_kernel(
+            to(tb[0]), *[to(v) for v in a], to(bits),
+            **{k: to(v) for k, v in zip(("pick", "lsel", "psel"), sub)})
+            .to(cuda_device)]
+    assert grads_close(routed, lambda tb, *a: routed(tb, *a, dev="cpu"),
+                       [table], args, g, False)
+    assert hash_kernel.hash_encode_backward_kernel.launches > n_b
+    size = table.numel()
+    for pick in (sub, (None, None, None)):
+        idx, val = hash_variants.pairs_kernel(table, *args, g, bits, *pick)
+        cpu = [v.cpu() if torch.is_tensor(v) else v for v in args]
+        want_i, want_v = hash_variants.pairs_plain(
+            table.cpu(), *cpu, g.cpu(), bits.cpu(),
+            *[v if v is None else v.cpu() for v in pick])
+        assert torch.equal(idx.cpu().long(), want_i)
+        assert torch.equal(val.cpu(), want_v)
+        abs_sum = hash_variants.scatter_plain(size, want_i, want_v.abs())
+        for strategy in ("sorted", "segsum"):
+            got = hash_variants.scatter(size, idx, val, strategy).cpu()
+            want = hash_variants.scatter_plain(size, want_i, want_v, strategy)
+            assert bool((got - want).abs().le(cuda_lib.sum_order_tolerance(
+                want, abs_sum, False)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cell", "bf16_gsub", "int8_lpair_segsum",
+                                  "packed_exact_int8"])
+def test_variant_encodes_on_the_card_match_the_cpu(cuda_device, case):
+    """``encode_params`` of each variant with the same draws on the card
+    (kernels) and the CPU (plain versions): features bit for bit, the table
+    gradient within the sum-order tolerance."""
+    flags = {"cell": dict(variant="cell"),
+             "bf16_gsub": dict(BF16_FLAGS, grad_subsample=True),
+             "int8_lpair_segsum": dict(INT8_FLAGS, grad_subsample=True,
+                                       grad_level_pair=True,
+                                       scatter_strategy="segsum"),
+             "packed_exact_int8": dict(packed=True, packed_exact_train=True,
+                                       pack_format="int8")}[case]
+    n = 20_011
+    table, (x, mu, sigma, cfg), u, draws = variant_inputs(
+        cuda_device, n, "rays", 4 if "int8" in case else 2, seed=7, **flags)
+    stochastic = cfg.stochastic_train
+    g = cotangent(n, cfg.out_dim, cuda_device, seed=8)
+    res = []
+    for dev, gg in ((cuda_device, g), ("cpu", g.cpu()), ("cpu", g.cpu().abs())):
+        tb = table.to(dev).clone().requires_grad_()
+        feats = hash_encoding.encode_params(
+            {"table": tb}, x.to(dev), mu.to(dev), sigma.to(dev), cfg,
+            stochastic=stochastic, u=u.to(dev) if stochastic else None,
+            **{k: v.to(dev) for k, v in draws.items()})
+        (feats * gg).sum().backward()
+        res.append((feats.detach().cpu(), tb.grad.cpu()))
+    (f_card, g_card), (f_cpu, g_cpu), (_, abs_sum) = res
+    assert torch.equal(f_card, f_cpu)
+    assert float(g_cpu.abs().max()) > 0.1
+    assert bool((g_card - g_cpu).abs().le(cuda_lib.sum_order_tolerance(
+        g_cpu, abs_sum, False)).all())

@@ -61,10 +61,19 @@ S = 16                  # ladder samples
 SPAWN_TIMEOUT = 600
 
 
+INT8_KW = dict(stochastic_train=True, packed=True, pack_format="int8",
+               features_per_level=4, grad_subsample=True,
+               grad_level_pair=True)
+
+
 def cfgs(variant: str, tv_warmup: int = 0, **hash_kw):
     """(port config, JAX config) of one small f32 model: CP (rank 4 over 4
-    levels, 2 dense) or the corner hash grid (4 levels), MLP width 16."""
+    levels, 2 dense), the corner hash grid (4 levels) or ("int8") that grid
+    as int8 words at F 4 with 1-of-F and level-pair gradient routing, MLP
+    width 16."""
     out = []
+    if variant == "int8":
+        variant, hash_kw = "corner", dict(INT8_KW, **hash_kw)
     for mod in (C, jC):
         if variant == "cp":
             h = mod.HashConfig(num_levels=4, n_max=128, variant="cp",
@@ -101,8 +110,12 @@ def dataset(n=3, hw=8):
     return images, c2ws, K
 
 
-def jax_draws(key, step_no: int, n_data: int, images):
-    """Each data shard's draws as the JAX shard body makes them."""
+def jax_draws(key, step_no: int, n_data: int, images, cfg=None,
+              n_level: int = 1):
+    """Each data shard's draws as the JAX shard body makes them; for an int8
+    ``cfg`` also each level rank's encoder draws ("enc": u, pick, psel of
+    its L / n_level levels), as JAX's int8 forward makes them from the
+    render key's third split folded by the level index."""
     n, h, w = images.shape[:3]
     local = B // n_data
     out = []
@@ -110,11 +123,25 @@ def jax_draws(key, step_no: int, n_data: int, images):
         k = jax.random.fold_in(jax.random.fold_in(key, step_no), r)
         k_batch, k_render = jax.random.split(k)
         k1, k2 = jax.random.split(k_batch)
+        k_strat, _, k_enc, _ = jax.random.split(k_render, 4)
         out.append({
             "img": np.asarray(jax.random.randint(k1, (local,), 0, n)),
             "pix": np.asarray(jax.random.randint(k2, (local,), 0, h * w)),
-            "u": np.asarray(jax.random.uniform(
-                jax.random.split(k_render, 4)[0], (local, S)))})
+            "u": np.asarray(jax.random.uniform(k_strat, (local, S)))})
+        if cfg is None or not cfg.hash.packed:
+            continue
+        L, F, m = cfg.hash.num_hashed_levels // n_level, \
+            cfg.hash.features_per_level, local * S
+        out[-1]["enc"] = []
+        for i in range(n_level):
+            kf = jax.random.fold_in(k_enc, i)
+            out[-1]["enc"].append({
+                "u": np.asarray(jax.random.uniform(kf, (3, L, m))),
+                "pick": np.asarray(jax.random.randint(
+                    jax.random.fold_in(kf, 1), (L, m), 0, F), np.uint8),
+                "psel": np.asarray(jax.random.randint(
+                    jax.random.fold_in(kf, 3), (L // 2, m), 0, 2),
+                    np.uint8)})
     return out
 
 
@@ -190,7 +217,8 @@ def payload(cfg, params, kind: str, shape, step_no: int, key, **extra):
     return dict(cfg=cfg, params=params, kind=kind, shape=shape, step=step_no,
                 total=50, batch=B, bounds=(LO, HI), images=images,
                 c2ws=c2ws, K=K, draws=jax_draws(key, step_no, shape[0],
-                                                images), **extra)
+                                                images, cfg, shape[1]),
+                **extra)
 
 
 # (name, variant, kind, (n_data, n_inner), step, TV warmup): the JAX-parity
@@ -199,6 +227,7 @@ STEP_CASES = [
     ("dp2", "cp", "dp", (2, 1), 10, 5),
     ("dp4", "cp", "dp", (4, 1), 10, 5),
     ("lp_hash", "corner", "lp", (1, 2), 0, 0),
+    ("lp_int8", "int8", "lp", (1, 2), 0, 0),
     ("lp_cp_tv", "cp", "lp", (1, 2), 0, 0),
     ("lp_cp_tv_gated", "cp", "lp", (1, 2), 0, 5),
 ]

@@ -116,7 +116,8 @@ def test_holdout_pose_split_matches_jax():
 def test_mode_configs_match_make_modes(name):
     """The port's mode config equals the JAX ``make_modes`` entry once both
     take the protocol's batch, and its encoder is one the port runs: dense
-    coarse levels then CP lines, or the corner hash grid alone."""
+    coarse levels then CP lines, or a hash grid of 32 features (the corner
+    or cell grid alone, or packed with dense coarse levels)."""
     ref = QM.make_modes(jC, jdense)[name]
     port = qh.make_modes()[name]
 
@@ -131,11 +132,12 @@ def test_mode_configs_match_make_modes(name):
         assert h.dense_levels in (2, 3) and h.out_dim == (
             h.dense_levels * 2 + (h.num_levels - h.dense_levels) * h.cp_rank)
     else:
-        assert (h.variant, h.dense_levels, h.out_dim) == ("corner", 0, 32)
+        assert h.variant in ("corner", "cell") and h.out_dim == 32
+        assert h.dense_levels == 0 or h.packed
 
 
-# the modes of the JAX make_modes that the port leaves out: the cell
-# variant and the packed bf16/int8 hash grids
+# the modes of the JAX make_modes that the port refused before it ported
+# the hash variants: the cell variant and the packed bf16/int8 hash grids
 REFUSED_MODES = {"cell", "packed", "packed_gsub", "packed_compact",
                  "packed_guided", "packed_dense", "int8_dense",
                  "int8_dense_guided", "int8_dense_guided_lvl",
@@ -148,21 +150,24 @@ REFUSED_MODES = {"cell", "packed", "packed_gsub", "packed_compact",
 
 def test_all_modes_are_jax_make_modes():
     """``all_modes`` is the JAX ``make_modes``, name for name in its order
-    and config for config; 44 run and the 16 others are refused with
-    ``unported``'s reason."""
+    and config for config; all 60 run, none is refused, and the 16 variant
+    modes train through the JAX branch of their variant (cell, packed bf16
+    pairs, int8 words)."""
     ref = QM.make_modes(jC, jdense)
     port = qh.all_modes()
     assert list(port) == list(ref) and len(port) == 60
     for name in ref:
         assert dataclasses.asdict(port[name]) == dataclasses.asdict(
             ref[name]), name
-    refused = qh.refused_modes()
-    assert set(refused) == REFUSED_MODES
-    assert set(qh.make_modes()) == set(ref) - REFUSED_MODES
-    assert len(qh.make_modes()) == 44
-    for name, why in refused.items():
-        assert why == hash_encoding.unported(port[name].hash), name
-    assert "cell" in refused["cell"] and "packed" in refused["int8_dense"]
+    assert qh.refused_modes() == {}
+    assert list(qh.make_modes()) == list(ref)
+    routes = {name: hash_encoding.hash_route(port[name].hash, True)
+              for name in REFUSED_MODES}
+    assert routes.pop("cell") == "hash_encode_cell"
+    assert {r for n, r in routes.items() if n.startswith("packed")} == {
+        "hash_encode_stochastic_packed"}
+    assert {r for n, r in routes.items() if n.startswith("int8")} == {
+        "hash_encode_stochastic_int8"}
 
 
 def record_jax_loop(max_steps, monkeypatch):
@@ -339,20 +344,27 @@ def test_quality_holdout_more_modes_run(mode, scene, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "cell", "--scene", "tangle"], "'cell' is not ported"),
-    (["--mode", "int8_dense_guided"], "packed bf16/int8 gathers"),
-    (["--mode", "packed_dense"], "packed bf16/int8 gathers"),
-    (["--mode", "int8_dense_guided_k32_mass_lpair"], "packed bf16/int8"),
+    (["--mode", "cell", "--scene", "tangle"], None),
+    (["--mode", "int8_dense_guided"], None),
+    (["--mode", "packed_dense"], None),
+    (["--mode", "int8_dense_guided_k32_mass_lpair"], None),
     (["--mode", "no_such_mode"], "unknown mode"),
 ], ids=["tangle", "int8", "hash_exact", "int8_lpair", "unknown"])
-def test_quality_holdout_refusals(argv, match):
-    """The modes left out are refused by name with the encoder's reason, on
-    any scene (the tangle's included); ``hash_exact``: the exact corner
-    hash grid runs, its packed variant is refused."""
+def test_quality_holdout_refusals(argv, match, tmp_path):
+    """Only an unknown mode is refused: the variant modes that the port
+    refused before (cell on the tangle, int8, the packed bf16 grid with
+    dense levels, int8 with level-pair routing) run a 2-step protocol to
+    finite holdout PSNRs."""
     assert argv[1] == "no_such_mode" or argv[1] in QM.make_modes(jC, jdense)
-    assert "exact" in qh.make_modes() and "stochastic" in qh.make_modes()
-    with pytest.raises(SystemExit, match=match):
-        qh.main(argv + ["--device", "cpu"])
+    tiny = ["--height", "12", "--views", "2", "--batch", "16", "--steps",
+            "2", "--device", "cpu", "--out", str(tmp_path / "q.json")]
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            qh.main(argv + tiny)
+        return
+    row = qh.main(argv + tiny, log=lambda s: None)
+    assert row["steps"] == 2 and np.isfinite(row["train_psnr"])
+    assert all(np.isfinite(v) for v in row["holdout_per_pose"].values())
 
 
 def test_synthetic_subjects_match_jax(monkeypatch):

@@ -112,6 +112,40 @@ def test_time_to_db_config_matches_jax(rank, monkeypatch, tmp_path):
     assert (port.hash.cp_rank, port.hash.dense_levels) == (rank, 2)
 
 
+def test_time_to_db_int8_matches_jax_and_runs(monkeypatch, tmp_path):
+    """``--encoder int8``: the config the JAX script trains (its record's
+    hash flagship: 2 dense and 6 int8 hashed levels at F 4, gradient
+    subsampling, Philox uniforms), and a short run of it on the CPU whose
+    gates read finite dB and which crosses a low target."""
+    mod = load_jax_script(monkeypatch)
+    caught = {}
+
+    def train_step(*a, cfg, **k):
+        caught["cfg"] = cfg
+        raise _Stop
+
+    argv = ["--height", "4", "--encoder", "int8", "--out",
+            str(tmp_path / "j.json")]
+    monkeypatch.setattr(mod, "load_or_render_gt", lambda *a, **k: jax_data(4))
+    monkeypatch.setattr(jstep, "train_step", train_step)
+    monkeypatch.setattr(sys, "argv", ["speedrun_30db.py"] + argv)
+    with pytest.raises(_Stop):
+        mod.main()
+    port = speedrun.make_config(speedrun.build_parser().parse_args(argv))
+    assert dataclasses.asdict(port) == dataclasses.asdict(caught["cfg"])
+    h = port.hash
+    assert (h.dense_levels, h.num_hashed_levels, h.features_per_level,
+            h.pack_format, h.grad_subsample) == (2, 6, 4, "int8", True)
+    res = speedrun.main(["--encoder", "int8", "--height", "12", "--views",
+                         "2", "--batch", "64", "--max_steps", "24",
+                         "--eval_every", "8", "--eval_after_train_db", "0",
+                         "--target_db", "12", "--device", "cpu", "--out",
+                         str(tmp_path / "s.json")], log=lambda s: None)
+    assert "int8+dense" in res["protocol"] and res["evals"]
+    assert all(np.isfinite(e["gate_db"]) for e in res["evals"])
+    assert res["crossed"] is not None and res["crossed"]["holdout_db"] >= 12
+
+
 # The replayed loop: 125-step evaluations gated by the guided render of 48
 # samples once the grid is in (installed at step 256); the holdout reads
 # these dB in turn, so the guided gate at 375 asks for a confirmation that
@@ -222,7 +256,7 @@ def test_time_to_db_cpu_run_crosses(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--encoder", "int8"], "packed bf16/int8 gathers"),
+    (["--encoder", "int8", "--aot_cache", "c"], "--aot_cache is not ported"),
     (["--steps_per_call", "25"], "--steps_per_call is not ported"),
     (["--aot_cache", "cache"], "--aot_cache is not ported")],
     ids=["int8", "steps_per_call", "aot_cache"])

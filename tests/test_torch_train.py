@@ -404,7 +404,15 @@ def test_fit_loop_checkpoint_renders_same_in_jax(fitted):
     [], ["--cp_rank", "8", "--num_levels", "5"], ["--occ_warmup", "64"],
     ["--no_occ_stratified", "--occ_probe_jitter"],
     ["--max_res", "512", "--dense_levels", "1"], ["--data_parallel"],
-    ["--level_parallel", "2", "--cp_rank", "32"]])
+    ["--level_parallel", "2", "--cp_rank", "32"],
+    ["--encoder_variant", "cell"], ["--stochastic", "--packed"],
+    ["--stochastic", "--packed", "--grad_subsample",
+     "--scatter_strategy", "sorted"], ["--packed_exact"],
+    ["--stochastic", "--packed", "--pack_format", "int8",
+     "--features_per_level", "4", "--grad_subsample", "--grad_level_pair",
+     "--scatter_strategy", "segsum", "--level_parallel", "2"],
+    ["--stochastic", "--packed", "--pack_format", "int8", "--grad_subsample",
+     "--grad_level_subsample", "--dense_levels", "-1"]])
 def test_cli_config_matches_jax(argv):
     args = train_hash.build_parser().parse_args(argv)
     assert dataclasses.asdict(train_hash.make_config(args)) == \
@@ -413,14 +421,21 @@ def test_cli_config_matches_jax(argv):
 
 
 # ["--level_parallel", "2"] is refused as JAX refuses it: the flagship's
-# rank 25 does not divide by 2 (level_parallel.validate)
+# rank 25 does not divide by 2 (level_parallel.validate); the hash grid's 16
+# levels do not divide by 3; 12 int8 levels over 4 ranks leave each rank 3
+# levels, an odd count for --grad_level_pair.  The hash-grid variant flags
+# run (test_cli_config_matches_jax); with a JAX dispatch device they are
+# refused for that device.
 @pytest.mark.parametrize("argv", [
-    ["--level_parallel", "2"], ["--stochastic", "--scatter_strategy", "segsum"],
-    ["--encoder_variant", "cell"],
-    ["--steps_per_call", "4"], ["--stochastic", "--packed", "--grad_subsample"],
+    ["--level_parallel", "2"], ["--stochastic", "--level_parallel", "3"],
+    ["--encoder_variant", "cell", "--level_parallel", "3"],
+    ["--steps_per_call", "4"],
+    ["--stochastic", "--packed", "--grad_subsample", "--steps_per_call", "2"],
     ["--aot_cache", "x"],
-    ["--stochastic", "--packed"], ["--packed_exact"],
-    ["--stochastic", "--scatter_strategy", "sorted"]])
+    ["--stochastic", "--packed", "--aot_cache", "x"],
+    ["--packed_exact", "--level_parallel", "3"],
+    ["--stochastic", "--packed", "--pack_format", "int8", "--grad_subsample",
+     "--grad_level_pair", "--num_levels", "12", "--level_parallel", "4"]])
 def test_cli_refuses_what_is_not_ported(argv):
     args = train_hash.build_parser().parse_args(argv)
     with pytest.raises(SystemExit):

@@ -83,8 +83,12 @@ def step_case(device, p):
             else dp.make_dp_train_step)
     step = make(cfg, p["batch"], mesh)
     d = p["draws"][mesh.data_index]
+    draws = {"u": _t(d["u"])}
+    if "enc" in d:          # this level rank's encoder draws
+        draws.update({f"enc_{k}": _t(v)
+                      for k, v in d["enc"][mesh.inner_index].items()})
     m = step(state, *_data(p), img_idx=_t(d["img"]), pix_idx=_t(d["pix"]),
-             draws={"u": _t(d["u"])})
+             draws=draws)
     grads = whole_grads(state.field, cfg, mesh)
     whole = (lp.gather_lp_state(state, cfg, mesh) if p["kind"] == "lp"
              else state)
