@@ -184,13 +184,18 @@
     backwards within the sum-order tolerance: on the hash path's 1,024,000
     points (L 16, F 2, T 2^16) the bf16 pack (beside the bf16 cast), the
     bf16 stochastic forward (beside ``embedding_bag`` on the unpacked
-    table), its 1-of-2 backward, the pairs and the sorted and segsum adds
-    (beside ``torch.sort`` of the pairs), the cell pair (beside
-    ``embedding_bag``/``index_add_`` given its rows and weights); on the
-    int8 modes' own first-pass points (6 hashed levels, F 4) the int8 pack,
+    table), its 1-of-2 backward (beside ``index_add_`` given the pairs),
+    the pairs and the sorted and segsum adds (beside ``index_add_`` given
+    the sorted pairs; ``torch.sort`` of the pairs printed), the cell pair
+    (beside ``embedding_bag``/``index_add_`` given its rows and weights);
+    on the int8 modes' own first-pass points (6 hashed levels, F 4) the
+    int8 pack (one kernel and no memset on the stream, by the profiler),
     the stochastic and packed-exact forwards and the lpair and lvl
     backwards (beside ``index_add_`` given the pairs); and, on the same
-    hash-path points, the f32 stochastic and exact kernels for the A/B.
+    points, the A/B: the f32 stochastic and exact kernels, and the 1-of-2,
+    lpair and lvl backwards (one thread a point and its drawn terms)
+    against the run walk (the unsubsampled stochastic backward) given
+    their routed gradient, whose undrawn terms are zero.
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
@@ -2678,10 +2683,12 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
             table, *a, g, bits, pick)).reshape(table.shape),
         within_sum_order(abs_sums(table.numel(), idx, val).reshape(
             table.shape)),
-        nbytes(hash_pts, g, bits, pick, table), n * L * 14,
+        routed_bytes(hash_pts, table, val.numel()), n * L * 14,
         library=index_add_pairs_call(table.numel(), idx, val))
     ab["hash_backward/stochastic_same_points"] = time_ms(
         lambda: hash_kernel.hash_encode_backward_kernel(table, *a, g, bits))
+    ab["hash_backward/bf16_gsub_walk"] = walk_on_routed_grad(table, a, g, bits,
+                                                             pick)
     # the pairs and the sorted adds (train_hash --scatter_strategy)
     out["hash_pairs/bf16_gsub_train_path"] = variant_record(
         "hash_pairs", "bf16 1-of-2, hash path",
@@ -2697,7 +2704,7 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
             lambda: hv.scatter_plain(table.numel(), si, sv, strategy),
             within_sum_order(abs_sums(table.numel(), idx, val)),
             nbytes(si, sv, table), si.numel(),
-            library=lambda: hv.sort_pairs(idx, val))
+            library=index_add_pairs_call(table.numel(), si, sv))
     # the cell pair vs the exact pair
     cell = runs["cell"][2]
     ctab = cell.field.table.detach()
@@ -2745,6 +2752,10 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
                 lambda: hv.pack_kernel(itab, "int8"),
                 lambda: hv.pack_plain(itab, "int8"), bit_for_bit,
                 nbytes(itab, iw, isc), itab.numel() * 8)
+            ops = device_ops(lambda: hv.pack_kernel(itab, "int8"))
+            print(f"int8 pack on the stream: {ops} {tag}")
+            check(ops is None or (len(ops) == 1 and "pack_int8" in ops[0]),
+                  ("int8 pack: one kernel, no memset", ops))
             irows, _ = hash_rows_weights(pts, ia[1], ia[2], ih, ibits)
             flat = torch.cat([hv.unpack_plain(
                 iw.reshape(iL, -1)[l], isc, "int8", iF, l)
@@ -2778,9 +2789,12 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
                 itab, *ia, ig, ibits, *sel)).reshape(itab.shape),
             within_sum_order(abs_sums(itab.numel(), iidx, ival)
                              .reshape(itab.shape)),
-            nbytes(pts, ig, ibits, *[v for v in sel if v is not None], itab),
+            routed_bytes(pts, itab, ival.numel(),
+                         *[v for v in sel[1:] if v is not None]),
             ival.numel() * 14,
             library=index_add_pairs_call(itab.numel(), iidx, ival))
+        ab[f"hash_backward/int8_{kind}_walk"] = walk_on_routed_grad(
+            itab, ia, ig, ibits, *sel)
         del pts, iu, ig, iidx, ival
         torch.cuda.empty_cache()
     print("A/B on the hash path's points (ms): "
@@ -2805,6 +2819,41 @@ def cell_rows_weights(pts, mu, sigma, h):
     rows = torch.stack([r[:, None] * 8 + c for r, _ in per_level], 1)
     w = torch.stack([torch.stack(ws, -1) for _, ws in per_level], 1)
     return rows.reshape(-1, 8), w.reshape(-1, 8)
+
+
+def routed_bytes(pts, table, terms: int, *draws) -> int:
+    """The bytes a subsampled backward must move: the points, the level
+    draws, each drawn term's gradient value, corner bits and feature pick
+    (4 + 1 + 1 B), and the table's gradient written once: what the run's
+    draws need, not the whole gradient matrix and draw arrays."""
+    return nbytes(pts, table, *draws) + 6 * terms
+
+
+def walk_on_routed_grad(table, a, g, bits, pick, lsel=None, psel=None):
+    """ms of the run walk (``hbr_hash_backward`` without draws, the
+    unsubsampled stochastic backward) given a subsampled backward's routed
+    gradient: the same sum, the undrawn terms zero."""
+    from human_body_reconstruction_tpu_torch.ops import hash_kernel
+
+    routed = hash_kernel.routed_grad(g, table.shape[-1], pick, lsel, psel)
+    return time_ms(lambda: hash_kernel.hash_encode_backward_kernel(
+        table, *a, routed, bits))
+
+
+def device_ops(fn):
+    """The names of the device operations (kernels, memsets, copies) that
+    one call of fn runs, by torch.profiler; None where the profiler records
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
 
 
 def index_add_pairs_call(size, idx, val):

@@ -106,9 +106,15 @@
 // plain jnp there) are built from the same pieces:
 //  * hbr_hash_pack: the f32 table as one uint32 word a row, bf16 pairs
 //    (__float2bfloat16_rn, feature f in bits [16f, 16f + 16)) or int8 bytes
-//    (per-level scale s_l = max|table_l| + 1e-12, taken by atomicMax on the
-//    bits of the non-negative |t|, then rint(t / s_l * 127) clipped to
-//    +-127, feature f in byte f), once a forward as JAX packs once a step;
+//    (per-level scale s_l = max|table_l| + 1e-12, then rint(t / s_l * 127)
+//    clipped to +-127, feature f in byte f), once a forward as JAX packs
+//    once a step.  It must move the table once and the words once (the
+//    int8 table of the lpair mode, (6, 2^16, 4): 7.5 MB, 2.3 us of HBM).
+//    bf16: a thread packs four rows with 16-byte loads and a 16-byte store.
+//    int8 is one launch of one thread-block cluster a level: its blocks
+//    hold the level in registers, reduce the max through distributed shared
+//    memory and quantise what they hold, so the table is read once and no
+//    scale is zeroed, finished or read back by other launches;
 //  * hbr_hash_packed_forward: hbr_hash_forward's kernel reading one word a
 //    (corner, level) through a row source that unpacks it (bf16: the half
 //    shifted into an f32; int8: the signed byte times s_l / 127), in
@@ -122,15 +128,22 @@
 //    * w_c over c = 0..7, the backward adds w_c * g into the row's slots,
 //    merged over a run of points as hbr_hash_backward merges them, and sent
 //    as float4 reductions;
-//  * the subsampled stochastic backwards are hbr_hash_backward's, given the
-//    draws (pick (L, n), lsel (n,), psel (L / 2, n), uint8, made by the
-//    caller): each (point, level) term is (g[pick] * F) * s in feature pick
-//    alone (grad_subsample), on the drawn levels alone, one a point
+//  * the subsampled stochastic backwards (hbr_hash_backward given the
+//    draws pick (L, n), lsel (n,), psel (L / 2, n), uint8, made by the
+//    caller): each drawn term is (g[pick] * F) * s in feature pick alone
+//    (grad_subsample), on the drawn levels alone, one a point
 //    (grad_level_subsample, s = L) or one of each consecutive pair
-//    (grad_level_pair, s = 2), else s = 1; a point whose level was not
-//    drawn is skipped in that level's walk.  On this card a scalar
-//    reduction costs what a float2 one does (the L2 counts requests), so
-//    1-of-F routing alone buys no time (PERF.md);
+//    (grad_level_pair, s = 2), else s = 1 on every level.  One thread takes
+//    a point, the point fastest: it normalises the point once, reads its
+//    draws and its gradient row, and sends each drawn term (one under lsel,
+//    L / 2 under psel, L under pick alone) as one scalar reduction, reading
+//    ROUTED_BATCH terms before it sends them.  The run walk above visited
+//    every point of its run at every level to find the drawn ones, one
+//    dependent chain of loads after another, for one term in L (lsel) or
+//    two (psel); one thread a term read a point's gradient row once a
+//    level.  What binds it is those reads, scattered 4-byte values of the
+//    gradient's rows (the kernel with its reductions taken out takes most
+//    of its time), not the L2's reductions (PERF.md);
 //  * hbr_hash_pairs, then hbr_scatter_sorted / hbr_scatter_segsum: the
 //    "sorted" and "segsum" strategies of JAX scatter_add_flat.  The pairs
 //    (flat index, value) are written in JAX's order ([f][l][n] unsampled,
@@ -140,10 +153,13 @@
 //    each run of equal indices to the thread at its start, which sums it in
 //    order and stores the total once (no atomics: the index is unique).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "levels.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -155,6 +171,7 @@ constexpr int HASH_FWD_GROUPS = 4;  // threads a point, stochastic forward
 constexpr int HASH_FWD_EXACT_CARVEOUT = 38;
 constexpr int HASH_BWD_THREADS = 256;
 constexpr int HASH_RUN = 16;           // consecutive points a backward thread walks
+constexpr int ROUTED_BATCH = 4;        // terms a routed-backward thread reads at once
 
 __device__ __forceinline__ unsigned hash3(unsigned c0, unsigned c1, unsigned c2,
                                           unsigned mask) {
@@ -507,30 +524,13 @@ __device__ __forceinline__ void flush_cell(float* dl, const int* cell, unsigned 
   }
 }
 
-// The draws of a subsampled stochastic backward: pick (L, n), the feature
-// of each (point, level), or null (no subsampling); at most one of lsel
-// (n,), a point's one level, and psel (L / 2, n), the level of each pair.
-struct Routing {
-  const unsigned char* __restrict__ pick;
-  const unsigned char* __restrict__ lsel;
-  const unsigned char* __restrict__ psel;
-  float sub_scale, lvl_scale;
-  __device__ __forceinline__ bool drawn(int l, long long p, long long n) const {
-    if (lsel != nullptr) return __ldg(lsel + p) == l;
-    if (psel != nullptr) return __ldg(psel + (long long)(l >> 1) * n + p) == (l & 1);
-    return true;
-  }
-};
-
 // dtable: (L, T, F) f32, zeroed by the caller.  g: (n, L*F), row stride
-// g_stride.  STOCH (3-D only): bits (L, n) hold the picked corners, and
-// with rt.pick a point's term at level l is (g[pick] * sub_scale) *
-// lvl_scale in feature pick, on its drawn levels only.  A unit is one (run
-// of HASH_RUN points, level), the level fastest, so a warp's gradient
-// reads are two rows.
+// g_stride.  STOCH (3-D only): bits (L, n) hold the picked corners.  A unit
+// is one (run of HASH_RUN points, level), the level fastest, so a warp's
+// gradient reads are two rows.
 template <int F, bool STOCH, int DIM>
 __global__ void __launch_bounds__(HASH_BWD_THREADS)
-hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits, Routing rt,
+hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
                      const float* __restrict__ g, long long g_stride, long long n,
                      int T, HbrLevels lv, float* __restrict__ dtable) {
   const int L = lv.n_levels;
@@ -561,22 +561,11 @@ hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits, Ro
       float fr[DIM] = {}, gf[F];
       unsigned b = 0;
       if (live) {
-        const bool routed = STOCH && rt.pick != nullptr;
-        if (routed && !rt.drawn(l, p, n)) continue;  // no term at this level
         float xn[DIM];
         pts.at<DIM>(p, xn);
         level_cell<DIM>(xn, scale, x0, fr);
-        if (routed) {
-          const int pk = __ldg(rt.pick + (long long)l * n + p);
-          const float term = __fmul_rn(
-              __fmul_rn(__ldg(g + p * g_stride + l * F + pk), rt.sub_scale),
-              rt.lvl_scale);
 #pragma unroll
-          for (int f = 0; f < F; ++f) gf[f] = f == pk ? term : 0.0f;
-        } else {
-#pragma unroll
-          for (int f = 0; f < F; ++f) gf[f] = __ldg(g + p * g_stride + l * F + f);
-        }
+        for (int f = 0; f < F; ++f) gf[f] = __ldg(g + p * g_stride + l * F + f);
         if (STOCH) b = __ldg(bits + (long long)l * n + p);
       }
       bool moved = !live;
@@ -669,21 +658,87 @@ cell_backward_kernel(WorldPoints pts, const float* __restrict__ g, long long g_s
   }
 }
 
-// The level that point p's gradient goes to in routing group j: level j (no
-// routing, L groups), the drawn one (lsel (n,), one group) or the drawn one
-// of pair j (psel (L/2, n), L/2 groups).
-__device__ __forceinline__ int routed_level(const unsigned char* __restrict__ lsel,
-                                            const unsigned char* __restrict__ psel,
-                                            int j, long long p, long long n) {
-  if (lsel != nullptr) return __ldg(lsel + p);
-  if (psel != nullptr) return 2 * j + __ldg(psel + (long long)j * n + p);
-  return j;
+// The draws of a stochastic backward's terms: pick (L, n), the feature of
+// each (point, level), or null (every feature, no subsampling); at most one
+// of lsel (n,), a point's one level, and psel (L / 2, n), the level of each
+// pair (both null: every level).  A point has one term in each routing
+// group j: at level j (L groups), the drawn level (lsel, one group) or the
+// drawn level of pair j (psel, L / 2 groups).
+struct Routing {
+  const unsigned char* __restrict__ pick;
+  const unsigned char* __restrict__ lsel;
+  const unsigned char* __restrict__ psel;
+  float sub_scale, lvl_scale;
+  __host__ __device__ __forceinline__ int groups(int L) const {
+    return lsel != nullptr ? 1 : psel != nullptr ? L / 2 : L;
+  }
+  __device__ __forceinline__ int level(int j, long long p, long long n) const {
+    if (lsel != nullptr) return __ldg(lsel + p);
+    if (psel != nullptr) return 2 * j + __ldg(psel + (long long)j * n + p);
+    return j;
+  }
+};
+
+// The row (lv.offset[l] + hash) of the corner that the point xn picked at
+// level l, read from the stochastic forward's offset bits (L, n).
+__device__ __forceinline__ long long picked_row(const float* xn,
+                                                const unsigned char* __restrict__ bits,
+                                                int l, long long p, long long n,
+                                                unsigned mask, const HbrLevels& lv) {
+  float fr[3];
+  int x0[3];
+  level_cell<3>(xn, lv.scale[l], x0, fr);
+  return (long long)lv.offset[l] + corner_row<3>(x0, __ldg(bits + (long long)l * n + p),
+                                                 mask);
 }
 
-// The routing groups of a subsampled backward: L, L / 2 (psel) or 1 (lsel).
-__host__ __device__ __forceinline__ int routing_groups(const void* lsel, const void* psel,
-                                                       int L) {
-  return lsel != nullptr ? 1 : psel != nullptr ? L / 2 : L;
+// Point p's (at xn) term in routing group j of a subsampled backward
+// (rt.pick set): returns its value (g[pick] * sub_scale) * lvl_scale and sets
+// *flat to its index (row * F + pick) in the (L, T, F) table.
+__device__ __forceinline__ float routed_term(const float* xn,
+                                             const unsigned char* __restrict__ bits,
+                                             const Routing& rt, const float* __restrict__ g,
+                                             long long g_stride, long long n, int F, int j,
+                                             long long p, unsigned mask,
+                                             const HbrLevels& lv, long long* flat) {
+  const int l = rt.level(j, p, n);
+  const int pk = __ldg(rt.pick + (long long)l * n + p);
+  *flat = picked_row(xn, bits, l, p, n, mask, lv) * F + pk;
+  return __fmul_rn(__fmul_rn(__ldg(g + p * g_stride + l * F + pk), rt.sub_scale),
+                   rt.lvl_scale);
+}
+
+// The subsampled stochastic backward: dtable (L, T, F) f32, zeroed by the
+// caller, += each drawn term.  A thread takes one point and its drawn terms,
+// one (lsel), one a pair (psel) or one a level (pick alone), the point
+// fastest, so a warp reads the points, the draws, pick and bits coalesced
+// and a point's gradient row once.  It reads ROUTED_BATCH terms' inputs
+// before it sends their scalar reductions, so their loads are in flight
+// together (zero terms skipped: adding +-0 to a sum that starts at +0
+// changes nothing).
+__global__ void __launch_bounds__(HASH_BWD_THREADS)
+routed_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits, Routing rt,
+                       const float* __restrict__ g, long long g_stride, long long n,
+                       int F, int T, HbrLevels lv, float* __restrict__ dtable) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  float xn[3];
+  pts.at<3>(p, xn);
+  const int groups = rt.groups(lv.n_levels);
+  for (int j0 = 0; j0 < groups; j0 += ROUTED_BATCH) {
+    long long flat[ROUTED_BATCH];
+    float v[ROUTED_BATCH];
+#pragma unroll
+    for (int k = 0; k < ROUTED_BATCH; ++k) {
+      flat[k] = 0;
+      v[k] = j0 + k < groups ? routed_term(xn, bits, rt, g, g_stride, n, F, j0 + k, p,
+                                           (unsigned)(T - 1), lv, &flat[k])
+                             : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < ROUTED_BATCH; ++k)
+      if (v[k] != 0.0f) atomicAdd(dtable + flat[k], v[k]);
+  }
 }
 
 // The (flat index, value) pairs of a stochastic backward, in JAX's order: pick
@@ -693,35 +748,28 @@ __host__ __device__ __forceinline__ int routing_groups(const void* lsel, const v
 // (lv.offset[l] + row) * F + f of the picked corner's row.
 template <int F>
 __global__ void __launch_bounds__(HASH_BWD_THREADS)
-pairs_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
-             const unsigned char* __restrict__ pick, const unsigned char* __restrict__ lsel,
-             const unsigned char* __restrict__ psel, const float* __restrict__ g,
-             long long g_stride, long long n, int T, float sub_scale, float lvl_scale,
+pairs_kernel(WorldPoints pts, const unsigned char* __restrict__ bits, Routing rt,
+             const float* __restrict__ g, long long g_stride, long long n, int T,
              HbrLevels lv, int* __restrict__ idx, float* __restrict__ val) {
   const unsigned mask = (unsigned)(T - 1);
-  const long long items = (long long)routing_groups(lsel, psel, lv.n_levels) * n;
+  const long long items = (long long)rt.groups(lv.n_levels) * n;
   for (long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x; it < items;
        it += (long long)gridDim.x * blockDim.x) {
     const long long j = it / n;
     const long long p = it - j * n;
-    const int l = routed_level(lsel, psel, (int)j, p, n);
-    float xn[3], fr[3];
-    int x0[3];
+    float xn[3];
     pts.at<3>(p, xn);
-    level_cell<3>(xn, lv.scale[l], x0, fr);
-    const int b = __ldg(bits + (long long)l * n + p);
-    const long long row = (long long)lv.offset[l] + corner_row<3>(x0, b, mask);
-    if (pick == nullptr) {
+    if (rt.pick == nullptr) {
+      const long long row = picked_row(xn, bits, (int)j, p, n, mask, lv);
 #pragma unroll
       for (int f = 0; f < F; ++f) {
         idx[(long long)f * items + it] = (int)(row * F + f);
-        val[(long long)f * items + it] = __ldg(g + p * g_stride + l * F + f);
+        val[(long long)f * items + it] = __ldg(g + p * g_stride + j * F + f);
       }
     } else {
-      const int pk = __ldg(pick + (long long)l * n + p);
-      idx[it] = (int)(row * F + pk);
-      val[it] = __fmul_rn(__fmul_rn(__ldg(g + p * g_stride + l * F + pk), sub_scale),
-                          lvl_scale);
+      long long flat;
+      val[it] = routed_term(xn, bits, rt, g, g_stride, n, F, (int)j, p, mask, lv, &flat);
+      idx[it] = (int)flat;
     }
   }
 }
@@ -766,61 +814,121 @@ scatter_segsum_kernel(const int* __restrict__ idx, const float* __restrict__ val
   }
 }
 
-constexpr int PACK_THREADS = 256;
+constexpr int PACK_THREADS = 256;  // bf16; an int8 block takes PACK_INT8_THREADS
+constexpr int PACK_INT8_THREADS = 512;
+constexpr int PACK_VALUES = 32;   // table values an int8 pack thread holds
+constexpr int PACK_CLUSTER = 16;  // blocks a level (a non-portable cluster size)
+
+__device__ __forceinline__ unsigned bf16_word(float f0, float f1) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f0)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(f1)) << 16);
+}
 
 // bf16 words: table (R, 2) f32 -> words (R,), feature f in bits [16f, 16f+16).
+// A thread packs four rows: two 16-byte loads and one 16-byte store (table
+// and words 16-byte aligned); the last R % 4 rows one at a time.
 __global__ void __launch_bounds__(PACK_THREADS)
-pack_bf16_kernel(const float2* __restrict__ table, long long rows,
-                 unsigned* __restrict__ words) {
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
-       r += (long long)gridDim.x * blockDim.x) {
-    const float2 t = __ldg(table + r);
-    words[r] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(t.x)) |
-               ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(t.y)) << 16);
+pack_bf16_kernel(const float4* __restrict__ table, long long rows,
+                 uint4* __restrict__ words) {
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (4 * q + 4 <= rows) {
+    const float4 a = __ldg(table + 2 * q), b = __ldg(table + 2 * q + 1);
+    words[q] = make_uint4(bf16_word(a.x, a.y), bf16_word(a.z, a.w), bf16_word(b.x, b.y),
+                          bf16_word(b.z, b.w));
+    return;
+  }
+  const float2* t2 = reinterpret_cast<const float2*>(table);
+  for (long long r = 4 * q; r < rows; ++r) {
+    const float2 t = __ldg(t2 + r);
+    reinterpret_cast<unsigned*>(words)[r] = bf16_word(t.x, t.y);
   }
 }
 
-// Per-level max |t| of table (L, per) f32 into maxbits (L,), zeroed by the
-// caller, as the bits of a non-negative float (whose order is the unsigned
-// order of its bits).  blockIdx.y is the level.
-__global__ void __launch_bounds__(PACK_THREADS)
-max_abs_kernel(const float* __restrict__ table, long long per,
-               unsigned* __restrict__ maxbits) {
-  const float* tl = table + (long long)blockIdx.y * per;
-  float m = 0.0f;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < per;
-       i += (long long)gridDim.x * blockDim.x)
-    m = fmaxf(m, fabsf(__ldg(tl + i)));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
-  if ((threadIdx.x & 31) == 0) atomicMax(maxbits + blockIdx.y, __float_as_uint(m));
-}
-
-// scale[l] = max_l + 1e-12 in place, the max read as the bits max_abs_kernel
-// wrote.
-__global__ void scale_kernel(float* scale, int L) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l < L) scale[l] = __fadd_rn(scale[l], 1e-12f);
-}
-
-// int8 words: table (L, T, F) f32 -> words (L*T,), byte f = rint(t / s_l *
-// 127) clipped to +-127 (rint: half to even, as jnp.round).
+// One row's int8 word: byte f = rint(t[f] / s * 127) clipped to +-127 (rint:
+// half to even, as jnp.round).
 template <int F>
-__global__ void __launch_bounds__(PACK_THREADS)
-pack_int8_kernel(const float* __restrict__ table, long long T, int L,
-                 const float* __restrict__ scale, unsigned* __restrict__ words) {
-  const long long rows = (long long)L * T;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
-       r += (long long)gridDim.x * blockDim.x) {
-    const float s = __ldg(scale + r / T);
-    unsigned w = 0;
+__device__ __forceinline__ unsigned int8_word(const float* t, float s) {
+  unsigned w = 0;
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      float q = rintf(__fmul_rn(__fdiv_rn(__ldg(table + r * F + f), s), 127.0f));
-      q = fminf(fmaxf(q, -127.0f), 127.0f);
-      w |= ((unsigned)(int)q & 0xFFu) << (8 * f);
+  for (int f = 0; f < F; ++f) {
+    float q = rintf(__fmul_rn(__fdiv_rn(t[f], s), 127.0f));
+    q = fminf(fmaxf(q, -127.0f), 127.0f);
+    w |= ((unsigned)(int)q & 0xFFu) << (8 * f);
+  }
+  return w;
+}
+
+// int8 words: table (L, T, F) f32 -> words (L*T,) and scale (L,), s_l =
+// max|table_l| + 1e-12.  One thread-block cluster a level (blockIdx.y): its
+// blocks hold the level's rows in registers, VALUES / F rows a thread
+// (consecutive threads of the cluster on consecutive rows), reduce max|t| in
+// the block, then across the cluster through distributed shared memory, and
+// quantise the rows they hold.  A level past the cluster's registers is read
+// twice, its rows past the first cap from L2.  The max is taken on the bits
+// of |t| (a non-negative float's order is its bits' unsigned order), exact
+// in any order.
+template <int F, int THREADS = PACK_INT8_THREADS, int VALUES = PACK_VALUES>
+__global__ void __launch_bounds__(THREADS)
+pack_int8_kernel(const float* __restrict__ table, long long T, float* __restrict__ scale,
+                 unsigned* __restrict__ words) {
+  constexpr int R = VALUES / F;
+  __shared__ unsigned s_warp[THREADS / 32];
+  __shared__ unsigned s_block, s_level;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int l = blockIdx.y;
+  const float* tl = table + (long long)l * T * F;
+  const long long stride = (long long)C * THREADS;  // between a thread's rows
+  const long long first = (long long)cluster.block_rank() * THREADS + threadIdx.x;
+  const long long cap = stride * R;  // rows the cluster holds
+  float v[R][F];
+  unsigned m = 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const long long r = first + i * stride;
+    if (r < T) {
+      load_row<F>(tl + r * F, v[i]);
+    } else {
+#pragma unroll
+      for (int f = 0; f < F; ++f) v[i][f] = 0.0f;
     }
-    words[r] = w;
+#pragma unroll
+    for (int f = 0; f < F; ++f) m = max(m, __float_as_uint(fabsf(v[i][f])));
+  }
+  for (long long r = cap + first; r < T; r += stride) {
+    float t[F];
+    load_row<F>(tl + r * F, t);
+#pragma unroll
+    for (int f = 0; f < F; ++f) m = max(m, __float_as_uint(fabsf(t[f])));
+  }
+  m = __reduce_max_sync(0xFFFFFFFFu, m);
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = __reduce_max_sync(0xFFFFFFFFu,
+                          threadIdx.x < THREADS / 32 ? s_warp[threadIdx.x] : 0u);
+    if (threadIdx.x == 0) s_block = m;
+  }
+  cluster.sync();
+  if (threadIdx.x < 32) {
+    m = __reduce_max_sync(0xFFFFFFFFu, (int)threadIdx.x < C
+                                           ? *cluster.map_shared_rank(&s_block, threadIdx.x)
+                                           : 0u);
+    if (threadIdx.x == 0) s_level = m;
+  }
+  cluster.sync();  // s_level is set, and no block leaves while another reads it
+  const float s = __fadd_rn(__uint_as_float(s_level), 1e-12f);
+  if (first == 0) scale[l] = s;
+  unsigned* wl = words + (long long)l * T;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const long long r = first + i * stride;
+    if (r < T) wl[r] = int8_word<F>(v[i], s);
+  }
+  for (long long r = cap + first; r < T; r += stride) {
+    float t[F];
+    load_row<F>(tl + r * F, t);
+    wl[r] = int8_word<F>(t, s);
   }
 }
 
@@ -874,9 +982,8 @@ static int launch_cell_forward(const WorldPoints& pts, const float* table, long 
 
 template <int F, bool STOCH, int DIM>
 static int launch_hash_backward(const WorldPoints& pts, const unsigned char* bits,
-                                const Routing& rt, const float* g, long long g_stride,
-                                long long n, int T, const HbrLevels& lv, float* dtable,
-                                cudaStream_t s) {
+                                const float* g, long long g_stride, long long n, int T,
+                                const HbrLevels& lv, float* dtable, cudaStream_t s) {
   const long long units = (n + HASH_RUN - 1) / HASH_RUN * lv.n_levels;
   int blocks = 0;
   const int err = persistent_blocks(hash_backward_kernel<F, STOCH, DIM>,
@@ -885,10 +992,18 @@ static int launch_hash_backward(const WorldPoints& pts, const unsigned char* bit
                                     &blocks);
   if (err) return err;
   hash_backward_kernel<F, STOCH, DIM><<<blocks, HASH_BWD_THREADS, 0, s>>>(
-      pts, bits, rt, g, g_stride, n, T, lv, dtable);
+      pts, bits, g, g_stride, n, T, lv, dtable);
   return (int)cudaGetLastError();
 }
 
+static int launch_routed_backward(const WorldPoints& pts, const unsigned char* bits,
+                                  const Routing& rt, const float* g, long long g_stride,
+                                  long long n, int F, int T, const HbrLevels& lv,
+                                  float* dtable, cudaStream_t s) {
+  routed_backward_kernel<<<item_blocks(n, HASH_BWD_THREADS), HASH_BWD_THREADS, 0, s>>>(
+      pts, bits, rt, g, g_stride, n, F, T, lv, dtable);
+  return (int)cudaGetLastError();
+}
 
 template <int F>
 static int launch_cell_backward(const WorldPoints& pts, const float* g, long long g_stride,
@@ -916,6 +1031,28 @@ static int with_word_features(int features, Fn fn) {
     case 4: return fn(std::integral_constant<int, 4>());
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The int8 pack: one cluster of PACK_CLUSTER blocks a level.
+template <int F, int THREADS = PACK_INT8_THREADS, int VALUES = PACK_VALUES>
+static int launch_pack_int8(const float* table, long long L, long long T, float* scale,
+                            unsigned* words, cudaStream_t s) {
+  const auto kernel = pack_int8_kernel<F, THREADS, VALUES>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = PACK_CLUSTER;
+  attr[0].val.clusterDim.y = attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(PACK_CLUSTER, (unsigned)L);
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, table, T, scale, words);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // The level routing of a subsampled backward: (lvl_scale, valid).
@@ -962,10 +1099,11 @@ int hbr_hash_forward(const float* x, const float* mu, const float* sigma,
 }
 
 // bits: (L, n) uint8 from the stochastic forward (3-D), or null (exact).
-// pick (L, n) uint8, with bits: the subsampled backward, each term
-// (g[pick] * sub_scale) * s in feature pick, s = L on the level lsel (n,)
-// draws, 2 on the level of each pair psel (L / 2, n) draws (at most one of
-// the two), else 1.  dtable (L, T, F) f32 must be zeroed.
+// pick (L, n) uint8, with bits: the subsampled backward, one thread a point
+// and its drawn terms (g[pick] * sub_scale) * s in feature pick, s = L on
+// the level lsel (n,) draws, 2 on the level of each pair psel (L / 2, n)
+// draws (at most one of the two), else 1 on every level.  dtable (L, T, F)
+// f32 must be zeroed.
 int hbr_hash_backward(const float* x, const float* mu, const float* sigma,
                       const unsigned char* bits, const unsigned char* pick,
                       const unsigned char* lsel, const unsigned char* psel,
@@ -977,51 +1115,47 @@ int hbr_hash_backward(const float* x, const float* mu, const float* sigma,
   if ((dim != 2 && dim != 3) || (dim == 2 && bits != nullptr) ||
       (pick != nullptr && bits == nullptr) ||
       (pick == nullptr && (lsel != nullptr || psel != nullptr)) ||
-      !level_routing(lsel, psel, lv->n_levels, &rt.lvl_scale))
+      !level_routing(lsel, psel, lv->n_levels, &rt.lvl_scale) || features < 1 ||
+      features > 8)
     return (int)cudaErrorInvalidValue;
   const WorldPoints pts{x, mu, sigma, 1};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (pick != nullptr)
+    return launch_routed_backward(pts, bits, rt, g, g_stride, n, features, table_size,
+                                  *lv, dtable, s);
   return with_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
-    const cudaStream_t s = (cudaStream_t)stream;
     if (dim == 2)
-      return launch_hash_backward<F, false, 2>(pts, bits, rt, g, g_stride, n,
-                                               table_size, *lv, dtable, s);
+      return launch_hash_backward<F, false, 2>(pts, bits, g, g_stride, n, table_size, *lv,
+                                               dtable, s);
     if (bits != nullptr)
-      return launch_hash_backward<F, true, 3>(pts, bits, rt, g, g_stride, n,
-                                              table_size, *lv, dtable, s);
-    return launch_hash_backward<F, false, 3>(pts, bits, rt, g, g_stride, n,
-                                             table_size, *lv, dtable, s);
+      return launch_hash_backward<F, true, 3>(pts, bits, g, g_stride, n, table_size, *lv,
+                                              dtable, s);
+    return launch_hash_backward<F, false, 3>(pts, bits, g, g_stride, n, table_size, *lv,
+                                             dtable, s);
   });
 }
 
-
 // Packs the table (L, T, F) f32 into words (L * T,) uint32: format 0, bf16
 // pairs (F 2); format 1, int8 bytes (F 1 to 4), writing scale (L,) f32 too.
+// One launch either way; table and words from 16-byte aligned addresses.
 int hbr_hash_pack(const float* table, long long L, long long T, int features,
                   int format, unsigned* words, float* scale, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const long long rows = L * T;
   if (rows <= 0) return 0;
+  if ((reinterpret_cast<unsigned long long>(table) |
+       reinterpret_cast<unsigned long long>(words)) % 16)
+    return (int)cudaErrorInvalidValue;
   if (format == 0) {
     if (features != 2) return (int)cudaErrorInvalidValue;
-    pack_bf16_kernel<<<item_blocks(rows, PACK_THREADS), PACK_THREADS, 0, s>>>(
-        reinterpret_cast<const float2*>(table), rows, words);
+    pack_bf16_kernel<<<item_blocks((rows + 3) / 4, PACK_THREADS), PACK_THREADS, 0, s>>>(
+        reinterpret_cast<const float4*>(table), rows, reinterpret_cast<uint4*>(words));
     return (int)cudaGetLastError();
   }
-  if (format != 1 || scale == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaMemsetAsync(scale, 0, L * sizeof(float), s);
-  if (e != cudaSuccess) return (int)e;
-  const long long per = T * features;
-  const long long per_blocks = (per + PACK_THREADS - 1) / PACK_THREADS;
-  const dim3 grid((unsigned)(per_blocks < 264 ? per_blocks : 264), (unsigned)L);
-  max_abs_kernel<<<grid, PACK_THREADS, 0, s>>>(table, per,
-                                               reinterpret_cast<unsigned*>(scale));
-  scale_kernel<<<1, 32, 0, s>>>(scale, (int)L);
+  if (format != 1 || scale == nullptr || L > 65535) return (int)cudaErrorInvalidValue;
   return with_word_features(features, [&](auto f) {
-    constexpr int F = decltype(f)::value;
-    pack_int8_kernel<F><<<item_blocks(rows, PACK_THREADS), PACK_THREADS, 0, s>>>(
-        table, T, (int)L, scale, words);
-    return (int)cudaGetLastError();
+    return launch_pack_int8<decltype(f)::value>(table, L, T, scale, words, s);
   });
 }
 
@@ -1098,18 +1232,17 @@ int hbr_hash_pairs(const float* x, const float* mu, const float* sigma,
                    float sub_scale, const HbrLevels* lv, int* idx, float* val,
                    void* stream) {
   if (n <= 0) return 0;
-  float lvl_scale = 1.0f;
-  if (bits == nullptr || !level_routing(lsel, psel, lv->n_levels, &lvl_scale) ||
+  Routing rt{pick, lsel, psel, sub_scale, 1.0f};
+  if (bits == nullptr || !level_routing(lsel, psel, lv->n_levels, &rt.lvl_scale) ||
       (pick == nullptr && (lsel != nullptr || psel != nullptr)))
     return (int)cudaErrorInvalidValue;
   const WorldPoints pts{x, mu, sigma, 1};
-  const long long items = (long long)routing_groups(lsel, psel, lv->n_levels) * n;
+  const long long items = (long long)rt.groups(lv->n_levels) * n;
   return with_word_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
     pairs_kernel<F><<<item_blocks(items, HASH_BWD_THREADS), HASH_BWD_THREADS, 0,
-                      (cudaStream_t)stream>>>(pts, bits, pick, lsel, psel, g, g_stride, n,
-                                              table_size, sub_scale, lvl_scale, *lv, idx,
-                                              val);
+                      (cudaStream_t)stream>>>(pts, bits, rt, g, g_stride, n, table_size,
+                                              *lv, idx, val);
     return (int)cudaGetLastError();
   });
 }

@@ -130,18 +130,26 @@ def tie_table(fmt: str, F: int):
     return tab
 
 
-@pytest.mark.parametrize("fmt,F", [("bf16", 2), ("int8", 2), ("int8", 3),
-                                   ("int8", 4)],
-                         ids=["bf16", "int8_f2", "int8_f3", "int8_f4"])
-def test_pack_tables_match_jax_bit_for_bit(fmt, F):
+@pytest.mark.parametrize("fmt,F,edit", [
+    ("bf16", 2, None), ("int8", 2, None), ("int8", 3, None), ("int8", 4, None),
+    ("int8", 1, None), ("int8", 4, "zero_level"), ("int8", 4, "max_last")],
+    ids=["bf16", "int8_f2", "int8_f3", "int8_f4", "int8_f1",
+         "int8_f4_zero_level", "int8_f4_max_last"])
+def test_pack_tables_match_jax_bit_for_bit(fmt, F, edit):
     """Words and scales equal JAX ``pack_table_bf16``/``pack_table_int8``
-    bit for bit, on tables with ties (round half to even decides them), and
+    bit for bit, on tables with ties (round half to even decides them), a
+    level of zeros (scale 1e-12) or a level whose max is its last entry, and
     the kernel wrapper on the CPU is the plain version."""
     tab = tie_table(fmt, F)
+    if edit == "zero_level":
+        tab[2] = 0.0
+    elif edit == "max_last":
+        tab[2, -1, -1] = -3.0          # the others within 1e-3
     if fmt == "int8":
         s = np.abs(tab).max(axis=(1, 2)) + np.float32(1e-12)
         scaled = tab / s[:, None, None] * np.float32(127.0)
-        assert (scaled[:2] == np.floor(scaled[:2]) + 0.5).sum() > 500
+        assert (scaled[:2] == np.floor(scaled[:2]) + 0.5).sum() > min(
+            500, 300 * F)
         jw, js = jhe.pack_table_int8(jnp.asarray(tab))
     else:
         assert ((tab.view(np.uint32) & 0xFFFF) == 0x8000).sum() > 500
@@ -150,6 +158,10 @@ def test_pack_tables_match_jax_bit_for_bit(fmt, F):
     np.testing.assert_array_equal(pw.numpy(), np.asarray(jw).view(np.int32))
     if fmt == "int8":
         np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+        if edit == "zero_level":
+            assert ps[2] == np.float32(1e-12) and not pw.reshape(3, -1)[2].any()
+        if edit == "max_last":
+            assert (np.asarray(jw)[-1] >> (8 * (F - 1))) & 0xFF == 0x81
         b = (np.asarray(jw)[:, None] >> (8 * np.arange(F))) & 0xFF
         assert set(np.unique(b)) >= {0x7F, 0x81}     # +-127 both reached
     else:
@@ -223,7 +235,30 @@ GRAD_CASES = {
     "packed_exact_int8": dict(packed=True, packed_exact_train=True,
                               pack_format="int8", features_per_level=4),
     "cell": dict(variant="cell"),
+    "int8_lvl_f1": dict(INT8, features_per_level=1, grad_subsample=True,
+                        grad_level_subsample=True),
+    "int8_lpair_f1": dict(INT8, features_per_level=1, grad_subsample=True,
+                          grad_level_pair=True),
+    "int8_lvl_level_undrawn": dict(INT8, grad_subsample=True,
+                                   grad_level_subsample=True),
+    "int8_lvl_one_cell": dict(INT8, grad_subsample=True,
+                              grad_level_subsample=True),
+    "int8_lpair_one_cell": dict(INT8, grad_subsample=True,
+                                grad_level_pair=True),
 }
+# Cases whose draws or points are edited: held to JAX's ``_stoch_int8_bwd``
+# given the edited draws (no point draws level 1; every point in one cell
+# of each level).
+GRAD_EDGES = {"int8_lvl_level_undrawn": "level_undrawn",
+              "int8_lvl_one_cell": "one_cell",
+              "int8_lpair_one_cell": "one_cell"}
+
+
+def one_cell_points(seed=5, n=N):
+    """World points within 1e-7 of one another in normalised coordinates:
+    one cell of every level (checked by the caller)."""
+    xn = 0.3 + np.random.default_rng(seed).uniform(0.0, 1e-7, (n, 3))
+    return (MU + xn * SIGMA).astype(np.float32)
 
 
 # Table gradients: the same terms summed in other orders (XLA's scatter,
@@ -231,7 +266,9 @@ GRAD_CASES = {
 @pytest.mark.parametrize("case", sorted(GRAD_CASES))
 def test_table_gradients_match_jax(case):
     cfg = vcfg(**GRAD_CASES[case])
-    table, x = table_for(cfg, 3), points(3)
+    edit = GRAD_EDGES.get(case)
+    table = table_for(cfg, 3)
+    x = one_cell_points() if edit == "one_cell" else points(3)
     key = jax.random.PRNGKey(7)
     route = hash_encoding.hash_route(cfg, cfg.stochastic_train)
     fn = getattr(jhe, route)
@@ -239,10 +276,26 @@ def test_table_gradients_match_jax(case):
     extra = (key,) if stochastic else ()
     L, F = cfg.num_hashed_levels, cfg.features_per_level
     g = np.random.default_rng(4).normal(size=(N, L * F)).astype(np.float32)
-    _, vjp = jax.vjp(lambda tb: fn(tb, *jargs(table, x)[1:], cfg, *extra),
-                     jnp.asarray(table))
-    ref = np.asarray(vjp(jnp.asarray(g))[0])
     draws = jax_draws(cfg, key) if stochastic else None
+    if edit is None:
+        _, vjp = jax.vjp(lambda tb: fn(tb, *jargs(table, x)[1:], cfg, *extra),
+                         jnp.asarray(table))
+        ref = np.asarray(vjp(jnp.asarray(g))[0])
+    else:
+        if edit == "level_undrawn":
+            draws["lsel"][draws["lsel"] == 1] = 0
+        else:
+            xn = (t(x) - t(MU)) / t(SIGMA)
+            for s in hash_kernel._scales(cfg):
+                assert len(torch.unique(hash_kernel.level_coords(
+                    xn, float(s))[0], dim=0)) == 1
+        _, (rows, *_, tshape) = jhe._stoch_int8_fwd(*jargs(table, x), cfg,
+                                                    key)
+        sel = [None if draws.get(k) is None else
+               jnp.asarray(draws[k].astype(np.int32))
+               for k in ("pick", "lsel", "psel")]
+        ref = np.asarray(jhe._stoch_int8_bwd(cfg, (rows, *sel, tshape),
+                                             jnp.asarray(g))[0])
     tp = t(table).requires_grad_(True)
     out = port_encode(tp, x, cfg, stochastic, draws)
     (out * t(g)).sum().backward()
@@ -253,6 +306,10 @@ def test_table_gradients_match_jax(case):
         routed = N * (1 if cfg.grad_level_subsample else L // 2
                       if cfg.grad_level_pair else L)
         assert 0 < np.count_nonzero(ref) <= routed
+    if edit == "level_undrawn":
+        assert not ref[1].any() and not tp.grad[1].any()
+    elif edit == "one_cell":    # a level's terms on its cell's 8 rows
+        assert (np.count_nonzero(ref.reshape(L, -1), axis=1) <= 8 * F).all()
 
 
 @pytest.mark.parametrize("strategy", ["random", "sorted", "segsum"])

@@ -909,35 +909,62 @@ INT8_FLAGS = dict(stochastic_train=True, packed=True, pack_format="int8")
 BF16_FLAGS = dict(stochastic_train=True, packed=True)
 
 
+def pack_table(fmt, features, levels, log2_t):
+    """A table whose packing meets its edges.  int8: level l % 4 = 0 has
+    max 127, so the scaled values are the entries, many of them k + 0.5
+    (ties); 1 is scaled by -1e-3; 2 is zeros (scale 1e-12); 3 has its max
+    at its last entry.  bf16: entries whose low 16 bits are 0x8000."""
+    rng = np.random.default_rng(levels + log2_t)
+    T = 2 ** log2_t
+    tab = rng.uniform(-1, 1, (levels, T, features)).astype(np.float32)
+    k = min(T - 1, 299)
+    if fmt == "bf16":
+        bits = tab.view(np.uint32)
+        bits[:, :k + 1] = (bits[:, :k + 1] & 0xFFFF0000) | 0x8000
+        return tab
+    tab[0::4, 0, 0] = 127.0
+    tab[0::4, 1:k + 1] = rng.integers(-126, 126, (len(tab[0::4]), k,
+                                                  features)) + 0.5
+    tab[1::4] *= -1e-3
+    tab[2::4] = 0.0
+    tab[3::4, -1, -1] = -130.0
+    return tab
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt,features", [("bf16", 2), ("int8", 1),
                                           ("int8", 2), ("int8", 3),
                                           ("int8", 4)])
 def test_pack_kernel_matches_plain_bit_for_bit(cuda_device, fmt, features):
-    """Words and scales bit for bit, on a small table with ties (scaled
-    values k + 0.5; bf16 halves 0x8000) and the hash path's width."""
+    """Words and scales bit for bit (``pack_table``'s ties, zero level and
+    max at a level's last entry), on a small table, one of T 1 (bf16: rows
+    not a multiple of four), the hash path's width, and one whose levels
+    are past an int8 cluster's registers (read twice); one launch a call,
+    and on the stream (by the profiler) one kernel and no memset."""
+    from torch.profiler import ProfilerActivity, profile
+
     n_p = hash_variants.pack_kernel.launches
-    for levels, log2_t in ((4, 10), (16, 16)):
-        rng = np.random.default_rng(levels)
-        tab = rng.uniform(-1, 1, (levels, 2 ** log2_t, features)).astype(
-            np.float32)
-        if fmt == "int8":
-            tab[:, 0, 0] = 127.0
-            tab[:, 1:300] = (rng.integers(-126, 126, (levels, 299, features))
-                             + 0.5)
-            tab[1] *= -1e-3
-        else:
-            bits = tab.view(np.uint32)
-            bits[:, :300] = (bits[:, :300] & 0xFFFF0000) | 0x8000
-        table = torch.tensor(tab, device=cuda_device)
-        words, scale = hash_variants.pack_kernel(table, fmt)
+    past = {1: 19, 2: 18, 3: 17, 4: 17}[features]
+    shapes = ((4, 10), (3, 0), (16, 16), (4, past))
+    for levels, log2_t in shapes:
+        table = torch.tensor(pack_table(fmt, features, levels, log2_t),
+                             device=cuda_device)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            words, scale = hash_variants.pack_kernel(table, fmt)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(ops) == 1 and f"pack_{fmt}" in ops[0], ops
         want_w, want_s = hash_variants.pack_plain(table, fmt)
         torch.cuda.synchronize()
         assert torch.equal(words, want_w)
         assert (scale is None) == (fmt == "bf16")
         if scale is not None:
             assert torch.equal(scale, want_s)
-    assert hash_variants.pack_kernel.launches == n_p + 2
+            assert float(scale[2]) == np.float32(1e-12)
+    assert hash_variants.pack_kernel.launches == n_p + len(shapes)
 
 
 @pytest.mark.cuda
@@ -1003,32 +1030,81 @@ def test_cell_kernels_match_plain(cuda_device, features, order):
 SUB_FLAGS = {"gsub": dict(grad_subsample=True),
              "lvl": dict(grad_subsample=True, grad_level_subsample=True),
              "lpair": dict(grad_subsample=True, grad_level_pair=True)}
+# (fmt, F, routing, levels, n, edit of the draws and points): the routings
+# (level routing is an int8 option: HashConfig refuses it with bf16), then
+# the edges of the per-term kernel.
+SUB_CASES = [pytest.param("bf16", 2, "gsub", 4, 20_011, None,
+                          id="bf16-2-gsub")] + [
+    pytest.param("int8", 4, r, 4, 20_011, None, id=f"int8-4-{r}")
+    for r in sorted(SUB_FLAGS)] + [
+    pytest.param(*c, id=i) for i, c in {
+        "int8-1-lpair-L2-n5": ("int8", 1, "lpair", 2, 5, None),
+        "int8-1-lvl-L2": ("int8", 1, "lvl", 2, 1000, None),
+        "int8-3-lpair-L16": ("int8", 3, "lpair", 16, 20_011, None),
+        "int8-2-lvl-L16": ("int8", 2, "lvl", 16, 20_011, None),
+        "bf16-2-gsub-L16": ("bf16", 2, "gsub", 16, 20_011, None),
+        "int8-4-lvl-one-level": ("int8", 4, "lvl", 4, 20_011, "one_level"),
+        "int8-4-lvl-level-undrawn": ("int8", 4, "lvl", 4, 20_011,
+                                     "level_undrawn"),
+        "int8-4-lpair-psel0": ("int8", 4, "lpair", 4, 20_011, "psel0"),
+        "int8-4-lpair-psel1": ("int8", 4, "lpair", 4, 20_011, "psel1"),
+        "int8-2-lpair-one-cell": ("int8", 2, "lpair", 4, 20_011, "one_cell"),
+        "int8-4-lvl-one-row": ("int8", 4, "lvl", 4, 20_011, "one_row"),
+    }.items()]
+
+
+def edit_draws(edit, args, u, draws):
+    """The points, uniforms and draws of a per-term edge: every point drawn
+    to level 2 (one_level), none to level 1 (level_undrawn), psel all 0 or
+    all 1, every point in one cell of each level (one_cell), and there also
+    corner 0, feature 0 and level 1 for all (one_row: every term on one
+    row)."""
+    x, mu, sigma, cfg = args
+    if edit == "one_level":
+        draws["lsel"].fill_(2)
+    elif edit == "level_undrawn":
+        draws["lsel"][draws["lsel"] == 1] = 0
+    elif edit in ("psel0", "psel1"):
+        draws["psel"].fill_(int(edit[-1]))
+    elif edit in ("one_cell", "one_row"):
+        xn = 0.3 + torch.rand(x.shape, generator=torch.Generator().manual_seed(
+            9), dtype=torch.float64) * 1e-7
+        x = (mu.cpu() + xn.float() * sigma.cpu()).to(x.device)
+        for s in hash_kernel._scales(cfg):
+            assert len(torch.unique(hash_kernel.level_coords(
+                dense_grid.normalise(x, mu, sigma), float(s))[0], dim=0)) == 1
+        if edit == "one_row":
+            u = torch.ones_like(u)
+            draws["pick"].zero_()
+            draws["lsel"].fill_(1)
+    return (x, mu, sigma, cfg), u, draws
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", ["rays", "random"])
-# level routing is an int8 option (HashConfig refuses it with bf16)
-@pytest.mark.parametrize("fmt,features,routing",
-                         [("bf16", 2, "gsub")]
-                         + [("int8", 4, r) for r in sorted(SUB_FLAGS)])
+@pytest.mark.parametrize("fmt,features,routing,levels,n,edit", SUB_CASES)
 def test_sub_backward_and_sorted_scatters_match_plain(cuda_device, fmt,
                                                       features, routing,
+                                                      levels, n, edit,
                                                       order):
-    """The subsampled backward (random strategy: hash_kernel's stochastic
-    backward given the draws) within the sum-order tolerance of its plain
-    version, from the forward kernel's bits and the drawn pick/lsel/psel;
-    the pairs kernel equal to its plain version (indices and values bit for
-    bit); the sorted and segsum scatters of them within the tolerance, and
-    also of the unsubsampled pairs."""
+    """The subsampled backward (random strategy: hash_kernel's backward
+    given the draws, one thread a point and its drawn terms) within the
+    sum-order tolerance of its plain version, from the forward kernel's
+    bits and the drawn pick/lsel/psel, at F 1 to 4, L 2 to 16, n below a
+    block and not a multiple of one, and at ``edit_draws``'s edges; the
+    pairs kernel
+    equal to its plain version (indices and values bit for bit); the sorted
+    and segsum scatters of them within the tolerance, and also of the
+    unsubsampled pairs."""
     flags = dict(INT8_FLAGS if fmt == "int8" else BF16_FLAGS,
                  **SUB_FLAGS[routing])
-    n = 20_011
     table, args, u, draws = variant_inputs(cuda_device, n, order, features,
-                                           seed=5, **flags)
+                                           levels=levels, seed=5, **flags)
+    args, u, draws = edit_draws(edit, args, u, draws)
     words, scale = hash_variants.pack_kernel(table, fmt)
     _, bits = hash_variants.packed_encode_kernel(words, scale, *args, u=u)
     sub = (draws["pick"], draws.get("lsel"), draws.get("psel"))
-    g = cotangent(n, 4 * features, cuda_device, seed=6, extra=5)
+    g = cotangent(n, levels * features, cuda_device, seed=6, extra=5)
     n_b = hash_kernel.hash_encode_backward_kernel.launches
 
     def routed(tb, *a, dev=None):
@@ -1041,6 +1117,13 @@ def test_sub_backward_and_sorted_scatters_match_plain(cuda_device, fmt,
     assert grads_close(routed, lambda tb, *a: routed(tb, *a, dev="cpu"),
                        [table], args, g, False)
     assert hash_kernel.hash_encode_backward_kernel.launches > n_b
+    got = routed([table], *args, g)[0]
+    if edit == "level_undrawn":
+        assert not got[1].any() and got[0].any()
+    elif edit == "one_level":
+        assert got[2].any() and not got[[0, 1, 3]].any()
+    elif edit == "one_row":
+        assert int((got != 0).sum()) == 1
     size = table.numel()
     for pick in (sub, (None, None, None)):
         idx, val = hash_variants.pairs_kernel(table, *args, g, bits, *pick)
