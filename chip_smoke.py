@@ -187,7 +187,9 @@
     table), its 1-of-2 backward (beside ``index_add_`` given the pairs),
     the pairs and the sorted and segsum adds (beside ``index_add_`` given
     the sorted pairs; ``torch.sort`` of the pairs printed), the cell pair
-    (beside ``embedding_bag``/``index_add_`` given its rows and weights);
+    (beside ``embedding_bag``/``index_add_`` given its rows and weights),
+    and the cell backward again on the cell mode's own first-pass points of
+    a PROTOCOL_RAYS batch (2,097,152 at 128 samples a ray);
     on the int8 modes' own first-pass points (6 hashed levels, F 4) the
     int8 pack (one kernel and no memset on the stream, by the profiler),
     the stochastic and packed-exact forwards and the lpair and lvl
@@ -232,7 +234,8 @@ shape runs on a step only under ``--level_parallel`` on 2 or 4 cards, so
 its row gives the launches of the serial drive of its k ranks' encodes),
 and the hash-variant kernels' records, named for their kernel and
 path (``hash_pack/bf16_table``, ``packed_forward/int8_exact_path``,
-``hash_backward/int8_lpair_path``, ``add_sorted/segsum_train_path``, ...),
+``hash_backward/int8_lpair_path``, ``add_sorted/segsum_train_path``,
+``cell_backward/protocol_path``, ...),
 and last
 ``{"ok": true, "device": {...}}``.
 
@@ -2725,11 +2728,28 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
         within_sum_order(hv.cell_encode_plain_backward(ctab, *ca, g.abs())),
         nbytes(hash_pts, g, ctab), n * L * (15 + 8 * (10 + 2 * F)),
         library=index_add_call(ctab.reshape(-1, F)[None], crow, cw, g))
+    del crow, cw
+    # the cell backward at the protocol's shape: the cell mode's first-pass
+    # points of a PROTOCOL_RAYS batch (128 samples a ray)
+    ppts = pass_points(cell, runs["data"], device, 0)
+    m = points["cell_protocol"] = ppts.shape[0]
+    pa = (ppts, cell.scene["mu"], cell.scene["sigma"], ch)
+    pg = torch.randn((m, L * F), generator=gen, device=device)
+    prow, pw = cell_rows_weights(*pa)
+    out["cell_backward/protocol_path"] = variant_record(
+        "cell_backward", f"cell, {m} protocol points",
+        lambda: hv.cell_encode_backward_kernel(ctab, *pa, pg),
+        lambda: hv.cell_encode_plain_backward(ctab, *pa, pg),
+        within_sum_order(hv.cell_encode_plain_backward(ctab, *pa, pg.abs())),
+        nbytes(ppts, pg, ctab), m * L * (15 + 8 * (10 + 2 * F)),
+        library=index_add_call(ctab.reshape(-1, F)[None], prow, pw, pg))
+    del ppts, pg, prow, pw
+    torch.cuda.empty_cache()
     ab["hash_forward/exact_same_points"] = time_ms(
         lambda: hash_kernel.hash_encode_kernel(table, *a))
     ab["hash_backward/exact_same_points"] = time_ms(
         lambda: hash_kernel.hash_encode_backward_kernel(table, *a, g))
-    del rows, idx, val, si, sv, crow, cw
+    del rows, idx, val, si, sv
     torch.cuda.empty_cache()
     # int8: each mode's own first-pass points
     for mode, kind in (("int8_dense_guided_k32_mass_lpair", "lpair"),
@@ -2935,6 +2955,7 @@ def variants_phase(work: str, device: torch.device, tag: str, hash_pts,
              "hash_backward/bf16_gsub_train_path": "packed_gsub",
              "cell_forward/train_path": "cell",
              "cell_backward/train_path": "cell",
+             "cell_backward/protocol_path": "cell",
              "hash_pack/int8_table": lpair,
              "packed_forward/int8_train_path": lpair,
              "packed_forward/int8_exact_path": "serve_int8",
@@ -2955,8 +2976,13 @@ def variants_phase(work: str, device: torch.device, tag: str, hash_pts,
 
 def run_shape(key: str, points: dict) -> str:
     """The shape of a phase-22 record: ``points`` {"int8_lpair": count,
-    "int8_lvl": count} of the int8 modes' first-pass points."""
+    "int8_lvl": count, "cell_protocol": count} of the int8 modes' and the
+    cell mode's first-pass points."""
     table = " (the table)" if key.startswith("hash_pack") else ""
+    if key == "cell_backward/protocol_path":
+        return (f"{points['cell_protocol']} first-pass points of a "
+                f"{PROTOCOL_RAYS}-ray batch of cell (128 samples a ray), L "
+                f"16, F 2, T 2^16")
     if "int8" not in key:
         return (f"{HASH_POINTS} points of a hash-grid training step (16000 "
                 f"rays x 64 samples), L 16, F 2, T 2^16{table}")

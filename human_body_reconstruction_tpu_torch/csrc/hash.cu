@@ -122,12 +122,24 @@
 //    trilerp: f32 weights, the sum over c = 0..7 from 0).  Its backward is
 //    hbr_hash_backward's (straight-through: the f32 master table's
 //    gradient);
-//  * hbr_hash_cell_forward / _backward: the "cell" variant, one hash of the
-//    cell's corner 0 and one row of 8F floats a (point, level) (64 B at F
-//    2), slot c * F + f holding corner c's feature f; the forward sums row
-//    * w_c over c = 0..7, the backward adds w_c * g into the row's slots,
-//    merged over a run of points as hbr_hash_backward merges them, and sent
-//    as float4 reductions;
+//  * hbr_hash_cell_forward / _backward: the "cell" variant (JAX
+//    hash_encode_cell:195; the backward stands for the autodiff scatter of
+//    its row gather), one hash of the cell's corner 0 and one row of 8F
+//    floats a (point, level) (64 B at F 2), slot c * F + f holding corner
+//    c's feature f; the forward sums row * w_c over c = 0..7, the backward
+//    adds w_c * g into the row's slots, merged over a run of points as
+//    hbr_hash_backward merges them.  The backward must move the points, the
+//    gradient and one write of the table's gradient (0.063 ms of HBM at
+//    1,024,000 points), but what binds it is the L2's adds into the rows:
+//    ray-ordered samples change cell at nearly every point of the fine
+//    levels, so it sends about one row a (point, level) whatever the merge's
+//    length (0.913 rows merging 16 points, 0.910 merging 32, on the A/B's
+//    rays).  So it sends each row as one bulk reduction from shared memory,
+//    which the L2 takes at 1.7x the adds a second of four float4
+//    reductions, and takes the levels a group at a time (8 at F 2, T 2^16:
+//    32 MB of the table's 64 MB) so that the rows it adds to stay in the
+//    50 MB L2, marking them evict-last and reading g, once, as streaming
+//    loads (PERF.md);
 //  * the subsampled stochastic backwards (hbr_hash_backward given the
 //    draws pick (L, n), lsel (n,), psel (L / 2, n), uint8, made by the
 //    caller): each drawn term is (g[pick] * F) * s in feature pick alone
@@ -144,14 +156,20 @@
 //    level.  What binds it is those reads, scattered 4-byte values of the
 //    gradient's rows (the kernel with its reductions taken out takes most
 //    of its time), not the L2's reductions (PERF.md);
-//  * hbr_hash_pairs, then hbr_scatter_sorted / hbr_scatter_segsum: the
-//    "sorted" and "segsum" strategies of JAX scatter_add_flat.  The pairs
-//    (flat index, value) are written in JAX's order ([f][l][n] unsampled,
-//    [l][n], [n] or [j][n] subsampled), the caller sorts them by index
-//    (torch.sort, stable, as lax.sort), then "sorted" adds a thread's 16
-//    consecutive pairs run by run with one atomic a run, and "segsum" gives
-//    each run of equal indices to the thread at its start, which sums it in
-//    order and stores the total once (no atomics: the index is unique).
+//  * hbr_hash_pairs, then hbr_scatter_sorted: the "sorted" and "segsum"
+//    strategies of JAX scatter_add_flat:102 (segsum: the totals of each run
+//    of equal indices, then one scatter of unique indices: a reduce-by-key).
+//    The pairs (flat index, value) are written in JAX's order ([f][l][n]
+//    unsampled, [l][n], [n] or [j][n] subsampled), and the caller sorts
+//    them by index (torch.sort, stable, as lax.sort).  The adds must read
+//    the pairs once (8 B a pair) and write the output: 0.042 ms at the
+//    1-of-2 path's 16,384,000 pairs.  Both strategies are one pass over
+//    tiles of the pairs (scatter_tile_kernel), every run that starts and ends
+//    in a tile stored once; "sorted" adds the partials of the runs that cross
+//    tiles with an atomic each, "segsum" sums them in tile order in a second,
+//    short launch and stores each total once, with no atomics, the same bits
+//    every call.  No thread walks a run alone, as segsum's did (a coarse
+//    level's million terms on one index took 125 ms, PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -172,6 +190,9 @@ constexpr int HASH_FWD_EXACT_CARVEOUT = 38;
 constexpr int HASH_BWD_THREADS = 256;
 constexpr int HASH_RUN = 16;           // consecutive points a backward thread walks
 constexpr int ROUTED_BATCH = 4;        // terms a routed-backward thread reads at once
+// Bytes of gradient rows a cell backward adds to at a time (cell_group): 8
+// levels at F 2, T 2^16 (4 levels: 2-4% slower with the cache hints, PERF.md).
+constexpr long long CELL_GROUP_BYTES = 32LL << 20;
 
 __device__ __forceinline__ unsigned hash3(unsigned c0, unsigned c1, unsigned c2,
                                           unsigned mask) {
@@ -603,23 +624,98 @@ hash_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits,
   }
 }
 
+// The (run, level) of unit `unit` of a cell backward: groups of `group`
+// consecutive levels, the group slowest, then the run, then the level.
+__device__ __forceinline__ void cell_unit(long long unit, long long runs, int L, int group,
+                                          long long* run, int* l) {
+  const long long per = runs * group;  // units of a whole group
+  const int gi = (int)(unit / per);
+  const long long rem = unit - gi * per;
+  const int width = min(group, L - gi * group);
+  *run = rem / width;
+  *l = gi * group + (int)(rem - *run * width);
+}
+
+// Bulk reductions (Hopper's cp.reduce.async.bulk): shared memory added into
+// global memory by the L2, the bytes a multiple of 16, both addresses
+// 16-byte aligned, under an L2 cache policy (createpolicy); a thread waits
+// on its own groups.
+__device__ __forceinline__ void bulk_add_f32(float* dst, const float* src, int bytes,
+                                             unsigned long long policy) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.L2::cache_hint.add.f32 [%0], [%1], "
+      "%2, %3;\n" ::"l"(dst),
+      "r"((unsigned)__cvta_generic_to_shared(src)), "r"(bytes), "l"(policy)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The L2 policy that keeps what it marks past unmarked (evict_first, normal)
+// lines.
+__device__ __forceinline__ unsigned long long evict_last_policy() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// Waits until at most N of this thread's bulk groups still read their shared
+// memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's shared-memory writes before its later bulk reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Stages a row of W floats (W % 4 == 0) in `slot` (W floats of shared
+// memory) for a bulk reduction: the thread's two slots are used in turn, so
+// the one written waits only on the send before last.
+template <int W>
+__device__ __forceinline__ void stage_row(float* slot, const float* v) {
+  bulk_wait_read<1>();
+#pragma unroll
+  for (int i = 0; i < W / 4; ++i)
+    reinterpret_cast<float4*>(slot)[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                                                     v[4 * i + 3]);
+  fence_async_shared();
+}
+
 // The cell variant's gradient: dtable (L, T, 8F) f32, zeroed by the caller;
 // g (n, L*F), row stride g_stride.  As hash_backward_kernel's exact mode, a
 // thread walks a run of HASH_RUN points for one level and keeps the cell's
-// 8 x F partials w_c * g_f in registers, here adding them to the cell's one
-// row (slot c * F + f) when the cell changes or the run ends.
+// 8 x F partials w_c * g_f in registers, here sending them to the cell's one
+// row (slot c * F + f) when the cell changes or the run ends, as one bulk
+// reduction of the row (8F floats, 64 B at F 2) from shared memory: the L2
+// takes it at 1.7x the f32 adds a second of the four float4 reductions it
+// replaces (PERF.md).  The units go a group of `group` levels at a time
+// (cell_unit), so the rows that the card's threads add to at once are those
+// few levels' (the whole table, 64 MB at L 16, T 2^16, F 2, is past the 50
+// MB L2); the rows' reductions are marked L2 evict-last and g, read once,
+// is read as streaming loads (evict first), so the stream of g does not
+// push the rows out (PERF.md).  Dynamic shared memory:
+// two staging slots of 8F floats a thread.
 template <int F>
 __global__ void __launch_bounds__(HASH_BWD_THREADS)
 cell_backward_kernel(WorldPoints pts, const float* __restrict__ g, long long g_stride,
-                     long long n, int T, HbrLevels lv, float* __restrict__ dtable) {
+                     long long n, int T, HbrLevels lv, int group,
+                     float* __restrict__ dtable) {
   constexpr int W = 8 * F;
+  extern __shared__ float4 s_slots[];  // (threads, 2, W) floats
+  float* slots = reinterpret_cast<float*>(s_slots) + threadIdx.x * 2 * W;
+  int turn = 0;
+  const unsigned long long keep = evict_last_policy();
   const int L = lv.n_levels;
   const unsigned mask = (unsigned)(T - 1);
-  const long long units = (n + HASH_RUN - 1) / HASH_RUN * L;
+  const long long runs = (n + HASH_RUN - 1) / HASH_RUN;
+  const long long units = runs * L;
   for (long long unit = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        unit < units; unit += (long long)gridDim.x * blockDim.x) {
-    const long long run = unit / L;
-    const int l = (int)(unit - run * L);
+    long long run;
+    int l;
+    cell_unit(unit, runs, L, group, &run, &l);
     float* dl = dtable + (long long)lv.offset[l] * W;
     int cell[3] = {};
     bool have = false;
@@ -628,19 +724,28 @@ cell_backward_kernel(WorldPoints pts, const float* __restrict__ g, long long g_s
     for (int k = 0; k < W; ++k) acc[k] = 0.0f;
     const long long p0 = run * HASH_RUN;
     const int np = (int)min((long long)HASH_RUN, n - p0);
-    for (int k = 0; k < np; ++k) {
-      const long long p = p0 + k;
-      float xn[3], fr[3], gf[F];
-      int x0[3];
-      pts.at<3>(p, xn);
-      level_cell<3>(xn, lv.scale[l], x0, fr);
+    for (int k = 0; k <= np; ++k) {
+      // one pass past the run's last point sends what is left
+      int x0[3] = {};
+      float fr[3] = {}, gf[F];
+      if (k < np) {
+        const long long p = p0 + k;
+        float xn[3];
+        pts.at<3>(p, xn);
+        level_cell<3>(xn, lv.scale[l], x0, fr);
 #pragma unroll
-      for (int f = 0; f < F; ++f) gf[f] = __ldg(g + p * g_stride + l * F + f);
-      if (have && (x0[0] != cell[0] || x0[1] != cell[1] || x0[2] != cell[2])) {
-        add_row<W>(dl, corner_row<3>(cell, 0, mask), acc);
+        for (int f = 0; f < F; ++f) gf[f] = __ldcs(g + p * g_stride + l * F + f);
+      }
+      if (have && (k == np || x0[0] != cell[0] || x0[1] != cell[1] || x0[2] != cell[2])) {
+        float* slot = slots + turn * W;
+        stage_row<W>(slot, acc);
+        bulk_add_f32(dl + (long long)corner_row<3>(cell, 0, mask) * W, slot,
+                     W * (int)sizeof(float), keep);
+        turn ^= 1;
 #pragma unroll
         for (int i = 0; i < W; ++i) acc[i] = 0.0f;
       }
+      if (k == np) break;
 #pragma unroll
       for (int d = 0; d < 3; ++d) cell[d] = x0[d];
       have = true;
@@ -654,8 +759,8 @@ cell_backward_kernel(WorldPoints pts, const float* __restrict__ g, long long g_s
           acc[c * F + f] = __fadd_rn(acc[c * F + f], __fmul_rn(gf[f], wc));
       }
     }
-    if (have) add_row<W>(dl, corner_row<3>(cell, 0, mask), acc);
   }
+  bulk_wait_read<0>();  // the slots are read before the block's memory goes
 }
 
 // The draws of a stochastic backward's terms: pick (L, n), the feature of
@@ -774,44 +879,175 @@ pairs_kernel(WorldPoints pts, const unsigned char* __restrict__ bits, Routing rt
   }
 }
 
-constexpr int SCATTER_THREADS = 256;
-constexpr int SCATTER_RUN = 16;  // sorted pairs a thread merges ("sorted")
+// The sorted strategies, a reduce-by-key over tiles of SEG_TILE sorted
+// pairs.  scatter_tile_kernel: a block takes a tile; a thread loads its
+// ITEMS consecutive pairs (16-byte loads where the arrays are aligned) and
+// sums them run by run in registers, storing a run that starts and ends
+// among them at once; a segmented scan over the threads (shuffles in a warp,
+// the warps' totals through shared memory) joins the runs that cross
+// threads, and the thread where such a run ends stores it.  "segsum" leaves
+// the run that crosses into the tile from the one before and the run that
+// crosses out of it to scatter_join_kernel, each tile writing its partial sums
+// of them (first[t], last[t]) and its flags; the join sums each crossing run
+// in tile order where it ends and stores the total.  So each index is stored
+// once, with no atomics, and its value is the same bits from run to run.
+// "sorted" adds the two crossing runs' partials with one atomic each
+// instead, in one launch.
+constexpr int SEG_THREADS = 256;
+constexpr int SEG_ITEMS = 8;  // sorted pairs a thread sums (16: 1.44x the time, PERF.md)
+constexpr int SEG_TILE = SEG_THREADS * SEG_ITEMS;
+constexpr int SEG_OPEN_LEFT = 1;   // the tile's first pair continues the last tile's run
+constexpr int SEG_OPEN_RIGHT = 2;  // its last run continues into the next tile
+constexpr int SEG_ONE_RUN = 4;     // its pairs are one run
 
-// "sorted": out[idx[k]] += val[k] for m pairs sorted by idx; a thread merges
-// its SCATTER_RUN consecutive pairs run by run, one atomic a run.
-__global__ void __launch_bounds__(SCATTER_THREADS)
-scatter_sorted_kernel(const int* __restrict__ idx, const float* __restrict__ val,
-                      long long m, float* __restrict__ out) {
-  const long long k0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * SCATTER_RUN;
-  if (k0 >= m) return;
-  const long long k1 = min(k0 + SCATTER_RUN, m);
-  int cur = __ldg(idx + k0);
-  float s = __ldg(val + k0);
-  for (long long k = k0 + 1; k < k1; ++k) {
-    const int i = __ldg(idx + k);
-    if (i != cur) {
-      atomicAdd(out + cur, s);
-      cur = i;
-      s = 0.0f;
-    }
-    s = __fadd_rn(s, __ldg(val + k));
-  }
-  atomicAdd(out + cur, s);
+// The segmented inclusive scan's operator on (reset, value): a reset drops
+// what came before.
+__device__ __forceinline__ void seg_join(int pr, float pv, int* r, float* v) {
+  if (!*r) *v = __fadd_rn(pv, *v);
+  *r |= pr;
 }
 
-// "segsum": each run of equal indices in the sorted pairs is summed in order
-// from 0 by the thread at its start, which stores the total once.
-__global__ void __launch_bounds__(SCATTER_THREADS)
-scatter_segsum_kernel(const int* __restrict__ idx, const float* __restrict__ val,
-                      long long m, float* __restrict__ out) {
-  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < m;
-       k += (long long)gridDim.x * blockDim.x) {
-    const int i = __ldg(idx + k);
-    if (k > 0 && __ldg(idx + k - 1) == i) continue;
-    float s = 0.0f;
-    for (long long j = k; j < m && __ldg(idx + j) == i; ++j) s = __fadd_rn(s, __ldg(val + j));
-    out[i] = s;
+// The block's segmented inclusive scan of (r, v), one element a thread in
+// thread order; s_r, s_v hold a warp each.
+template <int THREADS>
+__device__ __forceinline__ float block_seg_scan(int r, float v, int* s_r, float* s_v) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float pv = __shfl_up_sync(0xFFFFFFFFu, v, o);
+    const int pr = __shfl_up_sync(0xFFFFFFFFu, r, o);
+    if (lane >= o) seg_join(pr, pv, &r, &v);
   }
+  if (lane == 31) {
+    s_r[warp] = r;
+    s_v[warp] = v;
+  }
+  __syncthreads();
+  int cr = 0;
+  float cv = 0.0f;
+  for (int w = 0; w < warp; ++w) {
+    int wr = s_r[w];
+    float wv = s_v[w];
+    seg_join(cr, cv, &wr, &wv);
+    cr = wr;
+    cv = wv;
+  }
+  seg_join(cr, cv, &r, &v);
+  return v;
+}
+
+// out[idx[k]] += val[k] over the sorted pairs of tile blockIdx.x (out
+// zeroed), the crossing runs as EDGE_ATOMICS says: atomics ("sorted"), or
+// partials and flags for scatter_join_kernel ("segsum").
+template <bool EDGE_ATOMICS, int ITEMS = SEG_ITEMS>
+__global__ void __launch_bounds__(SEG_THREADS)
+scatter_tile_kernel(const int* __restrict__ idx, const float* __restrict__ val,
+                   long long m, bool vec, float* __restrict__ out,
+                   float* __restrict__ first, float* __restrict__ last,
+                   int* __restrict__ flags) {
+  constexpr int TILE = SEG_THREADS * ITEMS;
+  __shared__ int s_first[SEG_THREADS + 1];  // each thread's first index; then the next tile's
+  __shared__ int s_last[SEG_THREADS];       // each thread's last index
+  __shared__ float s_incl[SEG_THREADS];     // the scan, inclusive
+  __shared__ int s_wr[SEG_THREADS / 32];
+  __shared__ float s_wv[SEG_THREADS / 32];
+  const long long t0 = (long long)blockIdx.x * TILE;
+  const int nt = (int)min((long long)TILE, m - t0);
+  const int i0 = threadIdx.x * ITEMS;
+  const int cnt = max(0, min(ITEMS, nt - i0));
+  int key[ITEMS];
+  float v[ITEMS];
+  if (vec && cnt == ITEMS) {
+#pragma unroll
+    for (int q = 0; q < ITEMS / 4; ++q) {
+      const int4 k4 = __ldg(reinterpret_cast<const int4*>(idx + t0 + i0) + q);
+      const float4 v4 = __ldg(reinterpret_cast<const float4*>(val + t0 + i0) + q);
+      key[4 * q] = k4.x, key[4 * q + 1] = k4.y, key[4 * q + 2] = k4.z, key[4 * q + 3] = k4.w;
+      v[4 * q] = v4.x, v[4 * q + 1] = v4.y, v[4 * q + 2] = v4.z, v[4 * q + 3] = v4.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      key[i] = i < cnt ? __ldg(idx + t0 + i0 + i) : -1;
+      v[i] = i < cnt ? __ldg(val + t0 + i0 + i) : 0.0f;
+    }
+  }
+  // this thread's runs: the first (head), the last (sum), those between stored
+  bool multi = false;
+  int cur = key[0];
+  float head = 0.0f, sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    if (i < cnt) {
+      if (key[i] != cur) {
+        if (multi) out[cur] = sum;
+        else head = sum;
+        multi = true;
+        cur = key[i];
+        sum = 0.0f;
+      }
+      sum = __fadd_rn(sum, v[i]);
+    }
+  }
+  s_first[threadIdx.x] = key[0];
+  s_last[threadIdx.x] = cur;
+  if (threadIdx.x == 0) s_first[SEG_THREADS] = t0 + nt < m ? __ldg(idx + t0 + nt) : -1;
+  __syncthreads();
+  const int before = threadIdx.x > 0 ? s_last[threadIdx.x - 1] : -1;
+  const int after = s_first[threadIdx.x + 1];  // -1 past the pairs' end
+  // a thread's last run starts among its pairs unless it continues the one before
+  const int reset = cnt > 0 && (multi || key[0] != before);
+  const float incl = block_seg_scan<SEG_THREADS>(reset, sum, s_wr, s_wv);
+  s_incl[threadIdx.x] = incl;
+  __syncthreads();
+  if (cnt == 0) return;
+  const int tile_first = s_first[0];
+  const bool open_left = t0 > 0 && __ldg(idx + t0 - 1) == tile_first;
+  const bool open_right = after != -1 && after == cur && i0 + cnt == nt;
+  if (!EDGE_ATOMICS && threadIdx.x == 0)
+    flags[blockIdx.x] = (open_left ? SEG_OPEN_LEFT : 0) |
+                        (t0 + nt < m && s_first[SEG_THREADS] == __ldg(idx + t0 + nt - 1)
+                             ? SEG_OPEN_RIGHT : 0) |
+                        (tile_first == __ldg(idx + t0 + nt - 1) ? SEG_ONE_RUN : 0);
+  // the first run ends here: its total, with what the threads before held
+  const float carry = key[0] == before ? s_incl[threadIdx.x - 1] : 0.0f;
+  if (multi || after != key[0]) {
+    const float total = __fadd_rn(carry, multi ? head : sum);
+    if (key[0] == tile_first && open_left) {
+      if (EDGE_ATOMICS) atomicAdd(out + key[0], total);
+      else first[blockIdx.x] = total;
+    } else {
+      out[key[0]] = total;
+    }
+  }
+  if (multi && after != cur) out[cur] = sum;  // the last run ends here too
+  if (open_right) {
+    if (EDGE_ATOMICS) atomicAdd(out + cur, incl);
+    else last[blockIdx.x] = incl;
+  }
+}
+
+// The runs that cross tiles, a thread a tile: a tile whose first run comes
+// from the tile before and ends in it walks back to the tile where the run
+// starts (past the tiles that are all of it) and stores last[s] + ... +
+// last[t - 1] + first[t], in tile order.
+template <int TILE = SEG_TILE>
+__global__ void __launch_bounds__(SEG_THREADS)
+scatter_join_kernel(const int* __restrict__ idx, long long tiles,
+                   const float* __restrict__ first, const float* __restrict__ last,
+                   const int* __restrict__ flags, float* __restrict__ out) {
+  constexpr int THROUGH = SEG_ONE_RUN | SEG_OPEN_LEFT;  // a tile all of a run from before
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= tiles) return;
+  const int f = flags[t];
+  if (!(f & SEG_OPEN_LEFT) || (f & (SEG_ONE_RUN | SEG_OPEN_RIGHT)) ==
+                                  (SEG_ONE_RUN | SEG_OPEN_RIGHT))
+    return;
+  long long s = t - 1;
+  while ((flags[s] & THROUGH) == THROUGH) --s;
+  float total = last[s];
+  for (long long k = s + 1; k < t; ++k) total = __fadd_rn(total, last[k]);
+  out[__ldg(idx + t * TILE)] = __fadd_rn(total, first[t]);
 }
 
 constexpr int PACK_THREADS = 256;  // bf16; an int8 block takes PACK_INT8_THREADS
@@ -1005,18 +1241,26 @@ static int launch_routed_backward(const WorldPoints& pts, const unsigned char* b
   return (int)cudaGetLastError();
 }
 
+// Levels a cell backward takes at a time: as many as CELL_GROUP_BYTES of
+// their rows hold, at least one.
+static int cell_group(int T, int F, int L) {
+  const long long fit = CELL_GROUP_BYTES / ((long long)T * 8 * F * (long long)sizeof(float));
+  return fit < 1 ? 1 : fit > L ? L : (int)fit;
+}
+
 template <int F>
 static int launch_cell_backward(const WorldPoints& pts, const float* g, long long g_stride,
-                                long long n, int T, const HbrLevels& lv, float* dtable,
-                                cudaStream_t s) {
+                                long long n, int T, const HbrLevels& lv, int group,
+                                float* dtable, cudaStream_t s) {
   const long long units = (n + HASH_RUN - 1) / HASH_RUN * lv.n_levels;
+  const size_t smem = (size_t)HASH_BWD_THREADS * 2 * 8 * F * sizeof(float);
   int blocks = 0;
-  const int err = persistent_blocks(cell_backward_kernel<F>, HASH_BWD_THREADS, 0,
+  const int err = persistent_blocks(cell_backward_kernel<F>, HASH_BWD_THREADS, smem,
                                     (units + HASH_BWD_THREADS - 1) / HASH_BWD_THREADS,
                                     &blocks);
   if (err) return err;
-  cell_backward_kernel<F><<<blocks, HASH_BWD_THREADS, 0, s>>>(pts, g, g_stride, n, T, lv,
-                                                              dtable);
+  cell_backward_kernel<F><<<blocks, HASH_BWD_THREADS, smem, s>>>(pts, g, g_stride, n, T,
+                                                                 lv, group, dtable);
   return (int)cudaGetLastError();
 }
 
@@ -1207,16 +1451,19 @@ int hbr_hash_cell_forward(const float* x, const float* mu, const float* sigma,
   });
 }
 
-// dtable (L, T, 8 * features) f32 must be zeroed.
+// dtable (L, T, 8 * features) f32 must be zeroed, from a 16-byte aligned
+// address.
 int hbr_hash_cell_backward(const float* x, const float* mu, const float* sigma,
                            const float* g, long long g_stride, long long n,
                            int table_size, int features, const HbrLevels* lv,
                            float* dtable, void* stream) {
   if (n <= 0) return 0;
+  if (reinterpret_cast<unsigned long long>(dtable) % 16) return (int)cudaErrorInvalidValue;
   const WorldPoints pts{x, mu, sigma, 1};
   return with_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
-    return launch_cell_backward<F>(pts, g, g_stride, n, table_size, *lv, dtable,
+    return launch_cell_backward<F>(pts, g, g_stride, n, table_size, *lv,
+                                   cell_group(table_size, F, lv->n_levels), dtable,
                                    (cudaStream_t)stream);
   });
 }
@@ -1247,22 +1494,43 @@ int hbr_hash_pairs(const float* x, const float* mu, const float* sigma,
   });
 }
 
-// out (f32, zeroed) += the m pairs (idx, val) sorted by idx: strategy 0
-// "sorted" (a thread's 16 consecutive pairs merged run by run, one atomic a
-// run), 1 "segsum" (each run summed by the thread at its start, stored once).
+// Bytes of the workspace that hbr_scatter_sorted takes for m pairs: the
+// segsum tiles' partials and flags (0 for "sorted").
+long long hbr_scatter_work_bytes(long long m, int strategy) {
+  if (strategy != 1 || m <= 0) return 0;
+  return (m + SEG_TILE - 1) / SEG_TILE * (long long)(2 * sizeof(float) + sizeof(int));
+}
+
+// out (f32, zeroed) += the m pairs (idx, val) sorted by idx, a block a tile
+// of SEG_TILE pairs, each run that starts and ends in a tile stored once:
+// strategy 0 "sorted" (a run that crosses tiles added with one atomic a
+// tile), 1 "segsum" (no atomics: the crossing runs summed by a second launch
+// and stored once, given hbr_scatter_work_bytes(m, 1) bytes of workspace at
+// work).
 int hbr_scatter_sorted(const int* idx, const float* val, long long m, int strategy,
-                       float* out, void* stream) {
+                       float* out, void* work, void* stream) {
   if (m <= 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (strategy == 0) {
-    scatter_sorted_kernel<<<item_blocks((m + SCATTER_RUN - 1) / SCATTER_RUN,
-                                        SCATTER_THREADS),
-                            SCATTER_THREADS, 0, s>>>(idx, val, m, out);
-  } else if (strategy == 1) {
-    scatter_segsum_kernel<<<item_blocks(m, SCATTER_THREADS), SCATTER_THREADS, 0, s>>>(
-        idx, val, m, out);
-  } else {
+  if ((strategy != 0 && strategy != 1) || (strategy == 1 && work == nullptr))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long tiles = (m + SEG_TILE - 1) / SEG_TILE;
+  const bool vec = ((reinterpret_cast<unsigned long long>(idx) |
+                     reinterpret_cast<unsigned long long>(val)) % 16) == 0;
+  if (strategy == 0) {
+    scatter_tile_kernel<true><<<(unsigned)tiles, SEG_THREADS, 0, s>>>(
+        idx, val, m, vec, out, nullptr, nullptr, nullptr);
+    return (int)cudaGetLastError();
+  }
+  float* first = static_cast<float*>(work);
+  float* last = first + tiles;
+  int* flags = reinterpret_cast<int*>(last + tiles);
+  scatter_tile_kernel<false><<<(unsigned)tiles, SEG_THREADS, 0, s>>>(idx, val, m, vec, out,
+                                                                    first, last, flags);
+  if (tiles > 1) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    scatter_join_kernel<SEG_TILE><<<item_blocks(tiles, SEG_THREADS), SEG_THREADS, 0, s>>>(
+        idx, tiles, first, last, flags, out);
   }
   return (int)cudaGetLastError();
 }

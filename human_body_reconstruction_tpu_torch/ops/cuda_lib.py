@@ -148,9 +148,11 @@ def library() -> ctypes.CDLL:
             ("hbr_hash_cell_backward", [p, p, p, p, ll, ll, i, i, lv, p, p]),
             ("hbr_hash_pairs", [p, p, p, p, p, p, p, p, ll, ll, i, i, f32, lv,
                                 p, p, p]),
-            ("hbr_scatter_sorted", [p, p, ll, i, p, p])):
+            ("hbr_scatter_sorted", [p, p, ll, i, p, p, p])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
+    lib.hbr_scatter_work_bytes.argtypes = [ll, i]
+    lib.hbr_scatter_work_bytes.restype = ll
     lib.hbr_uniform_bits.argtypes = [p, ll, i, p, p]
     lib.hbr_uniform_bits.restype = i
     lib.hbr_error_string.argtypes = [i]

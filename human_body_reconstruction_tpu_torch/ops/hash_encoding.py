@@ -78,9 +78,10 @@ class LevelShard:
     ``cfg.level_axis`` with ``params["lp_scales"]``): the group's size, the
     f32 scales of a hashed table's level slice (None for CP, whose rank
     slices span every level), ``gather`` ((N, c) -> (N, k * c), the group's
-    column blocks in rank order, whose backward hands each rank its own
-    block) and ``psum`` (the group's sum of a replicated value, whose
-    backward is the identity); parallel/level_parallel.py builds them on
+    column blocks in rank order, whose backward hands each rank the
+    group's sum of its block) and ``psum`` (the group's sum of a replicated
+    value, whose backward sums the cotangent too: JAX's transposes, k times
+    the rank's own); parallel/level_parallel.py builds them on
     the group.  Without ``gather`` the encode returns the rank's own
     columns, for a caller that joins the blocks itself."""
 

@@ -433,9 +433,10 @@ def sort_pairs(idx, val):
 
 def add_sorted_kernel(size: int, si, sv, strategy: str):
     """Add wrapper for pairs sorted by index: CPU tensors ->
-    ``scatter_plain``; CUDA tensors -> ``hbr_scatter_sorted`` ("sorted": a
-    thread's runs one atomic each; "segsum": each run summed once and
-    stored).  Returns (size,) f32."""
+    ``scatter_plain``; CUDA tensors -> ``hbr_scatter_sorted``, a pass over
+    tiles of the pairs ("sorted": a run that crosses tiles added with one
+    atomic a tile; "segsum": no atomics, each run's total stored once, the
+    same bits every call, given a small workspace).  Returns (size,) f32."""
     if strategy not in SORTED_STRATEGIES:
         raise ValueError(f"the sorted scatter takes 'sorted' or 'segsum', "
                          f"got {strategy!r}")
@@ -449,9 +450,13 @@ def add_sorted_kernel(size: int, si, sv, strategy: str):
                          "indexes with int32")
     out = torch.zeros((size,), dtype=torch.float32, device=sv.device)
     if si.numel():
-        code = cuda_lib.library().hbr_scatter_sorted(
+        lib, strat = cuda_lib.library(), SORTED_STRATEGIES[strategy]
+        work = torch.empty((lib.hbr_scatter_work_bytes(si.numel(), strat),),
+                           dtype=torch.uint8, device=sv.device)
+        code = lib.hbr_scatter_sorted(
             si.contiguous().data_ptr(), sv.contiguous().data_ptr(),
-            si.numel(), SORTED_STRATEGIES[strategy], out.data_ptr(),
+            si.numel(), strat, out.data_ptr(),
+            work.data_ptr() if work.numel() else None,
             cuda_lib.stream_handle(sv.device))
         add_sorted_kernel.launches += 1
         cuda_lib.check(code, "hbr_scatter_sorted")

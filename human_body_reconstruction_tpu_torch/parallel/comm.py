@@ -18,15 +18,18 @@ rank = data_index * n_inner + inner_index, as JAX reshapes its devices to
 and ``inner_group`` (the ranks of its data index: the "level" or "sample"
 axis).
 
-The two autograd collectives keep the transposes that the JAX level-parallel
-step relies on, not torch's defaults.  ``gather_cols`` joins the column
-blocks of the ranks (JAX's tiled ``all_gather``); its backward hands each
-rank its own column block of the cotangent, with no sum:
-``torch.distributed.nn.functional.all_gather`` would sum the cotangents of
-the group, and since the MLP after the gather is replicated across the
-group, its cotangents are the same on every rank and that sum would
-multiply every table or line gradient by the group's size.  For the same
-reason ``psum_replicated``'s backward is the identity.
+The two autograd collectives give the gradients that JAX's transposes
+give in the level-parallel step.  ``gather_cols`` joins the column blocks
+of the ranks (JAX's tiled ``all_gather``, whose transpose is a
+``psum_scatter``): its backward hands each rank the group's sum of its
+column block of the cotangent.  The MLP after the gather runs replicated
+across the group, so those cotangents are the same on every rank and the
+sum is the group's size k times the rank's own block; the backward scales
+by k and needs no collective.  ``psum_replicated`` (JAX's ``psum``, whose
+transpose is a ``psum``) does the same.  So the sharded group's gradient
+(the table's level slices, the lines' rank columns) is k times the
+single-device gradient, as JAX's is; Adam's scale invariance takes its
+steps back to the single-device ones.
 """
 
 from __future__ import annotations
@@ -220,36 +223,39 @@ class _GatherCols(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.index, ctx.width = dist.get_rank(group), x.shape[1]
+        ctx.k = dist.get_world_size(group)
         return torch.cat(list(all_gather_stack(x, group)), dim=1)
 
     @staticmethod
     def backward(ctx, grad):
         lo = ctx.index * ctx.width
-        return grad[:, lo:lo + ctx.width], None
+        return grad[:, lo:lo + ctx.width] * ctx.k, None
 
 
 def gather_cols(x, group):
     """(N, c) on each of the group's n ranks -> (N, n * c), the ranks' column
-    blocks in group-rank order; the backward gives each rank its own block
-    of the cotangent."""
+    blocks in group-rank order; the backward gives each rank the group's sum
+    of its block of the (replicated) cotangent, n times its own block."""
     return _GatherCols.apply(x, group)
 
 
 class _PsumReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
+        ctx.k = dist.get_world_size(group)
         y = x.detach().clone()
         dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad * ctx.k, None
 
 
 def psum_replicated(x, group):
-    """The group's sum of ``x``, whose cotangent (the same on every rank of
-    a replicated computation) passes back unchanged."""
+    """The group's sum of ``x``; its backward gives the group's sum of the
+    cotangent (the same on every rank of a replicated computation), n times
+    the rank's own."""
     return _PsumReplicated.apply(x, group)
 
 

@@ -5,8 +5,9 @@ The hashed table's level axis is split over the ranks of a level group:
 each holds a contiguous slice of L / k levels (and their Adam moments),
 encodes its levels for its data shard's points at the slice's scales, and
 ``comm.gather_cols`` joins the blocks before the MLP, which runs replicated
-over the level group.  The gather's backward hands each rank its own block
-of the cotangent, so table gradients stay local; the MLP, dense-grid and
+over the level group.  The gather's backward hands each rank the group's
+sum of its block of the cotangent (k times its own block, as JAX's
+transpose gives), so table gradients stay local; the MLP, dense-grid and
 table gradients are then averaged over the data group only, as in data
 parallelism.  Dense coarse levels are replicated and computed on every
 rank.  The CP factor lines have no lookups to divide, so the same axis

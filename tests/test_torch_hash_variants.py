@@ -34,7 +34,7 @@ from human_body_reconstruction_tpu.train import trainer as jtrainer
 from human_body_reconstruction_tpu_torch.cli import (
     quality_holdout as qh, serve, train_hash)
 from human_body_reconstruction_tpu_torch.ops import (
-    hash_encoding, hash_kernel, hash_variants as hv, occupancy)
+    cuda_lib, hash_encoding, hash_kernel, hash_variants as hv, occupancy)
 from human_body_reconstruction_tpu_torch.pipeline import restore
 from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt
 from human_body_reconstruction_tpu_torch.train import state as state_lib
@@ -245,13 +245,17 @@ GRAD_CASES = {
                               grad_level_subsample=True),
     "int8_lpair_one_cell": dict(INT8, grad_subsample=True,
                                 grad_level_pair=True),
+    "cell_one_cell": dict(variant="cell"),
 }
-# Cases whose draws or points are edited: held to JAX's ``_stoch_int8_bwd``
-# given the edited draws (no point draws level 1; every point in one cell
-# of each level).
+# Cases whose draws or points are edited: the stochastic ones held to JAX's
+# ``_stoch_int8_bwd`` given the edited draws (no point draws level 1; every
+# point in one cell of each level), the cell variant to the VJP of JAX
+# ``hash_encode_cell`` (every point in one cell: a level's terms all on one
+# row).
 GRAD_EDGES = {"int8_lvl_level_undrawn": "level_undrawn",
               "int8_lvl_one_cell": "one_cell",
-              "int8_lpair_one_cell": "one_cell"}
+              "int8_lpair_one_cell": "one_cell",
+              "cell_one_cell": "one_cell"}
 
 
 def one_cell_points(seed=5, n=N):
@@ -277,18 +281,18 @@ def test_table_gradients_match_jax(case):
     L, F = cfg.num_hashed_levels, cfg.features_per_level
     g = np.random.default_rng(4).normal(size=(N, L * F)).astype(np.float32)
     draws = jax_draws(cfg, key) if stochastic else None
-    if edit is None:
+    if edit == "one_cell":
+        xn = (t(x) - t(MU)) / t(SIGMA)
+        for s in hash_kernel._scales(cfg):
+            assert len(torch.unique(hash_kernel.level_coords(
+                xn, float(s))[0], dim=0)) == 1
+    if edit is None or not stochastic:
         _, vjp = jax.vjp(lambda tb: fn(tb, *jargs(table, x)[1:], cfg, *extra),
                          jnp.asarray(table))
         ref = np.asarray(vjp(jnp.asarray(g))[0])
     else:
         if edit == "level_undrawn":
             draws["lsel"][draws["lsel"] == 1] = 0
-        else:
-            xn = (t(x) - t(MU)) / t(SIGMA)
-            for s in hash_kernel._scales(cfg):
-                assert len(torch.unique(hash_kernel.level_coords(
-                    xn, float(s))[0], dim=0)) == 1
         _, (rows, *_, tshape) = jhe._stoch_int8_fwd(*jargs(table, x), cfg,
                                                     key)
         sel = [None if draws.get(k) is None else
@@ -308,23 +312,55 @@ def test_table_gradients_match_jax(case):
         assert 0 < np.count_nonzero(ref) <= routed
     if edit == "level_undrawn":
         assert not ref[1].any() and not tp.grad[1].any()
-    elif edit == "one_cell":    # a level's terms on its cell's 8 rows
+    elif edit == "one_cell":    # on the cell's 8 rows (cell: its one row)
         assert (np.count_nonzero(ref.reshape(L, -1), axis=1) <= 8 * F).all()
 
 
-@pytest.mark.parametrize("strategy", ["random", "sorted", "segsum"])
-def test_scatter_strategies_match_jax(strategy):
-    """``scatter`` sums what JAX ``scatter_add_flat`` sums, duplicates
-    included (f32 reassociation: atol 1e-5); the sorted strategies through
-    ``scatter`` and the add wrapper on the CPU are the plain version."""
+def scatter_layout(layout: str):
+    """(indices, values) of a run layout over 400 entries: "mixed", random
+    indices with one run of 1000; "long_run", a run of 70,000 pairs (longer
+    than any tile of the segsum kernel, 2048 pairs) among 5000 random ones;
+    "tile_edges", runs of a tile less one, a tile and a tile and one, at
+    2048 and 4096 pairs, from the first, with single pairs between;
+    "one_index", every pair on the last index."""
     rng = np.random.default_rng(6)
-    idx = rng.integers(0, 300, 5000).astype(np.int32)
-    idx[:1000] = 7                                     # one long run
-    val = rng.normal(size=5000).astype(np.float32)
+    if layout == "mixed":
+        idx = rng.integers(0, 300, 5000)
+        idx[:1000] = 7                                 # one long run
+    elif layout == "long_run":
+        idx = np.concatenate([np.full(70_000, 11), rng.integers(0, 400, 5000)])
+        rng.shuffle(idx)
+    elif layout == "tile_edges":
+        lens = (2047, 2048, 2049, 4095, 4096, 4097)
+        idx = np.concatenate([np.concatenate([np.full(n, 2 * i), [2 * i + 1]])
+                              for i, n in enumerate(lens)]
+                             + [rng.integers(12, 400, 300)])
+    else:
+        idx = np.full(9000, 399)
+    return (idx.astype(np.int32),
+            rng.normal(size=len(idx)).astype(np.float32))
+
+
+@pytest.mark.parametrize("layout", ["mixed", "long_run", "tile_edges",
+                                    "one_index"])
+@pytest.mark.parametrize("strategy", ["random", "sorted", "segsum"])
+def test_scatter_strategies_match_jax(strategy, layout):
+    """``scatter`` sums what JAX ``scatter_add_flat`` sums, duplicates
+    included, at each ``scatter_layout`` (f32 reassociation: atol 1e-5 for
+    the mixed layout's runs of up to 1000 terms; the sum-order tolerance,
+    2^-18 of the terms' absolute sum, for the runs of 4095 to 70,000); the
+    sorted strategies through ``scatter`` and the add wrapper on the CPU are
+    the plain version."""
+    idx, val = scatter_layout(layout)
     ref = np.asarray(jhe.scatter_add_flat(400, jnp.asarray(idx),
                                           jnp.asarray(val), strategy))
     got = hv.scatter_plain(400, t(idx), t(val), strategy)
-    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+    if layout == "mixed":
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
+    else:
+        abs_sum = hv.scatter_plain(400, t(idx), t(np.abs(val)))
+        assert bool(((got - t(ref)).abs() <= cuda_lib.sum_order_tolerance(
+            t(ref), abs_sum, False)).all())
     if strategy != "random":
         assert torch.equal(hv.scatter(400, t(idx), t(val), strategy), got)
         assert torch.equal(hv.add_sorted_kernel(

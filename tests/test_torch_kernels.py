@@ -1000,17 +1000,27 @@ def test_packed_forward_kernel_matches_plain(cuda_device, fmt, features, mode,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("order", ["rays", "random"])
-@pytest.mark.parametrize("features", [2, 4])
+@pytest.mark.parametrize("order", ["rays", "random", "rays128", "one_cell"])
+@pytest.mark.parametrize("features", [1, 2, 4])
 def test_cell_kernels_match_plain(cuda_device, features, order):
     """The cell forward bit for bit into a column block, its backward within
-    the sum-order tolerance from a row-strided gradient."""
+    the sum-order tolerance from a row-strided gradient: points in ray order
+    (64 or 128 samples a ray), at random, or all in one cell of each level;
+    n below a warp, and not a multiple of a warp or a block; and at 10
+    levels of 2^16 rows, whose backward takes the levels a group at a time
+    (32 MB of rows: 8 levels at F 2, 4 at F 4) with a narrower last group."""
     n_f = hash_variants.cell_encode_kernel.launches
     n_b = hash_variants.cell_encode_backward_kernel.launches
-    for n in (5, 1000, 20_011):
-        table, args, _, _ = variant_inputs(cuda_device, n, order, features,
-                                           seed=n, variant="cell")
-        c = 4 * features
+    shapes = ((5, 4, 10), (1000, 4, 10), (20_011, 4, 10), (20_011, 10, 16))
+    for n, levels, log2_t in shapes:
+        table, args, u, draws = variant_inputs(
+            cuda_device, n, "random" if order == "random" else "rays",
+            features, levels=levels, log2_t=log2_t, seed=n, variant="cell")
+        if order == "rays128":
+            args = ray_points(n, 128, cuda_device) + args[3:]
+        elif order == "one_cell":
+            args, _, _ = edit_draws("one_cell", args, u, draws)
+        c = levels * features
         out = torch.full((n, c + 3), float("nan"), device=cuda_device)
         hash_variants.cell_encode_kernel(table, *args, out=out[:, 3:])
         want = hash_variants.cell_encode_plain(table, *args)
@@ -1023,8 +1033,74 @@ def test_cell_kernels_match_plain(cuda_device, features, order):
             lambda tb, *a: [hash_variants.cell_encode_plain_backward(
                 tb[0], *a)],
             [table], args, g, False)
-    assert hash_variants.cell_encode_kernel.launches == n_f + 3
-    assert hash_variants.cell_encode_backward_kernel.launches == n_b + 3
+    assert hash_variants.cell_encode_kernel.launches == n_f + len(shapes)
+    assert hash_variants.cell_encode_backward_kernel.launches == \
+        n_b + len(shapes)
+
+
+SEG_TILE = 2048   # sorted pairs a segsum block takes (csrc/hash.cu SEG_TILE)
+# (pairs, run layout): every run layout meets the tile edges in its own way
+SEGSUM_EDGES = {
+    "one_run": (3 * SEG_TILE + 5, "one_run"),
+    "runs_of_tile_minus_1": (5 * SEG_TILE + 17, SEG_TILE - 1),
+    "runs_of_tile": (5 * SEG_TILE, SEG_TILE),
+    "runs_of_tile_plus_1": (5 * SEG_TILE + 3, SEG_TILE + 1),
+    "run_starts_in_last_tile": (3 * SEG_TILE + 50, "last_30"),
+    "below_one_tile": (1000, "random"),
+    "not_a_vector_multiple": (2 * SEG_TILE + 3, "random"),
+    "unaligned": (2 * SEG_TILE + 9, "unaligned"),
+    "many_tiles": (300 * SEG_TILE + 11, "random"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", sorted(SEGSUM_EDGES))
+def test_segsum_edges_match_plain(cuda_device, edge):
+    """The sorted scatters of sorted pairs at the segsum tile pass's edges:
+    one run of all m pairs, runs of exactly a tile less one, a tile and a
+    tile and one, a run that starts in the last tile, m below a tile, m not
+    a multiple of the 16-byte loads' four, arrays off 16-byte alignment
+    (scalar loads), many tiles for the join; the last index is size - 1.
+    Both strategies within the sum-order tolerance of ``scatter_plain``;
+    segsum the same bits on a second call, and zero where no pair lands."""
+    m, layout = SEGSUM_EDGES[edge]
+    rng = np.random.default_rng(m)
+    size = 70_001
+    if layout == "one_run":
+        idx = np.full(m, size - 1)
+    elif isinstance(layout, int):
+        run = np.arange(m) // layout
+        idx = size - 1 - 7 * (run[-1] - run)
+    else:
+        idx = np.sort(rng.integers(0, size, m))
+        if layout == "last_30":
+            idx[-30:] = size - 1
+        idx[-1] = size - 1
+    val = rng.standard_normal(m + 1).astype(np.float32)
+    si = torch.tensor(np.concatenate([[0], idx]), dtype=torch.int32,
+                      device=cuda_device)
+    sv = torch.tensor(val, device=cuda_device)
+    if layout == "unaligned":
+        si, sv = si[1:], sv[1:]
+        assert si.data_ptr() % 16 and sv.data_ptr() % 16
+    else:
+        si, sv = si[1:].clone(), sv[1:].clone()
+    want_i, want_v = si.cpu().long(), sv.cpu()
+    abs_sum = hash_variants.scatter_plain(size, want_i, want_v.abs())
+    n_s = hash_variants.add_sorted_kernel.launches
+    for strategy in ("sorted", "segsum"):
+        got = hash_variants.add_sorted_kernel(size, si, sv, strategy)
+        again = hash_variants.add_sorted_kernel(size, si, sv, strategy)
+        want = hash_variants.scatter_plain(size, want_i, want_v, strategy)
+        torch.cuda.synchronize()
+        assert bool((got.cpu() - want).abs().le(cuda_lib.sum_order_tolerance(
+            want, abs_sum, False)).all()), strategy
+        absent = torch.ones(size, dtype=torch.bool)
+        absent[want_i] = False
+        assert not got.cpu()[absent].any(), strategy
+        if strategy == "segsum":
+            assert torch.equal(got, again)
+    assert hash_variants.add_sorted_kernel.launches == n_s + 4
 
 
 SUB_FLAGS = {"gsub": dict(grad_subsample=True),

@@ -277,16 +277,15 @@ def rel_norm(a, b) -> float:
 @pytest.mark.parametrize("name", [c[0] for c in STEP_CASES])
 def test_parallel_step_matches_jax(world4, name):
     """Loss, aux and every group's averaged gradient of one step against
-    the JAX function's on the same layout (the sharded group's against
-    JAX's over the level extent, see the module's note); every rank of the
-    layout ends with the same parameters, and under level parallelism the
-    parameters after the Adam update agree with JAX's as JAX's own extents
-    test holds them."""
+    the JAX function's on the same layout (the sharded group's too: k times
+    the single-device one under level parallelism, as JAX's transposes give
+    it); every rank of the layout ends with the same parameters, and under
+    level parallelism the parameters after the Adam update agree with
+    JAX's as JAX's own extents test holds them."""
     jax_out, ranks = world4
     (jm, jg), shape = jax_out[name], dict(
         (c[0], c[3]) for c in STEP_CASES)[name]
     k = shape[1]
-    jg = {g: v / k if g in ("lines", "table") else v for g, v in jg.items()}
     mine = [r[name] for r in ranks[:shape[0] * shape[1]]]
     pm, pg = mine[0]["metrics"], mine[0]["grads"]
     assert np.isfinite(pm["loss"]) and pm["loss"] > 0
@@ -331,15 +330,17 @@ def test_tv_warmup_gates_the_rank_parallel_step(world4):
 @pytest.mark.parametrize("k", EXTENTS[1:])
 def test_level_extents_take_the_same_steps(world4, k):
     """Extents 1, 2 and 4 of the rank-parallel CP step with the TV on take
-    the same three steps: the same losses, the same first gradients, lines
-    that agree as JAX's own test holds them (Adam turns the sign of a
-    near-zero gradient into a step of the learning rate).  A gather whose
-    backward summed the level group's cotangents, or a TV psum whose
-    backward did, would scale the line gradients by the extent."""
+    the same three steps: the same losses; the same first gradients but the
+    lines', which at extent k are k times extent 1's, as JAX's own extents
+    relate (the gather's and the TV psum's backwards sum the level group's
+    replicated cotangents); lines that agree as JAX's own test holds them
+    (Adam's scale invariance undoes the k, and turns the sign of a
+    near-zero gradient into a step of the learning rate)."""
     one, got = world4[1][0]["extents"][1], world4[1][0]["extents"][k]
     np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-5)
     for g in one["grads"]:
-        assert rel_norm(got["grads"][g], one["grads"][g]) <= 1e-5, g
+        want = one["grads"][g] * (k if g in ("lines", "table") else 1)
+        assert rel_norm(got["grads"][g], want) <= 1e-5, g
     diff = np.abs(np.concatenate([a.reshape(-1) for a in got["params"]])
                   - np.concatenate([a.reshape(-1) for a in one["params"]]))
     assert np.mean(diff < 1e-5) > 0.999 and diff.max() < 5e-3
