@@ -3,7 +3,11 @@
 
 1. Build the port's CUDA kernels from csrc/ with nvcc (one process per
    source, all started together) and the marching-cubes extension from
-   native/ with g++.
+   native/ with g++.  Then, before any phase profiles, read with
+   torch.profiler the device operations of one call of the int8 pack, the
+   cell forward and the pairs kernel on seeded inputs at the paths' shapes:
+   each its one kernel, by name, and no memset or copy (a profiler that
+   records nothing fails the run).
 2. Flagship training (the zero-flag run, at full width): render the
    synthetic textured dataset (20 views, 400x400, 384 GT samples), train it
    through the port's CLI objects for TRAIN_STEPS steps with the occupancy
@@ -75,7 +79,9 @@
    indices (loss, every gradient, var_b's included); each encoder kernel
    against its plain version on that step's 98,304 eikonal points (16384
    points at six clipped offsets), the forwards into their columns of the
-   encoder's (N, 130) matrix bit for bit.
+   encoder's (N, 130) matrix bit for bit.  The saved run is served through
+   ``cli/serve.py --use_sdf``: an SDF model, one 200x200 frame through the
+   forward kernels, finite and not flat.
 10. The hierarchical pass: the same for ``cp_r21_hier_64f64_tv1e2`` (64 + 64
     samples, no grid) cut to 96 steps, the card-vs-CPU step on 4096 rays,
     the kernels on a 16384-ray batch's second-pass points (2,097,152).
@@ -188,11 +194,10 @@
     the pairs and the sorted and segsum adds (beside ``index_add_`` given
     the sorted pairs; ``torch.sort`` of the pairs printed), the cell pair
     (beside ``embedding_bag``/``index_add_`` given its rows and weights),
-    and the cell backward again on the cell mode's own first-pass points of
+    and the cell pair again on the cell mode's own first-pass points of
     a PROTOCOL_RAYS batch (2,097,152 at 128 samples a ray);
     on the int8 modes' own first-pass points (6 hashed levels, F 4) the
-    int8 pack (one kernel and no memset on the stream, by the profiler),
-    the stochastic and packed-exact forwards and the lpair and lvl
+    int8 pack, the stochastic and packed-exact forwards and the lpair and lvl
     backwards (beside ``index_add_`` given the pairs); and, on the same
     points, the A/B: the f32 stochastic and exact kernels, and the 1-of-2,
     lpair and lvl backwards (one thread a point and its drawn terms)
@@ -235,7 +240,7 @@ its row gives the launches of the serial drive of its k ranks' encodes),
 and the hash-variant kernels' records, named for their kernel and
 path (``hash_pack/bf16_table``, ``packed_forward/int8_exact_path``,
 ``hash_backward/int8_lpair_path``, ``add_sorted/segsum_train_path``,
-``cell_backward/protocol_path``, ...),
+``cell_forward/protocol_path``, ``cell_backward/protocol_path``, ...),
 and last
 ``{"ok": true, "device": {...}}``.
 
@@ -1540,6 +1545,32 @@ def protocol_mode_phase(mode: str, work: str, device: torch.device,
     return row, launches, res
 
 
+def serve_sdf_run(work: str, device: torch.device, tag: str):
+    """The SDF protocol run served through ``cli/serve.py --use_sdf``: an
+    SDF model restored, one 200x200 frame answered through the forward
+    kernels, its PNG finite and not flat."""
+    from human_body_reconstruction_tpu_torch.cli import serve
+    from human_body_reconstruction_tpu_torch.data import png
+
+    server = serve.RenderServer(serve.build_parser().parse_args([
+        "--ckpt_dir", f"{work}/{SDF_MODE}", "--model_name", SDF_MODE,
+        "--use_sdf", "--use_occ", "--height", "200", "--width", "200",
+        "--device", str(device)]))
+    check(server.base_cfg.render.use_sdf, "serve --use_sdf: an SDF model")
+    resp, launches = counted(wrappers("cp_forward", "dense_forward"),
+                             lambda: server.handle({"orbit": {"index": 1,
+                                                              "count": 4}}))
+    img = (png.decode_png(base64.b64decode(resp["image_b64"]))
+           if resp.get("ok") else None)
+    std = None if img is None else float(img.std())
+    print(f"served the {SDF_MODE} run through serve --use_sdf: "
+          f"{resp.get('wall_s')} s, launches {launches}, frame "
+          f"{None if img is None else img.shape}, std {std} {tag}")
+    check(img is not None and img.shape == (200, 200, 3) and std > 0.0
+          and all(n > 0 for n in launches.values()),
+          ("serve --use_sdf", resp.get("error"), launches))
+
+
 def encoded_points(fn):
     """fn() with every point set that ``nerf.encode_points`` encodes
     recorded, in call order: (fn's result, [points])."""
@@ -2736,6 +2767,13 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
     pa = (ppts, cell.scene["mu"], cell.scene["sigma"], ch)
     pg = torch.randn((m, L * F), generator=gen, device=device)
     prow, pw = cell_rows_weights(*pa)
+    pfeats = hv.cell_encode_kernel(ctab, *pa)
+    out["cell_forward/protocol_path"] = variant_record(
+        "cell_forward", f"cell, {m} protocol points",
+        lambda: hv.cell_encode_kernel(ctab, *pa),
+        lambda: hv.cell_encode_plain(ctab, *pa), bit_for_bit,
+        nbytes(ppts, ctab, pfeats), m * L * (15 + 8 * (10 + 2 * F)),
+        library=embedding_bag_call(ctab.reshape(-1, F)[None], prow, pw))
     out["cell_backward/protocol_path"] = variant_record(
         "cell_backward", f"cell, {m} protocol points",
         lambda: hv.cell_encode_backward_kernel(ctab, *pa, pg),
@@ -2743,7 +2781,7 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
         within_sum_order(hv.cell_encode_plain_backward(ctab, *pa, pg.abs())),
         nbytes(ppts, pg, ctab), m * L * (15 + 8 * (10 + 2 * F)),
         library=index_add_call(ctab.reshape(-1, F)[None], prow, pw, pg))
-    del ppts, pg, prow, pw
+    del ppts, pg, prow, pw, pfeats
     torch.cuda.empty_cache()
     ab["hash_forward/exact_same_points"] = time_ms(
         lambda: hash_kernel.hash_encode_kernel(table, *a))
@@ -2772,10 +2810,6 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
                 lambda: hv.pack_kernel(itab, "int8"),
                 lambda: hv.pack_plain(itab, "int8"), bit_for_bit,
                 nbytes(itab, iw, isc), itab.numel() * 8)
-            ops = device_ops(lambda: hv.pack_kernel(itab, "int8"))
-            print(f"int8 pack on the stream: {ops} {tag}")
-            check(ops is None or (len(ops) == 1 and "pack_int8" in ops[0]),
-                  ("int8 pack: one kernel, no memset", ops))
             irows, _ = hash_rows_weights(pts, ia[1], ia[2], ih, ibits)
             flat = torch.cat([hv.unpack_plain(
                 iw.reshape(iL, -1)[l], isc, "int8", iF, l)
@@ -2858,6 +2892,54 @@ def walk_on_routed_grad(table, a, g, bits, pick, lsel=None, psel=None):
     routed = hash_kernel.routed_grad(g, table.shape[-1], pick, lsel, psel)
     return time_ms(lambda: hash_kernel.hash_encode_backward_kernel(
         table, *a, routed, bits))
+
+
+def launch_list_phase(device, tag):
+    """The device operations that one call of the int8 pack (the lpair
+    mode's table), the cell forward and the pairs kernel (1-of-2, L 16, F
+    2) runs on HASH_POINTS seeded points, by torch.profiler, before any
+    other phase profiles: each its one kernel, by name, and no memset or
+    copy.  A profiler that records nothing fails the check."""
+    from human_body_reconstruction_tpu_torch.cli import quality_holdout
+    from human_body_reconstruction_tpu_torch.ops import (
+        hash_encoding, hash_variants as hv)
+
+    modes = quality_holdout.make_modes()
+    gen = torch.Generator(device).manual_seed(SEED + 30)
+    n = HASH_POINTS
+    x = torch.rand((n, 3), generator=gen, device=device)
+    mu, sigma = torch.zeros(3, device=device), torch.ones(3, device=device)
+
+    def table(h, width):
+        return torch.randn((h.num_hashed_levels, h.table_size, width),
+                           generator=gen, device=device)
+
+    ih, ch, ph = (modes[m].hash for m in (
+        "int8_dense_guided_k32_mass_lpair", "cell", "packed_gsub"))
+    itab = table(ih, ih.features_per_level)
+    ctab = table(ch, 8 * ch.features_per_level)
+    ptab = table(ph, ph.features_per_level)
+    L, F = ph.num_hashed_levels, ph.features_per_level
+    bits = torch.randint(0, 8, (L, n), generator=gen, device=device,
+                         dtype=torch.uint8)
+    pick = hash_encoding.draw_subsample("hash_encode_stochastic_packed", ph,
+                                        L, n, device, gen)["pick"]
+    g = torch.randn((n, L * F), generator=gen, device=device)
+    calls = {"int8 pack": ("pack_int8_kernel",
+                           lambda: hv.pack_kernel(itab, "int8")),
+             "cell forward": ("cell_forward_kernel",
+                              lambda: hv.cell_encode_kernel(ctab, x, mu,
+                                                            sigma, ch)),
+             "pairs": ("pairs_kernel",
+                       lambda: hv.pairs_kernel(ptab, x, mu, sigma, ph, g,
+                                               bits, pick))}
+    for what, (name, fn) in calls.items():
+        fn()                      # first use (attributes) outside the profile
+        ops = device_ops(fn)
+        print(f"{what} on the stream: {ops} {tag}")
+        check(ops is not None and len(ops) == 1 and name in ops[0]
+              and "memset" not in ops[0].lower(),
+              (f"{what}: one kernel, no memset or copy", ops))
 
 
 def device_ops(fn):
@@ -2954,6 +3036,7 @@ def variants_phase(work: str, device: torch.device, tag: str, hash_pts,
              "packed_forward/bf16_train_path": "packed_gsub",
              "hash_backward/bf16_gsub_train_path": "packed_gsub",
              "cell_forward/train_path": "cell",
+             "cell_forward/protocol_path": "cell",
              "cell_backward/train_path": "cell",
              "cell_backward/protocol_path": "cell",
              "hash_pack/int8_table": lpair,
@@ -2979,7 +3062,7 @@ def run_shape(key: str, points: dict) -> str:
     "int8_lvl": count, "cell_protocol": count} of the int8 modes' and the
     cell mode's first-pass points."""
     table = " (the table)" if key.startswith("hash_pack") else ""
-    if key == "cell_backward/protocol_path":
+    if key.endswith("/protocol_path"):
         return (f"{points['cell_protocol']} first-pass points of a "
                 f"{PROTOCOL_RAYS}-ray batch of cell (128 samples a ray), L "
                 f"16, F 2, T 2^16")
@@ -3757,6 +3840,7 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    launch_list_phase(device, tag)
 
     work = tempfile.TemporaryDirectory()
     train_dir, hash_dir = f"{work.name}/flagship", f"{work.name}/hash"
@@ -3937,6 +4021,8 @@ def main() -> int:
             (HIER_MODE, HIER_STEP_RAYS, "the second pass's points of a 16384"
              "-ray batch (64 + 64 samples a ray)")):
         row, launches, res = protocol_mode_phase(mode, work.name, device, tag)
+        if mode == SDF_MODE:
+            serve_sdf_run(work.name, device, tag)
         pts = mode_step_on_card_vs_cpu(mode, res, data, device, rays, tag)
         if mode == HIER_MODE:
             pts = [pass_points(res, data, device, 1)]

@@ -20,7 +20,11 @@ Response: {"ok": true, "wall_s", "rays_per_sec", "H", "W", ...} or
 {"ok": false, "error": "..."}; a bad request never stops the server.
 
 The server runs on the card (``--device cuda``, the default) unless given
-``--device cpu``; without a card and without that flag it exits.
+``--device cpu``; without a card and without that flag it exits.  The
+JAX server's flags are all taken: ``--use_sdf`` names an SDF model when the
+run directory has no saved config; ``--no_fused`` is accepted, the
+per-chunk ``render_image`` being the port's only render path;
+``--aot_cache`` (the JAX compile cache) is refused.
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.serve \\
           --ckpt_dir results --model_name flagship --use_occ --eval_guided 48
@@ -52,6 +56,9 @@ def build_parser():
     p.add_argument("--model_name", type=str, default="default")
     p.add_argument("--bound_pth", type=str, default="bounds_model.npy")
     p.add_argument("--ckpt_name", type=str, default="N_2048_T_16")
+    p.add_argument("--use_sdf", action="store_true",
+                   help="an SDF model, where the run directory has no saved "
+                        "config")
     p.add_argument("--max_res", type=float, default=2048)
     p.add_argument("--hash_size", type=float, default=16)
     p.add_argument("--encoder_variant", type=str, default=None,
@@ -72,16 +79,28 @@ def build_parser():
     p.add_argument("--height", type=int, default=400)
     p.add_argument("--width", type=int, default=400)
     p.add_argument("--camera_angle_x", type=float, default=0.6911112)
+    p.add_argument("--aot_cache", type=str, default="",
+                   help="not ported (the JAX compile cache); refused")
     p.add_argument("--fp32", action="store_true",
                    help="run the MLP in float32 compute (default bfloat16 "
                         "with f32 accumulation, as in training)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; without a CUDA card pass --device cpu")
+    p.add_argument("--no_fused", action="store_true",
+                   help="accepted: the per-chunk render_image is the port's "
+                        "only render path")
     p.add_argument("--warmup", action="store_true",
                    help="render one default-size view at startup")
     p.add_argument("--port", type=int, default=0,
                    help="serve HTTP on this port instead of stdin/stdout")
     return p
+
+
+def check_supported(args):
+    """Refuse what the port cannot run, before any work starts."""
+    if args.aot_cache:
+        raise SystemExit("--aot_cache (the JAX compile cache) is not ported "
+                         "to the PyTorch package")
 
 
 png_bytes = png.encode_png      # the server's frames: 8-bit RGB PNG
@@ -95,12 +114,14 @@ class RenderServer:
     """Checkpoint restored once; renders on demand; tracks stats."""
 
     def __init__(self, args):
+        check_supported(args)
         self.args = args
         self.device = device_from_flag(args.device)
         res = restore.restore(
             args.ckpt_dir, args.model_name, device=self.device,
             bound_pth=args.bound_pth, ckpt_name=args.ckpt_name,
-            near=args.near, far=args.far, max_res=args.max_res,
+            near=args.near, far=args.far, use_sdf=args.use_sdf,
+            max_res=args.max_res,
             hash_size=args.hash_size, encoder_variant=args.encoder_variant,
             rgb_elu=args.rgb_elu, normalization=args.normalization,
             with_occ=args.use_occ,

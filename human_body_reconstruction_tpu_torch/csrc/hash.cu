@@ -128,7 +128,18 @@
 //    floats a (point, level) (64 B at F 2), slot c * F + f holding corner
 //    c's feature f; the forward sums row * w_c over c = 0..7, the backward
 //    adds w_c * g into the row's slots, merged over a run of points as
-//    hbr_hash_backward merges them.  The backward must move the points, the
+//    hbr_hash_backward merges them.  The forward must move the points, the
+//    table and the features once (0.063 ms of HBM at 1,024,000 points, L
+//    16, F 2, T 2^16), but it reads a row a (point, level) (1 GB there),
+//    from L2 at best: taking all 16 levels at once, as one thread a point
+//    walking them did, the 64 MB table is past the 50 MB L2 and the fine
+//    levels' rows come from HBM.  So it takes the levels a group at a time
+//    (cell_group: 16 MB of rows, 4 levels at F 2), the group the grid's
+//    slowest index, marking the rows evict-last, and a warp reads its 32
+//    rows with 2F lanes a row, whole rows a load instruction.  What binds it
+//    then is the L2's rate of serving a row a (point, level), one 128-byte
+//    line's request for 64 bytes (PERF.md).  The backward
+//    must move the points, the
 //    gradient and one write of the table's gradient (0.063 ms of HBM at
 //    1,024,000 points), but what binds it is the L2's adds into the rows:
 //    ray-ordered samples change cell at nearly every point of the fine
@@ -161,7 +172,13 @@
 //    of equal indices, then one scatter of unique indices: a reduce-by-key).
 //    The pairs (flat index, value) are written in JAX's order ([f][l][n]
 //    unsampled, [l][n], [n] or [j][n] subsampled), and the caller sorts
-//    them by index (torch.sort, stable, as lax.sort).  The adds must read
+//    them by index (torch.sort, stable, as lax.sort).  The pairs must read
+//    the points, the bits, the draws and the gradient once and write the
+//    pairs once (306 MB, 0.092 ms, for the 1-of-2 path's 16,384,000): a
+//    block takes a tile of points, normalises each once and stages their
+//    gradient rows in shared memory with coalesced loads, where one thread
+//    a (group, point) had read each point once a group and each 4-byte
+//    value as a 32-byte sector (PERF.md).  The adds must read
 //    the pairs once (8 B a pair) and write the output: 0.042 ms at the
 //    1-of-2 path's 16,384,000 pairs.  Both strategies are one pass over
 //    tiles of the pairs (scatter_tile_kernel), every run that starts and ends
@@ -190,9 +207,16 @@ constexpr int HASH_FWD_EXACT_CARVEOUT = 38;
 constexpr int HASH_BWD_THREADS = 256;
 constexpr int HASH_RUN = 16;           // consecutive points a backward thread walks
 constexpr int ROUTED_BATCH = 4;        // terms a routed-backward thread reads at once
+constexpr int PAIRS_THREADS = 256;     // points a pairs block takes
+constexpr int PAIRS_BATCH = 16;        // gradient rows a pairs warp loads at once
 // Bytes of gradient rows a cell backward adds to at a time (cell_group): 8
 // levels at F 2, T 2^16 (4 levels: 2-4% slower with the cache hints, PERF.md).
 constexpr long long CELL_GROUP_BYTES = 32LL << 20;
+// Bytes of table rows a cell forward reads at a time (cell_group): 4 levels
+// at F 2, T 2^16 (8 levels, 32 MB, took 1.03x to 1.5x its time, PERF.md).
+constexpr long long CELL_FWD_GROUP_BYTES = 16LL << 20;
+constexpr int CELL_FWD_THREADS = 128;  // points a cell forward block takes
+constexpr int CELL_ROW_PAD = 4;        // words past each row a cell forward warp stages
 
 __device__ __forceinline__ unsigned hash3(unsigned c0, unsigned c1, unsigned c2,
                                           unsigned mask) {
@@ -413,61 +437,6 @@ hash_forward_kernel(WorldPoints pts, Rows rows,
 #pragma unroll
           for (int f = 0; f < F; ++f) v[c][f] = nv[c][f];
       }
-    }
-  }
-  __syncthreads();
-  store_rows(s_rows, C, p0, n, P, out, out_stride);
-}
-
-// The cell variant: table (L, T, 8F) f32, row h of level l holding corner c's
-// feature f at slot c * F + f, h the hash of the cell's corner 0.  One thread
-// a point walks the levels, asking for the next level's row before it sums
-// this one's; out[p, l*F + f] = sum over c = 0..7 of row[c*F + f] * w_c from
-// 0 (JAX hash_encode_cell).
-template <int F>
-__global__ void __launch_bounds__(HASH_FWD_THREADS)
-cell_forward_kernel(WorldPoints pts, const float* __restrict__ table, long long n, int T,
-                    HbrLevels lv, float* __restrict__ out, long long out_stride) {
-  constexpr int P = HASH_FWD_THREADS;
-  constexpr int W = 8 * F;  // a row's floats
-  extern __shared__ float s_rows[];  // (P, L * F + 1)
-  const int L = lv.n_levels;
-  const int C = L * F;
-  const long long p0 = (long long)blockIdx.x * P;
-  const long long p = p0 + threadIdx.x;
-  const unsigned mask = (unsigned)(T - 1);
-  if (p < n) {
-    float xn[3];
-    pts.at<3>(p, xn);
-    float* dst = s_rows + threadIdx.x * (C + 1);
-    int x0[3];
-    float fr[3], v[W];
-    level_cell<3>(xn, lv.scale[0], x0, fr);
-    load_row<W>(table + ((long long)lv.offset[0] + corner_row<3>(x0, 0, mask)) * W, v);
-    for (int l = 0;; ++l) {
-      float nfr[3], nv[W];
-      if (l + 1 < L) {
-        level_cell<3>(xn, lv.scale[l + 1], x0, nfr);
-        load_row<W>(table + ((long long)lv.offset[l + 1] + corner_row<3>(x0, 0, mask)) * W,
-                    nv);
-      }
-      float w[3][2], acc[F];
-      axis_weights<3>(fr, w);
-#pragma unroll
-      for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float wc = corner_weight<3>(w, c);
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(v[c * F + f], wc));
-      }
-#pragma unroll
-      for (int f = 0; f < F; ++f) dst[l * F + f] = acc[f];
-      if (l + 1 == L) break;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) fr[d] = nfr[d];
-#pragma unroll
-      for (int k = 0; k < W; ++k) v[k] = nv[k];
     }
   }
   __syncthreads();
@@ -763,6 +732,143 @@ cell_backward_kernel(WorldPoints pts, const float* __restrict__ g, long long g_s
   bulk_wait_read<0>();  // the slots are read before the block's memory goes
 }
 
+// A 16-byte piece of a cell row.  HINTS: marked L2 evict-last (policy from
+// evict_last_policy), so the rows of the level group stay in L2 past the
+// stream of points and features.
+template <bool HINTS>
+__device__ __forceinline__ float4 load_piece(const float* p, unsigned long long policy) {
+  if constexpr (HINTS) {
+    float4 v;
+    asm volatile("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "l"(p), "l"(policy));
+    return v;
+  } else {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+}
+
+// Shared memory of a cell forward block: its staged features, (P, group * F
+// + 1) words, then (COOP) a warp's 32 rows, CELL_ROW_PAD words past each.
+template <int F, bool COOP>
+constexpr size_t cell_forward_smem(int group) {
+  return ((size_t)CELL_FWD_THREADS * (group * F + 1) +
+          (COOP ? (size_t)CELL_FWD_THREADS * (8 * F + CELL_ROW_PAD) : 0)) *
+         sizeof(float);
+}
+
+// The cell variant: table (L, T, 8F) f32, row h of level l holding corner c's
+// feature f at slot c * F + f, h the hash of the cell's corner 0;
+// out[p, l*F + f] = sum over c = 0..7 of row[c*F + f] * w_c from 0 (JAX
+// hash_encode_cell).  Block b takes CELL_FWD_THREADS points (tile b % tiles,
+// a thread a point) at the levels of group b / tiles (`group` levels from
+// level group * (b / tiles)), so the group is the grid's slowest index and
+// the blocks resident at one time read one group's rows, which stay in L2
+// (the whole table, 64 MB at L 16, T 2^16, F 2, is past the 50 MB L2).  A
+// thread normalises its point once a group and walks the group's levels.
+// COOP: at each level a warp reads its 32 rows together, 2F lanes a row and
+// a 16-byte piece a lane, so a load instruction covers whole rows (8 at F 2)
+// in place of one 16-byte piece of 32 rows; the pieces go through shared
+// memory (rows padded by CELL_ROW_PAD words: no bank conflicts on the
+// reads), and each thread sums its own row there, in the plain version's
+// order.  Else each thread reads its own row.  The features are staged in
+// shared memory and written by consecutive threads on consecutive columns
+// (streaming stores under HINTS: written once).
+template <int F, bool COOP, bool HINTS>
+__global__ void __launch_bounds__(CELL_FWD_THREADS)
+cell_forward_kernel(WorldPoints pts, const float* __restrict__ table, long long n, int T,
+                    HbrLevels lv, int group, long long tiles, float* __restrict__ out,
+                    long long out_stride) {
+  constexpr int P = CELL_FWD_THREADS;
+  constexpr int W = 8 * F;       // a row's floats
+  constexpr int R = W / 4;       // its 16-byte pieces (2F)
+  constexpr int RS = W + CELL_ROW_PAD;
+  extern __shared__ float4 s_cell[];
+  const int L = lv.n_levels;
+  const int gi = (int)(blockIdx.x / tiles);
+  const long long p0 = (long long)(blockIdx.x - gi * tiles) * P;
+  const int l0 = gi * group;
+  const int width = min(group, L - l0);
+  const int C = width * F;
+  float* s_out = reinterpret_cast<float*>(s_cell);  // (P, C + 1)
+  float* s_rows = s_out + P * (group * F + 1) + (threadIdx.x >> 5) * 32 * RS;
+  const int lane = threadIdx.x & 31;
+  const long long p = p0 + threadIdx.x;
+  const bool live = p < n;
+  const unsigned mask = (unsigned)(T - 1);
+  unsigned long long policy = 0;
+  if constexpr (HINTS) policy = evict_last_policy();
+  float xn[3];
+  pts.at<3>(live ? p : p0, xn);  // a lane past n reads the tile's first rows
+  for (int l = l0; l < l0 + width; ++l) {
+    int x0[3];
+    float fr[3], v[W];
+    level_cell<3>(xn, lv.scale[l], x0, fr);
+    const unsigned row = (unsigned)lv.offset[l] + corner_row<3>(x0, 0, mask);
+    if constexpr (COOP) {
+      float4 piece[R];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {  // piece q % R of the row of lane q / R
+        const int q = k * 32 + lane;
+        const unsigned r = __shfl_sync(0xFFFFFFFFu, row, q / R);
+        piece[k] = load_piece<HINTS>(table + (long long)r * W + (q % R) * 4, policy);
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const int q = k * 32 + lane;
+        reinterpret_cast<float4*>(s_rows + (q / R) * RS)[q % R] = piece[k];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float4 q = reinterpret_cast<const float4*>(s_rows + lane * RS)[k];
+        v[4 * k] = q.x;
+        v[4 * k + 1] = q.y;
+        v[4 * k + 2] = q.z;
+        v[4 * k + 3] = q.w;
+      }
+      __syncwarp();  // read before the next level's rows land
+    } else {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float4 q = load_piece<HINTS>(table + (long long)row * W + 4 * k, policy);
+        v[4 * k] = q.x;
+        v[4 * k + 1] = q.y;
+        v[4 * k + 2] = q.z;
+        v[4 * k + 3] = q.w;
+      }
+    }
+    float w[3][2], acc[F];
+    axis_weights<3>(fr, w);
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float wc = corner_weight<3>(w, c);
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] = __fadd_rn(acc[f], __fmul_rn(v[c * F + f], wc));
+    }
+#pragma unroll
+    for (int f = 0; f < F; ++f) s_out[threadIdx.x * (C + 1) + (l - l0) * F + f] = acc[f];
+  }
+  __syncthreads();
+  // element k = r * C + c of the tile's (np, C) block, stepped by P without
+  // a division an element
+  const int np = (int)min((long long)P, n - p0);
+  const int dr = P / C, dc = P - dr * C;
+  int r = threadIdx.x / C, c = threadIdx.x - r * C;
+  for (; r < np; r += dr, c += dc) {
+    if (c >= C) {
+      c -= C;
+      ++r;
+      if (r >= np) break;
+    }
+    float* o = out + (p0 + r) * out_stride + l0 * F + c;
+    if constexpr (HINTS) __stcs(o, s_out[r * (C + 1) + c]);
+    else *o = s_out[r * (C + 1) + c];
+  }
+}
+
 // The draws of a stochastic backward's terms: pick (L, n), the feature of
 // each (point, level), or null (every feature, no subsampling); at most one
 // of lsel (n,), a point's one level, and psel (L / 2, n), the level of each
@@ -850,32 +956,72 @@ routed_backward_kernel(WorldPoints pts, const unsigned char* __restrict__ bits, 
 // null, F a (point, level) at [f][l][n] (value g); pick alone, one a (point,
 // level) at [l][n]; with lsel one a point at [n]; with psel one a (pair,
 // point) at [j][n] (value (g[pick] * sub_scale) * lvl_scale).  The index is
-// (lv.offset[l] + row) * F + f of the picked corner's row.
-template <int F>
-__global__ void __launch_bounds__(HASH_BWD_THREADS)
+// (lv.offset[l] + row) * F + f of the picked corner's row.  A block takes
+// PAIRS_THREADS points, a thread a point, which it normalises once and whose
+// pairs it writes group by group, consecutive threads on consecutive pairs.
+// STAGED (the routings that read every level of a point's row, pick alone
+// and pick null): the block first copies its points' gradient rows into
+// shared memory (C = L * F words a row, padded by one), warp w taking rows
+// w, w + 8, ..., its lanes on consecutive columns, the loads of PAIRS_BATCH
+// rows asked for before their stores, so g is read once and whole; read
+// where each term is drawn, the row's 32-byte sectors are read again unless
+// the L1 still holds them (1.4x the time on the 1-of-2 path).  lsel and psel
+// read one level of L or of each pair, and read g where drawn (PERF.md).
+template <int F, bool STAGED>
+__global__ void __launch_bounds__(PAIRS_THREADS)
 pairs_kernel(WorldPoints pts, const unsigned char* __restrict__ bits, Routing rt,
              const float* __restrict__ g, long long g_stride, long long n, int T,
              HbrLevels lv, int* __restrict__ idx, float* __restrict__ val) {
+  constexpr int WARPS = PAIRS_THREADS / 32;
+  extern __shared__ float s_g[];  // (PAIRS_THREADS, C + 1), STAGED
+  const int L = lv.n_levels;
+  const int C = L * F;
+  const long long p0 = (long long)blockIdx.x * PAIRS_THREADS;
+  const int np = (int)min((long long)PAIRS_THREADS, n - p0);
+  if constexpr (STAGED) {
+    const int lane = threadIdx.x & 31;
+    for (int c = lane; c < C; c += 32)
+      for (int r0 = threadIdx.x >> 5; r0 < np; r0 += WARPS * PAIRS_BATCH) {
+        float v[PAIRS_BATCH];
+#pragma unroll
+        for (int b = 0; b < PAIRS_BATCH; ++b)
+          if (r0 + b * WARPS < np) v[b] = __ldcs(g + (p0 + r0 + b * WARPS) * g_stride + c);
+#pragma unroll
+        for (int b = 0; b < PAIRS_BATCH; ++b)
+          if (r0 + b * WARPS < np) s_g[(r0 + b * WARPS) * (C + 1) + c] = v[b];
+      }
+    __syncthreads();
+  }
+  if ((int)threadIdx.x >= np) return;
+  const long long p = p0 + threadIdx.x;
+  // point p's gradient row, staged or in g
+  const float* gp = STAGED ? s_g + threadIdx.x * (C + 1) : g + p * g_stride;
   const unsigned mask = (unsigned)(T - 1);
-  const long long items = (long long)rt.groups(lv.n_levels) * n;
-  for (long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x; it < items;
-       it += (long long)gridDim.x * blockDim.x) {
-    const long long j = it / n;
-    const long long p = it - j * n;
-    float xn[3];
-    pts.at<3>(p, xn);
-    if (rt.pick == nullptr) {
-      const long long row = picked_row(xn, bits, (int)j, p, n, mask, lv);
+  float xn[3];
+  pts.at<3>(p, xn);
+  if (rt.pick == nullptr) {
+    const long long items = (long long)L * n;
+#pragma unroll 4
+    for (int l = 0; l < L; ++l) {
+      const long long row = picked_row(xn, bits, l, p, n, mask, lv);
 #pragma unroll
       for (int f = 0; f < F; ++f) {
-        idx[(long long)f * items + it] = (int)(row * F + f);
-        val[(long long)f * items + it] = __ldg(g + p * g_stride + j * F + f);
+        const long long at = f * items + (long long)l * n + p;
+        idx[at] = (int)(row * F + f);
+        val[at] = STAGED ? gp[l * F + f] : __ldg(gp + l * F + f);
       }
-    } else {
-      long long flat;
-      val[it] = routed_term(xn, bits, rt, g, g_stride, n, F, (int)j, p, mask, lv, &flat);
-      idx[it] = (int)flat;
     }
+    return;
+  }
+  const int groups = rt.groups(L);
+#pragma unroll 4
+  for (int j = 0; j < groups; ++j) {
+    const int l = rt.level(j, p, n);
+    const int pk = __ldg(rt.pick + (long long)l * n + p);
+    const long long at = (long long)j * n + p;
+    idx[at] = (int)(picked_row(xn, bits, l, p, n, mask, lv) * F + pk);
+    const float gv = STAGED ? gp[l * F + pk] : __ldg(gp + l * F + pk);
+    val[at] = __fmul_rn(__fmul_rn(gv, rt.sub_scale), rt.lvl_scale);
   }
 }
 
@@ -1196,26 +1342,6 @@ static int launch_hash_forward(const WorldPoints& pts, const Rows& rows,
   return (int)cudaGetLastError();
 }
 
-template <int F>
-static int launch_cell_forward(const WorldPoints& pts, const float* table, long long n,
-                               int T, const HbrLevels& lv, float* out,
-                               long long out_stride, cudaStream_t s) {
-  constexpr int P = HASH_FWD_THREADS;
-  const size_t smem = (size_t)P * (lv.n_levels * F + 1) * sizeof(float);
-  cudaError_t e = cudaSuccess;
-  if (smem > 48 * 1024)
-    e = cudaFuncSetAttribute(cell_forward_kernel<F>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(cell_forward_kernel<F>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             HASH_FWD_EXACT_CARVEOUT);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned int blocks = (unsigned int)((n + P - 1) / P);
-  cell_forward_kernel<F><<<blocks, P, smem, s>>>(pts, table, n, T, lv, out, out_stride);
-  return (int)cudaGetLastError();
-}
-
 template <int F, bool STOCH, int DIM>
 static int launch_hash_backward(const WorldPoints& pts, const unsigned char* bits,
                                 const float* g, long long g_stride, long long n, int T,
@@ -1241,10 +1367,10 @@ static int launch_routed_backward(const WorldPoints& pts, const unsigned char* b
   return (int)cudaGetLastError();
 }
 
-// Levels a cell backward takes at a time: as many as CELL_GROUP_BYTES of
-// their rows hold, at least one.
-static int cell_group(int T, int F, int L) {
-  const long long fit = CELL_GROUP_BYTES / ((long long)T * 8 * F * (long long)sizeof(float));
+// Levels a cell kernel takes at a time: as many as `bytes` of their rows
+// hold, at least one.
+static int cell_group(long long bytes, int T, int F, int L) {
+  const long long fit = bytes / ((long long)T * 8 * F * (long long)sizeof(float));
   return fit < 1 ? 1 : fit > L ? L : (int)fit;
 }
 
@@ -1261,6 +1387,27 @@ static int launch_cell_backward(const WorldPoints& pts, const float* g, long lon
   if (err) return err;
   cell_backward_kernel<F><<<blocks, HASH_BWD_THREADS, smem, s>>>(pts, g, g_stride, n, T,
                                                                  lv, group, dtable);
+  return (int)cudaGetLastError();
+}
+
+// The cell forward: one block a (tile of CELL_FWD_THREADS points, group of
+// `group` levels), the group slowest.
+template <int F, bool COOP = true, bool HINTS = true>
+static int launch_cell_forward(const WorldPoints& pts, const float* table, long long n,
+                               int T, const HbrLevels& lv, int group, float* out,
+                               long long out_stride, cudaStream_t s) {
+  const auto kernel = cell_forward_kernel<F, COOP, HINTS>;
+  const size_t smem = cell_forward_smem<F, COOP>(group);
+  const long long tiles = (n + CELL_FWD_THREADS - 1) / CELL_FWD_THREADS;
+  const long long blocks = tiles * ((lv.n_levels + group - 1) / group);
+  if (group < 1 || blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(unsigned)blocks, CELL_FWD_THREADS, smem, s>>>(pts, table, n, T, lv, group,
+                                                          tiles, out, out_stride);
   return (int)cudaGetLastError();
 }
 
@@ -1297,6 +1444,24 @@ static int launch_pack_int8(const float* table, long long L, long long T, float*
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, table, T, scale, words);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The pairs: one block a tile of PAIRS_THREADS points, its gradient rows
+// staged in shared memory when STAGED (pick alone or null).
+template <int F, bool STAGED>
+static int launch_pairs(const WorldPoints& pts, const unsigned char* bits, const Routing& rt,
+                        const float* g, long long g_stride, long long n, int T,
+                        const HbrLevels& lv, int* idx, float* val, cudaStream_t s) {
+  const size_t smem =
+      STAGED ? (size_t)PAIRS_THREADS * (lv.n_levels * F + 1) * sizeof(float) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pairs_kernel<F, STAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  pairs_kernel<F, STAGED><<<item_blocks(n, PAIRS_THREADS), PAIRS_THREADS, smem, s>>>(
+      pts, bits, rt, g, g_stride, n, T, lv, idx, val);
+  return (int)cudaGetLastError();
 }
 
 // The level routing of a subsampled backward: (lvl_scale, valid).
@@ -1443,11 +1608,15 @@ int hbr_hash_cell_forward(const float* x, const float* mu, const float* sigma,
                           const HbrLevels* lv, float* out, long long out_stride,
                           void* stream) {
   if (n <= 0) return 0;
+  if (reinterpret_cast<unsigned long long>(table) % 16) return (int)cudaErrorInvalidValue;
   const WorldPoints pts{x, mu, sigma, 1};
   return with_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
-    return launch_cell_forward<F>(pts, table, n, table_size, *lv, out, out_stride,
-                                  (cudaStream_t)stream);
+    return launch_cell_forward<F>(pts, table, n, table_size, *lv,
+                                  cell_group(CELL_FWD_GROUP_BYTES, table_size, F,
+                                             lv->n_levels),
+                                  out,
+                                  out_stride, (cudaStream_t)stream);
   });
 }
 
@@ -1463,7 +1632,9 @@ int hbr_hash_cell_backward(const float* x, const float* mu, const float* sigma,
   return with_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
     return launch_cell_backward<F>(pts, g, g_stride, n, table_size, *lv,
-                                   cell_group(table_size, F, lv->n_levels), dtable,
+                                   cell_group(CELL_GROUP_BYTES, table_size, F,
+                                              lv->n_levels),
+                                   dtable,
                                    (cudaStream_t)stream);
   });
 }
@@ -1484,13 +1655,14 @@ int hbr_hash_pairs(const float* x, const float* mu, const float* sigma,
       (pick == nullptr && (lsel != nullptr || psel != nullptr)))
     return (int)cudaErrorInvalidValue;
   const WorldPoints pts{x, mu, sigma, 1};
-  const long long items = (long long)rt.groups(lv->n_levels) * n;
   return with_word_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
-    pairs_kernel<F><<<item_blocks(items, HASH_BWD_THREADS), HASH_BWD_THREADS, 0,
-                      (cudaStream_t)stream>>>(pts, bits, rt, g, g_stride, n, table_size,
-                                              *lv, idx, val);
-    return (int)cudaGetLastError();
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (lsel != nullptr || psel != nullptr)
+      return launch_pairs<F, false>(pts, bits, rt, g, g_stride, n, table_size, *lv, idx,
+                                    val, s);
+    return launch_pairs<F, true>(pts, bits, rt, g, g_stride, n, table_size, *lv, idx,
+                                 val, s);
   });
 }
 

@@ -19,10 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from human_body_reconstruction_tpu.cli import image_fit as jimage_fit
-from human_body_reconstruction_tpu.cli import plot_psnr as jplot_psnr
 from human_body_reconstruction_tpu.cli import train_hash as jcli
-from human_body_reconstruction_tpu.cli import train_vanilla as jtrain_vanilla
 from human_body_reconstruction_tpu.data import datasets as jdatasets
 from human_body_reconstruction_tpu.utils import config as jC
 from human_body_reconstruction_tpu_torch.cli import (
@@ -110,21 +107,54 @@ def test_config_post_init_errors_match_jax(bad):
     assert str(port.value) == str(ref.value)
 
 
-def test_parsers_match_jax():
-    """Every flag of the JAX trainer, vanilla trainer, image fit and PSNR
-    plotter, with the same default, type, choices and action; the port adds
-    only --device (default cuda)."""
+# Each CLI of both packages: the port's module, its flags beyond JAX's
+# (--device, default cuda, on the CLIs that use the card), and the flags it
+# takes and refuses by name, each with an argv that sets it.
+PARSER_CLIS = {
+    "train_hash": (train_hash, {"device"},
+                   {"aot_cache": ["--aot_cache", "x"],
+                    "steps_per_call": ["--steps_per_call", "2"]}),
+    "train_vanilla": (train_vanilla, {"device"}, {}),
+    "image_fit": (image_fit, {"device"}, {}),
+    "plot_psnr": (plot_psnr, {"device"}, {}),
+    "serve": (serve, {"device"}, {"aot_cache": ["--aot_cache", "x"]}),
+    "render": (render, {"device"}, {"fused": ["--fused"],
+                                    "aot_cache": ["--aot_cache", "x"]}),
+    "nerf2mesh": (nerf2mesh, {"device"}, {"aot_cache": ["--aot_cache", "x"]}),
+    "reconstruct": (reconstruct, {"device"}, {}),
+    "colmap2nerf": (colmap2nerf, set(), {}),
+    "segment": (segment, set(), {}),
+}
+
+
+@pytest.mark.parametrize("cli", sorted(PARSER_CLIS))
+def test_parsers_match_jax(cli):
+    """Every flag of the JAX CLI, with the same default, type, choices,
+    action and nargs; the port adds only --device (default cuda) where it
+    uses the card, and each flag it refuses stops it before any work with a
+    message naming the flag."""
+    import importlib
+
     def flags(p):
         return {a.dest: (tuple(a.option_strings), a.default, a.type,
                          tuple(a.choices or ()), type(a).__name__, a.nargs)
-                for a in p._actions}
+                for a in p._actions if a.dest != "help"}
 
-    for mine, theirs in ((train_hash, jcli), (train_vanilla, jtrain_vanilla),
-                         (image_fit, jimage_fit), (plot_psnr, jplot_psnr)):
-        port, ref = flags(mine.build_parser()), flags(theirs.build_parser())
-        assert set(port) - set(ref) == {"device"}, mine.__name__
-        assert {k: port[k] for k in ref} == ref, mine.__name__
+    mod, extra, refused = PARSER_CLIS[cli]
+    ref = flags(importlib.import_module(
+        f"human_body_reconstruction_tpu.cli.{cli}").build_parser())
+    port = flags(mod.build_parser())
+    assert set(port) - set(ref) == extra
+    assert {k: port[k] for k in ref} == ref
+    if extra:
         assert port["device"][1] == "cuda"
+    for flag, argv in refused.items():
+        args = mod.build_parser().parse_args(argv)
+        with pytest.raises(SystemExit, match=f"--{flag}"):
+            if cli == "train_hash":
+                mod.check_supported(args, mod.make_config(args))
+            else:
+                mod.check_supported(args)
 
 
 @pytest.mark.parametrize("argv", PRESET_ARGVS,

@@ -1006,12 +1006,15 @@ def test_cell_kernels_match_plain(cuda_device, features, order):
     """The cell forward bit for bit into a column block, its backward within
     the sum-order tolerance from a row-strided gradient: points in ray order
     (64 or 128 samples a ray), at random, or all in one cell of each level;
-    n below a warp, and not a multiple of a warp or a block; and at 10
-    levels of 2^16 rows, whose backward takes the levels a group at a time
-    (32 MB of rows: 8 levels at F 2, 4 at F 4) with a narrower last group."""
+    n below a warp, and not a multiple of a warp, a block or the forward's
+    2F lanes a row; and at 10 and 13 levels of 2^16 rows, which both
+    kernels take a group at a time with a narrower last group (the forward
+    16 MB of rows: 8 levels at F 1, 4 at F 2, 2 at F 4; the backward 32
+    MB)."""
     n_f = hash_variants.cell_encode_kernel.launches
     n_b = hash_variants.cell_encode_backward_kernel.launches
-    shapes = ((5, 4, 10), (1000, 4, 10), (20_011, 4, 10), (20_011, 10, 16))
+    shapes = ((5, 4, 10), (1000, 4, 10), (20_011, 4, 10), (20_011, 10, 16),
+              (33, 13, 16), (20_011, 13, 16))
     for n, levels, log2_t in shapes:
         table, args, u, draws = variant_inputs(
             cuda_device, n, "random" if order == "random" else "rays",
@@ -1126,6 +1129,11 @@ SUB_CASES = [pytest.param("bf16", 2, "gsub", 4, 20_011, None,
         "int8-4-lpair-psel1": ("int8", 4, "lpair", 4, 20_011, "psel1"),
         "int8-2-lpair-one-cell": ("int8", 2, "lpair", 4, 20_011, "one_cell"),
         "int8-4-lvl-one-row": ("int8", 4, "lvl", 4, 20_011, "one_row"),
+        "int8-1-gsub-L16": ("int8", 1, "gsub", 16, 20_011, None),
+        "int8-4-gsub-L16-n777": ("int8", 4, "gsub", 16, 777, None),
+        "int8-4-lpair-L16-n300": ("int8", 4, "lpair", 16, 300, None),
+        "int8-2-lpair-L2-n257": ("int8", 2, "lpair", 2, 257, None),
+        "int8-3-lvl-L7-n31": ("int8", 3, "lvl", 7, 31, None),
     }.items()]
 
 
@@ -1168,8 +1176,9 @@ def test_sub_backward_and_sorted_scatters_match_plain(cuda_device, fmt,
     sum-order tolerance of its plain version, from the forward kernel's
     bits and the drawn pick/lsel/psel, at F 1 to 4, L 2 to 16, n below a
     block and not a multiple of one, and at ``edit_draws``'s edges; the
-    pairs kernel
-    equal to its plain version (indices and values bit for bit); the sorted
+    pairs kernel in every routing (pick alone, lsel, psel, and pick null)
+    equal to its plain version (indices and values bit for bit), at n not a
+    multiple of its 256-point tile and a gradient row stride past L * F; the sorted
     and segsum scatters of them within the tolerance, and also of the
     unsubsampled pairs."""
     flags = dict(INT8_FLAGS if fmt == "int8" else BF16_FLAGS,

@@ -150,3 +150,47 @@ def test_render_cli_refusals(run_dir, extra, match, tmp_path, monkeypatch):
         monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(SystemExit, match=match):
         render.main(base_argv(run_dir, tmp_path) + extra + ["--device", "cpu"])
+
+
+def test_serve_use_sdf_matches_jax_without_config(tmp_path):
+    """A JAX-written SDF run with no config JSON (the flags rebuild it):
+    ``cli/serve.py --use_sdf`` serves the same frame as the JAX server, in
+    f32, to one uchar level; without the flag the port serves a density
+    model, whose frame differs."""
+    import base64
+
+    from human_body_reconstruction_tpu.cli import serve as jserve
+    from human_body_reconstruction_tpu.utils import config as jC
+    from human_body_reconstruction_tpu_torch.cli import serve
+    from human_body_reconstruction_tpu_torch.data import png
+
+    cfg = jC.PipelineConfig(
+        hash=jC.HashConfig(n_max=64, log2_table_size=8, variant="corner"),
+        mlp=jC.MLPConfig(density_activation="sdf"),
+        render=jC.RenderConfig(use_sdf=True))
+    params = jax.tree.map(np.array, jtrainer.init_params(
+        jax.random.PRNGKey(3), cfg))
+    params["table"] *= 1e4          # U(-1e-4, 1e-4) -> U(-1, 1): a visible field
+    jckpt.save_pytree(str(tmp_path / "s_ckpt.npz"), params)
+    jckpt.save_bounds(str(tmp_path / "bounds_model.npy"), LO, HI)
+    assert not os.path.exists(tmp_path / "s_config.json")
+    argv = ["--ckpt_dir", str(tmp_path), "--model_name", "s", "--max_res",
+            "64", "--hash_size", "8", "--height", str(H), "--width", str(W),
+            "--num_samples", "16", "--fp32", "--no_fused"]
+    req = {"orbit": {"index": 1, "count": 4}}
+
+    def frame(resp):
+        assert resp["ok"], resp
+        return png.decode_png(base64.b64decode(resp["image_b64"])).astype(int)
+
+    ref = frame(jserve.RenderServer(jserve.build_parser().parse_args(
+        argv + ["--use_sdf"])).handle(req))
+    sdf = serve.RenderServer(serve.build_parser().parse_args(
+        argv + ["--use_sdf", "--device", "cpu"]))
+    assert sdf.base_cfg.render.use_sdf
+    got = frame(sdf.handle(req))
+    assert got.shape == (H, W, 3) and got.std() > 0
+    assert np.abs(got - ref).max() <= 1
+    density = frame(serve.RenderServer(serve.build_parser().parse_args(
+        argv + ["--device", "cpu"])).handle(req))
+    assert np.abs(density - ref).max() > 1
