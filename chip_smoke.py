@@ -5,9 +5,9 @@
    source, all started together) and the marching-cubes extension from
    native/ with g++.  Then, before any phase profiles, read with
    torch.profiler the device operations of one call of the int8 pack, the
-   cell forward and the pairs kernel on seeded inputs at the paths' shapes:
-   each its one kernel, by name, and no memset or copy (a profiler that
-   records nothing fails the run).
+   cell forward, the pairs kernel and the packed-exact forward on seeded
+   inputs at the paths' shapes: each its one kernel, by name, and no memset
+   or copy (a profiler that records nothing fails the run).
 2. Flagship training (the zero-flag run, at full width): render the
    synthetic textured dataset (20 views, 400x400, 384 GT samples), train it
    through the port's CLI objects for TRAIN_STEPS steps with the occupancy
@@ -184,21 +184,31 @@
     where the mode culls, each path's kernels launched;
     ``cli/speedrun.py --encoder int8`` capped after its third gate;
     ``train_hash --stochastic --hw_rng --packed --grad_subsample
-    --scatter_strategy sorted`` and ``segsum`` for SCATTER_STEPS steps; a
-    frame of the int8 run served through the packed-exact read.  Then each
+    --scatter_strategy sorted`` and ``segsum`` and ``train_hash
+    --packed_exact`` (bf16 words read by the packed-exact forward, one launch
+    a step) for SCATTER_STEPS steps; a frame of the int8 run served through
+    the packed-exact read, and the run meshed by ``cli/nerf2mesh.py`` at
+    INT8_SWEEP_RES^3 (64 chunks, each one packed-exact launch).  Then each
     new kernel against its plain version, forwards and packs bit for bit,
     backwards within the sum-order tolerance: on the hash path's 1,024,000
     points (L 16, F 2, T 2^16) the bf16 pack (beside the bf16 cast), the
-    bf16 stochastic forward (beside ``embedding_bag`` on the unpacked
-    table), its 1-of-2 backward (beside ``index_add_`` given the pairs),
-    the pairs and the sorted and segsum adds (beside ``index_add_`` given
-    the sorted pairs; ``torch.sort`` of the pairs printed), the cell pair
-    (beside ``embedding_bag``/``index_add_`` given its rows and weights),
-    and the cell pair again on the cell mode's own first-pass points of
-    a PROTOCOL_RAYS batch (2,097,152 at 128 samples a ray);
-    on the int8 modes' own first-pass points (6 hashed levels, F 4) the
-    int8 pack, the stochastic and packed-exact forwards and the lpair and lvl
-    backwards (beside ``index_add_`` given the pairs); and, on the same
+    bf16 stochastic and packed-exact forwards (beside ``embedding_bag`` on
+    the unpacked table given the rows and weights), its 1-of-2 backward
+    (beside ``index_add_`` given the pairs), the pairs and the sorted and
+    segsum adds (beside ``index_add_`` given the sorted pairs;
+    ``torch.sort`` of the pairs printed), the cell pair (beside
+    ``embedding_bag``/``index_add_`` given its rows and weights), and the
+    cell pair again on the cell mode's own first-pass points of a
+    PROTOCOL_RAYS batch (2,097,152 at 128 samples a ray); on the int8
+    modes' own first-pass points (6 hashed levels, F 4) the int8 pack, the
+    stochastic and packed-exact forwards and the lpair and lvl backwards
+    (beside ``index_add_`` given the pairs); the packed-exact forward on
+    the middle chunk of the int8 run's INT8_SWEEP_RES^3 sweep (262,144
+    lattice points).  Each packed-exact record also gives its sectors (the
+    distinct 32-byte sectors the eight corner words of each (point, level)
+    span, summed) and its L2 sector figure: their bytes over the L2 read
+    rate of ``torch.sum`` over an L2-resident 24 MB buffer, measured
+    beside them.  And, on the same
     points, the A/B: the f32 stochastic and exact kernels, and the 1-of-2,
     lpair and lvl backwards (one thread a point and its drawn terms)
     against the run walk (the unsubsampled stochastic backward) given
@@ -239,6 +249,8 @@ shape runs on a step only under ``--level_parallel`` on 2 or 4 cards, so
 its row gives the launches of the serial drive of its k ranks' encodes),
 and the hash-variant kernels' records, named for their kernel and
 path (``hash_pack/bf16_table``, ``packed_forward/int8_exact_path``,
+``packed_forward/bf16_exact_train_path``,
+``packed_forward/int8_exact_sweep_chunk``,
 ``hash_backward/int8_lpair_path``, ``add_sorted/segsum_train_path``,
 ``cell_forward/protocol_path``, ``cell_backward/protocol_path``, ...),
 and last
@@ -652,6 +664,24 @@ def embedding_bag_call(table, rows, w):
     flat = table.reshape(-1, table.shape[-1])
     return lambda: torch.nn.functional.embedding_bag(
         rows, flat, per_sample_weights=w, mode="sum")
+
+
+def corner_sectors(rows) -> int:
+    """The distinct 32-byte sectors (8 words) that the corner rows of each
+    (point, level) span, summed: rows (N*L, C) into the flat (L*T,) words,
+    as ``hash_rows_weights`` gives them."""
+    sec = (rows >> 3).sort(dim=1).values
+    return int(sec.shape[0] + (sec[:, 1:] != sec[:, :-1]).sum())
+
+
+def l2_read_rate(device) -> float:
+    """Bytes a second that ``torch.sum`` reads from an L2-resident buffer of
+    L2_BUFFER_BYTES, read 20 times in one call (the rows of a stride-0 view,
+    each summed along its contiguous length)."""
+    buf = torch.ones(L2_BUFFER_BYTES // 4, device=device)
+    view = buf.expand(20, buf.numel())
+    ms = time_ms(lambda: view.sum(dim=1), reps=20)
+    return 20 * L2_BUFFER_BYTES / (ms * 1e-3)
 
 
 def index_add_call(table, rows, w, g):
@@ -2526,6 +2556,8 @@ VARIANT_MODES = {"cell": 64, "packed_gsub": 64, "int8_dense_guided_lvl": 288,
 INT8_SPEEDRUN_ARGS = ("--encoder", "int8", "--eval_every", "125",
                       "--max_steps", "375", "--eval_after_train_db", "0")
 SCATTER_STEPS = 12
+INT8_SWEEP_RES = 256            # the int8 run's mesh sweep: 64 chunks
+L2_BUFFER_BYTES = 24 << 20      # an L2-resident buffer, for the L2 read rate
 VARIANT_REPLACES = {
     "hash_pack": "none (no TPU kernel: human_body_reconstruction_tpu/ops/"
                  "hash_encoding.py:389,516 pack_table_bf16/int8 in jnp)",
@@ -2662,12 +2694,24 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
     one, the pairs and both sorted adds, the cell pair against the exact
     pair), and on the int8 modes' own first-pass points (6 hashed levels, F
     4: the int8 pack, the stochastic and packed-exact forwards, the lvl and
-    lpair backwards).  Returns ({record name: record}, the A/B times, the
-    int8 modes' point counts)."""
+    lpair backwards), and the packed-exact forward on the hash path's points
+    (bf16) and on a sweep chunk of the int8 run.  Returns ({record name:
+    record}, the A/B times, the int8 modes' point counts, {packed-exact
+    record name: (sectors, L2 sector figure in ms)})."""
     from human_body_reconstruction_tpu_torch.ops import (
         hash_encoding, hash_kernel, hash_variants as hv, rng_kernel)
+    from human_body_reconstruction_tpu_torch.pipeline import mesh_export
 
-    out, points = {}, {}
+    out, points, sectors = {}, {}, {}
+    l2_rate = l2_read_rate(device)
+    print(f"L2 read rate (torch.sum over a {L2_BUFFER_BYTES}-byte buffer): "
+          f"{l2_rate / 1e12:.3f} TB/s {tag}")
+
+    def sector_figure(key, rows):
+        count = corner_sectors(rows)
+        sectors[key] = (count, 1e3 * 32 * count / l2_rate)
+        print(f"  {key}: {count} sectors ({count / rows.shape[0]:.3f} a "
+              f"(point, level)), L2 sector figure {sectors[key][1]:.4f} ms")
     gen = torch.Generator(device).manual_seed(SEED + 20)
     n = hash_pts.shape[0]
     mu, sigma = hash_scene["mu"], hash_scene["sigma"]
@@ -2704,6 +2748,17 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
         library=embedding_bag_call(unpacked, rows, None))
     ab = {"hash_forward/stochastic_same_points": time_ms(
         lambda: hash_kernel.hash_encode_kernel(table, *a, u=u))}
+    # the packed-exact read of the same words (train_hash --packed_exact)
+    xrows, xw = hash_rows_weights(hash_pts, mu, sigma, h)
+    xfeats = hv.packed_encode_kernel(words, scale, *a)
+    out["packed_forward/bf16_exact_train_path"] = variant_record(
+        "packed_forward", "bf16 packed-exact, hash path",
+        lambda: hv.packed_encode_kernel(words, scale, *a),
+        lambda: hv.packed_encode_plain(words, scale, *a), bit_for_bit,
+        nbytes(hash_pts, words, xfeats), forward_ops("hash_forward", table, h, n),
+        library=embedding_bag_call(unpacked, xrows, xw))
+    sector_figure("packed_forward/bf16_exact_train_path", xrows)
+    del xrows, xw, xfeats
     # the 1-of-2 backward vs the full one
     draws = hash_encoding.draw_subsample(
         "hash_encode_stochastic_packed", h, L, n, device, gen)
@@ -2830,7 +2885,24 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
                 nbytes(pts, iw, isc, efeats),
                 forward_ops("hash_forward", itab, ih, m),
                 library=embedding_bag_call(flat, erows, ew))
-            del irows, erows, ew, flat
+            sector_figure("packed_forward/int8_exact_path", erows)
+            # the middle chunk of the run's mesh sweep
+            lo = res.scene["min_bound"]
+            spts = mesh_export.sweep_points(
+                (INT8_SWEEP_RES ** 3 // SWEEP_CHUNK // 2) * SWEEP_CHUNK,
+                INT8_SWEEP_RES, SWEEP_CHUNK, lo, res.scene["max_bound"] - lo)
+            sa = (spts, *ia[1:])
+            srows, sw = hash_rows_weights(*sa)
+            sfeats = hv.packed_encode_kernel(iw, isc, *sa)
+            out["packed_forward/int8_exact_sweep_chunk"] = variant_record(
+                "packed_forward", f"int8 packed-exact, {mode}'s sweep chunk",
+                lambda: hv.packed_encode_kernel(iw, isc, *sa),
+                lambda: hv.packed_encode_plain(iw, isc, *sa), bit_for_bit,
+                nbytes(spts, iw, isc, sfeats),
+                forward_ops("hash_forward", itab, ih, SWEEP_CHUNK),
+                library=embedding_bag_call(flat, srows, sw))
+            sector_figure("packed_forward/int8_exact_sweep_chunk", srows)
+            del irows, erows, ew, flat, spts, srows, sw, sfeats
         sub = hash_encoding.draw_subsample(
             "hash_encode_stochastic_int8", ih, iL, m, device, gen)
         sel = (sub["pick"], sub.get("lsel"), sub.get("psel"))
@@ -2854,7 +2926,7 @@ def variant_kernel_checks(hash_pts, hash_scene, runs, device, tag):
     print("A/B on the hash path's points (ms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in ab.items())
           + f"; torch.sort of the 1-of-2 pairs {sort_ms:.4f} {tag}")
-    return out, ab, points
+    return out, ab, points, sectors
 
 
 def mode_name(h) -> str:
@@ -2896,10 +2968,11 @@ def walk_on_routed_grad(table, a, g, bits, pick, lsel=None, psel=None):
 
 def launch_list_phase(device, tag):
     """The device operations that one call of the int8 pack (the lpair
-    mode's table), the cell forward and the pairs kernel (1-of-2, L 16, F
-    2) runs on HASH_POINTS seeded points, by torch.profiler, before any
-    other phase profiles: each its one kernel, by name, and no memset or
-    copy.  A profiler that records nothing fails the check."""
+    mode's table), the cell forward, the pairs kernel (1-of-2, L 16, F 2)
+    and the packed-exact forward (the lpair mode's int8 words) runs on
+    HASH_POINTS seeded points, by torch.profiler, before any other phase
+    profiles: each its one kernel, by name, and no memset or copy.  A
+    profiler that records nothing fails the check."""
     from human_body_reconstruction_tpu_torch.cli import quality_holdout
     from human_body_reconstruction_tpu_torch.ops import (
         hash_encoding, hash_variants as hv)
@@ -2925,6 +2998,7 @@ def launch_list_phase(device, tag):
     pick = hash_encoding.draw_subsample("hash_encode_stochastic_packed", ph,
                                         L, n, device, gen)["pick"]
     g = torch.randn((n, L * F), generator=gen, device=device)
+    iw, isc = hv.pack_kernel(itab, "int8")
     calls = {"int8 pack": ("pack_int8_kernel",
                            lambda: hv.pack_kernel(itab, "int8")),
              "cell forward": ("cell_forward_kernel",
@@ -2932,7 +3006,10 @@ def launch_list_phase(device, tag):
                                                             sigma, ch)),
              "pairs": ("pairs_kernel",
                        lambda: hv.pairs_kernel(ptab, x, mu, sigma, ph, g,
-                                               bits, pick))}
+                                               bits, pick)),
+             "packed-exact forward": (
+                 "packed_exact_forward_kernel",
+                 lambda: hv.packed_encode_kernel(iw, isc, x, mu, sigma, ih))}
     for what, (name, fn) in calls.items():
         fn()                      # first use (attributes) outside the profile
         ops = device_ops(fn)
@@ -2971,7 +3048,7 @@ def variants_phase(work: str, device: torch.device, tag: str, hash_pts,
     their kernels held to their plain versions.  Returns (kernel records by
     name with their launches and shapes, the A/B times)."""
     from human_body_reconstruction_tpu_torch.cli import (
-        quality_holdout, serve, speedrun, train_hash)
+        nerf2mesh, quality_holdout, serve, speedrun, train_hash)
 
     t0 = time.perf_counter()
     runs = {mode: variant_mode_phase(mode, work, device, tag)
@@ -3011,6 +3088,24 @@ def variants_phase(work: str, device: torch.device, tag: str, hash_pts,
             math.isfinite(r["loss"]) for r in tr.history)
             and all(v >= SCATTER_STEPS for v in n.values()), (strategy, n))
         del tr
+    # train_hash --packed_exact: the bf16 words read by the packed-exact
+    # forward, one launch a step, the gradient the f32 table's
+    args = ["--synthetic", "--synthetic_subject", "textured", "--packed_exact",
+            "--steps", str(SCATTER_STEPS), "--log_every", str(SCATTER_STEPS),
+            "--device", str(device), "--out_dir", f"{work}/packed_exact",
+            "--model_name", "px"]
+    t1 = time.perf_counter()
+    tr, n = counted(variant_wrappers("hash_pack", "packed_forward",
+                                     "hash_backward"),
+                    lambda: train_hash.main(args))
+    launches["train_hash_packed_exact"] = n
+    print(f"train_hash --packed_exact: {tr.state.step} steps, PSNR "
+          f"{tr.history[-1]['psnr']:.2f} dB, launches {n}, "
+          f"{time.perf_counter() - t1:.1f} s {tag}")
+    check(tr.state.step == SCATTER_STEPS and all(
+        math.isfinite(r["loss"]) for r in tr.history)
+        and all(v >= SCATTER_STEPS for v in n.values()), ("packed_exact", n))
+    del tr
     # a frame of the int8 run served through the packed-exact read
     lpair = "int8_dense_guided_k32_mass_lpair"
     server = serve.RenderServer(serve.build_parser().parse_args([
@@ -3026,10 +3121,26 @@ def variants_phase(work: str, device: torch.device, tag: str, hash_pts,
     check(resp["ok"] and all(v > 0 for v in launches["serve_int8"].values()),
           (resp, launches["serve_int8"]))
     del server
+    # the int8 run meshed: its sweep reads the packed-exact route, a chunk a
+    # launch
+    stats, launches["sweep_int8"] = counted(
+        variant_wrappers("hash_pack", "packed_forward"),
+        lambda: nerf2mesh.main([
+            "--ckpt_dir", f"{work}/{lpair}", "--model_name", lpair,
+            "--resolution", str(INT8_SWEEP_RES), "--cache", "", "--out",
+            f"{work}/{lpair}.ply", "--device", str(device)]))
+    chunks = INT8_SWEEP_RES ** 3 // SWEEP_CHUNK
+    print(f"nerf2mesh of the {lpair} run at {INT8_SWEEP_RES}^3: sweep "
+          f"{stats['sweep_seconds']:.3f} s ({chunks} chunks), marching "
+          f"{stats['marching_seconds']:.3f} s, {stats['num_faces']} faces; "
+          f"launches {launches['sweep_int8']} {tag}")
+    check(launches["sweep_int8"]["packed_forward"] == chunks
+          and launches["sweep_int8"]["hash_pack"] > 0,
+          ("int8 sweep launches", launches["sweep_int8"], chunks))
     runs["data"] = quality_holdout.protocol_data(400, 400, 20, "textured",
                                                  device)
-    recs, ab, points = variant_kernel_checks(hash_pts, hash_scene, runs,
-                                             device, tag)
+    recs, ab, points, sectors = variant_kernel_checks(hash_pts, hash_scene,
+                                                      runs, device, tag)
     del runs
     torch.cuda.empty_cache()
     which = {"hash_pack/bf16_table": "packed_gsub",
@@ -3042,6 +3153,8 @@ def variants_phase(work: str, device: torch.device, tag: str, hash_pts,
              "hash_pack/int8_table": lpair,
              "packed_forward/int8_train_path": lpair,
              "packed_forward/int8_exact_path": "serve_int8",
+             "packed_forward/bf16_exact_train_path": "train_hash_packed_exact",
+             "packed_forward/int8_exact_sweep_chunk": "sweep_int8",
              "hash_backward/int8_lpair_path": lpair,
              "hash_backward/int8_lvl_path": "int8_dense_guided_lvl",
              "hash_pairs/bf16_gsub_train_path": "train_hash_segsum",
@@ -3053,6 +3166,8 @@ def variants_phase(work: str, device: torch.device, tag: str, hash_pts,
         report.append(entry(
             key, HASH_SOURCE, VARIANT_REPLACES[nm], launches[run][nm], *rec,
             f"{run_shape(key, points)}; launches in the {run} run"))
+        if key in sectors:
+            report[-1].update(zip(("sectors", "l2_sector_ms"), sectors[key]))
     print(f"hash-variant phase: {time.perf_counter() - t0:.1f} s")
     return report, ab
 
@@ -3062,6 +3177,11 @@ def run_shape(key: str, points: dict) -> str:
     "int8_lvl": count, "cell_protocol": count} of the int8 modes' and the
     cell mode's first-pass points."""
     table = " (the table)" if key.startswith("hash_pack") else ""
+    if key.endswith("/int8_exact_sweep_chunk"):
+        return (f"{SWEEP_CHUNK} lattice points (k fastest) of the middle chunk"
+                f" of an {INT8_SWEEP_RES}^3 mesh sweep of the "
+                "int8_dense_guided_k32_mass_lpair run, 6 hashed levels, F 4, T "
+                "2^16, packed-exact")
     if key.endswith("/protocol_path"):
         return (f"{points['cell_protocol']} first-pass points of a "
                 f"{PROTOCOL_RAYS}-ray batch of cell (128 samples a ray), L "

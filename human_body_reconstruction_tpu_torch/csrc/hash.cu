@@ -115,13 +115,33 @@
 //    hold the level in registers, reduce the max through distributed shared
 //    memory and quantise what they hold, so the table is read once and no
 //    scale is zeroed, finished or read back by other launches;
-//  * hbr_hash_packed_forward: hbr_hash_forward's kernel reading one word a
-//    (corner, level) through a row source that unpacks it (bf16: the half
-//    shifted into an f32; int8: the signed byte times s_l / 127), in
-//    stochastic mode (the same corner bits) or exact (the packed-exact
-//    trilerp: f32 weights, the sum over c = 0..7 from 0).  Its backward is
-//    hbr_hash_backward's (straight-through: the f32 master table's
-//    gradient);
+//  * hbr_hash_packed_forward: in stochastic mode hbr_hash_forward's kernel
+//    reading one word a (point, level) through a row source that unpacks it
+//    (bf16: the half shifted into an f32; int8: the signed byte times s_l /
+//    127), the same corner bits; in exact mode (the packed-exact trilerp:
+//    f32 weights, the sum over c = 0..7 from 0, the JAX
+//    hash_encode_packed_exact:312) packed_exact_forward_kernel.  The exact
+//    read must move the points, the words and the features once (108 B a
+//    point and 1.5 MB at the int8 frame's 524,288 points, L 6, F 4: 0.017
+//    ms of HBM), but it gathers 8 words a (point, level) from random rows.
+//    The x prime being 1, the x0 + 1 corner of a (y, z) pair sits at row h
+//    ^ dm, dm = (x0 ^ (x0 + 1)) & mask, so a pair's rows share an aligned
+//    8-byte pair when x0 is even and a 32-byte sector 3/4 of the time: 4.5
+//    distinct sectors a (point, level).  The kernel reads each pair as one
+//    8-byte load (its x0 + 1 word alone when x0 is odd), keeps the words
+//    packed until the sum and takes s_l / 127 once a block (the old loop,
+//    hash_forward_kernel's, divided for every corner).  What binds it is
+//    the L2's rate of serving scattered sector requests (about 138G a second
+//    on this card, whatever the load's width, against 760G from an
+//    L1-resident buffer): its loads alone take 0.109 of its 0.113 ms on ray
+//    points, at 4.5 sectors a (point, level), where the old loop took 0.126
+//    (PERF.md).  Not kept (slower or no faster):
+//    16-byte chunks, unpacking the words as they arrive, G 2 or 4 threads a
+//    point, level groups as the grid's slowest index, one block a SM
+//    walking the levels in lockstep so that L1 holds one level, and int8
+//    bytes turned into floats through the float's bits in place of a
+//    conversion.  The backward of both reads is hbr_hash_backward's
+//    (straight-through: the f32 master table's gradient);
 //  * hbr_hash_cell_forward / _backward: the "cell" variant (JAX
 //    hash_encode_cell:195; the backward stands for the autodiff scatter of
 //    its row gather), one hash of the cell's corner 0 and one row of 8F
@@ -204,6 +224,15 @@ constexpr int HASH_FWD_GROUPS = 4;  // threads a point, stochastic forward
 // for, the rest kept as L1 for the corner gathers (PERF.md: 38 read 1-2%
 // faster than 50, and 0.21 against 0.28 ms unset on a serving chunk).
 constexpr int HASH_FWD_EXACT_CARVEOUT = 38;
+// The packed-exact forward (packed_exact_forward_kernel): points a block
+// takes times the threads a point, those threads, the bytes of the chunk
+// each corner pair's load reads (8: the pair's aligned words; 16 and 4 were
+// no faster), and its shared-memory carveout (16 and 25 read 1-2% faster on
+// ray points and 8% slower on a sweep chunk, PERF.md).
+constexpr int PX_THREADS = 128;
+constexpr int PX_GROUPS = 1;
+constexpr int PX_LOAD = 8;
+constexpr int PX_CARVEOUT = 38;
 constexpr int HASH_BWD_THREADS = 256;
 constexpr int HASH_RUN = 16;           // consecutive points a backward thread walks
 constexpr int ROUTED_BATCH = 4;        // terms a routed-backward thread reads at once
@@ -302,28 +331,50 @@ struct F32Rows {  // the (L, T, F) f32 table
   }
 };
 
-struct Bf16Words {  // (L * T,) uint32: feature f in bits [16f, 16f + 16)
+// The packed words (L * T,) uint32: word(row) and chunk<Chunk>(row) read
+// them raw (a chunk of 2 or 4 words from an aligned row), mult(l) is level
+// l's unpacking factor and unpack<F>(w, m, v) turns one word into F f32
+// features; load<F>(l, row, v) does all three for one row.
+struct PackedWords {
   const unsigned* __restrict__ words;
-  template <int F>
-  __device__ __forceinline__ void load(int, long long row, float* v) const {
-    static_assert(F == 2, "bf16 words hold two features");
-    const unsigned w = __ldg(words + row);
-    v[0] = __uint_as_float(w << 16);
-    v[1] = __uint_as_float(w & 0xFFFF0000u);
+  __device__ __forceinline__ unsigned word(long long row) const {
+    return __ldg(words + row);
+  }
+  template <class Chunk>
+  __device__ __forceinline__ Chunk chunk(long long row) const {
+    return __ldg(reinterpret_cast<const Chunk*>(words + row));
   }
 };
 
-struct Int8Words {  // (L * T,) uint32: feature f in byte f; scale (L,)
-  const unsigned* __restrict__ words;
-  const float* __restrict__ scale;
+struct Bf16Words : PackedWords {  // feature f in bits [16f, 16f + 16)
+  __device__ __forceinline__ float mult(int) const { return 1.0f; }
+  template <int F>
+  __device__ __forceinline__ void unpack(unsigned w, float, float* v) const {
+    static_assert(F == 2, "bf16 words hold two features");
+    v[0] = __uint_as_float(w << 16);
+    v[1] = __uint_as_float(w & 0xFFFF0000u);
+  }
   template <int F>
   __device__ __forceinline__ void load(int l, long long row, float* v) const {
+    unpack<F>(word(row), mult(l), v);
+  }
+};
+
+struct Int8Words : PackedWords {  // feature f in byte f; scale (L,)
+  const float* __restrict__ scale;
+  __device__ __forceinline__ float mult(int l) const {
+    return __fdiv_rn(__ldg(scale + l), 127.0f);  // JAX scale / 127.0
+  }
+  template <int F>
+  __device__ __forceinline__ void unpack(unsigned w, float m, float* v) const {
     static_assert(F <= 4, "int8 words hold at most four features");
-    const unsigned w = __ldg(words + row);
-    const float m = __fdiv_rn(__ldg(scale + l), 127.0f);  // JAX scale / 127.0
 #pragma unroll
     for (int f = 0; f < F; ++f)
       v[f] = __fmul_rn((float)(int)(signed char)((w >> (8 * f)) & 0xFFu), m);
+  }
+  template <int F>
+  __device__ __forceinline__ void load(int l, long long row, float* v) const {
+    unpack<F>(word(row), mult(l), v);
   }
 };
 
@@ -441,6 +492,139 @@ hash_forward_kernel(WorldPoints pts, Rows rows,
   }
   __syncthreads();
   store_rows(s_rows, C, p0, n, P, out, out_stride);
+}
+
+// The corner words of one (point, level) of the packed-exact forward, as
+// loaded.  The x prime being 1, corner 2k + 1 (x0 + 1) of the k-th (y, z)
+// pair sits at row h[k] ^ dm, dm = (x0 ^ (x0 + 1)) & mask, where corner 2k
+// (x0) sits at h[k].  A pair's load reads the LOAD-byte chunk of LOAD / 4
+// words that holds row h[k] (aligned: level offsets are multiples of T); row
+// h[k] ^ dm lies in the same chunk when dm < LOAD / 4 (LOAD 8: x0 even, half
+// the (point, level)s; LOAD 16: x0 % 4 != 3, three quarters), else it is read
+// alone into far[k].  So a (point, level) asks for 4 loads, or 8 when x0's
+// carry leaves the chunk, where 8 separate rows asked for 8.
+template <int LOAD>
+struct CornerWords {
+  static constexpr unsigned Q = LOAD / 4;  // words a chunk
+  using Chunk = std::conditional_t<LOAD == 16, uint4,
+                                   std::conditional_t<LOAD == 8, uint2, unsigned>>;
+  Chunk q[4];
+  unsigned far[4];
+  unsigned lo[4];  // h[k] % Q
+  unsigned dm;
+
+  template <class Words>
+  __device__ __forceinline__ void load(const Words& words, long long base, const int* x0,
+                                       unsigned mask) {
+    const unsigned c0 = (unsigned)x0[0];
+    dm = (c0 ^ (c0 + 1u)) & mask;
+    const bool near = dm < Q;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned h = hash3(c0, (unsigned)x0[1] + (unsigned)(k & 1),
+                               (unsigned)x0[2] + (unsigned)(k >> 1), mask);
+      lo[k] = h & (Q - 1);
+      q[k] = words.template chunk<Chunk>(base + (h & ~(Q - 1)));
+      far[k] = near ? 0u : words.word(base + (h ^ dm));
+    }
+  }
+
+  static __device__ __forceinline__ unsigned pick(uint4 v, unsigned i) {
+    return i & 2 ? (i & 1 ? v.w : v.z) : (i & 1 ? v.y : v.x);
+  }
+  static __device__ __forceinline__ unsigned pick(uint2 v, unsigned i) {
+    return i & 1 ? v.y : v.x;
+  }
+  static __device__ __forceinline__ unsigned pick(unsigned v, unsigned) { return v; }
+
+  // Corner c's word (offset bit d of c is (c >> d) & 1).
+  __device__ __forceinline__ unsigned word(int c) const {
+    const int k = c >> 1;
+    if (!(c & 1)) return pick(q[k], lo[k]);
+    return dm < Q ? pick(q[k], lo[k] ^ dm) : far[k];
+  }
+};
+
+// The eight corners' words of a (point, level) unpacked into F f32 features
+// each, with the level's factor m.
+template <int F, int LOAD, class Words>
+__device__ __forceinline__ void unpack_corners(const Words& words,
+                                               const CornerWords<LOAD>& cw, float m,
+                                               float (*v)[F]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) words.template unpack<F>(cw.word(c), m, v[c]);
+}
+
+// The packed-exact forward (3-D): out[p, l*F + f], row stride out_stride,
+// from words (Bf16Words, Int8Words) at level l's first row lv.offset[l]: the
+// sum over corners c = 0..7 of unpack(word_c) * w_c from 0 (exact_sum).  A
+// block takes P = PX_THREADS / G points and a group of `group` levels, the
+// group the grid's slowest index (block b: tile b % tiles, group b /
+// tiles); the G threads of a point take every G-th level of the group, the
+// point fastest, asking for the next level's corner words
+// (CornerWords<LOAD>) before summing this level's.  RAW keeps those words
+// packed until the sum (8 to 24 registers a level in flight); else they are
+// unpacked into 8F floats as they are asked for.  The levels' unpacking
+// factors are computed once a block.
+template <int F, int G, int LOAD, bool RAW, class Words>
+__global__ void __launch_bounds__(PX_THREADS)
+packed_exact_forward_kernel(WorldPoints pts, Words words, long long n, int T, HbrLevels lv,
+                            int group, long long tiles, float* __restrict__ out,
+                            long long out_stride) {
+  constexpr int P = PX_THREADS / G;
+  extern __shared__ float s_rows[];  // (P, width * F + 1)
+  __shared__ float s_mult[HBR_MAX_LEVELS];
+  const int gi = (int)(blockIdx.x / tiles);
+  const long long p0 = (long long)(blockIdx.x - gi * tiles) * P;
+  const int l0 = gi * group;
+  const int l1 = min(l0 + group, lv.n_levels);
+  const int C = (l1 - l0) * F;
+  if (threadIdx.x < lv.n_levels) s_mult[threadIdx.x] = words.mult(threadIdx.x);
+  __syncthreads();
+  const int i = threadIdx.x % P;
+  const long long p = p0 + i;
+  const unsigned mask = (unsigned)(T - 1);
+  int l = l0 + threadIdx.x / P;
+  if (p < n && l < l1) {
+    float xn[3];
+    pts.at<3>(p, xn);
+    float* dst = s_rows + i * (C + 1);
+    int x0[3];
+    float fr[3], v[8][F];
+    level_cell<3>(xn, lv.scale[l], x0, fr);
+    CornerWords<LOAD> cw;
+    cw.load(words, lv.offset[l], x0, mask);
+    if constexpr (!RAW) unpack_corners<F>(words, cw, s_mult[l], v);
+    for (;;) {
+      const int nl = l + G;
+      float nfr[3], nv[8][F];
+      CornerWords<LOAD> ncw;
+      if (nl < l1) {
+        level_cell<3>(xn, lv.scale[nl], x0, nfr);
+        ncw.load(words, lv.offset[nl], x0, mask);
+        if constexpr (!RAW) unpack_corners<F>(words, ncw, s_mult[nl], nv);
+      }
+      if constexpr (RAW) unpack_corners<F>(words, cw, s_mult[l], v);
+      float acc[F];
+      exact_sum<F, 3>(v, fr, acc);
+#pragma unroll
+      for (int f = 0; f < F; ++f) dst[(l - l0) * F + f] = acc[f];
+      if (nl >= l1) break;
+      l = nl;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) fr[d] = nfr[d];
+      if constexpr (RAW) {
+        cw = ncw;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+#pragma unroll
+          for (int f = 0; f < F; ++f) v[c][f] = nv[c][f];
+      }
+    }
+  }
+  __syncthreads();
+  store_rows(s_rows, C, p0, n, P, out + l0 * F, out_stride);
 }
 
 // Adds a row's F values into a level's gradient in L2 (all-zero skipped:
@@ -1342,6 +1526,35 @@ static int launch_hash_forward(const WorldPoints& pts, const Rows& rows,
   return (int)cudaGetLastError();
 }
 
+// The packed-exact forward: one block a (tile of PX_THREADS / G points,
+// group of `group` levels), the carveout percent of the SM's memory asked
+// for as shared memory.  Words must start LOAD-byte aligned and T hold
+// whole chunks.
+template <int F, int G = PX_GROUPS, int LOAD = PX_LOAD, bool RAW = true, class Words>
+static int launch_packed_exact(const WorldPoints& pts, const Words& words, long long n,
+                               int T, const HbrLevels& lv, int group, int carveout,
+                               float* out, long long out_stride, cudaStream_t s) {
+  const auto kernel = packed_exact_forward_kernel<F, G, LOAD, RAW, Words>;
+  constexpr int P = PX_THREADS / G;
+  const size_t smem = (size_t)P * (group * F + 1) * sizeof(float);
+  const long long tiles = (n + P - 1) / P;
+  const long long blocks = tiles * ((lv.n_levels + group - 1) / group);
+  if (reinterpret_cast<unsigned long long>(words.words) % LOAD || T % (LOAD / 4) ||
+      group < 1 || blocks >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             carveout);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)blocks, PX_THREADS, smem, s>>>(pts, words, n, T, lv, group, tiles, out,
+                                                    out_stride);
+  return (int)cudaGetLastError();
+}
+
 template <int F, bool STOCH, int DIM>
 static int launch_hash_backward(const WorldPoints& pts, const unsigned char* bits,
                                 const float* g, long long g_stride, long long n, int T,
@@ -1570,7 +1783,9 @@ int hbr_hash_pack(const float* table, long long L, long long T, int features,
 
 // The packed forward (3-D): words (L * T,) uint32 from hbr_hash_pack (format
 // 0 bf16, F 2; 1 int8, F 1 to 4, with its scale (L,)); stochastic given u (3,
-// L, n) and bits (L, n), packed-exact with both null.
+// L, n) and bits (L, n); packed-exact with both null, its words from a
+// PX_LOAD-byte aligned address and T a multiple of PX_LOAD / 4
+// (cudaErrorInvalidValue else).
 int hbr_hash_packed_forward(const float* x, const float* mu, const float* sigma,
                             const unsigned* words, const float* scale, const float* u,
                             long long n, int table_size, int features, int format,
@@ -1583,21 +1798,21 @@ int hbr_hash_packed_forward(const float* x, const float* mu, const float* sigma,
   const WorldPoints pts{x, mu, sigma, 1};
   const cudaStream_t s = (cudaStream_t)stream;
   if (format == 0) {
-    const Bf16Words rows{words};
+    const Bf16Words rows{{words}};
     if (u != nullptr)
       return launch_hash_forward<2, true, 3>(pts, rows, u, n, table_size, *lv, out,
                                              out_stride, bits, s);
-    return launch_hash_forward<2, false, 3>(pts, rows, u, n, table_size, *lv, out,
-                                            out_stride, bits, s);
+    return launch_packed_exact<2>(pts, rows, n, table_size, *lv, lv->n_levels,
+                                  PX_CARVEOUT, out, out_stride, s);
   }
-  const Int8Words rows{words, scale};
+  const Int8Words rows{{words}, scale};
   return with_word_features(features, [&](auto f) {
     constexpr int F = decltype(f)::value;
     if (u != nullptr)
       return launch_hash_forward<F, true, 3>(pts, rows, u, n, table_size, *lv, out,
                                              out_stride, bits, s);
-    return launch_hash_forward<F, false, 3>(pts, rows, u, n, table_size, *lv, out,
-                                            out_stride, bits, s);
+    return launch_packed_exact<F>(pts, rows, n, table_size, *lv, lv->n_levels,
+                                  PX_CARVEOUT, out, out_stride, s);
   });
 }
 

@@ -182,7 +182,9 @@ def packed_encode_kernel(words, scale, x, mu, sigma, cfg: HashConfig, u=None,
     """Packed forward wrapper: CPU tensors -> ``packed_encode_plain``; CUDA
     tensors -> ``hbr_hash_packed_forward``.  ``out`` as for
     ``hash_kernel.hash_encode_kernel``.  Returns the packed-exact features,
-    or, given u, (features, bits)."""
+    or, given u, (features, bits).  The packed-exact kernel reads the words
+    in aligned pairs: on the card they must start 8-byte aligned (the call
+    raises otherwise; ``pack_kernel``'s words do)."""
     F, fmt = cfg.features_per_level, cfg.pack_format
     L, T = len(_scales(cfg, scales)), cfg.table_size
     _check_format(fmt, F)
@@ -217,8 +219,8 @@ def packed_encode_kernel(words, scale, x, mu, sigma, cfg: HashConfig, u=None,
             out.data_ptr(), out.stride(0),
             None if bits is None else bits.data_ptr(),
             cuda_lib.stream_handle(x.device))
-        packed_encode_kernel.launches += 1
         cuda_lib.check(code, "hbr_hash_packed_forward")
+        packed_encode_kernel.launches += 1
     return out if u is None else (out, bits)
 
 

@@ -197,24 +197,50 @@ def test_packed_stochastic_forward_matches_jax(kind):
 
 
 # Exact trilerps summed over the same 8 corners in JAX's order: rtol 0,
-# atol 1e-6.
-@pytest.mark.parametrize("kind", ["bf16", "int8", "cell"])
+# atol 1e-6.  The packed-exact cases hold the plain version, and so the
+# kernel held to it bit for bit on the card, on what its word loads depend
+# on: int8 at F 1 and 3, points spread over [-1.5, 2.5)^3 of normalised
+# coordinates, most outside the unit box (their cells wrap, negative ones
+# among them; x0 at every residue mod 4 on every level),
+# and a slice of two of the four levels given their scales, as
+# ``--level_parallel`` hands a rank its table slice.
+@pytest.mark.parametrize("kind", ["bf16", "int8", "cell", "int8_f1",
+                                  "int8_f3", "bf16_outside", "int8_outside",
+                                  "int8_level_slice"])
 def test_packed_exact_and_cell_forwards_match_jax(kind):
     if kind == "cell":
         cfg = vcfg(variant="cell")
         fn = jhe.hash_encode_cell
     else:
-        cfg = vcfg(**(BF16 if kind == "bf16" else INT8))
+        cfg = vcfg(**(BF16 if kind.startswith("bf16") else INT8))
+        if kind in ("int8_f1", "int8_f3"):
+            cfg = dataclasses.replace(cfg, features_per_level=int(kind[-1]))
         fn = jhe.hash_encode_packed_exact
     table, x = table_for(cfg, 2), points(2)
     assert table.shape[-1] == (16 if kind == "cell" else
                                cfg.features_per_level)
-    ref = np.asarray(fn(*jargs(table, x), cfg))
-    port = port_encode(t(table), x, cfg)
-    assert port.shape == ref.shape == (N, 4 * cfg.features_per_level)
+    F = cfg.features_per_level
+    if kind.endswith("outside"):
+        rng = np.random.default_rng(5)
+        xn = rng.uniform(-1.5, 2.5, (N, 3))
+        x = (MU + xn * SIGMA).astype(np.float32)
+        x0 = np.floor(xn[:, 0:1] * np.asarray(C.fine_scales(cfg))[None])
+        assert set(np.unique(x0 % 4)) == {0, 1, 2, 3}
+    if kind.endswith("level_slice"):
+        scales = C.fine_scales(cfg)[2:4]
+        table = table[2:4]
+        kw = {"scales": jnp.asarray(scales)}
+        ref = np.asarray(fn(*jargs(table, x), cfg, **kw))
+        words, scale = hv.pack_kernel(t(table), cfg.pack_format)
+        port = hv.packed_encode_kernel(words, scale, t(x), t(MU), t(SIGMA),
+                                       cfg, scales=scales)
+    else:
+        kw = {}
+        ref = np.asarray(fn(*jargs(table, x), cfg))
+        port = port_encode(t(table), x, cfg)
+    assert port.shape == ref.shape == (N, table.shape[0] * F)
     np.testing.assert_allclose(port.numpy(), ref, rtol=0, atol=1e-6)
-    exact = jhe.hash_encode(*jargs(table[..., :cfg.features_per_level], x),
-                            cfg)
+    exact = jhe.hash_encode(*jargs(table[..., :F], x), cfg, **kw)
     assert np.abs(ref - np.asarray(exact)).max() > 1e-3
 
 

@@ -967,29 +967,83 @@ def test_pack_kernel_matches_plain_bit_for_bit(cuda_device, fmt, features):
     assert hash_variants.pack_kernel.launches == n_p + len(shapes)
 
 
+def packed_case(device, n, order, fmt, features, seed):
+    """(words, scale, (x, mu, sigma, cfg), u, scales) of a packed-forward
+    case: points in ray order, at random, on a lattice that puts x0 at
+    every residue mod 4 on every level (n >= 1000), or spread over [-1.5,
+    2.5)^3 of normalised coordinates, most outside the unit box (negative
+    ones among them, and some outside on every axis); T 2^4 (every
+    corner pair in a slot of 16 rows); a slice of two of the four levels at
+    their scales (as ``--level_parallel`` hands a rank its table slice);
+    and, "unaligned", words at an odd 4-byte offset."""
+    log2_t = 4 if order == "t16" else 10
+    table, args, u, _ = variant_inputs(
+        device, n, "random" if order in ("random", "outside") else "rays",
+        features, log2_t=log2_t, seed=seed,
+        **(INT8_FLAGS if fmt == "int8" else BF16_FLAGS))
+    x, mu, sigma, cfg = args
+    scales = None
+    if order == "lattice":
+        i = torch.arange(n, dtype=torch.float64)
+        xn = torch.stack([(i + 0.5) / n, ((7 * i) % n + 0.5) / n,
+                          ((13 * i) % n + 0.5) / n], -1)
+        x = (mu.cpu() + xn.float() * sigma.cpu()).to(device)
+        for s in hash_kernel._scales(cfg):
+            x0 = hash_kernel.level_coords(dense_grid.normalise(x, mu, sigma),
+                                          float(s))[0][:, 0]
+            assert n < 1000 or len(torch.unique(x0 % 4)) == 4
+    elif order == "outside":
+        rng = np.random.default_rng(seed)
+        xn = torch.tensor(rng.uniform(-1.5, 2.5, (n, 3)), dtype=torch.float32)
+        x = (mu.cpu() + xn * sigma.cpu()).to(device)
+        assert n < 1000 or bool((xn < 0).any() and (xn > 1).all(-1).any())
+    elif order == "level_slice":
+        scales = hash_kernel._scales(cfg)[2:4]
+        u = u[:, 2:4].contiguous()
+        table = table[2:4].contiguous()
+    words, scale = hash_variants.pack_kernel(table, fmt)
+    if order == "unaligned":
+        wide = torch.empty(words.numel() + 1, dtype=words.dtype, device=device)
+        wide[1:] = words
+        words = wide[1:]
+        assert words.data_ptr() % 8 == 4
+    return words, scale, (x, mu, sigma, cfg), u, scales
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("order", ["rays", "random"])
+@pytest.mark.parametrize("order", ["rays", "random", "lattice", "outside",
+                                   "t16", "level_slice", "unaligned"])
 @pytest.mark.parametrize("mode", ["exact", "stoch"])
 @pytest.mark.parametrize("fmt,features", [("bf16", 2), ("int8", 2),
-                                          ("int8", 4)])
+                                          ("int8", 4), ("int8", 1),
+                                          ("int8", 3)])
 def test_packed_forward_kernel_matches_plain(cuda_device, fmt, features, mode,
                                              order):
     """The packed forward (stochastic, and the packed-exact read) bit for
     bit with its plain version into a column block of a NaN-filled wider
     matrix, the stochastic corner bits too; N below a block, not a
-    multiple of one, and larger."""
+    multiple of one, and larger; on the points, tables and level slices of
+    ``packed_case``.  The packed-exact read takes its words in aligned
+    pairs: at an odd 4-byte offset it raises and counts no launch (the
+    stochastic read takes them)."""
     n_f = hash_variants.packed_encode_kernel.launches
     for n in (5, 1000, 20_011):
-        table, args, u, _ = variant_inputs(
-            cuda_device, n, order, features, seed=n,
-            **(INT8_FLAGS if fmt == "int8" else BF16_FLAGS))
-        words, scale = hash_variants.pack_kernel(table, fmt)
+        words, scale, args, u, scales = packed_case(cuda_device, n, order, fmt,
+                                                    features, seed=n)
         uu = u if mode == "stoch" else None
-        c = 4 * features
+        c = (2 if scales is not None else 4) * features
         out = torch.full((n, c + 6), float("nan"), device=cuda_device)
+        if order == "unaligned" and uu is None:
+            with pytest.raises(RuntimeError, match="hbr_hash_packed_forward"):
+                hash_variants.packed_encode_kernel(words, scale, *args,
+                                                   out=out[:, 2:2 + c])
+            n_f -= 1
+            continue
         got = hash_variants.packed_encode_kernel(words, scale, *args, u=uu,
-                                                 out=out[:, 2:2 + c])
-        want = hash_variants.packed_encode_plain(words, scale, *args, u=uu)
+                                                 out=out[:, 2:2 + c],
+                                                 scales=scales)
+        want = hash_variants.packed_encode_plain(words, scale, *args, u=uu,
+                                                 scales=scales)
         torch.cuda.synchronize()
         if uu is not None:
             assert torch.equal(got[1], want[1])
@@ -1228,7 +1282,7 @@ def test_sub_backward_and_sorted_scatters_match_plain(cuda_device, fmt,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["cell", "bf16_gsub", "int8_lpair_segsum",
-                                  "packed_exact_int8"])
+                                  "packed_exact_int8", "packed_exact_bf16"])
 def test_variant_encodes_on_the_card_match_the_cpu(cuda_device, case):
     """``encode_params`` of each variant with the same draws on the card
     (kernels) and the CPU (plain versions): features bit for bit, the table
@@ -1239,7 +1293,9 @@ def test_variant_encodes_on_the_card_match_the_cpu(cuda_device, case):
                                        grad_level_pair=True,
                                        scatter_strategy="segsum"),
              "packed_exact_int8": dict(packed=True, packed_exact_train=True,
-                                       pack_format="int8")}[case]
+                                       pack_format="int8"),
+             "packed_exact_bf16": dict(packed=True,
+                                       packed_exact_train=True)}[case]
     n = 20_011
     table, (x, mu, sigma, cfg), u, draws = variant_inputs(
         cuda_device, n, "rays", 4 if "int8" in case else 2, seed=7, **flags)
