@@ -353,7 +353,10 @@ class ModeRun:
     generator seeded ``seed`` (init and sampling), the optimizer over a
     ``max_steps`` horizon, and the occupancy grid, pending until
     ``install`` (``warmup``: the step count that installs it, None without
-    one).  ``refresh`` draws ``refresh_cells`` cells and records the
+    one).  ``step`` takes one step, ``window(n)`` n (JAX
+    ``train_step_multi``: on the card replays of one captured step).
+    ``refresh`` draws ``refresh_cells`` cells, writes them into the
+    installed grid's storage (which a captured step reads) and records the
     occupied fraction in ``trace``."""
 
     def __init__(self, name: str, cfg: C.PipelineConfig, data, H: int,
@@ -383,6 +386,7 @@ class ModeRun:
         self.warmup = (self.cfg.train.occ_warmup_steps
                        if self.pending is not None else None)
         self.trace = []          # (steps, occupied fraction) per refresh
+        self.graph = None        # the window's captured step
 
     def step(self):
         from human_body_reconstruction_tpu_torch.train import step as step_lib
@@ -392,13 +396,24 @@ class ModeRun:
                                    d["train_poses"], d["K"], self.cfg,
                                    self.batch, self.gen)
 
+    def window(self, n: int):
+        """n steps; the window's mean metrics."""
+        from human_body_reconstruction_tpu_torch.train import step as step_lib
+
+        if self.graph is None:
+            self.graph = step_lib.WindowGraph()
+        d = self.data
+        return step_lib.train_step_multi(
+            self.state, self.scene, d["train_imgs"], d["train_poses"], d["K"],
+            self.cfg, self.batch, n, self.gen, graph=self.graph)
+
     def refresh(self, steps: int, install: bool):
         from human_body_reconstruction_tpu_torch.ops import occupancy
 
         grid = self.pending if install else self.state.occ
-        self.state.occ = occupancy.update_from_field(
+        self.state.occ = occupancy.write_(grid, occupancy.update_from_field(
             grid, self.state.field, self.scene, self.cfg,
-            num_cells=refresh_cells(grid), generator=self.gen)
+            num_cells=refresh_cells(grid), generator=self.gen))
         self.trace.append((steps, occupancy.occupied_fraction(
             self.state.occ)))
         if install:

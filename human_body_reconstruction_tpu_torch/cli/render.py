@@ -20,8 +20,10 @@ seeded 0, the same for every chunk (JAX: one fixed key); --use_sdf names
 an SDF model when there is no saved config.  --gif writes
 a turntable GIF through Pillow, imported only then; without Pillow it
 exits with a message.  The port adds ``--device`` (default cuda; without a
-card it exits unless given ``--device cpu``).  Refused: ``--fused`` and
-``--aot_cache`` (JAX dispatch devices; the port renders in eager chunks).
+card it exits unless given ``--device cpu``).  ``--fused`` renders each
+frame as one dispatch (``step.render_image_fused``: on the card the replay
+of a captured frame, the same chunks as the eager loop; on the CPU the eager
+loop).  Refused: ``--aot_cache`` (the JAX compile cache).
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.render \\
           --ckpt_dir results --model_name default --orbit 12 \\
@@ -63,7 +65,9 @@ def build_parser():
     p.add_argument("--hierarchical", action="store_true")
     p.add_argument("--chunk", type=int, default=16384)
     p.add_argument("--fused", action="store_true",
-                   help="not ported (a JAX one-dispatch frame); refused")
+                   help="whole-frame one-dispatch render "
+                        "(render_image_fused: a captured CUDA graph a frame "
+                        "shape); mutually exclusive with --aot_cache")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 MLP compute during render (as in "
                         "training)")
@@ -114,11 +118,9 @@ def build_parser():
 
 def check_supported(args):
     """Refuse what the port cannot run, before any work starts."""
-    for flag, what in (("fused", "--fused (a JAX one-dispatch frame; the "
-                                 "port renders in eager chunks)"),
-                       ("aot_cache", "--aot_cache (the JAX compile cache)")):
-        if getattr(args, flag):
-            raise SystemExit(f"{what} is not ported to the PyTorch package")
+    if args.aot_cache:
+        raise SystemExit("--aot_cache (the JAX compile cache) is not ported "
+                         "to the PyTorch package")
 
 
 def cameras_from_args(args):
@@ -207,13 +209,23 @@ def main(argv=None):
     tag = args.tag or args.model_name
     K_t = torch.as_tensor(K, device=device)
     views, psnrs, frames = [], [], []
+    graphs = step_lib.FrameGraphs()
     t0 = time.perf_counter()
     for i in idx:
-        img = step_lib.render_image(
-            res.field, res.scene, H, W, K_t,
-            torch.as_tensor(c2ws[i], device=device), cfg, occ=occ,
-            num_samples=args.num_samples, hierarchical=args.hierarchical,
-            chunk=args.chunk, bf16=args.bf16).cpu().numpy()
+        if args.fused:
+            img = step_lib.render_image_fused(
+                res.field, res.scene, H, W, K_t,
+                torch.as_tensor(c2ws[i], device=device), cfg, occ=occ,
+                num_samples=args.num_samples, hierarchical=args.hierarchical,
+                chunk=min(args.chunk, H * W), bf16=args.bf16,
+                graphs=graphs).cpu().numpy()
+        else:
+            img = step_lib.render_image(
+                res.field, res.scene, H, W, K_t,
+                torch.as_tensor(c2ws[i], device=device), cfg, occ=occ,
+                num_samples=args.num_samples,
+                hierarchical=args.hierarchical, chunk=args.chunk,
+                bf16=args.bf16).cpu().numpy()
         path = os.path.join(args.out_dir, f"{tag}_{i:04d}.png")
         frame = (np.clip(img, 0, 1) * 255).astype(np.uint8)
         png.write_png(path, frame)

@@ -22,9 +22,11 @@ Response: {"ok": true, "wall_s", "rays_per_sec", "H", "W", ...} or
 The server runs on the card (``--device cuda``, the default) unless given
 ``--device cpu``; without a card and without that flag it exits.  The
 JAX server's flags are all taken: ``--use_sdf`` names an SDF model when the
-run directory has no saved config; ``--no_fused`` is accepted, the
-per-chunk ``render_image`` being the port's only render path;
-``--aot_cache`` (the JAX compile cache) is refused.
+run directory has no saved config.  A frame, and a ``batch`` of poses, is
+one dispatch by default (``step.render_poses_fused``: on the card the replay
+of a graph captured at the first request of its shape, the same chunks as
+the eager loop; on the CPU the eager loop); ``--no_fused`` renders eager
+chunks; ``--aot_cache`` (the JAX compile cache) is refused.
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.serve \\
           --ckpt_dir results --model_name flagship --use_occ --eval_guided 48
@@ -87,8 +89,8 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; without a CUDA card pass --device cpu")
     p.add_argument("--no_fused", action="store_true",
-                   help="accepted: the per-chunk render_image is the port's "
-                        "only render path")
+                   help="render eager chunks instead of the captured "
+                        "one-dispatch frame")
     p.add_argument("--warmup", action="store_true",
                    help="render one default-size view at startup")
     p.add_argument("--port", type=int, default=0,
@@ -133,6 +135,7 @@ class RenderServer:
             raise SystemExit("--eval_guided needs the trained occupancy "
                              "grid: pass --use_occ (and train with "
                              "occupancy enabled)")
+        self.frames = step_lib.FrameGraphs()
         self.n_served = 0
         self.rays_served = 0
         self.render_s = 0.0
@@ -189,11 +192,17 @@ class RenderServer:
                           [0, 0, 1]], dtype=torch.float32, device=self.device)
         P = poses.shape[0]
         t0 = time.perf_counter()
-        imgs = step_lib.render_poses(
-            self.field, self.scene, H, W, K,
-            torch.as_tensor(poses, device=self.device), cfg, occ=self.occ,
-            num_samples=S, chunk=min(a.chunk, P * H * W),
-            bf16=not a.fp32).cpu().numpy()
+        kw = dict(occ=self.occ, num_samples=S, chunk=min(a.chunk, P * H * W),
+                  bf16=not a.fp32)
+        c2ws = torch.as_tensor(poses, device=self.device)
+        if a.no_fused:
+            imgs = step_lib.render_poses(self.field, self.scene, H, W, K,
+                                         c2ws, cfg, **kw)
+        else:
+            imgs = step_lib.render_poses_fused(
+                self.field, self.scene, H, W, K, c2ws, cfg,
+                graphs=self.frames, **kw)
+        imgs = imgs.cpu().numpy()
         wall = time.perf_counter() - t0
         self.n_served += P
         self.rays_served += P * H * W
@@ -231,6 +240,7 @@ class RenderServer:
                 "served": self.n_served, "rays_served": self.rays_served,
                 "render_s_total": round(self.render_s, 2),
                 "use_occ": self.occ is not None,
+                "fused": not self.args.no_fused,
                 "default_eval_guided": self.args.eval_guided}
 
     def handle(self, req: dict) -> dict:

@@ -35,9 +35,12 @@ gate dB, the exact confirmation's dB or None, the wall second), ``steps`` run,
 sampling; JAX fixes its keys).  ``--encoder int8`` is the hash flagship of
 the JAX record ``speedrun_30db.json``: 8 levels (2 dense, 6 hashed at F 4,
 T 2^16), int8 packed gathers with the Philox uniforms and 1-of-F gradient
-subsampling.  Refused by name: ``--steps_per_call`` other than 1 and
-``--aot_cache`` (JAX dispatch devices; PyTorch runs one eager step per
-call, and the step counts compare as they are).
+subsampling.  ``--steps_per_call n`` (which must divide ``--eval_every``,
+as JAX requires) runs the steps in windows of n (``ModeRun.window``: on the
+card n replays of one captured step, on the CPU an eager loop), the
+install, refresh and evaluations at window boundaries as the JAX script
+places them.  Refused by name: ``--aot_cache`` (the JAX compiled-executable
+cache).
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.speedrun \\
           --encoder cp --cp_rank 32 --eval_every 125 --eval_guided 48
@@ -71,8 +74,9 @@ def build_parser():
     p.add_argument("--out", type=str,
                    default=os.path.join("results", "speedrun_30db.json"))
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="only 1: fused multi-step dispatches are a JAX "
-                        "device, not ported")
+                   help="run N optimizer steps a window (on the card one "
+                        "captured step replayed N times); must divide "
+                        "eval_every")
     p.add_argument("--aot_cache", type=str, default="",
                    help="not ported: the JAX compiled-executable cache")
     p.add_argument("--eval_guided", type=int, default=0,
@@ -122,10 +126,10 @@ def check_supported(args, cfg):
     """Refuse what the port does not run, before any work starts."""
     from human_body_reconstruction_tpu_torch.ops import hash_encoding
 
-    if args.steps_per_call != 1:
-        raise SystemExit("--steps_per_call is not ported (a JAX fused "
-                         "multi-step dispatch; PyTorch runs one eager step "
-                         "per call, and the step counts compare as they are)")
+    if args.steps_per_call < 1:
+        raise SystemExit("--steps_per_call must be at least 1")
+    if args.eval_every % args.steps_per_call:
+        raise SystemExit("--steps_per_call must divide --eval_every")
     if args.aot_cache:
         raise SystemExit("--aot_cache is not ported (the JAX compiled-"
                          "executable cache)")
@@ -161,25 +165,27 @@ def run(args, log=print) -> dict:
             hold_pose, hold_img, guided_cfg if guided else eval_cfg,
             occ=mode_run.state.occ if guided else None)
 
+    spc = args.steps_per_call
+    run_steps = mode_run.step if spc == 1 else (lambda: mode_run.window(spc))
     t_wall0 = time.perf_counter()
-    m = mode_run.step()                          # builds and first launches
+    m = run_steps()                              # builds and first launches
     float(m["loss"])
     t_compiled = time.perf_counter()
     compile_extra = eval_time = first_eval_s = 0.0
-    steps, crossed, evals = 1, None, []
+    steps, crossed, evals = spc, None, []
     while steps < args.max_steps:
         if mode_run.pending is not None and steps >= mode_run.warmup:
             tc = time.perf_counter()
             mode_run.refresh(steps, True)
-            m = mode_run.step()                  # the first step on the grid
+            m = run_steps()                      # the first steps on the grid
             float(m["loss"])
-            steps += 1
+            steps += spc
             compile_extra += time.perf_counter() - tc
             continue
-        m = mode_run.step()
-        steps += 1
-        if (mode_run.state.occ is not None
-                and steps // qh.REFRESH_EVERY > (steps - 1) // qh.REFRESH_EVERY):
+        m = run_steps()
+        steps += spc
+        if (mode_run.state.occ is not None and steps // qh.REFRESH_EVERY
+                > (steps - spc) // qh.REFRESH_EVERY):
             mode_run.refresh(steps, False)
         if steps % args.eval_every:
             continue
@@ -229,6 +235,7 @@ def run(args, log=print) -> dict:
     return {"target_db": args.target_db, "crossed": crossed,
             "protocol": f"textured {H}x{W}, {args.views} views, batch "
                         f"{args.batch}, {enc_tag}+guided K=32 mass-dt"
+                        + (f", {spc} steps/dispatch" if spc > 1 else "")
                         + (f", guided{args.eval_guided}-gated evals "
                            "(exact-confirmed crossing)"
                            if args.eval_guided else ""),

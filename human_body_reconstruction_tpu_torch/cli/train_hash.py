@@ -28,9 +28,12 @@ splits the ray batch over a world of processes, one a card, joined by NCCL
 table's levels, or the CP lines' rank, over k of them (parallel/); under
 torchrun the world is torchrun's, otherwise the CLI starts it itself: one
 process a visible card with ``--data_parallel`` (k with ``--level_parallel
-k`` alone; on the CPU, k or 1), in this process when that is one.  What the
-port does not run is refused with a message: fused multi-step dispatches
-and the compiled-executable cache; a layout the model cannot split is
+k`` alone; on the CPU, k or 1), in this process when that is one.  ``--steps_per_call n`` runs
+the steps in windows of n (the trainer's ``steps_per_call``: on the card n
+replays of one captured step, on the CPU an eager loop).  What the port does
+not run is refused with a message: the compiled-executable cache, and
+``--steps_per_call`` under ``--data_parallel`` or ``--level_parallel``
+(the next slice); a layout the model cannot split is
 refused as JAX refuses it (``cp_rank``, the hashed level count or the batch
 not divisible), and one whose level slice holds an odd number of levels
 under ``--grad_level_pair``.  ``--synthetic_subject tangle`` is
@@ -184,9 +187,9 @@ def build_parser():
                         "divide by the extent); composes with "
                         "--data_parallel on a 2-D (data, level) mesh")
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="fuse this many optimizer steps into one device "
-                        "dispatch (lax.scan): amortizes per-dispatch/sync "
-                        "overhead; semantics identical to sequential steps")
+                   help="run this many optimizer steps a window (on the "
+                        "card one captured step replayed n times); the "
+                        "refresh, log and eval fire on window crossings")
     p.add_argument("--aot_cache", type=str, default="",
                    help="directory for the disk-backed compiled-executable "
                         "cache (utils/aot.py): re-runs with an identical "
@@ -434,9 +437,13 @@ def check_supported(args, cfg):
     for flag, what in _NOT_PORTED:
         if getattr(args, flag):
             raise SystemExit(f"{what} is not ported to the PyTorch trainer yet")
-    if args.steps_per_call != 1:
-        raise SystemExit("--steps_per_call is not ported (PyTorch runs "
-                         "eagerly, one step per call)")
+    if args.steps_per_call < 1:
+        raise SystemExit("--steps_per_call must be at least 1")
+    if args.steps_per_call > 1 and (args.data_parallel
+                                    or args.level_parallel > 1):
+        raise SystemExit("--steps_per_call under --data_parallel or "
+                         "--level_parallel is not ported to the PyTorch "
+                         "trainer yet (the next slice)")
     unported = hash_encoding.unported(cfg.hash)
     if unported:
         raise SystemExit(unported)
@@ -586,7 +593,8 @@ def train(args, cfg, device):
                       total_steps=steps, log_grad_norms=args.plot_grads,
                       display=args.display,
                       data_parallel=args.data_parallel,
-                      level_parallel=args.level_parallel)
+                      level_parallel=args.level_parallel,
+                      steps_per_call=args.steps_per_call)
     if args.load:
         path = os.path.join(args.out_dir, f"{args.ckpt_name}_ckpt.npz")
         if not os.path.exists(path):

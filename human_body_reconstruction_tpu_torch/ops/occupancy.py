@@ -83,6 +83,17 @@ def update(grid: OccupancyGrid, density_fn, mu, sigma, *,
     return OccupancyGrid(density, mask, grid.threshold)
 
 
+@torch.no_grad()
+def write_(grid: OccupancyGrid, new: OccupancyGrid) -> OccupancyGrid:
+    """Copy ``new``'s density and mask (a refresh of ``grid``, the same
+    threshold) into ``grid``'s storage and return ``grid``: a refresh that
+    a captured training step, which reads the grid at the addresses it
+    captured, sees."""
+    grid.density.copy_(new.density)
+    grid.mask.copy_(new.mask)
+    return grid
+
+
 def occupied_fraction(grid: OccupancyGrid):
     return torch.mean(grid.mask)
 

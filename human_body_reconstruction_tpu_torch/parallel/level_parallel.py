@@ -140,11 +140,10 @@ def shard_field(field, cfg: PipelineConfig, mesh: comm.Mesh):
 
 def _moved_moments(src_opt, dst_opt, pairs, count: int, fn):
     """Install fn(moment) of each (source, destination) parameter pair's
-    Adam state, when the source has state."""
+    Adam state."""
     for p, q in pairs:
-        if src_opt.has_state(p):
-            m, v = src_opt.moments(p)
-            dst_opt.set_moments(q, count, fn(m, p), fn(v, p))
+        m, v = src_opt.moments(p)
+        dst_opt.set_moments(q, count, fn(m, p), fn(v, p))
 
 
 def shard_lp_state(state, cfg: PipelineConfig, mesh: comm.Mesh,

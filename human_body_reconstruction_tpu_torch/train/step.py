@@ -1,22 +1,36 @@
 """The training step and eval-time image rendering (counterpart of
-``sample_ray_batch``, ``loss_fn``, ``train_step``, ``render_chunk``,
-``render_image_fused`` and ``render_poses_fused`` in the JAX
-train/step.py).
+``sample_ray_batch``, ``loss_fn``, ``train_step``, ``train_step_multi``,
+``render_chunk``, ``render_image_fused`` and ``render_poses_fused`` in the
+JAX train/step.py).
 
 A training step samples a batch of (image, pixel) rays on the device,
 renders them on the training branch of ``nerf.render_rays``, takes the
 loss (MSE coarse + MSE fine, the eikonal term in SDF mode, the
 factor-line TV after its warmup, the density L1 when weighted), back-propagates through the encoder kernels and
 applies the grouped optimizer.  The MLP computes in
-``cfg.train.compute_dtype`` (bf16 operands, f32 accumulation).
+``cfg.train.compute_dtype`` (bf16 operands, f32 accumulation).  The step
+reads the update count from the optimizer's device counter (the TV gate is
+a device-side select on it), so that it runs without reading the host.
 
-The JAX package renders a frame as one compiled dispatch with a ``lax.map``
-over chunks; here the chunk loop is eager PyTorch.  Rays are independent,
-so the last chunk is simply shorter instead of padded.  ``bf16`` means what
-it means in JAX: the MLP runs in bf16 compute with f32 accumulation.
+The JAX package fuses n steps into one dispatch (``lax.scan``) and a frame
+into one (``lax.map`` over chunks).  Here the counterparts are CUDA graphs:
+``WindowGraph`` captures one training step (a real step, run first on the
+capture stream, then the capture) and replays it for each step of a window,
+the metrics summed in device buffers; ``FrameGraphs`` captures a frame's or
+a pose batch's eager chunk loop, keyed by its shapes and options, in one
+memory pool, the poses and K copied into static inputs before each replay.
+A graph draws from the registered generators, so replay k draws what eager
+step k would.  On the CPU the same functions run their eager loops.  Rays
+are independent, so the last chunk is simply shorter instead of padded (the
+fused frame keeps the eager chunk boundaries and equals the eager frame).
+``bf16`` means what it means in JAX: the MLP runs in bf16 compute with f32
+accumulation.
 """
 
 from __future__ import annotations
+
+import time
+from typing import Optional
 
 import torch
 
@@ -49,7 +63,8 @@ def loss_fn(field, scene, batch, cfg: PipelineConfig, occ=None,
             compute_dtype=None, step=None, generator=None, draws=None,
             placement=None, enc_generator=None):
     """(loss, aux) of one ray batch, as the JAX ``loss_fn``.  ``step``
-    (the update count) gates the factor-line TV by ``cfg.train.cp_tv_warmup``;
+    (the update count: a host integer, or a device tensor, then a select)
+    gates the factor-line TV by ``cfg.train.cp_tv_warmup``;
     ``draws``, ``placement`` and ``enc_generator`` go to ``render_rays``.
     On a rank-parallel field (``field.lp``) the TV of the rank's line
     slices, normalised by the global rank, is summed over the level group
@@ -76,7 +91,12 @@ def loss_fn(field, scene, batch, cfg: PipelineConfig, occ=None,
                  for ln in field.lines) / len(field.lines)
         if field.lp is not None:
             tv = field.lp.psum(tv)
-        if tc.cp_tv_warmup <= 0 or step is None or step >= tc.cp_tv_warmup:
+        if torch.is_tensor(step) and tc.cp_tv_warmup > 0:
+            # on the device count: adds exactly 0 before the warmup
+            loss = loss + torch.where(step >= tc.cp_tv_warmup,
+                                      tc.cp_tv_weight * tv,
+                                      torch.zeros_like(tv))
+        elif tc.cp_tv_warmup <= 0 or step is None or step >= tc.cp_tv_warmup:
             loss = loss + tc.cp_tv_weight * tv
         aux["cp_tv"] = tv
     if tc.sigma_l1_weight > 0.0:
@@ -87,23 +107,156 @@ def loss_fn(field, scene, batch, cfg: PipelineConfig, occ=None,
     return loss, aux
 
 
-def train_step(state, scene, images, c2ws, K, cfg: PipelineConfig,
-               batch_size: int, generator=None, enc_generator=None):
-    """One optimization step, in place on ``state`` (its field, optimizer
-    and step count).  Returns the metrics (detached tensors).  The
-    stochastic encoder draws from ``enc_generator`` when given, else from
-    ``generator``."""
-    batch = sample_ray_batch(images, c2ws, K, batch_size, generator)
+def _update(state, scene, images, c2ws, K, cfg: PipelineConfig,
+            batch_size: int, generator, enc_generator, feed):
+    """One update at the optimizer's device count: what an eager step runs
+    and a ``WindowGraph`` captures.  ``feed`` may hold "img_idx",
+    "pix_idx", "draws" and "placement", which replace the draws."""
+    feed = feed or {}
+    batch = sample_ray_batch(images, c2ws, K, batch_size, generator,
+                             img_idx=feed.get("img_idx"),
+                             pix_idx=feed.get("pix_idx"))
     state.opt.zero_grad()
     compute_dtype = (torch.bfloat16 if cfg.train.compute_dtype == "bfloat16"
                      else None)
     loss, aux = loss_fn(state.field, scene, batch, cfg, state.occ,
-                        compute_dtype, step=state.step, generator=generator,
+                        compute_dtype, step=state.opt.count,
+                        generator=generator, draws=feed.get("draws"),
+                        placement=feed.get("placement"),
                         enc_generator=enc_generator)
     loss.backward()
-    state.opt.step(state.step)
-    state.step += 1
+    state.opt.step()
     return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+
+
+def train_step(state, scene, images, c2ws, K, cfg: PipelineConfig,
+               batch_size: int, generator=None, enc_generator=None,
+               feed=None):
+    """One optimization step, in place on ``state`` (its field, optimizer
+    and step count).  Returns the metrics (detached tensors).  The
+    stochastic encoder draws from ``enc_generator`` when given, else from
+    ``generator``; ``feed`` replaces the draws (``_update``)."""
+    state.opt.set_count(state.step)
+    metrics = _update(state, scene, images, c2ws, K, cfg, batch_size,
+                      generator, enc_generator, feed)
+    state.step += 1
+    return metrics
+
+
+def _add_to(sums: dict, metrics: dict):
+    for k, v in metrics.items():
+        if k not in sums:
+            sums[k] = torch.zeros_like(v)
+        sums[k].add_(v)
+
+
+def train_step_multi(state, scene, images, c2ws, K, cfg: PipelineConfig,
+                     batch_size: int, n_steps: int, generator=None,
+                     enc_generator=None, graph=None, feeds=None):
+    """``n_steps`` sequential ``train_step``s, in place on ``state``;
+    returns each metric's mean over the window (its f32 sum over n).  On a
+    CUDA device the steps are replays of ``graph`` (a ``WindowGraph``,
+    captured on its first use and whenever what it reads was rebound; a
+    temporary one when None); on the CPU an eager loop, where ``feeds``
+    (one ``feed`` a step) may replace the draws."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be at least 1, got {n_steps}")
+    if images.device.type == "cuda":
+        if feeds is not None:
+            raise ValueError("feeds replace the draws of the eager loop, "
+                             "which runs on the CPU")
+        return (graph or WindowGraph()).run(
+            state, scene, images, c2ws, K, cfg, batch_size, n_steps,
+            generator, enc_generator)
+    sums = {}
+    for i in range(n_steps):
+        _add_to(sums, train_step(state, scene, images, c2ws, K, cfg,
+                                 batch_size, generator, enc_generator,
+                                 None if feeds is None else feeds[i]))
+    return {k: v / n_steps for k, v in sums.items()}
+
+
+class Captured:
+    """``fn(*inputs)`` captured once as a CUDA graph: one warm-up call on
+    the capture stream (it builds and loads the kernels, sets their
+    attributes and makes cuBLAS's workspace, none of which a capture may
+    do), then the capture, with ``generators`` registered so that each
+    replay draws afresh, into ``pool`` (a private one when None).
+    ``inputs`` are the graph's static inputs, ``out`` its output."""
+
+    def __init__(self, fn, inputs=(), generators=(), pool=None):
+        self.inputs = list(inputs)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn(*self.inputs)
+        torch.cuda.current_stream().wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            self.graph.register_generator_state(gen)
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            self.out = fn(*self.inputs)
+
+    def replay(self):
+        self.graph.replay()
+        return self.out
+
+
+def _ptrs(*tensors) -> tuple:
+    return tuple(t.data_ptr() for t in tensors)
+
+
+class WindowGraph:
+    """The training step as a CUDA graph replayed once a step of a window
+    (the counterpart of JAX ``train_step_multi``'s scan).  One step is
+    captured, so a remainder window needs no second capture and the graph's
+    pool holds one step's activations.  The first window's first step is
+    the warm-up, run eagerly on the capture stream.  The graph reads the
+    parameters, moments, grid, scene and data at the addresses it captured:
+    when any of them was rebound (the grid's install, a load that replaced
+    a tensor) the step is captured again and the old graph dropped, so a
+    window never reads a stale grid; an in-place refresh of the grid needs
+    no new capture.  ``captures`` counts captures and ``capture_s`` their
+    seconds (warm-up step included)."""
+
+    def __init__(self):
+        self._call, self._key, self._sums = None, None, {}
+        self.captures, self.capture_s = 0, 0.0
+
+    def run(self, state, scene, images, c2ws, K, cfg: PipelineConfig,
+            batch_size: int, n_steps: int, generator=None,
+            enc_generator=None):
+        gens = [g for g in {id(g): g for g in (generator, enc_generator)
+                            if g is not None}.values()]
+        occ = () if state.occ is None else tuple(state.occ)
+        key = (id(state), id(state.opt), cfg, batch_size,
+               *(id(g) for g in gens),
+               _ptrs(*state.field.parameters(), *occ, *scene.values(),
+                     images, c2ws, K))
+        for v in self._sums.values():
+            v.zero_()
+        state.opt.set_count(state.step)
+        left = n_steps
+        if key != self._key:
+            self._call = self._key = None      # free the old graph's pool
+            t0 = time.perf_counter()
+
+            def body():
+                m = _update(state, scene, images, c2ws, K, cfg, batch_size,
+                            generator, enc_generator, None)
+                _add_to(self._sums, m)
+                return m
+
+            self._call = Captured(body, generators=gens)
+            torch.cuda.synchronize()
+            self._key = key
+            self.captures += 1
+            self.capture_s += time.perf_counter() - t0
+            left -= 1
+        for _ in range(left):
+            self._call.graph.replay()
+        state.step += n_steps
+        return {k: v / n_steps for k, v in self._sums.items()}
 
 
 @torch.no_grad()
@@ -132,15 +285,19 @@ def fine_quantiles(cfg: PipelineConfig, num_samples: int, chunk: int, device):
 @torch.no_grad()
 def render_rays_chunked(field, scene, o, d, n, cfg: PipelineConfig, occ=None,
                         num_samples: int = 256, chunk: int = 16384,
-                        hierarchical: bool = False, bf16: bool = False):
-    """Colours (R, 3) of R rays, ``chunk`` rays per pass."""
-    u = (fine_quantiles(cfg, num_samples, min(chunk, o.shape[0]), o.device)
-         if hierarchical else None)
+                        hierarchical: bool = False, bf16: bool = False,
+                        fine_u=None):
+    """Colours (R, 3) of R rays, ``chunk`` rays per pass; ``fine_u``
+    replaces ``fine_quantiles`` (a captured frame draws them before the
+    capture)."""
+    u = fine_u
+    if hierarchical and u is None:
+        u = fine_quantiles(cfg, num_samples, min(chunk, o.shape[0]), o.device)
     outs = [render_chunk(field, scene, o[s:s + chunk], d[s:s + chunk],
                          n[s:s + chunk], cfg, occ=occ,
                          num_samples=num_samples, hierarchical=hierarchical,
                          bf16=bf16,
-                         draws=None if u is None else {
+                         draws=None if not hierarchical else {
                              "fine_u": u[:o[s:s + chunk].shape[0]]})
             for s in range(0, o.shape[0], chunk)]
     return torch.cat(outs)
@@ -148,20 +305,20 @@ def render_rays_chunked(field, scene, o, d, n, cfg: PipelineConfig, occ=None,
 
 def render_image(field, scene, H: int, W: int, K, c2w, cfg: PipelineConfig,
                  occ=None, num_samples: int = 256, hierarchical: bool = False,
-                 chunk: int = 16384, bf16: bool = False):
+                 chunk: int = 16384, bf16: bool = False, fine_u=None):
     """(H, W, 3) float32 image on the field's device.  ``hierarchical``
     (not ``cfg.render.hierarchical``, as in JAX) asks for the second
     pass."""
     o, d, n = rays_lib.full_image_rays(H, W, K, c2w)
     return render_rays_chunked(field, scene, o, d, n, cfg, occ=occ,
                                num_samples=num_samples, chunk=chunk,
-                               hierarchical=hierarchical,
-                               bf16=bf16).reshape(H, W, 3)
+                               hierarchical=hierarchical, bf16=bf16,
+                               fine_u=fine_u).reshape(H, W, 3)
 
 
 def render_poses(field, scene, H: int, W: int, K, c2ws, cfg: PipelineConfig,
                  occ=None, num_samples: int = 256, hierarchical: bool = False,
-                 chunk: int = 16384, bf16: bool = False):
+                 chunk: int = 16384, bf16: bool = False, fine_u=None):
     """(P, H, W, 3) images of a pose stack (P, 4, 4).  The chunks tile the
     concatenated rays of all poses, so only the batch's last chunk is
     short."""
@@ -170,5 +327,83 @@ def render_poses(field, scene, H: int, W: int, K, c2ws, cfg: PipelineConfig,
     img = render_rays_chunked(field, scene, o.reshape(-1, 3),
                               d.reshape(-1, 3), n.reshape(-1, 1), cfg,
                               occ=occ, num_samples=num_samples, chunk=chunk,
-                              hierarchical=hierarchical, bf16=bf16)
+                              hierarchical=hierarchical, bf16=bf16,
+                              fine_u=fine_u)
     return img.reshape(P, H, W, 3)
+
+
+class FrameGraphs:
+    """Captured frame renders (CUDA): one graph per (render function, H, W,
+    num_samples, hierarchical, bf16, chunk, poses, cfg) and the addresses of
+    the field, scene and grid it reads, every graph in one memory pool.  A
+    call copies K and the pose(s) into the graph's static inputs, replays it
+    and returns a copy of its frame (the next capture into the shared pool
+    may reuse a graph's output memory).  ``captures`` counts captures and
+    ``capture_s`` their seconds (warm-up frame included)."""
+
+    def __init__(self):
+        self._graphs, self._pool = {}, None
+        self.captures, self.capture_s = 0, 0.0
+
+    def render(self, render_fn, field, scene, H: int, W: int, K, c2w,
+               cfg: PipelineConfig, occ, num_samples: int, hierarchical: bool,
+               chunk: int, bf16: bool):
+        occ_t = () if occ is None else tuple(occ)
+        key = (render_fn, H, W, num_samples, hierarchical, bf16, chunk,
+               tuple(c2w.shape), cfg,
+               _ptrs(*field.parameters(), *scene.values(), *occ_t))
+        call = self._graphs.get(key)
+        if call is None:
+            t0 = time.perf_counter()
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            rays = H * W * (c2w.shape[0] if c2w.dim() == 3 else 1)
+            u = (fine_quantiles(cfg, num_samples, min(chunk, rays), K.device)
+                 if hierarchical else None)
+
+            def frame(K_s, c2w_s):
+                return render_fn(field, scene, H, W, K_s, c2w_s, cfg,
+                                 occ=occ, num_samples=num_samples,
+                                 hierarchical=hierarchical, chunk=chunk,
+                                 bf16=bf16, fine_u=u)
+
+            call = Captured(frame, inputs=(K.clone(), c2w.clone()),
+                            pool=self._pool)
+            torch.cuda.synchronize()
+            self._graphs[key] = call
+            self.captures += 1
+            self.capture_s += time.perf_counter() - t0
+        call.inputs[0].copy_(K)
+        call.inputs[1].copy_(c2w)
+        return call.replay().clone()
+
+
+def render_image_fused(field, scene, H: int, W: int, K, c2w,
+                       cfg: PipelineConfig, occ=None, num_samples: int = 256,
+                       hierarchical: bool = False, chunk: int = 16384,
+                       bf16: bool = False, graphs: Optional[FrameGraphs] = None):
+    """``render_image`` as one dispatch: on a CUDA device the replay of a
+    captured frame (``graphs``, a temporary holder when None), on the CPU
+    the eager chunk loop.  Equal to ``render_image`` bit for bit."""
+    if K.device.type != "cuda":
+        return render_image(field, scene, H, W, K, c2w, cfg, occ=occ,
+                            num_samples=num_samples,
+                            hierarchical=hierarchical, chunk=chunk, bf16=bf16)
+    return (graphs or FrameGraphs()).render(
+        render_image, field, scene, H, W, K, c2w, cfg, occ, num_samples,
+        hierarchical, chunk, bf16)
+
+
+def render_poses_fused(field, scene, H: int, W: int, K, c2ws,
+                       cfg: PipelineConfig, occ=None, num_samples: int = 256,
+                       hierarchical: bool = False, chunk: int = 16384,
+                       bf16: bool = False, graphs: Optional[FrameGraphs] = None):
+    """``render_poses`` of a pose stack (P, 4, 4) as one dispatch, as
+    ``render_image_fused`` is ``render_image``'s."""
+    if K.device.type != "cuda":
+        return render_poses(field, scene, H, W, K, c2ws, cfg, occ=occ,
+                            num_samples=num_samples,
+                            hierarchical=hierarchical, chunk=chunk, bf16=bf16)
+    return (graphs or FrameGraphs()).render(
+        render_poses, field, scene, H, W, K, c2ws, cfg, occ, num_samples,
+        hierarchical, chunk, bf16)

@@ -15,8 +15,17 @@ folds its key, and then takes rank 0's grid; under level parallelism the
 eval render splits rays over the data group (``make_lp_render``) and the
 checkpoint joins the level shards into the single-device file that the
 other entry points and ``load`` read (``load`` shards it again).  Only rank
-0 logs and writes.  The JAX trainer's compiled-executable cache and fused
-multi-step dispatches are not ported.  ``log_grad_norms`` adds each group's
+0 logs and writes.  ``steps_per_call`` n > 1 runs the steps in windows of
+n (JAX's fused multi-step dispatch): on the card a window is n replays of
+one captured step (``step.WindowGraph``; the unculled and the culled step
+are two captures), on the CPU an eager loop; the grid's install lands on
+the first window boundary at or past the warmup, the refresh, log and eval
+fire when a window crosses their cadence, the logged metrics are the
+window's means, and the last window may be shorter.  Under data or level
+parallelism the window is refused (the next slice).  A refresh writes
+into the grid's storage (``occupancy.write_``), which a captured step
+reads.  The JAX trainer's compiled-executable cache is not ported.
+``log_grad_norms`` adds each group's
 gradient norm (of the whole field, joined under level parallelism) on a
 256-ray probe batch to every log record, as the JAX trainer does; the
 probe draws from its own generator, seeded with ``cfg.train.seed`` at each
@@ -104,9 +113,15 @@ class Trainer:
     display: bool = False              # --display
     data_parallel: bool = False        # --data_parallel
     level_parallel: int = 0            # --level_parallel
+    steps_per_call: int = 1            # --steps_per_call
 
     def __post_init__(self):
         cfg = self.cfg
+        if self.steps_per_call > 1 and (self.data_parallel
+                                        or self.level_parallel > 1):
+            raise ValueError("steps_per_call under data or level "
+                             "parallelism is not ported yet")
+        self._window = step_lib.WindowGraph()
         self.device = self.ds["images"].device
         self.mesh, self._step_fn, self.run_cfg = None, None, cfg
         self._lp = self.level_parallel > 1
@@ -242,9 +257,9 @@ class Trainer:
         if self.mesh is not None:
             gen = comm.fold_generator(self.device, self.cfg.train.seed,
                                       10_000 + self.state.step)
-        self.state.occ = occupancy.update_from_field(
+        occupancy.write_(self.state.occ, occupancy.update_from_field(
             self.state.occ, self.state.field, self.scene, self.run_cfg,
-            generator=gen)
+            generator=gen))
         if self.mesh is not None:       # hold the ranks' grids equal
             comm.broadcast_(self.state.occ[:2])
 
@@ -260,25 +275,33 @@ class Trainer:
             """Did [upto-n, upto] cross a multiple of ``every``?"""
             return every > 0 and upto // every > (upto - n) // every
 
-        for i in range(1, steps + 1):
+        spc, i = max(1, self.steps_per_call), 0
+        while i < steps:
             if self._occ_pending is not None and (
-                    start_step + i - 1 >= cfg.train.occ_warmup_steps):
-                self._install_occ(start_step + i - 1)
+                    start_step + i >= cfg.train.occ_warmup_steps):
+                self._install_occ(start_step + i)
+            n = min(spc, steps - i)
             if self._step_fn is not None:
                 metrics = self._step_fn(self.state, self.scene,
                                         self.ds["images"], self.ds["c2ws"],
                                         self.ds["K"])
+            elif spc > 1:
+                metrics = step_lib.train_step_multi(
+                    self.state, self.scene, self.ds["images"],
+                    self.ds["c2ws"], self.ds["K"], cfg, cfg.train.ray_batch,
+                    n, self.generator, graph=self._window)
             else:
                 metrics = step_lib.train_step(
                     self.state, self.scene, self.ds["images"],
                     self.ds["c2ws"], self.ds["K"], cfg, cfg.train.ray_batch,
                     self.generator)
-            rays_done += cfg.train.ray_batch
+            rays_done += cfg.train.ray_batch * n
+            i += n
             step_no = start_step + i
-            if cfg.render.occupancy and crossed(step_no, 1,
+            if cfg.render.occupancy and crossed(step_no, n,
                                                 cfg.train.update_rate):
                 self.update_occupancy()
-            if log_every and crossed(i, 1, log_every):
+            if log_every and crossed(i, n, log_every):
                 # the probe field: under level parallelism every rank joins
                 # the shards, then rank 0 alone logs
                 probe = (self.whole_state().field if self.log_grad_norms
@@ -287,7 +310,7 @@ class Trainer:
                     self._log(step_no, metrics, rays_done, t_last, probe)
                 t_last = time.perf_counter()
                 rays_done = 0
-            if eval_every and crossed(i, 1, eval_every):
+            if eval_every and crossed(i, n, eval_every):
                 self.eval_render(tag=f"{step_no:07d}")
                 self.save()
         return self.state

@@ -1315,3 +1315,104 @@ def test_variant_encodes_on_the_card_match_the_cpu(cuda_device, case):
     assert float(g_cpu.abs().max()) > 0.1
     assert bool((g_card - g_cpu).abs().le(cuda_lib.sum_order_tolerance(
         g_cpu, abs_sum, False)).all())
+
+
+def graph_cfg() -> C.PipelineConfig:
+    """The flagship config cut to a small width: 4 levels up to n_max 128
+    at rank 8 (two dense levels), MLP width 16, guided placement of 8 of
+    16 samples on a 16^3 grid, 256 rays."""
+    from human_body_reconstruction_tpu_torch.utils.config import (
+        flagship_config)
+
+    cfg = flagship_config()
+    return dataclasses.replace(
+        cfg, hash=small_cfg(True), mlp=dataclasses.replace(cfg.mlp, width=16),
+        render=dataclasses.replace(cfg.render, num_samples=16,
+                                   compact_samples=8, occ_probes=8,
+                                   occupancy_resolution=16),
+        train=dataclasses.replace(cfg.train, ray_batch=256, cp_tv_warmup=1))
+
+
+def graph_inputs(device):
+    """A seeded field, its optimizer and grid, a scene and a dataset."""
+    from human_body_reconstruction_tpu_torch.models import nerf
+    from human_body_reconstruction_tpu_torch.ops import occupancy
+    from human_body_reconstruction_tpu_torch.train import state
+
+    cfg = graph_cfg()
+    gen = torch.Generator(device).manual_seed(0)
+    field = nerf.Field(cfg, generator=gen)
+    occ = occupancy.init_grid(16, 0.01, device)
+    occ.mask.copy_((torch.rand((16, 16, 16), generator=gen, device=device)
+                    < 0.6).float())
+    st = state.create_train_state(field, cfg.train, 10, occ=occ)
+    scene = nerf.scene_from_bounds([-1.5] * 3, [1.5] * 3, device=device)
+    images = torch.rand((2, 16, 16, 3), generator=gen, device=device)
+    c2ws = torch.eye(4, device=device).repeat(2, 1, 1)
+    c2ws[:, 2, 3] = 4.0
+    K = torch.tensor([[20.0, 0, 8.0], [0, 20.0, 8.0], [0, 0, 1]],
+                     device=device)
+    return cfg, st, scene, (images, c2ws, K)
+
+
+@pytest.mark.cuda
+def test_captured_step_forward_equals_eager(cuda_device):
+    """The small flagship step's forward (batch, guided placement, encoder
+    kernels, MLP, loss), captured with its generator registered, replays
+    the eager loss bit for bit from the same generator state; and the whole
+    step as a one-step window of ``step.WindowGraph``, replayed after its
+    warm-up step, advances the device count and the host step and returns
+    finite metrics."""
+    from human_body_reconstruction_tpu_torch.train import step
+
+    cfg, st, scene, data = graph_inputs(cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+
+    def forward():
+        batch = step.sample_ray_batch(*data, cfg.train.ray_batch, gen)
+        return step.loss_fn(st.field, scene, batch, cfg, st.occ,
+                            torch.bfloat16, step=st.opt.count,
+                            generator=gen)[0]
+
+    s0 = gen.get_state()
+    with torch.no_grad():
+        eager = forward()
+        n = cp_kernel.cp_encode_kernel.launches
+        call = step.Captured(forward, generators=[gen])
+        assert cp_kernel.cp_encode_kernel.launches == n + 2  # warm-up, capture
+        gen.set_state(s0)
+        got = call.replay()
+    torch.cuda.synchronize()
+    assert torch.isfinite(eager) and torch.equal(got, eager)
+    window = step.WindowGraph()
+    for n_steps, steps in ((1, 1), (3, 4)):
+        m = step.train_step_multi(st, scene, *data, cfg, cfg.train.ray_batch,
+                                  n_steps, gen, graph=window)
+        torch.cuda.synchronize()
+        assert st.step == steps and int(st.opt.count) == steps
+        assert window.captures == 1
+        assert all(bool(torch.isfinite(v)) for v in m.values())
+
+
+@pytest.mark.cuda
+def test_registered_generator_advances_across_replays(cuda_device):
+    """A generator registered with a captured graph draws afresh at each
+    replay: replay k gives what the k-th eager draw gives, and no two
+    replays give the same."""
+    from human_body_reconstruction_tpu_torch.train import step
+
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    s0 = gen.get_state()
+    eager = [torch.rand(1024, generator=gen, device=cuda_device)
+             for _ in range(3)]
+    gen.set_state(s0)
+    call = step.Captured(
+        lambda: torch.rand(1024, generator=gen, device=cuda_device) * 1.0,
+        generators=[gen])
+    gen.set_state(s0)
+    got = [call.replay().clone() for _ in range(3)]
+    torch.cuda.synchronize()
+    for k in range(3):
+        assert torch.equal(got[k], eager[k]), k
+    assert not torch.equal(got[0], got[1])
+    assert not torch.equal(got[1], got[2])

@@ -137,7 +137,7 @@ def test_render_cli_gif(run_dir, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--orbit", "2", "--fused"], "--fused"),
+    (["--orbit", "2", "--fused", "--aot_cache", "x"], "--aot_cache"),
     (["--orbit", "2", "--aot_cache", "x"], "--aot_cache"),
     (["--orbit", "2", "--poses", "p.npy"], "exactly one"),
     ([], "exactly one"),

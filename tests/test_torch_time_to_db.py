@@ -257,7 +257,8 @@ def test_time_to_db_cpu_run_crosses(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--encoder", "int8", "--aot_cache", "c"], "--aot_cache is not ported"),
-    (["--steps_per_call", "25"], "--steps_per_call is not ported"),
+    (["--steps_per_call", "24", "--eval_every", "250"],
+     "--steps_per_call must divide --eval_every"),
     (["--aot_cache", "cache"], "--aot_cache is not ported")],
     ids=["int8", "steps_per_call", "aot_cache"])
 def test_time_to_db_refusals(argv, match, tmp_path):

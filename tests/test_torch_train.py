@@ -412,7 +412,9 @@ def test_fit_loop_checkpoint_renders_same_in_jax(fitted):
      "--features_per_level", "4", "--grad_subsample", "--grad_level_pair",
      "--scatter_strategy", "segsum", "--level_parallel", "2"],
     ["--stochastic", "--packed", "--pack_format", "int8", "--grad_subsample",
-     "--grad_level_subsample", "--dense_levels", "-1"]])
+     "--grad_level_subsample", "--dense_levels", "-1"],
+    ["--steps_per_call", "4"],
+    ["--stochastic", "--packed", "--grad_subsample", "--steps_per_call", "2"]])
 def test_cli_config_matches_jax(argv):
     args = train_hash.build_parser().parse_args(argv)
     assert dataclasses.asdict(train_hash.make_config(args)) == \
@@ -424,13 +426,15 @@ def test_cli_config_matches_jax(argv):
 # rank 25 does not divide by 2 (level_parallel.validate); the hash grid's 16
 # levels do not divide by 3; 12 int8 levels over 4 ranks leave each rank 3
 # levels, an odd count for --grad_level_pair.  The hash-grid variant flags
-# run (test_cli_config_matches_jax); with a JAX dispatch device they are
-# refused for that device.
+# run (test_cli_config_matches_jax); with the compile cache they are
+# refused for it.  --steps_per_call runs (test_cli_config_matches_jax) and is
+# refused under --data_parallel or --level_parallel (the next slice).
 @pytest.mark.parametrize("argv", [
     ["--level_parallel", "2"], ["--stochastic", "--level_parallel", "3"],
     ["--encoder_variant", "cell", "--level_parallel", "3"],
-    ["--steps_per_call", "4"],
-    ["--stochastic", "--packed", "--grad_subsample", "--steps_per_call", "2"],
+    ["--steps_per_call", "4", "--data_parallel"],
+    ["--stochastic", "--packed", "--grad_subsample", "--steps_per_call", "2",
+     "--level_parallel", "2"],
     ["--aot_cache", "x"],
     ["--stochastic", "--packed", "--aot_cache", "x"],
     ["--packed_exact", "--level_parallel", "3"],
@@ -438,8 +442,10 @@ def test_cli_config_matches_jax(argv):
      "--grad_level_pair", "--num_levels", "12", "--level_parallel", "4"]])
 def test_cli_refuses_what_is_not_ported(argv):
     args = train_hash.build_parser().parse_args(argv)
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit) as e:
         train_hash.check_supported(args, train_hash.make_config(args))
+    if "--steps_per_call" in argv:
+        assert "--steps_per_call" in str(e.value)
 
 
 def test_cli_main_runs_a_few_steps(tmp_path):
