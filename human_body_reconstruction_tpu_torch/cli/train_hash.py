@@ -439,11 +439,6 @@ def check_supported(args, cfg):
             raise SystemExit(f"{what} is not ported to the PyTorch trainer yet")
     if args.steps_per_call < 1:
         raise SystemExit("--steps_per_call must be at least 1")
-    if args.steps_per_call > 1 and (args.data_parallel
-                                    or args.level_parallel > 1):
-        raise SystemExit("--steps_per_call under --data_parallel or "
-                         "--level_parallel is not ported to the PyTorch "
-                         "trainer yet (the next slice)")
     unported = hash_encoding.unported(cfg.hash)
     if unported:
         raise SystemExit(unported)

@@ -30,6 +30,11 @@ transpose is a ``psum``) does the same.  So the sharded group's gradient
 (the table's level slices, the lines' rank columns) is k times the
 single-device gradient, as JAX's is; Adam's scale invariance takes its
 steps back to the single-device ones.
+
+A window of steps captured as a CUDA graph holds these collectives (NCCL
+records them into the capture): ``reseed_`` sets a graph's registered
+generator to a step's folded stream before each replay, and ``mesh_any``
+lets every rank take one decision to capture again.
 """
 
 from __future__ import annotations
@@ -203,20 +208,46 @@ def make_mesh(n_data: int, n_inner: int = 1,
                 inner_groups[d])
 
 
+def _folded_seed(*words: int) -> int:
+    seed = np.random.SeedSequence([int(w) for w in words]).generate_state(
+        1, np.uint64)[0]
+    return int(seed) >> 1
+
+
 def fold_generator(device, *words: int) -> torch.Generator:
     """A generator on ``device`` seeded from the words (seed, step, axis
     indices, ...): the port's ``fold_in``.  Distinct words give unrelated
     streams; the same words the same stream on every rank."""
-    seed = np.random.SeedSequence([int(w) for w in words]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator(device).manual_seed(int(seed) >> 1)
+    return torch.Generator(device).manual_seed(_folded_seed(*words))
+
+
+def reseed_(generator: torch.Generator, *words: int) -> torch.Generator:
+    """Set ``generator``, in place, to the stream ``fold_generator`` gives
+    for the words.  A generator registered with a captured graph keeps its
+    identity, and a replay reads the seed and offset set here when it
+    starts, so it draws what a step on a fresh folded generator draws."""
+    return generator.manual_seed(_folded_seed(*words))
 
 
 def all_gather_stack(x, group):
-    """(n, *x.shape): every rank's ``x`` in group-rank order (no gradient)."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.stack(parts)
+    """(n, *x.shape): every rank's ``x`` in group-rank order (no gradient),
+    gathered into one new buffer (inside a capture, from the graph's
+    pool)."""
+    n = dist.get_world_size(group)
+    out = x.new_empty(n * x.numel())
+    dist.all_gather_into_tensor(out, x.reshape(-1).contiguous(), group=group)
+    return out.view(n, *x.shape)
+
+
+def mesh_any(flag: bool, mesh: Mesh, device) -> bool:
+    """True on every rank of the mesh when ``flag`` is true on any: one
+    all-reduce (max) on each of the mesh's groups.  It also has NCCL create
+    both groups' communicators, which it makes at a group's first
+    collective, and which must not be made inside a capture."""
+    t = torch.tensor([int(flag)], device=device)
+    for group in (mesh.inner_group, mesh.data_group):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t.item())
 
 
 class _GatherCols(torch.autograd.Function):

@@ -1,11 +1,13 @@
 """A dry run of every parallel path over whatever world it is given
 (counterpart of the JAX ``__graft_entry__.dryrun_multichip``): one
-data-parallel step, the sample-split render in density and SDF mode over a
-(data, sample) layout, and one level-parallel step of the hash grid and of
-the CP factor lines over a (data, level) layout, at tiny shapes; each
-checked finite.  The hash block pins a level count that the level extent
-divides, and raises when the kernels' level limit leaves none (the JAX
-dry run skipped the block when its 4 levels did not divide).
+data-parallel step and then a window of 2 (on the card a captured step
+replayed, its collectives inside), the sample-split render in density and
+SDF mode over a (data, sample) layout, and one level-parallel step and a
+window of 2 of the hash grid and of the CP factor lines over a (data,
+level) layout, at tiny shapes; each checked finite.  The hash block pins
+a level count that the level extent divides, and raises when the kernels'
+level limit leaves none (the JAX dry run skipped the block when its 4
+levels did not divide).
 
 Run:  python -m human_body_reconstruction_tpu_torch.parallel.dryrun \\
           --world 2 --device cpu
@@ -29,6 +31,9 @@ from human_body_reconstruction_tpu_torch.parallel import level_parallel as lp
 from human_body_reconstruction_tpu_torch.parallel import sample_parallel as sp
 from human_body_reconstruction_tpu_torch.train import state as state_lib
 from human_body_reconstruction_tpu_torch.utils import config as C
+
+
+WINDOW = 2              # the steps of each path's window
 
 
 def _check(cond, what):
@@ -78,10 +83,13 @@ def dryrun(device: torch.device) -> dict:
     state = state_lib.create_train_state(nerf.Field(cfg, generator=gen),
                                          cfg.train, 10)
     dp.replicate(state)
-    step = dp.make_dp_train_step(cfg, cfg.train.ray_batch, dp.make_mesh())
-    out["dp_loss"] = float(step(state, scene, images, c2ws, K)["loss"])
-    _check(math.isfinite(out["dp_loss"]) and state.step == 1,
-           ("data-parallel step", out["dp_loss"], state.step))
+    for name, n in (("dp_loss", 1), ("dp_window_loss", WINDOW)):
+        step = dp.make_dp_train_step(cfg, cfg.train.ray_batch, dp.make_mesh(),
+                                     steps_per_call=n)
+        before = state.step
+        out[name] = float(step(state, scene, images, c2ws, K)["loss"])
+        _check(math.isfinite(out[name]) and state.step == before + n,
+               ("data-parallel step", name, out[name], state.step))
 
     n_d, n_inner = _layout(world)
     mesh = sp.make_sp_mesh(n_d, n_inner)
@@ -112,10 +120,14 @@ def dryrun(device: torch.device) -> dict:
                                              c.train, 10)
         dp.replicate(whole)
         local = lp.shard_lp_state(whole, c, mesh, 10)
-        m = lp.make_lp_train_step(c, c.train.ray_batch, mesh)(
-            local, scene, images, c2ws, K)
-        out[name] = float(m["loss"])
-        _check(math.isfinite(out[name]), (name, out[name]))
+        for key, n in ((name, 1), (name.replace("_loss", "_window_loss"),
+                                   WINDOW)):
+            m = lp.make_lp_train_step(c, c.train.ray_batch, mesh,
+                                      steps_per_call=n)(
+                local, scene, images, c2ws, K)
+            out[key] = float(m["loss"])
+            _check(math.isfinite(out[key]), (key, out[key]))
+        _check(local.step == 1 + WINDOW, (name, local.step))
     return out
 
 

@@ -188,37 +188,38 @@ def gather_lp_state(state, cfg: PipelineConfig, mesh: comm.Mesh,
 
 
 def make_lp_train_step(cfg: PipelineConfig, batch_size: int,
-                       mesh: comm.Mesh):
-    """The level- and data-parallel step, in place on this rank's state
-    (from ``shard_lp_state``): step(state, scene, images, c2ws, K, *,
-    generator=None, enc_generator=None, img_idx=None, pix_idx=None,
-    draws=None, placement=None) -> metrics, one update of the global
-    ``batch_size``-ray batch.  The generators replace the folded ones:
-    rays and samples from (seed, step, data index), the stochastic
-    encoder's uniforms from (seed, step, data index, level index)."""
+                       mesh: comm.Mesh,
+                       steps_per_call: int = 1) -> dp.ParallelStep:
+    """The level- and data-parallel step (a ``dp.ParallelStep``), in place
+    on this rank's state (from ``shard_lp_state``): ``steps_per_call``
+    updates of the global ``batch_size``-ray batch a call.  Rays and
+    samples are drawn from (seed, step, data index), the stochastic
+    encoder's uniforms from (seed, step, data index, ENCODER_STREAM, level
+    index); the gather and the TV's psum over the level group run inside a
+    captured window."""
     validate(cfg, mesh.shape, batch_size)
     cfg_lp = lp_cfg(cfg)
     local_batch = batch_size // mesh.n_data
+    seed = cfg.train.seed
 
-    def step(state, scene, images, c2ws, K, *, generator=None,
-             enc_generator=None, img_idx=None, pix_idx=None, draws=None,
-             placement=None):
-        dev, seed = images.device, cfg.train.seed
-        if generator is None:
-            generator = comm.fold_generator(dev, seed, state.step,
-                                            mesh.data_index)
-        if enc_generator is None and cfg.hash.stochastic_train:
-            enc_generator = comm.fold_generator(
-                dev, seed, state.step, mesh.data_index, ENCODER_STREAM,
-                mesh.inner_index)
-        batch = step_lib.sample_ray_batch(images, c2ws, K, local_batch,
-                                          generator, img_idx, pix_idx)
+    def streams(step_no):
+        words = [(seed, step_no, mesh.data_index)]
+        if cfg.hash.stochastic_train:
+            words.append((seed, step_no, mesh.data_index, ENCODER_STREAM,
+                          mesh.inner_index))
+        return words
+
+    def update(state, scene, images, c2ws, K, gens, feed):
+        batch = step_lib.sample_ray_batch(
+            images, c2ws, K, local_batch, gens[0], feed.get("img_idx"),
+            feed.get("pix_idx"))
         return dp.reduced_step(state, scene, batch, cfg_lp, mesh.data_group,
-                               mesh.n_data, generator=generator,
-                               enc_generator=enc_generator, draws=draws,
-                               placement=placement)
+                               mesh.n_data, generator=gens[0],
+                               enc_generator=gens[1] if len(gens) > 1
+                               else None, draws=feed.get("draws"),
+                               placement=feed.get("placement"))
 
-    return step
+    return dp.ParallelStep(update, streams, mesh, steps_per_call)
 
 
 def make_lp_render(cfg: PipelineConfig, mesh: comm.Mesh,

@@ -20,9 +20,11 @@ the metrics summed in device buffers; ``FrameGraphs`` captures a frame's or
 a pose batch's eager chunk loop, keyed by its shapes and options, in one
 memory pool, the poses and K copied into static inputs before each replay.
 A graph draws from the registered generators, so replay k draws what eager
-step k would.  On the CPU the same functions run their eager loops.  Rays
-are independent, so the last chunk is simply shorter instead of padded (the
-fused frame keeps the eager chunk boundaries and equals the eager frame).
+step k would (a parallel window reseeds them in place before each replay to
+the step's folded words, ``parallel.data_parallel.ParallelStep``).  On the
+CPU the same functions run their eager loops.  Rays are independent, so the
+last chunk is simply shorter instead of padded (the fused frame keeps the
+eager chunk boundaries and equals the eager frame).
 ``bf16`` means what it means in JAX: the MLP runs in bf16 compute with f32
 accumulation.
 """
@@ -165,9 +167,15 @@ def train_step_multi(state, scene, images, c2ws, K, cfg: PipelineConfig,
         if feeds is not None:
             raise ValueError("feeds replace the draws of the eager loop, "
                              "which runs on the CPU")
+        gens = [g for g in {id(g): g for g in (generator, enc_generator)
+                            if g is not None}.values()]
         return (graph or WindowGraph()).run(
-            state, scene, images, c2ws, K, cfg, batch_size, n_steps,
-            generator, enc_generator)
+            state, n_steps,
+            lambda: _update(state, scene, images, c2ws, K, cfg, batch_size,
+                            generator, enc_generator, None),
+            (cfg, batch_size, *(id(g) for g in gens),
+             window_key(state, *scene.values(), images, c2ws, K)),
+            generators=gens)
     sums = {}
     for i in range(n_steps):
         _add_to(sums, train_step(state, scene, images, c2ws, K, cfg,
@@ -206,54 +214,71 @@ def _ptrs(*tensors) -> tuple:
     return tuple(t.data_ptr() for t in tensors)
 
 
+def window_key(state, *tensors) -> tuple:
+    """What a captured update of ``state`` reads, by identity and address:
+    the state and its optimizer, the parameters, the grid and ``tensors``
+    (scene, data)."""
+    occ = () if state.occ is None else tuple(state.occ)
+    return (id(state), id(state.opt),
+            _ptrs(*state.field.parameters(), *occ, *tensors))
+
+
 class WindowGraph:
     """The training step as a CUDA graph replayed once a step of a window
-    (the counterpart of JAX ``train_step_multi``'s scan).  One step is
-    captured, so a remainder window needs no second capture and the graph's
-    pool holds one step's activations.  The first window's first step is
-    the warm-up, run eagerly on the capture stream.  The graph reads the
-    parameters, moments, grid, scene and data at the addresses it captured:
-    when any of them was rebound (the grid's install, a load that replaced
-    a tensor) the step is captured again and the old graph dropped, so a
-    window never reads a stale grid; an in-place refresh of the grid needs
-    no new capture.  ``captures`` counts captures and ``capture_s`` their
-    seconds (warm-up step included)."""
+    (the counterpart of JAX ``train_step_multi``'s scan, and of its
+    ``lax.scan`` over the parallel steps' ``shard_map`` bodies).  One step
+    is captured, so a remainder window needs no second capture and the
+    graph's pool holds one step's activations.  The first window's first
+    step is the warm-up, run eagerly on the capture stream.  The graph reads
+    the parameters, moments, grid, scene and data at the addresses it
+    captured: when any of them was rebound (the grid's install, a load that
+    replaced a tensor) the step is captured again and the old graph
+    dropped, so a window never reads a stale grid; an in-place refresh of
+    the grid needs no new capture.  ``captures`` counts captures and
+    ``capture_s`` their seconds (warm-up step included)."""
 
     def __init__(self):
         self._call, self._key, self._sums = None, None, {}
         self.captures, self.capture_s = 0, 0.0
 
-    def run(self, state, scene, images, c2ws, K, cfg: PipelineConfig,
-            batch_size: int, n_steps: int, generator=None,
-            enc_generator=None):
-        gens = [g for g in {id(g): g for g in (generator, enc_generator)
-                            if g is not None}.values()]
-        occ = () if state.occ is None else tuple(state.occ)
-        key = (id(state), id(state.opt), cfg, batch_size,
-               *(id(g) for g in gens),
-               _ptrs(*state.field.parameters(), *occ, *scene.values(),
-                     images, c2ws, K))
+    def run(self, state, n_steps: int, update, key, generators=(),
+            before=None, agree=None):
+        """``n_steps`` updates of ``state``; returns each metric's mean over
+        them.  ``update()`` takes one update at the optimizer's device count
+        and returns its metrics: the warm-up step runs it and the graph
+        captures it.  ``key`` names what it reads (``window_key`` and the
+        options): another key captures again.  ``generators`` are
+        registered with the graph; ``before(i)`` runs before step i of the
+        window (the warm-up or a replay), where a parallel step reseeds
+        them; ``agree(changed) -> changed`` makes every rank of a world
+        take one decision to capture again."""
         for v in self._sums.values():
             v.zero_()
         state.opt.set_count(state.step)
-        left = n_steps
-        if key != self._key:
+        changed = key != self._key
+        if agree is not None:
+            changed = agree(changed)
+        first = 0
+        if changed:
             self._call = self._key = None      # free the old graph's pool
             t0 = time.perf_counter()
+            if before is not None:
+                before(0)
 
             def body():
-                m = _update(state, scene, images, c2ws, K, cfg, batch_size,
-                            generator, enc_generator, None)
+                m = update()
                 _add_to(self._sums, m)
                 return m
 
-            self._call = Captured(body, generators=gens)
+            self._call = Captured(body, generators=generators)
             torch.cuda.synchronize()
             self._key = key
             self.captures += 1
             self.capture_s += time.perf_counter() - t0
-            left -= 1
-        for _ in range(left):
+            first = 1
+        for i in range(first, n_steps):
+            if before is not None:
+                before(i)
             self._call.graph.replay()
         state.step += n_steps
         return {k: v / n_steps for k, v in self._sums.items()}

@@ -22,10 +22,14 @@ are two captures), on the CPU an eager loop; the grid's install lands on
 the first window boundary at or past the warmup, the refresh, log and eval
 fire when a window crosses their cadence, the logged metrics are the
 window's means, and the last window may be shorter.  Under data or level
-parallelism the window is refused (the next slice).  A refresh writes
-into the grid's storage (``occupancy.write_``), which a captured step
-reads.  The JAX trainer's compiled-executable cache is not ported.
-``log_grad_norms`` adds each group's
+parallelism the window is the parallel step's (``ParallelStep``: its
+collectives captured with it, on the CPU an eager loop) and fixed, as
+JAX's: the remainder (steps % n) runs as single steps, so the metrics
+logged after it are the last single step's.  A refresh writes into the
+grid's storage (``occupancy.write_``), which a captured step reads, and
+under parallelism then takes rank 0's grid in place.  The JAX trainer's
+compiled-executable cache is not ported.  ``log_grad_norms`` adds each
+group's
 gradient norm (of the whole field, joined under level parallelism) on a
 256-ray probe batch to every log record, as the JAX trainer does; the
 probe draws from its own generator, seeded with ``cfg.train.seed`` at each
@@ -117,13 +121,10 @@ class Trainer:
 
     def __post_init__(self):
         cfg = self.cfg
-        if self.steps_per_call > 1 and (self.data_parallel
-                                        or self.level_parallel > 1):
-            raise ValueError("steps_per_call under data or level "
-                             "parallelism is not ported yet")
         self._window = step_lib.WindowGraph()
         self.device = self.ds["images"].device
         self.mesh, self._step_fn, self.run_cfg = None, None, cfg
+        spc = max(1, self.steps_per_call)
         self._lp = self.level_parallel > 1
         if self.data_parallel or self._lp:
             if not dist.is_initialized():
@@ -170,8 +171,9 @@ class Trainer:
 
             self.state = lp.shard_lp_state(self.state, cfg, self.mesh,
                                            self.total_steps)
-            self._step_fn = lp.make_lp_train_step(cfg, cfg.train.ray_batch,
-                                                  self.mesh)
+            self._step_fn, self._window_fn = (
+                lp.make_lp_train_step(cfg, cfg.train.ray_batch, self.mesh,
+                                      steps_per_call=n) for n in (1, spc))
             self.run_cfg = lp.lp_cfg(cfg)
             self._lp_render = lp.make_lp_render(
                 cfg, self.mesh, num_samples=256,
@@ -184,8 +186,9 @@ class Trainer:
                 data_parallel as dp)
 
             dp.replicate(self.state)
-            self._step_fn = dp.make_dp_train_step(cfg, cfg.train.ray_batch,
-                                                  self.mesh)
+            self._step_fn, self._window_fn = (
+                dp.make_dp_train_step(cfg, cfg.train.ray_batch, self.mesh,
+                                      steps_per_call=n) for n in (1, spc))
             self.log_fn(f"data-parallel over {self.mesh.n_data} ranks")
         self.history = []
         self.metrics = obs.MetricsLogger(self.out_dir,
@@ -282,9 +285,12 @@ class Trainer:
                 self._install_occ(start_step + i)
             n = min(spc, steps - i)
             if self._step_fn is not None:
-                metrics = self._step_fn(self.state, self.scene,
-                                        self.ds["images"], self.ds["c2ws"],
-                                        self.ds["K"])
+                # the parallel window is fixed, as JAX's: a remainder
+                # (steps % spc) runs single steps
+                fn = self._window_fn if n == spc else self._step_fn
+                for _ in range(1 if n == spc else n):
+                    metrics = fn(self.state, self.scene, self.ds["images"],
+                                 self.ds["c2ws"], self.ds["K"])
             elif spc > 1:
                 metrics = step_lib.train_step_multi(
                     self.state, self.scene, self.ds["images"],

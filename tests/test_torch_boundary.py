@@ -109,14 +109,11 @@ def test_config_post_init_errors_match_jax(bad):
 
 # Each CLI of both packages: the port's module, its flags beyond JAX's
 # (--device, default cuda, on the CLIs that use the card), and the flags it
-# takes and refuses by name, each with an argv that sets it (train_hash's
-# --steps_per_call under --data_parallel; render's --aot_cache beside
-# --fused, which JAX refuses as a pair).
+# takes and refuses by name, each with an argv that sets it (render's
+# --aot_cache beside --fused, which JAX refuses as a pair).
 PARSER_CLIS = {
     "train_hash": (train_hash, {"device"},
-                   {"aot_cache": ["--aot_cache", "x"],
-                    "steps_per_call": ["--steps_per_call", "2",
-                                       "--data_parallel"]}),
+                   {"aot_cache": ["--aot_cache", "x"]}),
     "train_vanilla": (train_vanilla, {"device"}, {}),
     "image_fit": (image_fit, {"device"}, {}),
     "plot_psnr": (plot_psnr, {"device"}, {}),

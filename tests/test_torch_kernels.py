@@ -1395,6 +1395,68 @@ def test_captured_step_forward_equals_eager(cuda_device):
 
 
 @pytest.mark.cuda
+def test_reseeded_generator_replays_folded_streams(cuda_device):
+    """A registered generator reseeded in place before each replay
+    (``comm.reseed_``) draws in replay k what a fresh ``fold_generator`` of
+    the same words draws eagerly: the parallel window's streams."""
+    from human_body_reconstruction_tpu_torch.parallel import comm
+    from human_body_reconstruction_tpu_torch.train import step
+
+    def draw(gen):
+        return (torch.rand(4096, generator=gen, device=cuda_device),
+                torch.randint(0, 100, (513,), generator=gen,
+                              device=cuda_device))
+
+    gen = torch.Generator(cuda_device)
+    comm.reseed_(gen, 0, 7, 0)
+    call = step.Captured(lambda: draw(gen), generators=[gen])
+    for k in range(8, 11):
+        comm.reseed_(gen, 0, k, 0)
+        got = [t.clone() for t in call.replay()]
+        want = draw(comm.fold_generator(cuda_device, 0, k, 0))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), k
+
+
+@pytest.mark.cuda
+def test_parallel_window_in_a_world_of_one(cuda_device, tmp_path):
+    """The small flagship step's data-parallel window on a world-1 NCCL
+    group (its gradient and metric all-reduces captured with it) leaves
+    the state that as many eager data-parallel steps leave, within twice a
+    second eager run's distance (the backward kernels' float atomics) and
+    1e-3 of the parameters' norm (one update left out or taken twice moves
+    them by far more), and captures once across two windows."""
+    import torch.distributed as dist
+
+    from human_body_reconstruction_tpu_torch.parallel import comm
+    from human_body_reconstruction_tpu_torch.parallel import data_parallel as dp
+
+    comm.init("cuda", rank=0, world_size=1,
+              init_method=f"file://{tmp_path / 'rendezvous'}")
+    try:
+        mesh = dp.make_mesh()
+        runs = []
+        for n in (1, 1, 3):
+            cfg, st, scene, data = graph_inputs(cuda_device)
+            step = dp.make_dp_train_step(cfg, cfg.train.ray_batch, mesh,
+                                         steps_per_call=n)
+            ms = [step(st, scene, *data) for _ in range(6 // n)]
+            torch.cuda.synchronize()
+            assert st.step == 6 and int(st.opt.count) == 6
+            assert all(bool(torch.isfinite(v)) for m in ms
+                       for v in m.values())
+            runs.append(torch.cat([p.detach().reshape(-1)
+                                   for p in st.field.parameters()]))
+        assert step.graph.captures == 1
+        eager = float((runs[1] - runs[0]).norm())
+        graph = float((runs[2] - runs[0]).norm())
+        norm = float(runs[0].norm())
+        assert graph <= 2.0 * eager + 1e-3 * norm, (graph, eager, norm)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 def test_registered_generator_advances_across_replays(cuda_device):
     """A generator registered with a captured graph draws afresh at each
     replay: replay k gives what the k-th eager draw gives, and no two

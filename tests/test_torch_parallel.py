@@ -168,10 +168,12 @@ def jax_group_grads(grads):
     return out
 
 
-def jax_step(jcfg, params, kind: str, shape, step_no: int, key, tx=None):
+def jax_step(jcfg, params, kind: str, shape, step_no: int, key, tx=None,
+             n: int = 1):
     """(metrics, gradients by group) of one JAX data- or level-parallel
     step on the first devices; given the optimizer ``tx``, (metrics, the
-    params after its update, in the JAX leaf order)."""
+    params after its update, in the JAX leaf order), and with ``n`` > 1
+    after a window of n steps (``steps_per_call``: its mean metrics)."""
     images, c2ws, K = dataset()
     record = tx is None
     tx = recording_tx() if record else tx
@@ -181,11 +183,11 @@ def jax_step(jcfg, params, kind: str, shape, step_no: int, key, tx=None):
     if kind == "dp":
         mesh = jdp.make_mesh(jax.devices()[:shape[0]])
         state = jdp.replicate_to_mesh(state, mesh)
-        fn = jdp.make_dp_train_step(jcfg, tx, B, mesh)
+        fn = jdp.make_dp_train_step(jcfg, tx, B, mesh, steps_per_call=n)
     else:
         mesh = jlp.make_lp_mesh(*shape)
         state = jlp.shard_lp_state(state, mesh)
-        fn = jlp.make_lp_train_step(jcfg, tx, B, mesh)
+        fn = jlp.make_lp_train_step(jcfg, tx, B, mesh, steps_per_call=n)
     state, m = fn(state, jrestore.scene_from_bounds(LO, HI),
                   jnp.asarray(images), jnp.asarray(c2ws), jnp.asarray(K), key)
     return ({k: float(v) for k, v in m.items()},
@@ -232,6 +234,14 @@ STEP_CASES = [
     ("lp_cp_tv_gated", "cp", "lp", (1, 2), 0, 5),
 ]
 EXTENTS = (1, 2, 4)
+# (name, variant, kind, (n_data, n_inner), TV warmup, n): the windows held
+# to JAX's steps_per_call steps from update 0, each step given JAX's draws;
+# the CP windows turn the TV on at update 2, inside the window
+WINDOW_CASES = [
+    ("dp_window", "cp", "dp", (2, 1), 2, 3),
+    ("lp_hash_window", "corner", "lp", (1, 2), 0, 3),
+    ("lp_cp_window", "cp", "lp", (1, 2), 2, 3),
+]
 
 
 @pytest.fixture(scope="module")
@@ -251,6 +261,17 @@ def world4():
                 jstate.make_optimizer(jcfg.train, 50, params))
         cases.append((name, "step_case", payload(cfg, params, kind, shape,
                                                  step_no, key)))
+    for name, variant, kind, shape, warm, n in WINDOW_CASES:
+        cfg, jcfg = cfgs(variant, warm)
+        params = jax_params(jcfg)
+        jax_out[name] = jax_step(jcfg, params, kind, shape, 0, key,
+                                 jstate.make_optimizer(jcfg.train, 50,
+                                                       params), n=n)
+        images = dataset()[0]
+        cases.append((name, "window_case", payload(
+            cfg, params, kind, shape, 0, key, n=n, window_draws=[
+                jax_draws(key, i, shape[0], images, cfg, shape[1])
+                for i in range(n)])))
     cfg, jcfg = cfgs("cp", 0)
     cases.append(("extents", "extents_case", dict(
         payload(cfg, jax_params(jcfg), "lp", (1, 1), 0, key),
@@ -310,6 +331,45 @@ def test_parallel_step_matches_jax(world4, name):
                       - np.concatenate([a.reshape(-1) for a in jparams]))
         assert np.mean(diff < 1e-5) > 0.999 and diff.max() < 5e-3, \
             (np.mean(diff < 1e-5), diff.max())
+
+
+@pytest.mark.parametrize("name", [c[0] for c in WINDOW_CASES])
+def test_parallel_window_matches_jax(world4, name):
+    """A window of 3 steps (``steps_per_call`` 3; on the CPU the eager
+    loop) against JAX's ``make_*_train_step(steps_per_call=3)`` from the
+    same params, every step given JAX's draws: the window's mean loss
+    within 1e-5 relative and PSNR within 1e-4; the parameters after it
+    within 1.4e-5 of each leaf's norm under data parallelism (as the
+    single-device window's test), and as JAX's own extents test holds
+    them under level parallelism (Adam turns the sign of a near-zero
+    gradient of the sharded group, which JAX scales by k, into a step of
+    the learning rate); every rank's parameters the same bit for bit."""
+    jax_out, ranks = world4
+    _, _, kind, shape, _, n = dict((c[0], c) for c in WINDOW_CASES)[name]
+    jm, jparams = jax_out[name]
+    mine = [r[name] for r in ranks[:shape[0] * shape[1]]]
+    pm = mine[0]["metrics"]
+    assert set(pm) == set(jm)
+    assert mine[0]["counts"] == (n, n)
+    assert np.isfinite(pm["loss"]) and pm["loss"] > 0
+    assert pm["loss"] == pytest.approx(jm["loss"], rel=1e-5)
+    assert pm["psnr"] == pytest.approx(jm["psnr"], abs=1e-4)
+    for k in jm:
+        assert pm[k] == pytest.approx(jm[k], rel=1e-5), k
+    if kind == "dp":
+        for a, b in zip(mine[0]["params"], jparams):
+            assert np.linalg.norm(a - b) <= 1.4e-5 * np.linalg.norm(b)
+    else:
+        diff = np.abs(np.concatenate([a.reshape(-1) for a in
+                                      mine[0]["params"]])
+                      - np.concatenate([a.reshape(-1) for a in jparams]))
+        assert np.mean(diff < 1e-5) > 0.999 and diff.max() < 5e-3, \
+            (np.mean(diff < 1e-5), diff.max())
+    for other in mine[1:]:
+        assert other["metrics"] == pm
+        for a, b in zip(other["params"], mine[0]["params"]):
+            np.testing.assert_array_equal(a, b)
+    assert all(r[name] is None for r in ranks[shape[0] * shape[1]:])
 
 
 def test_tv_warmup_gates_the_rank_parallel_step(world4):
@@ -450,13 +510,15 @@ def test_level_parallel_checkpoint_is_the_single_device_one(world2):
 
 
 def test_dryrun_runs_every_parallel_path(world2):
-    """parallel/dryrun.py at world 2: the data-parallel step, the
-    sample-split render in both modes, and level-parallel hash and CP
-    steps, each finite; the hash block ran on a pinned level count."""
+    """parallel/dryrun.py at world 2: the data-parallel step and a window
+    of 2, the sample-split render in both modes, and level-parallel hash
+    and CP steps and windows, each finite; the hash block ran on a pinned
+    level count."""
     for r in world2[0]:
         out = r["dryrun"]
-        assert set(out) == {"dp_loss", "sp_density", "sp_sdf",
-                            "lp_hash_loss", "lp_cp_loss"}
+        assert set(out) == {"dp_loss", "dp_window_loss", "sp_density",
+                            "sp_sdf", "lp_hash_loss", "lp_hash_window_loss",
+                            "lp_cp_loss", "lp_cp_window_loss"}
         assert all(np.isfinite(v) for v in out.values())
     assert world2[0][0]["dryrun"] == world2[0][1]["dryrun"]
 
@@ -509,11 +571,142 @@ def test_cli_data_parallel_world_of_one(tmp_path):
     assert os.path.exists(tmp_path / "dp_ckpt.npz")
 
 
+def test_cli_data_parallel_window_world_of_one(tmp_path):
+    """``--data_parallel --steps_per_call 2`` over 5 steps in a world of
+    one: two windows of the data-parallel step, then the remainder as a
+    single step, a log after each, and the checkpoint."""
+    tr = train_hash.main([
+        "--synthetic", "--steps", "5", "--num_batch", "32", "--max_res", "64",
+        "--num_levels", "3", "--cp_rank", "2", "--num_samples", "8",
+        "--compact", "4", "--occ_probes", "4", "--occ_warmup", "1",
+        "--update_rate", "2", "--log_every", "1", "--steps_per_call", "2",
+        "--device", "cpu", "--data_parallel", "--out_dir", str(tmp_path),
+        "--model_name", "dpw"])
+    assert tr.mesh.shape == (1, 1) and tr._window_fn.steps_per_call == 2
+    assert tr.state.step == 5 and int(tr.state.opt.count) == 5
+    assert tr.state.occ is not None
+    assert [r["step"] for r in tr.history] == [2, 4, 5]
+    assert all(np.isfinite(r["loss"]) for r in tr.history)
+    assert not torch.distributed.is_initialized()
+    with np.load(tmp_path / "dpw_ckpt.npz") as data:
+        assert int(data["extra_step"]) == 5
+
+
+# steps_per_call 3 over 7 steps (windows 3, 3, then a single step), the
+# grid's warmup 2, a refresh every 4, a log every step, an eval every 5
+PW_EVENTS = dict(steps=7, spc=3, warmup=2, update_rate=4, log=1, every=5)
+
+
+def window_event_cfgs():
+    out = []
+    for c in cfgs("cp", 0):
+        out.append(dataclasses.replace(
+            c, render=dataclasses.replace(c.render, occupancy=True,
+                                          occupancy_resolution=8),
+            train=dataclasses.replace(
+                c.train, occ_warmup_steps=PW_EVENTS["warmup"],
+                update_rate=PW_EVENTS["update_rate"])))
+    return out
+
+
+def jax_parallel_window_events(tmp_path, jcfg):
+    """The JAX trainer's events under ``data_parallel`` (a mesh of the
+    host's 8 CPU devices) with its parallel step functions stubbed: each
+    call advances the count."""
+    images, c2ws, K = dataset()
+    ds = {"images": jnp.asarray(images), "c2ws": jnp.asarray(c2ws),
+          "K": jnp.asarray(K), "H": 8, "W": 8}
+    tr = jtrainer.Trainer(cfg=jcfg, ds=ds, out_dir=str(tmp_path),
+                          log_fn=lambda s: None, write_metrics=False,
+                          total_steps=PW_EVENTS["steps"],
+                          data_parallel=True,
+                          steps_per_call=PW_EVENTS["spc"])
+    assert tr.mesh is not None and tr._dp_step1 is not None
+    ev = {"install": [], "refresh": [], "calls": [], "eval": []}
+    zero = {"loss": jnp.float32(0.0), "psnr": jnp.float32(0.0)}
+
+    def stub(kind, n):
+        def fn(state, *a):
+            ev["calls"].append((kind, n))
+            return state._replace(step=state.step + n), zero
+        return fn
+
+    tr._dp_step = stub("window", PW_EVENTS["spc"])
+    tr._dp_step1 = stub("single", 1)
+    install = tr._install_occ
+    tr._install_occ = lambda s: (ev["install"].append(s), install(s))
+    tr.update_occupancy = lambda s=None: (
+        tr.state.occ is not None and ev["refresh"].append(s))
+    tr.eval_render = lambda *a, tag="", **k: ev["eval"].append(int(tag))
+    tr.save = lambda: None
+    tr.run(PW_EVENTS["steps"], log_every=PW_EVENTS["log"],
+           eval_every=PW_EVENTS["every"])
+    ev["log"] = [r["step"] for r in tr.history]
+    return ev
+
+
+def test_parallel_window_events_match_jax(tmp_path):
+    """Under ``data_parallel`` with ``steps_per_call`` 3 over 7 steps (a
+    world of one over gloo, in this process): the port's fit loop calls the
+    window twice and then the single step once, installs the grid,
+    refreshes it, logs and evaluates at the steps the JAX trainer does on
+    its mesh; the metrics logged after the remainder are the single step's;
+    the window ran its steps."""
+    from human_body_reconstruction_tpu_torch.train import trainer as tlib
+
+    cfg, jcfg = window_event_cfgs()
+    images, c2ws, K = dataset()
+    ds = {"images": torch.as_tensor(images), "c2ws": torch.as_tensor(c2ws),
+          "K": torch.as_tensor(K), "H": 8, "W": 8}
+    want = jax_parallel_window_events(tmp_path / "j", jcfg)
+    rdzv = tmp_path / "rdzv"
+    rdzv.mkdir()
+    comm.init("cpu", rank=0, world_size=1,
+              init_method=f"file://{rdzv / 'rendezvous'}")
+    try:
+        tr = tlib.Trainer(cfg=cfg, ds=ds, out_dir=str(tmp_path / "p"),
+                          log_fn=lambda s: None,
+                          total_steps=PW_EVENTS["steps"], data_parallel=True,
+                          steps_per_call=PW_EVENTS["spc"])
+        ev = {"install": [], "refresh": [], "calls": [], "eval": []}
+        last = {}
+
+        def spy(kind, fn):
+            def call(state, *a):
+                ev["calls"].append((kind, state.step))
+                out = fn(state, *a)
+                ev["calls"][-1] = (kind, state.step - ev["calls"][-1][1])
+                last.update(out)
+                return out
+            return call
+
+        tr._window_fn = spy("window", tr._window_fn)
+        tr._step_fn = spy("single", tr._step_fn)
+        install, refresh = tr._install_occ, tr.update_occupancy
+        tr._install_occ = lambda s: (ev["install"].append(s), install(s))
+        tr.update_occupancy = lambda: (
+            tr.state.occ is not None and ev["refresh"].append(tr.state.step),
+            refresh())
+        tr.eval_render = lambda tag="": ev["eval"].append(int(tag))
+        tr.run(PW_EVENTS["steps"], log_every=PW_EVENTS["log"],
+               eval_every=PW_EVENTS["every"])
+    finally:
+        torch.distributed.destroy_process_group()
+    ev["log"] = [r["step"] for r in tr.history]
+    assert want["calls"] == [("window", 3), ("window", 3), ("single", 1)]
+    assert want["install"] == [3]       # the first boundary past 2
+    assert ev == want
+    assert tr.state.step == PW_EVENTS["steps"] and tr.state.occ is not None
+    assert tr.history[-1]["loss"] == float(last["loss"])
+    assert all(np.isfinite(r["loss"]) for r in tr.history)
+
+
 def test_cli_under_torchrun_level_parallel(tmp_path):
-    """``torchrun --nproc_per_node 2 -m ...train_hash --level_parallel 2``
-    (gloo on the CPU): the ranks join torchrun's world from its
-    environment, split the hash grid's levels, and rank 0 alone logs and
-    writes the checkpoint."""
+    """``torchrun --nproc_per_node 2 -m ...train_hash --level_parallel 2
+    --steps_per_call 2`` over 3 steps (gloo on the CPU): the ranks join
+    torchrun's world from its environment, split the hash grid's levels,
+    take a window of 2 steps and then a single step, and rank 0 alone logs
+    and writes the checkpoint."""
     import subprocess
     import sys
 
@@ -526,14 +719,16 @@ def test_cli_under_torchrun_level_parallel(tmp_path):
          "human_body_reconstruction_tpu_torch.cli.train_hash", "--synthetic",
          "--stochastic", "--hw_rng", "--num_levels", "4", "--hash_size", "10",
          "--max_res", "64", "--num_batch", "64", "--num_samples", "8",
-         "--steps", "2", "--log_every", "1", "--device", "cpu",
-         "--level_parallel", "2", "--out_dir", str(tmp_path)],
+         "--steps", "3", "--steps_per_call", "2", "--log_every", "1",
+         "--device", "cpu", "--level_parallel", "2", "--out_dir",
+         str(tmp_path)],
         capture_output=True, text=True, env=env, timeout=300, cwd=repo)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.count("level-parallel over 2 ranks") == 1
     assert proc.stdout.count("step       2") == 1
+    assert proc.stdout.count("step       3") == 1
     with np.load(tmp_path / "default_ckpt.npz") as data:
-        assert int(data["extra_step"]) == 2
+        assert int(data["extra_step"]) == 3
         shapes = [data[k].shape for k in data.files if k.startswith("leaf")]
     # the table and its two moments, joined: 4 levels, not a rank's 2
     assert shapes.count((4, 1024, 2)) == 3 and (2, 1024, 2) not in shapes

@@ -414,7 +414,10 @@ def test_fit_loop_checkpoint_renders_same_in_jax(fitted):
     ["--stochastic", "--packed", "--pack_format", "int8", "--grad_subsample",
      "--grad_level_subsample", "--dense_levels", "-1"],
     ["--steps_per_call", "4"],
-    ["--stochastic", "--packed", "--grad_subsample", "--steps_per_call", "2"]])
+    ["--stochastic", "--packed", "--grad_subsample", "--steps_per_call", "2"],
+    ["--steps_per_call", "4", "--data_parallel"],
+    ["--stochastic", "--packed", "--grad_subsample", "--steps_per_call", "2",
+     "--level_parallel", "2"]])
 def test_cli_config_matches_jax(argv):
     args = train_hash.build_parser().parse_args(argv)
     assert dataclasses.asdict(train_hash.make_config(args)) == \
@@ -427,13 +430,14 @@ def test_cli_config_matches_jax(argv):
 # levels do not divide by 3; 12 int8 levels over 4 ranks leave each rank 3
 # levels, an odd count for --grad_level_pair.  The hash-grid variant flags
 # run (test_cli_config_matches_jax); with the compile cache they are
-# refused for it.  --steps_per_call runs (test_cli_config_matches_jax) and is
-# refused under --data_parallel or --level_parallel (the next slice).
+# refused for it.  --steps_per_call runs, under --data_parallel and
+# --level_parallel too (test_cli_config_matches_jax), and below 1 is refused
+# with a message naming it.
 @pytest.mark.parametrize("argv", [
     ["--level_parallel", "2"], ["--stochastic", "--level_parallel", "3"],
     ["--encoder_variant", "cell", "--level_parallel", "3"],
-    ["--steps_per_call", "4", "--data_parallel"],
-    ["--stochastic", "--packed", "--grad_subsample", "--steps_per_call", "2",
+    ["--steps_per_call", "0", "--data_parallel"],
+    ["--stochastic", "--packed", "--grad_subsample", "--steps_per_call", "0",
      "--level_parallel", "2"],
     ["--aot_cache", "x"],
     ["--stochastic", "--packed", "--aot_cache", "x"],

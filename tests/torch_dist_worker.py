@@ -70,6 +70,23 @@ def _state(p, cfg, mesh):
     return state
 
 
+def _feed(shards, mesh):
+    """This rank's draws of one step: its data shard's indices and jitter,
+    and in int8 mode its level rank's encoder draws."""
+    d = shards[mesh.data_index]
+    draws = {"u": _t(d["u"])}
+    if "enc" in d:          # this level rank's encoder draws
+        draws.update({f"enc_{k}": _t(v)
+                      for k, v in d["enc"][mesh.inner_index].items()})
+    return {"img_idx": _t(d["img"]), "pix_idx": _t(d["pix"]), "draws": draws}
+
+
+def _make_step(p, cfg, mesh, n: int = 1):
+    make = (lp.make_lp_train_step if p["kind"] == "lp"
+            else dp.make_dp_train_step)
+    return make(cfg, p["batch"], mesh, steps_per_call=n)
+
+
 def step_case(device, p):
     """One data- or level-parallel step on JAX's params with JAX's draws:
     the metrics, the averaged (and joined) gradients and the parameters
@@ -79,20 +96,30 @@ def step_case(device, p):
     if mesh is None:
         return None
     state = _state(p, cfg, mesh)
-    make = (lp.make_lp_train_step if p["kind"] == "lp"
-            else dp.make_dp_train_step)
-    step = make(cfg, p["batch"], mesh)
-    d = p["draws"][mesh.data_index]
-    draws = {"u": _t(d["u"])}
-    if "enc" in d:          # this level rank's encoder draws
-        draws.update({f"enc_{k}": _t(v)
-                      for k, v in d["enc"][mesh.inner_index].items()})
-    m = step(state, *_data(p), img_idx=_t(d["img"]), pix_idx=_t(d["pix"]),
-             draws=draws)
+    m = _make_step(p, cfg, mesh)(state, *_data(p),
+                                 **_feed(p["draws"], mesh))
     grads = whole_grads(state.field, cfg, mesh)
     whole = (lp.gather_lp_state(state, cfg, mesh) if p["kind"] == "lp"
              else state)
     return {"metrics": {k: float(v) for k, v in m.items()}, "grads": grads,
+            "params": ckpt.jax_leaves(whole.field)}
+
+
+def window_case(device, p):
+    """A window of ``p["n"]`` data- or level-parallel steps on JAX's params,
+    each step handed JAX's draws for it: the window's mean metrics, the
+    step and device counts, and the (joined) parameters after it."""
+    cfg = p["cfg"]
+    mesh = comm.make_mesh(*p["shape"], "level")
+    if mesh is None:
+        return None
+    state = _state(p, cfg, mesh)
+    m = _make_step(p, cfg, mesh, p["n"])(
+        state, *_data(p), feeds=[_feed(d, mesh) for d in p["window_draws"]])
+    whole = (lp.gather_lp_state(state, cfg, mesh) if p["kind"] == "lp"
+             else state)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "counts": (state.step, int(state.opt.count)),
             "params": ckpt.jax_leaves(whole.field)}
 
 

@@ -12,7 +12,11 @@ unculled, from one seeded field; W = 1 too through ``make_lp_train_step``)
 with its first steps' losses, which every extent must take alike (held
 within CP_LOSS_RTOL of one card's after the worlds have run); and the
 sample-split render of a 400x400 frame at 1,024 samples over W sample
-ranks.  The level-parallel steps count their kernels' launches a step.  Step and frame times are host clocks
+ranks.  The level-parallel steps count their kernels' launches a step.
+Each of the three steps is also timed eager and as 25-step windows
+(``steps_per_call`` 25: on the card one captured step, its NCCL
+collectives inside, replayed a step): ms a step, and by the profiler the
+host wall, device busy, NCCL ms and kernels a step of each.  Step and frame times are host clocks
 around work that ends in a synchronise; collective times are CUDA events
 over 20 calls; a torch.profiler window of 10 steps gives each step's host
 wall, device busy and NCCL time and its largest kernels.  Every rank
@@ -51,6 +55,7 @@ CP_RANK, CP_TV, CP_WARM, CP_TIMED = 32, 1e-2, 5, 20
 CP_LOSS_RTOL = 1e-3     # the float-atomic backwards: steps differ in bits
 SP_HW, SP_SAMPLES, SP_CHUNK = 400, 1024, 1024
 REPS = 20
+WINDOW, WINDOW_REPS = 25, 4     # --steps_per_call windows: steps, timed calls
 
 
 def sync(device):
@@ -88,10 +93,11 @@ def timed_steps(step, n: int, device) -> float:
     return 1e3 * (time.perf_counter() - t0) / n
 
 
-def profiled(step, n: int, device) -> dict:
-    """torch.profiler over n calls of step(): per call, the host's wall ms,
-    the device's busy ms (the union of its kernels' spans), the NCCL
-    kernels' ms, the kernel count, and the kernels that take the most."""
+def profiled(step, n: int, device, per: int = 1) -> dict:
+    """torch.profiler over n calls of step(), each ``per`` steps (a window):
+    per step, the host's wall ms, the device's busy ms (the union of its
+    kernels' spans), the NCCL kernels' ms, the kernel count, and the
+    kernels that take the most."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
@@ -102,7 +108,7 @@ def profiled(step, n: int, device) -> dict:
         for _ in range(n):
             step()
         sync(device)
-        wall = 1e3 * (time.perf_counter() - t0) / n
+        wall = 1e3 * (time.perf_counter() - t0) / n / per
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -117,9 +123,37 @@ def profiled(step, n: int, device) -> dict:
             end = b
     nccl = sum(v for k, v in by_name.items() if "nccl" in k.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    n *= per
     return {"wall_ms": wall, "device_busy_ms": busy / 1e3 / n,
             "nccl_ms": nccl / 1e3 / n, "kernels_per_step": len(spans) / n,
             "top": [(k, v / 1e3 / n) for k, v in top]}
+
+
+def eager_and_window(make, state, data, device, tiny: bool) -> dict:
+    """One parallel step, eager and as a WINDOW-step window
+    (``make(steps_per_call)``: on the card one captured step, its
+    collectives inside, replayed): ms a step by the host clock over whole
+    calls ending in a synchronise, and the profile of each (per step); and
+    the ms of the ranks' agreement that opens each window
+    (``comm.mesh_any``)."""
+    n = 2 if tiny else WINDOW
+    one, win = make(1), make(n)
+    for _ in range(2):
+        one(state, *data)
+    win(state, *data)                   # the capture (warm-up step included)
+    reps = 2 if tiny else WINDOW_REPS
+    return {"window": n,
+            "agree_ms": timed_steps(
+                lambda: comm.mesh_any(False, win.mesh, device), REPS,
+                device),
+            "eager_ms": timed_steps(lambda: one(state, *data), reps * n,
+                                    device),
+            "window_ms": timed_steps(lambda: win(state, *data), reps,
+                                     device) / n,
+            "captures": win.graph.captures,
+            "eager_profile": profiled(lambda: one(state, *data), 10, device),
+            "window_profile": profiled(lambda: win(state, *data), 2, device,
+                                       per=n)}
 
 
 def counted_steps(step, n: int, device):
@@ -166,7 +200,7 @@ def bench(device, tiny: bool):
     import torch.distributed as dist
 
     from human_body_reconstruction_tpu_torch.parallel import (
-        sample_parallel as sp)
+        data_parallel as dp, level_parallel as lp, sample_parallel as sp)
     from human_body_reconstruction_tpu_torch.train.trainer import Trainer
     from human_body_reconstruction_tpu_torch.utils import config as C
 
@@ -209,7 +243,11 @@ def bench(device, tiny: bool):
         "guided_step_ms": step_ms, "rays_per_s": rays / step_ms * 1e3,
         "grad_bytes": 4 * n_grad, "all_reduce_ms": ar_ms,
         "warmup_s": warm_s,
-        "profile": profiled(lambda: tr._step_fn(tr.state, *data), 10, device)}
+        "profile": profiled(lambda: tr._step_fn(tr.state, *data), 10, device),
+        "windows": eager_and_window(
+            lambda n: dp.make_dp_train_step(cfg, rays, tr.mesh,
+                                            steps_per_call=n),
+            tr.state, data, device, tiny)}
     out["host"] = {"cpus": os.cpu_count(), "torch_threads":
                    torch.get_num_threads(), "loadavg": os.getloadavg()}
     field = tr.state.field
@@ -244,16 +282,25 @@ def bench(device, tiny: bool):
     if htr.mesh is not None:
         gather_ms = event_ms(
             lambda: comm.gather_cols(block, htr.mesh.inner_group), device)
+    # its windows: the level-parallel step at extent W (W = 1 too, on this
+    # state cut to a (1, 1) layout)
+    hmesh = htr.mesh or lp.make_lp_mesh(1, 1)
+    hst = (htr.state if htr.mesh is not None
+           else lp.shard_lp_state(htr.state, hcfg, hmesh, 100))
     out["lp_hash"] = {
         "extent": world, "levels_per_rank": hcfg.hash.num_levels // world,
         "points": n_pts, "step_ms": h_ms, "rays_per_s": rays / h_ms * 1e3,
         "gather_bytes_per_rank": 4 * block.numel(), "gather_ms": gather_ms,
-        "launches_per_step": h_launches, "profile": h_prof}
+        "launches_per_step": h_launches, "profile": h_prof,
+        "windows": eager_and_window(
+            lambda n: lp.make_lp_train_step(hcfg, rays, hmesh,
+                                            steps_per_call=n),
+            hst, (htr.scene, ds["images"], ds["c2ws"], ds["K"]), device,
+            tiny)}
+    del hst
 
     # the --cp_rank 32 ladder's rank-parallel step at extent W
     from human_body_reconstruction_tpu_torch.models import nerf
-    from human_body_reconstruction_tpu_torch.parallel import (
-        level_parallel as lp)
     from human_body_reconstruction_tpu_torch.train import state as state_lib
 
     ccfg = dataclasses.replace(
@@ -280,7 +327,11 @@ def bench(device, tiny: bool):
         "gather_bytes_per_rank": 4 * cblock.numel(),
         "gather_ms": event_ms(lambda: comm.gather_cols(
             cblock, lmesh.inner_group), device),
-        "launches_per_step": c_launches}
+        "launches_per_step": c_launches,
+        "windows": eager_and_window(
+            lambda n: lp.make_lp_train_step(ccfg, rays, lmesh,
+                                            steps_per_call=n),
+            cst, data, device, tiny)}
     del cst, whole, cblock
 
     # the sample-split render over W sample ranks
