@@ -258,7 +258,11 @@ level) for the dense forward and its ``grid_sampler_3d_backward`` (the
 volume's gradient) for the dense backward; ``F.embedding_bag(mode="sum")``
 given the rows and weights for the hash forward (3-D and 2-D) and
 ``index_add_`` given the rows and the weighted terms for the hash
-backward; none for the CP encoder.  Kernel times are CUDA events over a
+backward; for the CP forward ``F.embedding_bag(mode="sum")`` over the f32
+stacked lines, one bag of a (point, level, axis)'s two hat rows and
+weights, (3, N, C) out (the product over the axes left out), and for the
+CP backward ``index_add_`` of those rows and their terms (weight times the
+axis's dT) into an f32 (3*sum_G, R) accumulator.  Kernel times are CUDA events over a
 run of launches queued behind a device sleep, so they are the device's
 time, not the host's enqueue.
 
@@ -701,6 +705,65 @@ def embedding_bag_call(table, rows, w):
         rows, flat, per_sample_weights=w, mode="sum")
 
 
+def cp_bag_inputs(lines, pts, mu, sigma, h):
+    """The CP kernels' hat rows and weights, for a library call handed them:
+    the f32 (3*sum_G, R) stacked lines (bf16-rounded values where
+    ``h.dense_bf16``, as the kernels read them), and each (axis, point,
+    level)'s two rows into them and their weights, (3*N*L, 2) int64 and f32
+    in the order that makes a bag's (3*N*L, R) output a (3, N, L*R)
+    tensor."""
+    from human_body_reconstruction_tpu_torch.ops.dense_grid import (
+        axis_coords, normalise, round_bf16)
+    from human_body_reconstruction_tpu_torch.ops.lowrank import cp_line_sizes
+    from human_body_reconstruction_tpu_torch.utils.config import fine_scales
+
+    rnd = round_bf16 if h.dense_bf16 else (lambda v: v)
+    sizes = cp_line_sizes(h)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    flat = rnd(torch.cat([ln.detach().to(torch.float32) for ln in lines],
+                         dim=1)).reshape(-1, lines[0].shape[-1]).contiguous()
+    axis = torch.arange(3, device=pts.device)[:, None] * int(offsets[-1])
+    xn = normalise(pts, mu, sigma)
+    rows, ws = [], []
+    for g, scale, off in zip(sizes, fine_scales(h), offsets[:-1]):
+        x0, frac = axis_coords(xn * float(scale), g)
+        lo = x0.t() + axis + int(off)                                 # (3, N)
+        rows.append(torch.stack([lo, lo + 1], -1))
+        ws.append(torch.stack([rnd(1.0 - frac).t(), rnd(frac).t()], -1))
+    return (flat, torch.stack(rows, 2).reshape(-1, 2),
+            torch.stack(ws, 2).reshape(-1, 2).contiguous())
+
+
+def cp_embedding_bag_call(flat, rows, w):
+    """The CP forward's gathers and lerps as one library call given the
+    rows and weights: ``F.embedding_bag(mode="sum")``, one bag of 2 a
+    (point, level, axis), over the f32 stacked lines; (3*N*L, R) out, whose
+    product over the axes is the encoding."""
+    return lambda: torch.nn.functional.embedding_bag(
+        rows, flat, per_sample_weights=w, mode="sum")
+
+
+def cp_index_add_call(flat, rows, w, cols, h):
+    """The CP backward as one library call given the rows and the terms
+    (each hat row's weight times its axis's bf16-rounded dT, made before
+    the call from the f32 lerps): ``index_add_`` into an f32 (3*sum_G, R)
+    accumulator.  Returns (the call, the accumulator)."""
+    from human_body_reconstruction_tpu_torch.ops.dense_grid import round_bf16
+
+    rnd = round_bf16 if h.dense_bf16 else (lambda v: v)
+    R = flat.shape[1]
+    n = cols.shape[0]
+    t = cp_embedding_bag_call(flat, rows, w)().reshape(3, n, -1, R)
+    gl = cols.reshape(n, -1, R)
+    dp = gl * t[2]
+    dts = torch.stack([rnd(dp * t[1]), rnd(t[0] * dp), rnd((t[0] * t[1]) * gl)])
+    terms = (w.reshape(3, n, -1, 2, 1) * dts[:, :, :, None, :]).reshape(-1, R)
+    del t, gl, dp, dts
+    idx = rows.reshape(-1)
+    acc = torch.zeros_like(flat)
+    return (lambda: acc.zero_().index_add_(0, idx, terms)), acc
+
+
 def corner_sectors(rows) -> int:
     """The distinct 32-byte sectors (8 words) that the corner rows of each
     (point, level) span, summed: rows (N*L, C) into the flat (L*T,) words,
@@ -775,12 +838,31 @@ def backward_check(nm, tables, pts, scene, h, cols, label, tag):
               f"{nm} gradients finite, of the plain version's shapes")
         ms = time_ms(lambda: kern(*a))
         plain_ms = time_ms(lambda: plain(*a), reps=5)
-        lib_ms = None
+        lib_ms, lib = None, ""
         if nm == "dense_backward":
             lib_ms = time_ms(grid_sample_backward_levels(
                 grid_sample_inputs(tables, pts, scene["mu"], scene["sigma"],
                                    h), cols))
-    lib = "" if lib_ms is None else f", grid_sampler_3d_backward {lib_ms:.4f} ms"
+            lib = f", grid_sampler_3d_backward {lib_ms:.4f} ms"
+        if nm == "cp_backward":
+            flat, rows, w = cp_bag_inputs(tables, pts, scene["mu"],
+                                          scene["sigma"], h)
+            call, acc = cp_index_add_call(flat, rows, w, cols, h)
+            call()
+            from human_body_reconstruction_tpu_torch.ops.dense_grid import (
+                round_bf16)
+
+            rnd = round_bf16 if h.dense_bf16 else (lambda v: v)
+            lib_ratio = max(float(((y - x).abs() / cuda_lib.sum_order_tolerance(
+                y, s_, True)).max()) for x, y, s_ in zip(
+                    rnd(acc).reshape(3, -1, acc.shape[1]).split(
+                        [t.shape[1] for t in tables], 1), want, abs_sum))
+            lib_ms = time_ms(call)
+            lib = (f", index_add_ given rows and terms (f32) {lib_ms:.4f} ms "
+                   f"(|err| / tolerance {lib_ratio:.3f})")
+            check(lib_ratio <= 1.0, ("index_add_ computes the CP backward",
+                                     label, lib_ratio))
+            del flat, rows, w, call, acc
     print(f"kernel {nm}: {pts.shape[0]} {label}, max_abs_err {err:.3e}, worst "
           f"|err| / tolerance {ratio:.3f} (tol 1; / (bf16 ulp + 1e-6) "
           f"{ulps:.3f}), {ms:.4f} ms vs plain {plain_ms:.4f} ms{lib}, bound "
@@ -1329,6 +1411,19 @@ def forward_check(nm, tables, pts, scene, h, *, matrix: bool, tol: float,
             lib_ms = time_ms(embedding_bag_call(tables, rows, w))
             extra += f", embedding_bag given rows and weights {lib_ms:.4f} ms"
             del rows, w
+        if nm == "cp_forward":
+            flat, rows, w = cp_bag_inputs(tables, pts, scene["mu"],
+                                          scene["sigma"], h)
+            lib = cp_embedding_bag_call(flat, rows, w)
+            lib_err = float((lib().reshape(3, n, -1).prod(0) - want).abs()
+                            .max()) / max(1.0, float(want.abs().max()))
+            lib_ms = time_ms(lib)
+            extra += (f", embedding_bag given rows and weights (f32 lines) "
+                      f"{lib_ms:.4f} ms (its product's max_abs_err "
+                      f"{lib_err:.3e} of max(1, |plain|))")
+            check(lib_err <= 1e-5, ("embedding_bag computes the CP forward",
+                                    label, lib_err))
+            del flat, rows, w, lib
         if matrix and not kw["out"].is_contiguous():
             extra += f", contiguous {time_ms(lambda: kern(*a)):.4f} ms"
     bnd = bound(nbytes(pts, *(tables if isinstance(tables, list)

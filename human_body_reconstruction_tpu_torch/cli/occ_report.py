@@ -8,10 +8,10 @@ samples there), inside it but seen by no training camera (in no view's
 image, or nearer than ``near`` or further than ``far``), seen and empty
 in the analytic scene, or on the subject (the scene's density above the
 grid's threshold at the centre or a corner).  Then it takes one refresh
-from the saved grid twice with the same draws: once as the port does (a
-cell drawn more than once keeps its largest candidate) and once keeping
-the smallest.  The JAX ``.at[].set`` keeps one of the candidates, so its
-refresh lies between the two.
+from the saved grid twice with the same draws: once with a cell drawn
+more than once keeping its largest candidate, once its smallest.  The
+refresh itself keeps the last draw's candidate (as the JAX ``.at[].set``
+on the CPU), so it lies between the two.
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.occ_report \\
           --run_dir results/quality_holdout_textured_<mode>_seed0 \\
@@ -83,14 +83,15 @@ def refresh_bracket(grid, field, scene, cfg, num_cells: int, generator):
                              device=dev)
     jitter = torch.rand((num_cells, 3), generator=generator, device=dev)
 
-    def smallest(pts):
-        d = torch.clamp(nerf.density_only(field, scene, pts, cfg), min=0.0)
-        per_cell = torch.full((g3,), float("inf"), device=dev).scatter_reduce(
-            0, flat_idx, d, reduce="amin")
-        return per_cell[flat_idx]
+    def per_cell(reduce, fill):
+        def fn(pts):
+            d = torch.clamp(nerf.density_only(field, scene, pts, cfg), min=0.0)
+            return torch.full((g3,), fill, device=dev).scatter_reduce(
+                0, flat_idx, d, reduce=reduce)[flat_idx]
+        return fn
 
     fracs = []
-    for fn in (lambda p: nerf.density_only(field, scene, p, cfg), smallest):
+    for fn in (per_cell("amax", 0.0), per_cell("amin", float("inf"))):
         new = occupancy.update(grid, fn, scene["mu"], scene["sigma"],
                                num_cells=num_cells, flat_idx=flat_idx,
                                jitter=jitter)

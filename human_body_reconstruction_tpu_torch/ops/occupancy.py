@@ -56,10 +56,12 @@ def update(grid: OccupancyGrid, density_fn, mu, sigma, *,
     visited hold +inf (occupied) and take the fresh estimate directly;
     visited cells take max(decayed, fresh).  ``flat_idx`` (num_cells,) and
     ``jitter`` (num_cells, 3) replace the draws from ``generator``.  A cell
-    drawn twice in one round gets several candidate values; the JAX
-    ``.at[].set`` keeps an unspecified one, and this port keeps the largest
-    (``scatter_reduce`` amax), which is one of them and does not depend on
-    the device or the order of the writes."""
+    drawn more than once in one round takes the candidate of its last
+    draw, as the JAX ``.at[].set`` does on the CPU (the last of duplicate
+    writes; on a TPU an unspecified one, chosen without regard to its
+    value): every write to the cell carries that one value, so the result
+    does not depend on the device or the order of the writes.  (Keeping
+    the largest candidate instead would bias the grid towards occupied.)"""
     g = grid.density.shape[0]
     dev = grid.density.device
     if flat_idx is None:
@@ -76,8 +78,11 @@ def update(grid: OccupancyGrid, density_fn, mu, sigma, *,
     decayed = torch.where(torch.isinf(dens), dens, dens * decay)
     old = decayed[flat_idx]
     new = torch.where(torch.isinf(old), d, torch.maximum(old, d))
-    density = decayed.scatter_reduce(0, flat_idx, new, reduce="amax",
-                                     include_self=False).reshape(g, g, g)
+    pos = torch.arange(flat_idx.shape[0], device=dev)
+    last = torch.full_like(dens, -1, dtype=torch.long).scatter_reduce(
+        0, flat_idx, pos, reduce="amax")
+    density = decayed.index_put((flat_idx,), new[last[flat_idx]]).reshape(
+        g, g, g)
     mask = (torch.isinf(density) | (density > grid.threshold)).to(
         torch.float32)
     return OccupancyGrid(density, mask, grid.threshold)

@@ -577,8 +577,8 @@ def test_mode_step_loss_and_grads_match_jax(mode):
 # encoder draws (u, pick, psel), and its refresh JAX's cells and jitter.
 # Measured: losses within 9.9e-6 of JAX's (relative), parameters within
 # 1.4e-5 of their norm after the last step.  Limits: 1e-4 per loss, 1e-3
-# per parameter leaf; the grids equal except at cells a refresh drew twice
-# (JAX keeps an unspecified candidate there, the port the largest).
+# per parameter leaf; the grids' masks equal at every cell (a cell a
+# refresh drew twice takes its last draw's candidate on both sides).
 LPAIR_STEPS, LPAIR_INSTALL, LPAIR_REFRESH, LPAIR_CELLS = 12, 4, 8, 2048
 
 
@@ -610,7 +610,7 @@ def test_int8_lpair_steps_match_jax_through_the_grid_install():
     sp = state_lib.create_train_state(ckpt.from_jax_params(params, cfg),
                                       cfg.train, LPAIR_STEPS)
     data = tuple(jnp.asarray(a) for a in (images, c2ws, K))
-    key, twice = jax.random.PRNGKey(1), np.zeros(g ** 3, bool)
+    key = jax.random.PRNGKey(1)
     for i in range(LPAIR_STEPS):
         if i in (LPAIR_INSTALL, LPAIR_REFRESH):
             # the protocol's refresh: JAX update's draws from PRNGKey(steps)
@@ -626,12 +626,12 @@ def test_int8_lpair_steps_match_jax_through_the_grid_install():
                 sp.occ or occupancy.init_grid(g, r.occ_threshold), sp.field,
                 scene, cfg, num_cells=LPAIR_CELLS, flat_idx=t(cells).long(),
                 jitter=t(jit))
-            idx, counts = np.unique(cells, return_counts=True)
-            twice[idx[counts > 1]] = True
+            _, counts = np.unique(cells, return_counts=True)
+            assert (counts > 1).any()
             mask_j = np.asarray(sj.occ.mask).reshape(-1)
             assert 0.05 < mask_j.mean() < 0.95, (i, mask_j.mean())
-            np.testing.assert_array_equal(
-                sp.occ.mask.numpy().reshape(-1)[~twice], mask_j[~twice])
+            np.testing.assert_array_equal(sp.occ.mask.numpy().reshape(-1),
+                                          mask_j)
         # the JAX step's draws: batch, then placement and encoder keys
         k_batch, k_render = jax.random.split(jax.random.fold_in(key, i))
         k1, k2 = jax.random.split(k_batch)

@@ -375,6 +375,9 @@ def test_occupancy_update_match(monkeypatch):
 
 
 def test_occupancy_update_duplicate_cells_keep_largest():
+    """A cell drawn three times keeps the candidate of its last draw (as
+    the JAX ``.at[].set`` keeps the last write on the CPU), not the largest
+    of its candidates: 0.3 of (0.1, 0.7, 0.3), under the threshold 0.5."""
     grid = occupancy.OccupancyGrid(torch.full((4, 4, 4), float("inf")),
                                    torch.ones(4, 4, 4), torch.tensor(0.5))
     cells = torch.tensor([5, 5, 5, 9])
@@ -383,7 +386,7 @@ def test_occupancy_update_duplicate_cells_keep_largest():
                            torch.tensor(1.0), flat_idx=cells,
                            jitter=torch.zeros(4, 3))
     flat = out.density.reshape(-1)
-    assert float(flat[5]) == pytest.approx(0.7) and float(flat[9]) == pytest.approx(0.2)
-    assert float(out.mask.reshape(-1)[5]) == 1.0
+    assert float(flat[5]) == pytest.approx(0.3) and float(flat[9]) == pytest.approx(0.2)
+    assert float(out.mask.reshape(-1)[5]) == 0.0
     assert float(out.mask.reshape(-1)[9]) == 0.0
     assert int(torch.isinf(flat).sum()) == 62
