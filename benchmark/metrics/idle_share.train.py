@@ -1,0 +1,10 @@
+"""idle_share.train: the share of the traced training segment in which no
+operation ran on the device (1 - union of device spans / its length)."""
+
+UNIT = "%"
+
+
+def read(run, seg):
+    if run.kind != "train" or seg["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - seg["busy_s"] / seg["window_s"])
