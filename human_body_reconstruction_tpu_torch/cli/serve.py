@@ -15,7 +15,8 @@ Requests and responses are the JAX server's:
   id              echoed back
   batch           true -> every pose of "c2ws" or of "orbit", written to
                   "out_dir" (frame_%04d.png) or returned as "images_b64"
-  cmd             "health" -> stats, "quit" -> shut down
+  cmd             "health" -> stats (frames served, the frame graphs'
+                  captures, their seconds and replays), "quit" -> shut down
 Response: {"ok": true, "wall_s", "rays_per_sec", "H", "W", ...} or
 {"ok": false, "error": "..."}; a bad request never stops the server.
 
@@ -26,7 +27,11 @@ run directory has no saved config.  A frame, and a ``batch`` of poses, is
 one dispatch by default (``step.render_poses_fused``: on the card the replay
 of a graph captured at the first request of its shape, the same chunks as
 the eager loop; on the CPU the eager loop); ``--no_fused`` renders eager
-chunks; ``--aot_cache`` (the JAX compile cache) is refused.
+chunks; ``--aot_cache`` (the JAX compile cache) is refused.  In a
+``torch.profiler`` trace (``observability.span``) a request is the span
+``hbr.serve.request`` (with its id), holding ``hbr.serve.render`` (the
+poses to the frame on the host) and ``hbr.serve.encode`` (PNG and base64,
+or the file writes).
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.serve \\
           --ckpt_dir results --model_name flagship --use_occ --eval_guided 48
@@ -49,6 +54,7 @@ from human_body_reconstruction_tpu_torch.cli import device_from_flag
 from human_body_reconstruction_tpu_torch.data import png, synthetic
 from human_body_reconstruction_tpu_torch.pipeline import restore
 from human_body_reconstruction_tpu_torch.train import step as step_lib
+from human_body_reconstruction_tpu_torch.utils import observability as obs
 
 
 def build_parser():
@@ -180,30 +186,32 @@ class RenderServer:
         """One frame, or every pose of a batch request, rendered and
         encoded as PNG (or only timed, with ``no_image``)."""
         a = self.args
-        poses = self._poses_from(req, batch)
-        H = int(req.get("height", a.height))
-        W = int(req.get("width", a.width))
-        cax = float(req.get("camera_angle_x", a.camera_angle_x))
-        S = int(req.get("num_samples", a.num_samples))
-        guided = int(req.get("eval_guided", a.eval_guided))
-        cfg = self._cfg_for(guided)
-        focal = W / (2.0 * np.tan(cax / 2.0))
-        K = torch.tensor([[focal, 0, W / 2.0], [0, focal, H / 2.0],
-                          [0, 0, 1]], dtype=torch.float32, device=self.device)
-        P = poses.shape[0]
-        t0 = time.perf_counter()
-        kw = dict(occ=self.occ, num_samples=S, chunk=min(a.chunk, P * H * W),
-                  bf16=not a.fp32)
-        c2ws = torch.as_tensor(poses, device=self.device)
-        if a.no_fused:
-            imgs = step_lib.render_poses(self.field, self.scene, H, W, K,
-                                         c2ws, cfg, **kw)
-        else:
-            imgs = step_lib.render_poses_fused(
-                self.field, self.scene, H, W, K, c2ws, cfg,
-                graphs=self.frames, **kw)
-        imgs = imgs.cpu().numpy()
-        wall = time.perf_counter() - t0
+        with obs.span("serve.render"):
+            poses = self._poses_from(req, batch)
+            H = int(req.get("height", a.height))
+            W = int(req.get("width", a.width))
+            cax = float(req.get("camera_angle_x", a.camera_angle_x))
+            S = int(req.get("num_samples", a.num_samples))
+            guided = int(req.get("eval_guided", a.eval_guided))
+            cfg = self._cfg_for(guided)
+            focal = W / (2.0 * np.tan(cax / 2.0))
+            K = torch.tensor([[focal, 0, W / 2.0], [0, focal, H / 2.0],
+                              [0, 0, 1]], dtype=torch.float32,
+                             device=self.device)
+            P = poses.shape[0]
+            t0 = time.perf_counter()
+            kw = dict(occ=self.occ, num_samples=S,
+                      chunk=min(a.chunk, P * H * W), bf16=not a.fp32)
+            c2ws = torch.as_tensor(poses, device=self.device)
+            if a.no_fused:
+                imgs = step_lib.render_poses(self.field, self.scene, H, W, K,
+                                             c2ws, cfg, **kw)
+            else:
+                imgs = step_lib.render_poses_fused(
+                    self.field, self.scene, H, W, K, c2ws, cfg,
+                    graphs=self.frames, **kw)
+            imgs = imgs.cpu().numpy()
+            wall = time.perf_counter() - t0
         self.n_served += P
         self.rays_served += P * H * W
         self.render_s += wall
@@ -216,21 +224,22 @@ class RenderServer:
             resp["id"] = req["id"]
         if req.get("no_image"):
             return resp
-        pngs = [png_bytes(_to_u8(img)) for img in imgs]
-        out_dir = req.get("out_dir") if batch else None
-        out_path = None if batch else req.get("out_path")
-        if out_dir or out_path:
-            paths = ([os.path.join(str(out_dir), f"frame_{i:04d}.png")
-                      for i in range(P)] if batch else [str(out_path)])
-            for path, data in zip(paths, pngs):
-                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-                with open(path, "wb") as f:
-                    f.write(data)
-            resp.update({"paths": paths} if batch else {"path": paths[0]})
-        else:
-            b64 = [base64.b64encode(d).decode() for d in pngs]
-            resp.update({"images_b64": b64} if batch
-                        else {"image_b64": b64[0]})
+        with obs.span("serve.encode"):
+            pngs = [png_bytes(_to_u8(img)) for img in imgs]
+            out_dir = req.get("out_dir") if batch else None
+            out_path = None if batch else req.get("out_path")
+            if out_dir or out_path:
+                paths = ([os.path.join(str(out_dir), f"frame_{i:04d}.png")
+                          for i in range(P)] if batch else [str(out_path)])
+                for path, data in zip(paths, pngs):
+                    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                    with open(path, "wb") as f:
+                        f.write(data)
+                resp.update({"paths": paths} if batch else {"path": paths[0]})
+            else:
+                b64 = [base64.b64encode(d).decode() for d in pngs]
+                resp.update({"images_b64": b64} if batch
+                            else {"image_b64": b64[0]})
         return resp
 
     def health(self) -> dict:
@@ -239,24 +248,29 @@ class RenderServer:
                 "uptime_s": round(time.perf_counter() - self.t_up, 1),
                 "served": self.n_served, "rays_served": self.rays_served,
                 "render_s_total": round(self.render_s, 2),
+                "captures": self.frames.captures,
+                "capture_s": round(self.frames.capture_s, 2),
+                "replays": self.frames.replays,
                 "use_occ": self.occ is not None,
                 "fused": not self.args.no_fused,
                 "default_eval_guided": self.args.eval_guided}
 
     def handle(self, req: dict) -> dict:
         """One request -> one response; never raises on bad input."""
-        try:
-            cmd = req.get("cmd")
-            if cmd == "health":
-                return self.health()
-            if cmd == "quit":
-                return {"ok": True, "bye": True}
-            return self.render(req, batch=bool(req.get("batch")))
-        except Exception as e:  # noqa: BLE001 — the server must stay up
-            r = {"ok": False, "error": f"{type(e).__name__}: {e}"}
-            if isinstance(req, dict) and "id" in req:
-                r["id"] = req["id"]
-            return r
+        has_id = isinstance(req, dict) and "id" in req
+        with obs.span("serve.request", {"id": req["id"]} if has_id else None):
+            try:
+                cmd = req.get("cmd")
+                if cmd == "health":
+                    return self.health()
+                if cmd == "quit":
+                    return {"ok": True, "bye": True}
+                return self.render(req, batch=bool(req.get("batch")))
+            except Exception as e:  # noqa: BLE001 — the server must stay up
+                r = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+                if has_id:
+                    r["id"] = req["id"]
+                return r
 
 
 def serve_stdio(server: RenderServer, stdin=None, stdout=None):

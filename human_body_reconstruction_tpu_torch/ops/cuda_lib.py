@@ -9,6 +9,12 @@ exactly what it holds.  Nothing here runs at import time: the CPU tests
 import every module on machines with no CUDA toolkit.  The last two
 functions are the tolerance the backward kernels are held to against their
 plain versions, by the tests and by chip_smoke.py.
+
+Each kernel wrapper (``cp_kernel``, ``dense_kernel``, ``hash_kernel``,
+``hash_variants``, ``rng_kernel``) counts in its ``.launches`` the host calls
+that launched its kernel.  Under a CUDA graph those are the warm-up and the
+capture only: the graph's replays are counted by ``step.WindowGraph.replays``
+and ``step.FrameGraphs.replays``.
 """
 
 from __future__ import annotations

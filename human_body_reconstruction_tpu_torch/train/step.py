@@ -39,6 +39,7 @@ import torch
 from human_body_reconstruction_tpu_torch.models import nerf
 from human_body_reconstruction_tpu_torch.ops import compositing
 from human_body_reconstruction_tpu_torch.ops import rays as rays_lib
+from human_body_reconstruction_tpu_torch.utils import observability as obs
 from human_body_reconstruction_tpu_torch.utils.config import PipelineConfig
 
 
@@ -234,12 +235,13 @@ class WindowGraph:
     captured: when any of them was rebound (the grid's install, a load that
     replaced a tensor) the step is captured again and the old graph
     dropped, so a window never reads a stale grid; an in-place refresh of
-    the grid needs no new capture.  ``captures`` counts captures and
-    ``capture_s`` their seconds (warm-up step included)."""
+    the grid needs no new capture.  ``captures`` counts captures,
+    ``capture_s`` their seconds (warm-up step included) and ``replays`` the
+    graph's replays; a capture is the span ``hbr.train.capture``."""
 
     def __init__(self):
         self._call, self._key, self._sums = None, None, {}
-        self.captures, self.capture_s = 0, 0.0
+        self.captures, self.capture_s, self.replays = 0, 0.0, 0
 
     def run(self, state, n_steps: int, update, key, generators=(),
             before=None, agree=None):
@@ -262,16 +264,17 @@ class WindowGraph:
         if changed:
             self._call = self._key = None      # free the old graph's pool
             t0 = time.perf_counter()
-            if before is not None:
-                before(0)
+            with obs.span("train.capture"):
+                if before is not None:
+                    before(0)
 
-            def body():
-                m = update()
-                _add_to(self._sums, m)
-                return m
+                def body():
+                    m = update()
+                    _add_to(self._sums, m)
+                    return m
 
-            self._call = Captured(body, generators=generators)
-            torch.cuda.synchronize()
+                self._call = Captured(body, generators=generators)
+                torch.cuda.synchronize()
             self._key = key
             self.captures += 1
             self.capture_s += time.perf_counter() - t0
@@ -280,6 +283,7 @@ class WindowGraph:
             if before is not None:
                 before(i)
             self._call.graph.replay()
+            self.replays += 1
         state.step += n_steps
         return {k: v / n_steps for k, v in self._sums.items()}
 
@@ -363,12 +367,13 @@ class FrameGraphs:
     the field, scene and grid it reads, every graph in one memory pool.  A
     call copies K and the pose(s) into the graph's static inputs, replays it
     and returns a copy of its frame (the next capture into the shared pool
-    may reuse a graph's output memory).  ``captures`` counts captures and
-    ``capture_s`` their seconds (warm-up frame included)."""
+    may reuse a graph's output memory).  ``captures`` counts captures,
+    ``capture_s`` their seconds (warm-up frame included) and ``replays`` the
+    frames replayed; a capture is the span ``hbr.serve.capture``."""
 
     def __init__(self):
         self._graphs, self._pool = {}, None
-        self.captures, self.capture_s = 0, 0.0
+        self.captures, self.capture_s, self.replays = 0, 0.0, 0
 
     def render(self, render_fn, field, scene, H: int, W: int, K, c2w,
                cfg: PipelineConfig, occ, num_samples: int, hierarchical: bool,
@@ -380,26 +385,28 @@ class FrameGraphs:
         call = self._graphs.get(key)
         if call is None:
             t0 = time.perf_counter()
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            rays = H * W * (c2w.shape[0] if c2w.dim() == 3 else 1)
-            u = (fine_quantiles(cfg, num_samples, min(chunk, rays), K.device)
-                 if hierarchical else None)
+            with obs.span("serve.capture"):
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                rays = H * W * (c2w.shape[0] if c2w.dim() == 3 else 1)
+                u = (fine_quantiles(cfg, num_samples, min(chunk, rays),
+                                    K.device) if hierarchical else None)
 
-            def frame(K_s, c2w_s):
-                return render_fn(field, scene, H, W, K_s, c2w_s, cfg,
-                                 occ=occ, num_samples=num_samples,
-                                 hierarchical=hierarchical, chunk=chunk,
-                                 bf16=bf16, fine_u=u)
+                def frame(K_s, c2w_s):
+                    return render_fn(field, scene, H, W, K_s, c2w_s, cfg,
+                                     occ=occ, num_samples=num_samples,
+                                     hierarchical=hierarchical, chunk=chunk,
+                                     bf16=bf16, fine_u=u)
 
-            call = Captured(frame, inputs=(K.clone(), c2w.clone()),
-                            pool=self._pool)
-            torch.cuda.synchronize()
+                call = Captured(frame, inputs=(K.clone(), c2w.clone()),
+                                pool=self._pool)
+                torch.cuda.synchronize()
             self._graphs[key] = call
             self.captures += 1
             self.capture_s += time.perf_counter() - t0
         call.inputs[0].copy_(K)
         call.inputs[1].copy_(c2w)
+        self.replays += 1
         return call.replay().clone()
 
 

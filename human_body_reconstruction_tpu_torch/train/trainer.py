@@ -35,7 +35,12 @@ gradient norm (of the whole field, joined under level parallelism) on a
 probe draws from its own generator, seeded with ``cfg.train.seed`` at each
 log (the JAX probe reuses one key), so the training draws are untouched.
 ``display`` writes every eval render to ``<model>_preview.png`` too and
-shows it in a cv2 window where cv2 imports and a display exists.  The step
+shows it in a cv2 window where cv2 imports and a display exists.  In a
+``torch.profiler`` trace each call that takes steps, each refresh and each
+log (the probe's gradient norms included) is a span (``hbr.train.window``,
+``hbr.train.refresh``, ``hbr.train.log``; ``observability.span``); with
+``steps_per_call`` n > 1 every log record carries the window graph's
+cumulative ``captures`` and ``replays``.  The step
 count is kept on the host; every random draw comes from one
 ``torch.Generator`` on the training device, seeded with ``cfg.train.seed``
 (the JAX keys give other bits, so runs of the two packages are alike in
@@ -190,6 +195,8 @@ class Trainer:
                 dp.make_dp_train_step(cfg, cfg.train.ray_batch, self.mesh,
                                       steps_per_call=n) for n in (1, spc))
             self.log_fn(f"data-parallel over {self.mesh.n_data} ranks")
+        if self._step_fn is not None:   # the parallel step's window graph
+            self._window = self._window_fn.graph
         self.history = []
         self.metrics = obs.MetricsLogger(self.out_dir,
                                          name=f"{self.model_name}_metrics")
@@ -256,15 +263,16 @@ class Trainer:
     def update_occupancy(self):
         if self.state.occ is None:
             return
-        gen = self.generator
-        if self.mesh is not None:
-            gen = comm.fold_generator(self.device, self.cfg.train.seed,
-                                      10_000 + self.state.step)
-        occupancy.write_(self.state.occ, occupancy.update_from_field(
-            self.state.occ, self.state.field, self.scene, self.run_cfg,
-            generator=gen))
-        if self.mesh is not None:       # hold the ranks' grids equal
-            comm.broadcast_(self.state.occ[:2])
+        with obs.span("train.refresh"):
+            gen = self.generator
+            if self.mesh is not None:
+                gen = comm.fold_generator(self.device, self.cfg.train.seed,
+                                          10_000 + self.state.step)
+            occupancy.write_(self.state.occ, occupancy.update_from_field(
+                self.state.occ, self.state.field, self.scene, self.run_cfg,
+                generator=gen))
+            if self.mesh is not None:       # hold the ranks' grids equal
+                comm.broadcast_(self.state.occ[:2])
 
     # -- training ---------------------------------------------------------
     def run(self, steps: int, log_every: int = 100,
@@ -289,18 +297,23 @@ class Trainer:
                 # (steps % spc) runs single steps
                 fn = self._window_fn if n == spc else self._step_fn
                 for _ in range(1 if n == spc else n):
-                    metrics = fn(self.state, self.scene, self.ds["images"],
-                                 self.ds["c2ws"], self.ds["K"])
+                    with obs.span("train.window"):
+                        metrics = fn(self.state, self.scene,
+                                     self.ds["images"], self.ds["c2ws"],
+                                     self.ds["K"])
             elif spc > 1:
-                metrics = step_lib.train_step_multi(
-                    self.state, self.scene, self.ds["images"],
-                    self.ds["c2ws"], self.ds["K"], cfg, cfg.train.ray_batch,
-                    n, self.generator, graph=self._window)
+                with obs.span("train.window"):
+                    metrics = step_lib.train_step_multi(
+                        self.state, self.scene, self.ds["images"],
+                        self.ds["c2ws"], self.ds["K"], cfg,
+                        cfg.train.ray_batch, n, self.generator,
+                        graph=self._window)
             else:
-                metrics = step_lib.train_step(
-                    self.state, self.scene, self.ds["images"],
-                    self.ds["c2ws"], self.ds["K"], cfg, cfg.train.ray_batch,
-                    self.generator)
+                with obs.span("train.window"):
+                    metrics = step_lib.train_step(
+                        self.state, self.scene, self.ds["images"],
+                        self.ds["c2ws"], self.ds["K"], cfg,
+                        cfg.train.ray_batch, self.generator)
             rays_done += cfg.train.ray_batch * n
             i += n
             step_no = start_step + i
@@ -308,12 +321,13 @@ class Trainer:
                                                 cfg.train.update_rate):
                 self.update_occupancy()
             if log_every and crossed(i, n, log_every):
-                # the probe field: under level parallelism every rank joins
-                # the shards, then rank 0 alone logs
-                probe = (self.whole_state().field if self.log_grad_norms
-                         else None)
-                if self.rank0:
-                    self._log(step_no, metrics, rays_done, t_last, probe)
+                with obs.span("train.log"):
+                    # the probe field: under level parallelism every rank
+                    # joins the shards, then rank 0 alone logs
+                    probe = (self.whole_state().field if self.log_grad_norms
+                             else None)
+                    if self.rank0:
+                        self._log(step_no, metrics, rays_done, t_last, probe)
                 t_last = time.perf_counter()
                 rays_done = 0
             if eval_every and crossed(i, n, eval_every):
@@ -331,6 +345,9 @@ class Trainer:
         if self.state.occ is not None:
             rec["occupied_frac"] = float(
                 occupancy.occupied_fraction(self.state.occ))
+        if self.steps_per_call > 1:     # the window graph's, cumulative
+            rec["captures"] = self._window.captures
+            rec["replays"] = self._window.replays
         if probe is not None:
             norms = probe_grad_norms(
                 probe, self.scene, self.ds, self.cfg, self.state.occ,
