@@ -42,6 +42,14 @@
    through the port's server and answer a 400x400 frame on the
    128-sample ladder, one at eval_guided 64, a 4-pose orbit batch and a
    health request, with every kernel's launch count reset just before.
+   Then the fused MLP3D kernels (csrc/mlp.cu) at the flagship head's
+   shapes, forward and backward on the guided and unculled training points
+   and forward on a serving chunk, held to the composed ``_linear`` path
+   (outputs, and gradients against ``mlp_kernel.plain_backward``) and timed
+   against it and the same layers as cuBLAS bf16 GEMMs (``mlp_phase``),
+   with the launches the training run and the served requests counted.
+   The training runs and every served request call ``MLP3D`` through the
+   kernels alone (``mlp_kernel.composed_calls`` 0 after each).
 5. Hold each forward kernel against its plain PyTorch version on the card
    at the serving shape, on a 16384-ray chunk of a 400x400 frame's
    128-sample ladder (2,097,152 points; the dense kernel writing the
@@ -290,7 +298,8 @@ path (``hash_pack/bf16_table``, ``packed_forward/int8_exact_path``,
 ``packed_forward/int8_exact_sweep_chunk``,
 ``hash_backward/int8_lpair_path``, ``add_sorted/segsum_train_path``,
 ``cell_forward/protocol_path``, ``cell_backward/protocol_path``, ...),
-and last
+the MLP3D kernels' (``mlp3d/guided_train``, ``/unculled_train``,
+``/serving_chunk``), and last
 ``{"ok": true, "device": {...}}``.
 
 Run:  python3 chip_smoke.py      (needs one CUDA card; exits 2 without one)
@@ -349,6 +358,18 @@ HASH_POINTS = 16000 * 64        # one step of the hash path: rays x samples
 HASH_RUN = 16                   # points a hash backward thread merges (csrc/hash.cu)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak
 F32_OPS_PER_S = 67e12           # non-tensor f32
+BF16_OPS_PER_S = 989e12         # dense bf16 tensor cores
+# the MLP kernels against the composed path, as the card tests hold them
+# (tests/test_torch_mlp_kernel.py, whose docstring says why)
+MLP_FLIP_SHARE = 1e-2
+MLP_OUT_MAX = 1e-2
+MLP_GRAD_SHARE = 1e-2
+MLP_GRAD_MAX = 8.0
+MLP_FEAT_MAX = 128.0
+MLP_SOURCE = "human_body_reconstruction_tpu_torch/csrc/mlp.cu"
+MLP_REPLACES = ("none (no TPU kernel: human_body_reconstruction_tpu/models/"
+                "mlp.py _linear is jnp.dot(bf16, bf16, preferred_element_type="
+                "f32), left to XLA)")
 INT32_OPS_PER_S = F32_OPS_PER_S / 2
 QUALITY_STEPS = 320             # the protocol's 6000-step horizon, cut in depth
 # the holdout mean of the first card run (28.80 dB; H100 80GB HBM3, 700 W)
@@ -482,9 +503,10 @@ def write_run_dir(path: str, device: torch.device):
 def wrappers(*names):
     """(name, wrapper) of the named kernels, in the order given."""
     from human_body_reconstruction_tpu_torch.ops import (
-        cp_kernel, dense_kernel, hash_kernel, rng_kernel)
+        cp_kernel, dense_kernel, hash_kernel, mlp_kernel, rng_kernel)
 
-    table = {"cp_forward": cp_kernel.cp_encode_kernel,
+    table = {"mlp": mlp_kernel,
+             "cp_forward": cp_kernel.cp_encode_kernel,
              "dense_forward": dense_kernel.dense_encode_kernel,
              "cp_backward": cp_kernel.cp_encode_backward_kernel,
              "dense_backward": dense_kernel.dense_encode_backward_kernel,
@@ -504,7 +526,7 @@ def train(run_dir: str, device: torch.device, tag: str):
     unculled steps (warm-up included) and the guided ones (the install
     steps included))."""
     from human_body_reconstruction_tpu_torch.cli import train_hash
-    from human_body_reconstruction_tpu_torch.ops import occupancy
+    from human_body_reconstruction_tpu_torch.ops import mlp_kernel, occupancy
     from human_body_reconstruction_tpu_torch.train.trainer import Trainer
     from human_body_reconstruction_tpu_torch.utils import config as C
 
@@ -527,9 +549,10 @@ def train(run_dir: str, device: torch.device, tag: str):
           f"the card in {time.perf_counter() - t0:.2f} s")
     trainer = Trainer(cfg=cfg, ds=ds, out_dir=run_dir, model_name="flagship",
                       total_steps=TRAIN_STEPS, log_fn=print)
-    kernels = wrappers(*TRAIN_KERNELS)
+    kernels = wrappers(*TRAIN_KERNELS, "mlp")
     for _, kern in kernels:
         kern.launches = 0
+    mlp_kernel.composed_calls = 0
     torch.cuda.synchronize()
     phases, by_phase = {}, {"unculled": {}, "guided": {}}
     for name, n, kind in (("warm", 4, "unculled"),
@@ -562,6 +585,8 @@ def train(run_dir: str, device: torch.device, tag: str):
     check(hist[-1]["psnr"] > hist[0]["psnr"] + 1.0, "train PSNR rose")
     check(0.0 < occ_frac < 1.0, "the grid culls some cells and keeps some")
     check(all(n > 0 for n in launches.values()), launches)
+    check(mlp_kernel.composed_calls == 0,
+          ("every bf16 MLP3D call took the kernels", mlp_kernel.composed_calls))
     return trainer, ds, launches, by_phase
 
 
@@ -1020,6 +1045,7 @@ def serve_trained(trainer, ds, run_dir, samples, tag):
     training view exact on a ``samples`` ladder and score it."""
     from human_body_reconstruction_tpu_torch.cli import serve
     from human_body_reconstruction_tpu_torch.data import png
+    from human_body_reconstruction_tpu_torch.ops import mlp_kernel
 
     trainer.save()
     occ = trainer.state.occ
@@ -1035,16 +1061,21 @@ def serve_trained(trainer, ds, run_dir, samples, tag):
     cax = 2.0 * math.atan(W / (2.0 * float(ds["K"][0, 0])))
     req = {"c2w": ds["c2ws"][pose].tolist(), "height": ds["H"], "width": W,
            "camera_angle_x": cax, "num_samples": samples}
+    mlp_kernel.launches = mlp_kernel.composed_calls = 0
     server.handle(req)                       # first use at this shape
     resp = server.handle(req)
     check(resp["ok"], resp)
+    check(mlp_kernel.launches > 0 and mlp_kernel.composed_calls == 0,
+          ("the served frames went through the MLP kernels",
+           mlp_kernel.launches, mlp_kernel.composed_calls))
     img = png.decode_png(base64.b64decode(resp["image_b64"])) / 255.0
     gt = ds["images"][pose].cpu().numpy()
     psnr = 10.0 * math.log10(1.0 / max(float(np.mean((img - gt) ** 2)), 1e-12))
     print(f"served trained {trainer.model_name} model: view {pose} "
           f"{ds['H']}x{W} ladder {samples} in "
           f"{resp['wall_s']} s ({resp['rays_per_sec']} rays/s), PSNR "
-          f"{psnr:.2f} dB against the ground truth {tag}")
+          f"{psnr:.2f} dB against the ground truth; MLP kernel launches "
+          f"{mlp_kernel.launches} {tag}")
     check(np.isfinite(img).all() and psnr > 12.0, ("served PSNR", psnr))
 
 
@@ -1064,6 +1095,7 @@ def train_hash_grid(run_dir: str, ds, device: torch.device, tag: str):
     CLI objects, on the dataset rendered for the flagship run.  Returns
     (trainer, launches during the timed run)."""
     from human_body_reconstruction_tpu_torch.cli import train_hash
+    from human_body_reconstruction_tpu_torch.ops import mlp_kernel
     from human_body_reconstruction_tpu_torch.train.trainer import Trainer
 
     args = train_hash.build_parser().parse_args([
@@ -1082,9 +1114,10 @@ def train_hash_grid(run_dir: str, ds, device: torch.device, tag: str):
                       total_steps=HASH_STEPS, log_fn=print)
     warm = 5                         # first-use costs, and the first log
     trainer.run(warm, log_every=warm)
-    kernels = wrappers("uniform_bits", "hash_forward", "hash_backward")
+    kernels = wrappers("uniform_bits", "hash_forward", "hash_backward", "mlp")
     for _, kern in kernels:
         kern.launches = 0
+    mlp_kernel.composed_calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.run(HASH_STEPS - warm, log_every=29)
@@ -1103,6 +1136,8 @@ def train_hash_grid(run_dir: str, ds, device: torch.device, tag: str):
     check(all(math.isfinite(r["loss"]) for r in hist), "finite losses")
     check(hist[-1]["psnr"] >= hist[0]["psnr"] + 1.0, "hash train PSNR rose")
     check(all(v > 0 for v in launches.values()), launches)
+    check(mlp_kernel.composed_calls == 0,
+          ("every bf16 MLP3D call took the kernels", mlp_kernel.composed_calls))
     return trainer, launches
 
 
@@ -3099,6 +3134,149 @@ def walk_on_routed_grad(table, a, g, bits, pick, lsel=None, psel=None):
         table, *a, routed, bits))
 
 
+def mlp_ratios(got, plain):
+    """(share of entries beyond the tolerance, largest |err| / tolerance) of
+    each gradient, weights and biases in layer order then the features',
+    against ``mlp_kernel.plain_backward``'s; every gradient bf16-exact."""
+    from human_body_reconstruction_tpu_torch.ops import cuda_lib
+
+    ref_f, refs, sums, s_f = plain
+    out = []
+    for g, ref, s in zip(got, [*refs, ref_f], [*sums, s_f]):
+        check(torch.equal(g, g.to(torch.bfloat16).float()), "bf16-exact")
+        r = (g - ref).abs() / cuda_lib.sum_order_tolerance(ref, s, True)
+        out.append((float((r > 1).float().mean()), float(r.max())))
+    return out
+
+
+def mlp_phase(device, tag, launches):
+    """The fused MLP3D kernels (csrc/mlp.cu) at the main path's shapes: the
+    flagship head (129 features, view encoding 24) forward and backward on
+    TRAIN_POINTS (768,000 guided, 2,048,000 unculled) and forward on a
+    N_POINTS serving chunk; against the composed ``_linear`` path (the plain
+    version: bf16-rounded operands, cuBLAS f32 GEMMs with TF32 off, autograd)
+    and, as the library yardstick, the same layers as cuBLAS bf16 GEMMs
+    (``F.linear`` on bf16 tensors: the products on the tensor cores, rounded
+    to bf16 after each layer, so not the same function).  Held as the card
+    tests hold them (tests/test_torch_mlp_kernel.py): the training forward
+    (a gradient follows) equal to the composed path's, the serving forward's
+    outputs within 1e-5 on all but MLP_FLIP_SHARE and within MLP_OUT_MAX
+    everywhere, and the gradients (features, each layer's weights and bias)
+    within ``cuda_lib.sum_order_tolerance`` of ``mlp_kernel.plain_backward``
+    on all but MLP_GRAD_SHARE of their entries and within MLP_GRAD_MAX (the
+    features' MLP_FEAT_MAX) of it everywhere; the composed path's own
+    gradients against the same plain backward are printed beside them.
+    ``launches`` gives each row's: the kernels' host calls in the main
+    path's run (the training run's guided and unculled phases, the served
+    requests).  Bound: the bytes the function must move (features, view
+    encodings and outputs once; the backward's cotangents and feature
+    gradient) over 3.35 TB/s against the products' FLOPs over 989
+    TFLOP/s."""
+    import torch.nn.functional as F
+    from human_body_reconstruction_tpu_torch.models import mlp
+    from human_body_reconstruction_tpu_torch.ops import mlp_kernel
+    from human_body_reconstruction_tpu_torch.utils import config as C
+
+    bf16 = torch.bfloat16
+    m = mlp.MLP3D(C.MLPConfig(), 129, 24,
+                  generator=torch.Generator().manual_seed(SEED)).to(device)
+    layers = list(m.sig) + list(m.col)
+    params = [p for l in layers for p in (l.weight, l.bias)]
+    flops = 2 * sum(l.in_features * l.out_features for l in layers)
+    gen = torch.Generator(device).manual_seed(SEED + 40)
+    report = []
+    for label, n, bwd in (("guided_train", TRAIN_POINTS[0], True),
+                          ("unculled_train", TRAIN_POINTS[1], True),
+                          ("serving_chunk", N_POINTS, False)):
+        feats = torch.randn((n, 129), generator=gen, device=device) * 0.3
+        dirs = torch.rand((n, 24), generator=gen, device=device) * 2 - 1
+        cot = (torch.randn((n, 3), generator=gen, device=device),
+               torch.randn((n,), generator=gen, device=device))
+        f = feats.clone().requires_grad_(bwd)
+
+        def plain_head(x):
+            raw, geo = m._density(x, bf16)
+            return (m.color(geo, dirs, bf16),
+                    mlp.apply_density_activation(raw, m.cfg)[..., 0])
+
+        def library_head(x):
+            h = x.to(bf16)
+            for i, l in enumerate(m.sig):
+                h = F.linear(h, l.weight.to(bf16), l.bias.to(bf16))
+                h = torch.relu(h) if i < len(m.sig) - 1 else h
+            raw, h = h[:, :1], torch.cat([h[:, 1:], dirs.to(bf16)], dim=-1)
+            for i, l in enumerate(m.col):
+                h = F.linear(h, l.weight.to(bf16), l.bias.to(bf16))
+                h = torch.relu(h) if i < len(m.col) - 1 else h
+            return torch.sigmoid(h), F.leaky_relu(raw, 0.01)[:, 0]
+
+        def run(head):
+            def call():
+                for p in m.parameters():
+                    p.grad = None
+                f.grad = None
+                if not bwd:
+                    with torch.no_grad():
+                        return head(f)
+                outs = head(f)
+                torch.autograd.backward(outs, cot)
+                return outs
+            return call
+
+        with torch.no_grad():
+            ref = plain_head(feats)
+        got = run(lambda x: m(x, dirs, bf16))()
+        gaps = [(a.detach() - b).abs() for a, b in zip(got, ref)]
+        err = max(float(g.max()) for g in gaps)
+        flips = max(float((g > 1e-5).float().mean()) for g in gaps)
+        grads = ""
+        if bwd:
+            check(err == 0, ("training forward equals _linear", label, err))
+            plain = mlp_kernel.plain_backward(m, feats, dirs, cot)
+            kern = mlp_ratios([*(p.grad for p in params), f.grad], plain)
+            run(plain_head)()
+            comp = mlp_ratios([*(p.grad for p in params), f.grad], plain)
+            del plain
+            for i, (share, worst) in enumerate(kern):
+                most = MLP_GRAD_MAX if i < len(kern) - 1 else MLP_FEAT_MAX
+                check(share <= MLP_GRAD_SHARE and worst <= most,
+                      ("gradient within the order tolerance", label, i,
+                       share, worst))
+            fmt = (lambda r: f"features {r[-1][0]:.2e} / {r[-1][1]:.3f}, "
+                   f"weights and biases {max(x[0] for x in r[:-1]):.2e} / "
+                   f"{max(x[1] for x in r[:-1]):.3f}")
+            grads = (f"; gradients against the plain backward (share beyond "
+                     f"the tolerance / largest ratio): kernel {fmt(kern)}; "
+                     f"composed _linear {fmt(comp)}")
+        else:
+            check(flips <= MLP_FLIP_SHARE and err <= MLP_OUT_MAX,
+                  ("serving forward within the order tolerance", flips, err))
+        del got, gaps
+        ms = time_ms(run(lambda x: m(x, dirs, bf16)))
+        plain_ms = time_ms(run(plain_head), reps=5)
+        library_ms = time_ms(run(library_head), reps=5)
+        n_bytes = 4 * n * (129 + 24 + 4 + ((4 + 129) if bwd else 0))
+        bnd = bound(n_bytes, flops * n * (3 if bwd else 1), BF16_OPS_PER_S)
+        what = "forward and backward" if bwd else "forward"
+        print(f"mlp {label} ({n} points, {what}): kernel {ms:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), composed _linear {plain_ms:.4f} "
+              f"ms, cuBLAS bf16 layers {library_ms:.4f} ms; forward max_abs_err "
+              f"{err:.3e} (share beyond 1e-5 {flips:.2e}){grads}; launches in "
+              f"the main path's run {launches[label]} {tag}")
+        report.append(entry(
+            f"mlp3d/{label}", MLP_SOURCE, MLP_REPLACES, launches[label], err,
+            ms, plain_ms, library_ms, bnd,
+            f"{n} points, 129 features, view encoding 24, width 64, {what}; "
+            "launches: " + ("the flagship training run's "
+                            + label.split("_")[0] + " phase" if bwd else
+                            "the served requests of the restored model")))
+        del feats, dirs, cot, f
+        for p in m.parameters():
+            p.grad = None
+        torch.cuda.empty_cache()
+    return report
+
+
 def launch_list_phase(device, tag):
     """The device operations that one call of the int8 pack (the lpair
     mode's table), the cell forward, the pairs kernel (1-of-2, L 16, F 2)
@@ -4909,7 +5087,7 @@ def main() -> int:
     from human_body_reconstruction_tpu_torch.cli import card_line
     from human_body_reconstruction_tpu_torch.data.synthetic import orbit_poses
     from human_body_reconstruction_tpu_torch.ops import (
-        cuda_lib, hash_kernel, marching_cubes)
+        cuda_lib, hash_kernel, marching_cubes, mlp_kernel)
     from human_body_reconstruction_tpu_torch.train import step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4968,7 +5146,7 @@ def main() -> int:
     del trainer, ds
     torch.cuda.empty_cache()
 
-    kernels = wrappers("cp_forward", "dense_forward")
+    kernels = wrappers("cp_forward", "dense_forward", "mlp")
     with tempfile.TemporaryDirectory() as run_dir:
         occ_frac = write_run_dir(run_dir, device)
         args = serve.build_parser().parse_args([
@@ -4996,8 +5174,11 @@ def main() -> int:
          "num_samples": 128, "eval_guided": 64},
         {"id": "health", "cmd": "health"},
     ]
+    mlp_kernel.composed_calls = 0
     responses, launches = counted(kernels, lambda: [server.handle(r)
                                                     for r in requests])
+    check(mlp_kernel.composed_calls == 0,
+          ("every bf16 MLP3D call took the kernels", mlp_kernel.composed_calls))
     for req, resp in zip(requests, responses):
         check(resp["ok"], resp)
         if "wall_s" in resp:
@@ -5011,6 +5192,10 @@ def main() -> int:
     print(f"health: {json.dumps(responses[-1])}")
     print(f"launches while serving (forward kernels): {launches}")
     check(all(n > 0 for n in launches.values()), launches)
+    mlp_report = mlp_phase(device, tag, {
+        "guided_train": phase_launches["guided"]["mlp"],
+        "unculled_train": phase_launches["unculled"]["mlp"],
+        "serving_chunk": launches["mlp"]})
 
     # each kernel against its plain version at the serving shape, on a chunk
     # of a frame's ladder and on uniform random points
@@ -5223,6 +5408,7 @@ def main() -> int:
                              "pallas_rng.py:30"),
             launches, *rec, shape))
     report.extend(variant_report)
+    report.extend(mlp_report)
     print("one-dispatch paths: " + json.dumps(
         {"windows": window_recs, "fused_wall_s": fused_walls}))
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s")

@@ -21,7 +21,10 @@ keeps the product in f32 (``preferred_element_type=float32``).  A torch bf16
 matmul rounds its output to bf16, which is a different result, so the port
 rounds the operands to bf16, upcasts them to f32 and multiplies in f32.
 Products of bf16 values are exact in f32, so with TF32 off (PyTorch's
-default for matmul) this is bf16 x bf16 with f32 accumulation.
+default for matmul) this is bf16 x bf16 with f32 accumulation.  ``MLP3D``
+takes the fused kernels of ``ops/mlp_kernel.py`` (csrc/mlp.cu) instead, for
+CUDA tensors with bf16 compute and the kernels' layer list
+(``mlp_kernel.takes``); ``_linear`` stays the plain version beside them.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from human_body_reconstruction_tpu_torch.ops import mlp_kernel
 from human_body_reconstruction_tpu_torch.utils.config import (
     ClassicNeRFConfig, MLPConfig)
 
@@ -93,6 +97,12 @@ class MLP3D(nn.Module):
 
     def density(self, feats, compute_dtype=None):
         """-> (raw density (N, 1), geo features (N, geo_feat_dim))."""
+        if mlp_kernel.takes(self, feats, compute_dtype):
+            return mlp_kernel.density(self, feats)
+        mlp_kernel.note_composed(feats, compute_dtype)
+        return self._density(feats, compute_dtype)
+
+    def _density(self, feats, compute_dtype=None):
         h = feats
         for i, layer in enumerate(self.sig):
             h = _linear(layer, h, compute_dtype)
@@ -112,7 +122,10 @@ class MLP3D(nn.Module):
 
     def forward(self, feats, viewdirs_enc, compute_dtype=None):
         """-> (rgb (N, 3), density (N,))."""
-        raw, geo = self.density(feats, compute_dtype)
+        if mlp_kernel.takes(self, feats, compute_dtype, viewdirs_enc):
+            return mlp_kernel.mlp3d(self, feats, viewdirs_enc)
+        mlp_kernel.note_composed(feats, compute_dtype)
+        raw, geo = self._density(feats, compute_dtype)
         density = apply_density_activation(raw, self.cfg)[..., 0]
         return self.color(geo, viewdirs_enc, compute_dtype), density
 

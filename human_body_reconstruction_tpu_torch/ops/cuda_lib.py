@@ -11,10 +11,10 @@ functions are the tolerance the backward kernels are held to against their
 plain versions, by the tests and by chip_smoke.py.
 
 Each kernel wrapper (``cp_kernel``, ``dense_kernel``, ``hash_kernel``,
-``hash_variants``, ``rng_kernel``) counts in its ``.launches`` the host calls
-that launched its kernel.  Under a CUDA graph those are the warm-up and the
-capture only: the graph's replays are counted by ``step.WindowGraph.replays``
-and ``step.FrameGraphs.replays``.
+``hash_variants``, ``rng_kernel``, ``mlp_kernel``) counts in its ``.launches``
+the host calls that launched its kernel.  Under a CUDA graph those are the
+warm-up and the capture only: the graph's replays are counted by
+``step.WindowGraph.replays`` and ``step.FrameGraphs.replays``.
 """
 
 from __future__ import annotations
@@ -49,6 +49,19 @@ class HbrLevels(ctypes.Structure):
                 ("size", ctypes.c_int * MAX_LEVELS),
                 ("offset", ctypes.c_int * MAX_LEVELS),
                 ("scale", ctypes.c_float * MAX_LEVELS)]
+
+
+class HbrMlpWeights(ctypes.Structure):
+    """Mirror of ``struct HbrMlpWeights`` in csrc/mlp.cu: the MLP3D layers'
+    f32 weight and bias pointers, density branch then colour branch."""
+
+    _fields_ = [("w", ctypes.c_void_p * 6), ("b", ctypes.c_void_p * 6)]
+
+
+class HbrMlpGrads(ctypes.Structure):
+    """Mirror of ``struct HbrMlpGrads`` in csrc/mlp.cu (null: not wanted)."""
+
+    _fields_ = [("w", ctypes.c_void_p * 6), ("b", ctypes.c_void_p * 6)]
 
 
 def make_levels(sizes, offsets, scales) -> HbrLevels:
@@ -159,6 +172,16 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.hbr_scatter_work_bytes.argtypes = [ll, i]
     lib.hbr_scatter_work_bytes.restype = ll
+    ip, llp = ctypes.POINTER(i), ctypes.POINTER(ll)
+    mw, mg = ctypes.POINTER(HbrMlpWeights), ctypes.POINTER(HbrMlpGrads)
+    for name, args in (
+            ("hbr_mlp_limits", [ip, ip, ip, ip, ip]),
+            ("hbr_mlp_backward_plan", [ll, i, i, ip, llp]),
+            ("hbr_mlp_forward", [p, p, ll, i, i, i, mw, p, p, p, p, p]),
+            ("hbr_mlp_backward", [p, p, ll, i, i, i, mw, p, p, p, p, p, p, p,
+                                  i, mg, p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
     lib.hbr_uniform_bits.argtypes = [p, ll, i, p, p]
     lib.hbr_uniform_bits.restype = i
     lib.hbr_error_string.argtypes = [i]
@@ -167,6 +190,14 @@ def library() -> ctypes.CDLL:
     lib.hbr_max_levels.restype = i
     if lib.hbr_max_levels() != MAX_LEVELS:
         raise RuntimeError("csrc/levels.cuh HBR_MAX_LEVELS != cuda_lib.MAX_LEVELS")
+    from human_body_reconstruction_tpu_torch.ops import mlp_kernel
+
+    limits = [ctypes.c_int() for _ in range(5)]
+    lib.hbr_mlp_limits(*[ctypes.byref(v) for v in limits])
+    if tuple(v.value for v in limits) != (
+            mlp_kernel.MAX_IN_DIM, mlp_kernel.MAX_VIEW_DIM, mlp_kernel.WIDTH,
+            *mlp_kernel.SAVED_WIDTH):
+        raise RuntimeError("csrc/mlp.cu limits != ops/mlp_kernel.py's")
     return lib
 
 
