@@ -254,6 +254,14 @@
     and ``render --fused`` equal their eager chunks bit for bit, wall_s
     with the capture excluded; ``cli/speedrun.py --steps_per_call 25``
     beside the eager speedrun of phase 20.
+24. Neuralangelo (``neuralangelo_phase``; alone: ``python -c 'import
+    chip_smoke, torch; chip_smoke.neuralangelo_phase(torch.device("cuda"),
+    "")'``): its published widths on the textured scene through
+    ``Trainer.run`` in 25-step windows across the stage change at step
+    85,000 (one capture, the ``hbr.train.stage`` span), ms a step, the
+    point counters, the ``hbr.sdf.*`` spans of one eager step, and the F 8
+    hash kernels in the 2^22-entry table against their plain versions on
+    a step's 917,504 centre and tap points.
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
@@ -288,6 +296,7 @@ hash_{forward,backward}_2d/image_fit_batch and /full_pred,
 {cp,dense}_{forward,backward}/r64_path and /l12_path (and
 cp_forward/*_path_contiguous), hash_{forward,backward}/exact_path,
 hash_{forward,backward}/level_shard_k2 and _k4,
+hash_{forward,backward}/neuralangelo_step,
 uniform_bits/level_shard_k2 and _k4, cp_{forward,backward}/rank_shard_k2
 and _k4, with the launches of the phase that runs each shape; a shard
 shape runs on a step only under ``--level_parallel`` on 2 or 4 cards, so
@@ -5078,6 +5087,142 @@ def speedrun_window_phase(work: str, device: torch.device, tag: str, eager):
     check(all(n > 0 for n in launches.values()), launches)
 
 
+NEURALANGELO_STAGE = 85_000     # the first update with all 16 levels active
+NEURALANGELO_TIMED = 100        # timed steps after the stage change
+
+
+def neuralangelo_phase(device, tag):
+    """Neuralangelo at its published widths (``config.neuralangelo_config``)
+    on the textured scene through ``Trainer.run`` with 25-step windows from
+    step NEURALANGELO_STAGE - 50: the first window captures, the second
+    crosses the stage change at NEURALANGELO_STAGE (traced: the
+    ``hbr.train.stage`` span) with no new capture, then NEURALANGELO_TIMED
+    timed steps; the F 8 hash kernels' launches counted over those windows
+    (host calls: the capture's) and their kernels in the traced window (the
+    replays'); one eager step traced for the ``hbr.sdf.*`` spans; the
+    point counters and the MLP kernels' composed count (the head never calls
+    them); then the F 8 hash kernels against their plain versions on a
+    step's centre and tap points (917,504 at the cell's 1,024 rays x 128
+    samples) in the 2^22-entry table.  Returns the kernel records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from human_body_reconstruction_tpu_torch.data import synthetic
+    from human_body_reconstruction_tpu_torch.models import sdf_head
+    from human_body_reconstruction_tpu_torch.ops import mlp_kernel, sampling
+    from human_body_reconstruction_tpu_torch.train import step as step_lib
+    from human_body_reconstruction_tpu_torch.train.trainer import Trainer
+    from human_body_reconstruction_tpu_torch.utils import config as C
+    from human_body_reconstruction_tpu_torch.utils import observability as obs
+
+    cfg = C.neuralangelo_config()
+    ds = synthetic.make_dataset(
+        n_views=20, H=400, W=400, focal=440.0, near=2.0, far=6.0,
+        field=synthetic.textured_field, radius=4.0, elevation=0.35,
+        gt_samples=384, device=device)
+    work = tempfile.TemporaryDirectory()
+    torch.cuda.reset_peak_memory_stats(device)
+    trainer = Trainer(cfg=cfg, ds=ds, out_dir=work.name, model_name="na",
+                      total_steps=500_000, steps_per_call=25,
+                      log_fn=lambda line: print(f"  {line}"))
+    trainer.state.step = NEURALANGELO_STAGE - 50
+    composed = mlp_kernel.composed_calls
+    kernels = wrappers("hash_forward", "hash_backward")
+    for _, kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    trainer.run(25, log_every=25)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.run(25, log_every=25)
+        torch.cuda.synchronize()
+    stage_spans = obs.span_summary(prof.events()).get("hbr.train.stage")
+    replayed = {nm: sum(e.device_type == torch.autograd.DeviceType.CUDA
+                        and f"{nm}_kernel" in e.name for e in prof.events())
+                for nm, _ in kernels}
+    t0 = time.perf_counter()
+    trainer.run(NEURALANGELO_TIMED, log_every=NEURALANGELO_TIMED)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / NEURALANGELO_TIMED
+    launches = {nm: kern.launches for nm, kern in kernels}
+    win = trainer._window
+    rec = trainer.history[-1]
+    print(f"neuralangelo: steps {NEURALANGELO_STAGE - 50} -> "
+          f"{trainer.state.step} in 25-step windows, {win.captures} capture(s)"
+          f", {win.replays} replays, first window (capture) {first_s:.2f} s, "
+          f"{ms:.3f} ms/step ({1024 / ms * 1e3:.0f} rays/s) over "
+          f"{NEURALANGELO_TIMED} steps, loss {rec['loss']:.5f}, psnr "
+          f"{rec['psnr']:.2f}, active levels {rec['active_levels']}, eps "
+          f"{rec['normal_eps']:.6g}; hbr.train.stage {stage_spans}; points a "
+          f"step {sdf_head.step_points()}; hash launches (host calls) over "
+          f"the windows {launches}, kernels in the traced 25-step window "
+          f"{replayed}; peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB {tag}")
+    check(win.captures == 1, ("one capture across the stage change",
+                              win.captures))
+    check(stage_spans is not None and stage_spans["n"] == 1, stage_spans)
+    check(rec["active_levels"] == 16 and rec["normal_eps"]
+          == 1.0 / 2048 * float(trainer.scene["sigma"]), rec)
+    check(all(n > 0 for n in launches.values()), launches)
+    check(replayed["hash_forward"] >= 25 and replayed["hash_backward"] >= 25,
+          ("the replayed window runs the F 8 hash kernels", replayed))
+    check(all(math.isfinite(r["loss"]) for r in trainer.history),
+          "finite losses")
+    check(mlp_kernel.composed_calls == composed,
+          ("the head takes no MLP3D path", mlp_kernel.composed_calls))
+    check(sdf_head.step_points() == {"centre": 131072, "taps": 786432,
+                                     "upsample": 114688},
+          sdf_head.step_points())
+    data = (ds["images"], ds["c2ws"], ds["K"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_lib.train_step(trainer.state, trainer.scene, *data, cfg, 1024,
+                            trainer.generator)
+        torch.cuda.synchronize()
+    spans = {k: v for k, v in obs.span_summary(prof.events()).items()
+             if k.startswith("hbr.sdf.")}
+    print("neuralangelo eager step spans (host_s, idle_s, device_s): "
+          + ", ".join(f"{k} {v['host_s'] * 1e3:.2f} / {v['idle_s'] * 1e3:.2f}"
+                      f" / {v['device_s'] * 1e3:.2f} ms" for k, v in
+                      sorted(spans.items())) + f" {tag}")
+    check(set(spans) == {"hbr.sdf.upsample", "hbr.sdf.taps",
+                         "hbr.sdf.composite"}, spans)
+
+    # the F 8 hash kernels on a step's centre and tap points
+    field, scene = trainer.state.field, trainer.scene
+    gen = torch.Generator(device).manual_seed(SEED + 25)
+    batch = step_lib.sample_ray_batch(*data, 1024, gen)
+    st = sdf_head.stage(cfg, trainer.state.opt.count, 500_000)
+    with torch.no_grad():
+        t = sdf_head.stratified(1024, cfg, device, jitter=True, generator=gen)
+        t = sampling.neus_upsample(
+            t, batch[0], batch[1],
+            lambda q: sdf_head.sdf_only(field, scene, q, cfg, st), 16, 4)
+        x = (batch[0][:, None, :] + batch[1][:, None, :]
+             * t[..., None]).reshape(-1, 3)
+        at = sdf_head.tap_batch(x, sdf_head.tap_step(st, scene))
+        g = torch.randn((at.shape[0], cfg.hash.out_dim), generator=gen,
+                        device=device)
+    check(at.shape[0] == 917504, at.shape)
+    fwd, bwd = hash_mode_check(field.table.detach(), at, scene, cfg.hash, g,
+                               None, "neuralangelo step", tag)
+    del trainer, field, at, g
+    work.cleanup()
+    torch.cuda.empty_cache()
+    shape = ("917,504 points: a neuralangelo step's 131,072 centre points "
+             "and their six taps (1,024 rays x 128 NeuS samples), F 8, "
+             "T 2^22; launches: host calls in the phase's Trainer.run "
+             "windows (a replay launches from the graph: "
+             f"{replayed['hash_forward']} forward and "
+             f"{replayed['hash_backward']} backward kernels in a traced "
+             "25-step window)")
+    return [entry(f"{nm}/neuralangelo_step", HASH_SOURCE, replaces,
+                  launches[nm], *rec, shape) for nm, replaces, rec in (
+        ("hash_forward", "none (the JAX package has no such model)", fwd),
+        ("hash_backward", "none (the JAX package has no such model)", bwd))]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -5258,6 +5403,8 @@ def main() -> int:
                     key, hash_src, replaces,
                     hash_launches.get(key, hash_launches[nm]),
                     *hash_report[key], shape))
+
+    report += neuralangelo_phase(device, tag)
 
     # a whole frame through the kernels (card) vs the plain versions (CPU)
     K = torch.tensor([[185.0, 0, 64.0], [0, 185.0, 64.0], [0, 0, 1]])

@@ -38,6 +38,15 @@ refused as JAX refuses it (``cp_rank``, the hashed level count or the batch
 not divisible), and one whose level slice holds an odd number of levels
 under ``--grad_level_pair``.  ``--synthetic_subject tangle`` is
 the held-back scene, its capsules and texture drawn from ``--seed``.
+``--preset neuralangelo`` (the port's own preset; the JAX trainer has no
+such choice) trains Neuralangelo at its published widths
+(``config.neuralangelo_config``: the 16 x 8 hash grid in 2^22-entry
+tables, the SDF and colour MLPs 256 wide, six-tap normals and curvature,
+NeuS up-sampling to 128 samples, 1,024 rays a step, its coarse-to-fine and
+two-step schedules); the flags that size a run (``--num_batch``,
+``--hash_size``, ``--num_levels``, ``--max_res``, ``--num_samples``,
+``--features_per_level``) override it where they differ from their
+defaults, and ``nerf2mesh --iso 0`` meshes its zero level set.
 
 Run:  python -m human_body_reconstruction_tpu_torch.cli.train_hash \\
           --synthetic --synthetic_subject textured --stochastic --hw_rng
@@ -106,7 +115,7 @@ def build_parser():
     p.add_argument("--eval_every", type=int, default=0,
                    help="steps between eval renders (0: only with --write)")
     p.add_argument("--preset", type=str, default="flagship",
-                   choices=["flagship", "reference"],
+                   choices=["flagship", "reference", "neuralangelo"],
                    help="defaults for flags you do NOT pass: 'flagship' "
                         "is the quality/speed operating point from the "
                         "quality matrix (CP rank-21 factor lines, dense "
@@ -373,10 +382,43 @@ def resolve_preset(args):
     return out
 
 
+def neuralangelo_config(args):
+    """``--preset neuralangelo``: ``config.neuralangelo_config`` with the
+    run's seed, epochs, near and far, background and normalisation, and
+    each sizing flag that differs from its parser default."""
+    from human_body_reconstruction_tpu_torch.utils import config as C
+
+    cfg = C.neuralangelo_config()
+    defaults = build_parser().parse_args([])
+    sized = {k: getattr(args, k) for k in (
+        "num_batch", "hash_size", "num_levels", "max_res", "num_samples",
+        "features_per_level") if getattr(args, k) != getattr(defaults, k)}
+    h = cfg.hash
+    return dataclasses.replace(
+        cfg,
+        hash=dataclasses.replace(
+            h, log2_table_size=int(sized.get("hash_size",
+                                             h.log2_table_size)),
+            num_levels=sized.get("num_levels", h.num_levels),
+            n_max=int(sized.get("max_res", h.n_max)),
+            features_per_level=sized.get("features_per_level",
+                                         h.features_per_level)),
+        render=dataclasses.replace(
+            cfg.render, near=args.near, far=args.far,
+            num_samples=sized.get("num_samples", cfg.render.num_samples),
+            white_background=args.white_bg,
+            normalization=args.normalization),
+        train=dataclasses.replace(
+            cfg.train, num_epochs=args.num_epochs, seed=args.seed,
+            ray_batch=sized.get("num_batch", cfg.train.ray_batch)))
+
+
 def make_config(args):
     from human_body_reconstruction_tpu_torch.ops import dense_grid
     from human_body_reconstruction_tpu_torch.utils import config as C
 
+    if args.preset == "neuralangelo":
+        return neuralangelo_config(args)
     r = resolve_preset(args)
     hcfg = C.HashConfig(n_max=int(r["max_res"]),
                         log2_table_size=int(args.hash_size),
@@ -439,7 +481,10 @@ def check_supported(args, cfg):
             raise SystemExit(f"{what} is not ported to the PyTorch trainer yet")
     if args.steps_per_call < 1:
         raise SystemExit("--steps_per_call must be at least 1")
-    unported = hash_encoding.unported(cfg.hash)
+    from human_body_reconstruction_tpu_torch.models import sdf_head
+
+    unported = (hash_encoding.unported(cfg.hash)
+                or sdf_head.unported(cfg, args.level_parallel))
     if unported:
         raise SystemExit(unported)
     if args.level_parallel > 1:

@@ -95,6 +95,15 @@ class MLP3D(nn.Module):
         if device is not None:
             self.to(device)
 
+    renders = False         # models/nerf.py renders an MLP3D field
+
+    def stage_key(self, cfg, step: int):
+        """None: an MLP3D field trains on no schedule of stages."""
+        return None
+
+    def stage_record(self, cfg, step: int, horizon: int, scene) -> dict:
+        return {}
+
     def density(self, feats, compute_dtype=None):
         """-> (raw density (N, 1), geo features (N, geo_feat_dim))."""
         if mlp_kernel.takes(self, feats, compute_dtype):

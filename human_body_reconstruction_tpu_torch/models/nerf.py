@@ -30,6 +30,13 @@ weights (gradient stopped), merges them with the first pass's and renders
 again, masked; its colour is ``out["fine"]``.  At evaluation the JAX
 package draws the fine samples from one fixed key, the same for every
 chunk; the port draws them from a generator seeded 0.
+
+``Field.mlp`` is an ``MLP3D`` or, under the ``neuralangelo`` head
+(``cfg.mlp.head``, the port's own), ``sdf_head.NeuralangeloHead``, a
+density-free SDF field that renders itself (its ``renders`` is true):
+``render_rays`` and ``density_only`` hand over to its methods (NeuS
+up-sampling and section-alpha compositing, six taps on every sample; its
+f), and ``var_b`` holds its sharpness parameter s_var (s = exp(s_var)).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from human_body_reconstruction_tpu_torch.models import sdf_head
 from human_body_reconstruction_tpu_torch.models.mlp import (
     MLP3D, apply_density_activation)
 from human_body_reconstruction_tpu_torch.ops import (
@@ -67,7 +75,7 @@ class Field(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         h = cfg.hash
-        msg = hash_encoding.unported(h)
+        msg = hash_encoding.unported(h) or sdf_head.unported(cfg)
         if msg:
             raise NotImplementedError(msg)
         cp = h.variant == "cp" and h.num_hashed_levels > 0
@@ -91,13 +99,18 @@ class Field(nn.Module):
         self.dense = nn.ParameterList(nn.Parameter(g) for g in dense)
         self.lines = nn.ParameterList(nn.Parameter(ln) for ln in lines)
         self.table = None if table is None else nn.Parameter(table)
-        self.mlp = MLP3D(cfg.mlp, h.out_dim, cfg.dir_enc.out_dim,
-                         generator=generator)
-        # SDF sharpness b (JAX init_var_model); the JAX "lines" and "table"
-        # optimizer labels depend on the variant (train/checkpoint.py)
+        neuralangelo = cfg.mlp.head == sdf_head.HEAD
+        self.mlp = (sdf_head.NeuralangeloHead(cfg, generator=generator)
+                    if neuralangelo else
+                    MLP3D(cfg.mlp, h.out_dim, cfg.dir_enc.out_dim,
+                          generator=generator))
+        # SDF sharpness b (JAX init_var_model), or the neuralangelo head's
+        # s_var; the JAX "lines" and "table" optimizer labels depend on the
+        # variant (train/checkpoint.py)
         self.var_b = (nn.Parameter(torch.tensor(
-            0.5, device=None if generator is None else generator.device))
-            if cfg.render.use_sdf else None)
+            sdf_head.S_VAR_INIT if neuralangelo else 0.5,
+            device=None if generator is None else generator.device))
+            if cfg.render.use_sdf or neuralangelo else None)
         self.variant = h.variant
         self.lp = None
         if device is not None:
@@ -135,7 +148,8 @@ def encode_points(field: Field, scene, pts, cfg: PipelineConfig, *,
 def field_forward(field: Field, scene, pts, dirs_enc, cfg: PipelineConfig,
                   compute_dtype=None, **encode):
     """(rgb (N, 3), density (N,)) at world points with encoded view dirs;
-    ``encode`` goes to ``encode_points``."""
+    ``encode`` goes to ``encode_points``.  The neuralangelo head reads
+    unit view directions, not their encoding, and refuses the call."""
     feats = encode_points(field, scene, pts, cfg, **encode)
     return field.mlp(feats, dirs_enc, compute_dtype)
 
@@ -143,7 +157,9 @@ def field_forward(field: Field, scene, pts, dirs_enc, cfg: PipelineConfig,
 def density_only(field: Field, scene, pts, cfg: PipelineConfig,
                  compute_dtype=None):
     """(N,) activated density at world points: the density branch only
-    (occupancy refreshes)."""
+    (occupancy refreshes); the neuralangelo head's f, at its last stage."""
+    if field.mlp.renders:
+        return field.mlp.density_only(field, scene, pts, cfg)
     raw, _ = field.mlp.density(encode_points(field, scene, pts, cfg),
                                compute_dtype)
     return apply_density_activation(raw, cfg.mlp)[..., 0]
@@ -155,7 +171,11 @@ def sdf_finite_difference_normals(field: Field, scene, pts,
     """(N, 3) central-difference gradient of the SDF head at world points,
     its six offsets (clipped to the scene bounds) in one ``density_only``
     call of N * 6 points laid out (N, 6, 3).  The encoders pass no gradient
-    to positions, so the analytic d(field)/dx is zero."""
+    to positions, so the analytic d(field)/dx is zero; the parameters'
+    gradient flows through every tap.  The neuralangelo head's
+    ``sdf_head.taps`` lays its taps out the same way, after the centre
+    points, unclipped, on every sample, one cell of the finest active level
+    from their centre, and also takes the Laplacian."""
     eye = torch.eye(3, device=pts.device)
     offs = torch.cat([eye, -eye]) * eps                              # (6, 3)
     q = torch.clamp(pts[:, None, :] + offs[None, :, :], scene["min_bound"],
@@ -254,7 +274,15 @@ def render_rays(field: Field, scene, rays_o, rays_d, dir_norm,
     ``generator``, else from one seeded 0.  ``placement`` (t (B, S), dt
     (B, S) or None) replaces the sampler's output altogether: a step's
     gradient moves measurably when t moves by a few f32 ulps, so
-    comparisons of one step across devices hand both the same samples."""
+    comparisons of one step across devices hand both the same samples.
+    A head that renders itself (``field.mlp.renders``) renders through its
+    ``render_rays``, the neuralangelo head at its last stage (a training
+    step hands it the step's stage itself), from ``generator`` and
+    ``draws["u"]``; it takes no grid or placement."""
+    if field.mlp.renders:
+        return field.mlp.render_rays(field, scene, rays_o, rays_d, cfg,
+                                     jitter=jitter, generator=generator,
+                                     draws=draws)
     r = cfg.render
     hier = r.hierarchical if hierarchical is None else hierarchical
     S = r.num_samples if num_samples is None else num_samples

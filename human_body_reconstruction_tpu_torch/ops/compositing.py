@@ -9,6 +9,14 @@
 SDF mode (``composite_sdf``): phi = clip(sigmoid(b * s), 1e-6, 1),
 alpha_i = relu(1 - phi_{i+1} / phi_i), last alpha 0, T = exclusive
 cumprod(1 - alpha); dt is not used.
+
+NeuS section alphas (``neus_alphas``, the ``neuralangelo`` head, the
+source's ``compute_neus_alphas``): with the interval to the next depth
+(the last one's to ``far``) and the annealed cosine c = -(relu(0.5 - 0.5
+cos) (1 - a) + relu(-cos) a), f_i^-+ = f_i -+ c delta_i / 2 and alpha_i =
+clip((Phi_s(f_i^-) - Phi_s(f_i^+)) / (Phi_s(f_i^-) + 1e-5), 0, 1), Phi_s
+the sigmoid at sharpness s; ``alpha_weights`` composites them, w_i =
+alpha_i prod_{j<i} (1 - alpha_j).
 """
 
 from __future__ import annotations
@@ -70,6 +78,49 @@ def composite_sdf(t, rgb, sdf, b, dir_norm=None):
     weights = trans * alpha
     color = torch.sum(weights[..., None] * rgb, dim=-2)
     return color, weights, trans
+
+
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis whose backward is autograd's
+    for inputs without zeros, reversed_cumsum(grad * out) / input, taken
+    without autograd's check for zeros: that check reads the device from
+    the host, which a CUDA graph's capture refuses.  For inputs that hold
+    no zero alone."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        w = (grad * out).flip(-1).cumsum(-1).flip(-1)
+        return w / x
+
+
+def alpha_weights(alpha):
+    """Compositing weights of alphas (..., S): alpha times the product of
+    (1 - alpha) over the samples in front.  NeuS alphas stay below 1
+    (``neus_alphas``: at most p / (p + 1e-5)), so no factor is zero and
+    the product's backward divides by it."""
+    front = torch.cat([torch.zeros_like(alpha[..., :1]), alpha[..., :-1]],
+                      dim=-1)
+    return alpha * _Cumprod.apply(1.0 - front)
+
+
+def neus_alphas(sdf, cos, t, far: float, inv_s, anneal, eps: float = 1e-5):
+    """Section alphas (B, S) of signed distances ``sdf`` at depths ``t``
+    (B, S) whose true cosine with the ray is ``cos``; ``inv_s`` the
+    sharpness, ``anneal`` the cosine anneal's ratio in [0, 1]."""
+    iter_cos = -(torch.relu(-cos * 0.5 + 0.5) * (1.0 - anneal)
+                 + torch.relu(-cos) * anneal)
+    ends = torch.cat([t, torch.full_like(t[..., :1], far)], dim=-1)
+    intv = ends[..., 1:] - ends[..., :-1]
+    prev_cdf = torch.sigmoid((sdf - iter_cos * intv * 0.5) * inv_s)
+    next_cdf = torch.sigmoid((sdf + iter_cos * intv * 0.5) * inv_s)
+    return torch.clamp((prev_cdf - next_cdf) / (prev_cdf + eps), 0.0, 1.0)
 
 
 def psnr(pred, target, max_val: float = 1.0):

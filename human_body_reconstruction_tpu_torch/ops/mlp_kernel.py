@@ -99,7 +99,10 @@ def takes(mlp, feats, compute_dtype, viewdirs_enc=None) -> bool:
 def note_composed(feats, compute_dtype):
     """Count a CUDA call of ``MLP3D`` with bf16 compute that takes
     ``_linear`` (its shapes or types are not the kernels'); f32 compute,
-    such as the occupancy refresh's, is another function and not counted."""
+    such as the occupancy refresh's, is another function and not counted,
+    and so are the neuralangelo head's 256-wide weight-normed layers
+    (models/sdf_head.py: f32 ``F.linear`` calls that never reach
+    ``MLP3D``)."""
     global composed_calls
     if feats.is_cuda and compute_dtype == torch.bfloat16:
         composed_calls += 1

@@ -7,7 +7,8 @@ floor.  Training (``jitter=True``) jitters the ladder per ray, draws the
 inverse CDF's ``u`` iid or stratified, and may jitter the probes and route
 a share of the sample mass to empty intervals.  The hierarchical
 resampler (``hierarchical_ts``) draws its quantiles iid in both, as the
-JAX one does.  Every random draw comes
+JAX one does.  NeuS up-sampling (``neus_upsample``, the ``neuralangelo``
+head's) is deterministic given its first depths.  Every random draw comes
 from an explicit ``torch.Generator`` and can be injected instead (``u``,
 ``xi``, ``probe_u``): the JAX package draws other bits from its keys, so the
 tests hand both sides the same numbers.
@@ -192,3 +193,58 @@ def hierarchical_ts(t_coarse, weights, num_fine: int, *, generator=None,
     t_fine = sample_pdf(t_coarse, w, num_fine, u=u, jitter=True,
                         generator=generator)
     return torch.sort(torch.cat([t_coarse, t_fine], dim=-1), dim=-1).values
+
+
+def _neus_fine(t, sdf, inv_s: float, n_fine: int):
+    """(B, n_fine) depths drawn from the section alphas of f at sorted
+    depths t (B, S) at sharpness ``inv_s`` (the source's
+    ``sample_dists_hierarchical``, robust cosine): the weights'
+    normalised CDF inverted at the n_fine midpoints of [0, 1]."""
+    prev, nxt = sdf[..., :-1], sdf[..., 1:]
+    t0, t1 = t[..., :-1], t[..., 1:]
+    mid = (prev + nxt) * 0.5
+    cos = (nxt - prev) / (t1 - t0 + 1e-5)
+    prev_cos = torch.cat([torch.zeros_like(cos[..., :1]), cos[..., :-1]], -1)
+    cos = torch.minimum(prev_cos, cos)
+    intv = t1 - t0
+    prev_cdf = torch.sigmoid((mid - cos * intv * 0.5) * inv_s)
+    next_cdf = torch.sigmoid((mid + cos * intv * 0.5) * inv_s)
+    alpha = torch.clamp((prev_cdf - next_cdf) / (prev_cdf + 1e-5), 0.0, 1.0)
+    front = torch.cat([torch.zeros_like(alpha[..., :1]), alpha[..., :-1]], -1)
+    w = alpha * torch.cumprod(1.0 - front, dim=-1)
+    pdf = w / torch.clamp(torch.sum(torch.abs(w), -1, keepdim=True),
+                          min=1e-12)
+    cdf = torch.cat([torch.zeros_like(pdf[..., :1]),
+                     torch.cumsum(pdf, -1)], -1).contiguous()
+    grid = torch.linspace(0.0, 1.0, n_fine + 1, device=t.device)
+    unif = (0.5 * (grid[:-1] + grid[1:])).expand(
+        *cdf.shape[:-1], n_fine).contiguous()
+    idx = torch.searchsorted(cdf, unif, right=True)
+    low = torch.clamp(idx - 1, min=0)
+    high = torch.clamp(idx, max=cdf.shape[-1] - 1)
+    d0, d1 = torch.gather(t, -1, low), torch.gather(t, -1, high)
+    c0, c1 = torch.gather(cdf, -1, low), torch.gather(cdf, -1, high)
+    frac = (unif - c0) / (c1 - c0 + 1e-8)
+    return d0 + frac * (d1 - d0)
+
+
+def neus_upsample(t, rays_o, rays_d, sdf_fn, n_fine: int, rounds: int):
+    """NeuS up-sampling (the source's ``sample_dists_all``): f at the
+    depths t (B, S0), then ``rounds`` rounds, round h drawing ``n_fine``
+    depths at sharpness 64 * 2^h, merged and sorted, f evaluated at the new
+    depths of every round but the last.  ``sdf_fn`` maps (N, 3) world points
+    to (N,) f.  Returns (B, S0 + rounds * n_fine) sorted depths; every shape
+    is fixed, so a CUDA graph captures the loop."""
+    B = t.shape[0]
+
+    def at(ts):
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * ts[..., None]
+        return sdf_fn(pts.reshape(-1, 3)).reshape(B, -1)
+
+    sdf = at(t)
+    for h in range(rounds):
+        fine = _neus_fine(t, sdf, 64.0 * 2 ** h, n_fine)
+        t, order = torch.sort(torch.cat([t, fine], -1), dim=-1, stable=True)
+        if h != rounds - 1:
+            sdf = torch.gather(torch.cat([sdf, at(fine)], -1), -1, order)
+    return t

@@ -50,7 +50,8 @@ def reduced_step(state, scene, batch, cfg: PipelineConfig, group, n: int, *,
     loss, aux = step_lib.loss_fn(
         state.field, scene, batch, cfg, state.occ, compute_dtype_of(cfg),
         step=state.opt.count, generator=generator, draws=draws,
-        placement=placement, enc_generator=enc_generator)
+        placement=placement, enc_generator=enc_generator,
+        horizon=state.opt.total_steps)
     loss.backward()
     comm.all_reduce_mean_([p.grad for p in state.field.parameters()
                            if p.grad is not None], group, n)

@@ -4,7 +4,8 @@ density sweep of the field on the device -> marching cubes -> PLY/OBJ.
 ``density_rgb_grid`` evaluates the field at the R^3 lattice over the scene
 bounds, in chunks of ``chunk`` points addressed by their flat start index
 (k fastest: grid[i, j, k] is the field at (x_i, y_j, z_k)), with view
-direction (0, 0, 1) and the MLP in bf16 compute.  rgb comes back as uint8
+direction (0, 0, 1) and the MLP in bf16 compute (the neuralangelo head: its
+f and the colour at its six-tap normals, f32).  rgb comes back as uint8
 (rounded half to even, as ``jnp.round``) and sigma as float16 clipped to
 +-6e4 (the iso level needs ~1e-3 relative precision; an SDF model's
 2·sigmoid−1 head keeps its (-1, 1) range to fp16 precision).  The last chunk is
@@ -59,6 +60,8 @@ def sweep_chunk(field, scene, cfg: PipelineConfig, start: int, R: int,
     (chunk,))."""
     lo = scene["min_bound"]
     pts = sweep_points(start, R, chunk, lo, scene["max_bound"] - lo)
+    if field.mlp.renders:
+        return quantise(*field.mlp.sweep(field, scene, pts, cfg))
     dirs_enc = view_encoding(cfg, lo.device)
     rgb, sigma = nerf.field_forward(
         field, scene, pts, dirs_enc.expand(chunk, dirs_enc.shape[-1]), cfg,

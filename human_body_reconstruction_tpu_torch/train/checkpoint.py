@@ -7,7 +7,9 @@ flatten sorted, so a model's leaves are the dense grids, then the factor
 lines, then ``mlp.col[*]``, then ``mlp.sig[*]``, each layer ``b`` before
 ``w``, then the hash table (``"mlp" < "table"``) and last, in SDF mode, the
 sharpness ``var.b`` (a 0-d array); JAX stores ``w`` as (d_in, d_out), the
-transpose of ``nn.Linear.weight``.
+transpose of ``nn.Linear.weight``.  The neuralangelo head's weight-normed
+layers (the port's own, no JAX counterpart) take the same places with
+three leaves each, ``b``, ``g`` and ``v`` (d_in, d_out).
 
 ``save_train_state`` writes (params, opt_state) as JAX does, so either
 package continues the other's run, with ``extra_step``, the occupancy grid
@@ -42,13 +44,22 @@ from human_body_reconstruction_tpu_torch.utils.config import PipelineConfig
 OCC_KEYS = ("occ_density", "occ_mask", "occ_threshold")
 
 
+def _layer_slots(layer):
+    if isinstance(layer, torch.nn.Linear):
+        return [(layer.bias, False), (layer.weight, True)]
+    return layer.slots()
+
+
+def _mlp_slots(field: Field):
+    return [s for branch in (field.mlp.col, field.mlp.sig)
+            for layer in branch for s in _layer_slots(layer)]
+
+
 def _slots(field: Field):
     """(parameter, transposed?) in JAX flatten order."""
     slots = [(p, False) for p in field.dense]
     slots += [(p, False) for p in field.lines]
-    for branch in (field.mlp.col, field.mlp.sig):
-        for layer in branch:
-            slots += [(layer.bias, False), (layer.weight, True)]
+    slots += _mlp_slots(field)
     if field.table is not None:
         slots.append((field.table, False))
     if field.var_b is not None:
@@ -62,7 +73,7 @@ def opt_blocks(field: Field):
     ``dense`` with dense levels, ``var`` in SDF mode; ``table`` always."""
     slots = _slots(field)
     n_d, n_l = len(field.dense), len(field.lines)
-    n_m = 2 * (len(field.mlp.col) + len(field.mlp.sig))
+    n_m = len(_mlp_slots(field))
     blocks = []
     if n_d:
         blocks.append(("dense", slots[:n_d], True))
@@ -280,7 +291,7 @@ def load_train_state(path: str, state, allow_occ: bool = True,
     load_leaves(state.field, leaves[:n])
     load_opt_leaves(state.field, state.opt, leaves[n:])
     state.step = step
-    saved = load_occ(path, state.field.mlp.sig[0].weight.device)
+    saved = load_occ(path, next(state.field.parameters()).device)
     if saved is not None and (allow_occ or state.occ is not None):
         state.occ = saved
     if generator is not None:

@@ -108,11 +108,36 @@ def onecycle_t(peak: float, total_steps: int):
     return sched
 
 
+def two_steps_t(lr: float, warmup: int, total_steps: int):
+    """Neuralangelo's ``two_steps_with_warmup`` on the device: lr * count /
+    warmup before ``warmup`` updates, then lr, lr / 10 past 0.6 of the
+    horizon and lr / 100 past 0.8 of it (the published 300,000 and 400,000
+    of 500,000), evaluated in f32."""
+    steps = (int(0.6 * total_steps), int(0.8 * total_steps))
+
+    def rate(count, value):
+        return torch.full_like(count, _f32(value), dtype=torch.float32)
+
+    def sched(count):
+        c = count.to(torch.float32)
+        flat = torch.where(count > steps[1], rate(count, lr / 100.0),
+                           torch.where(count > steps[0],
+                                       rate(count, lr / 10.0),
+                                       rate(count, lr)))
+        if warmup <= 0:
+            return flat
+        return torch.where(count < warmup, c / warmup * _f32(lr), flat)
+    return sched
+
+
 def make_schedule(cfg: TrainConfig, lr: float, total_steps: int):
     """The schedule of a group whose base rate is ``lr`` (JAX
-    ``_make_schedule``), on the device: count tensor -> f32 rate tensor."""
+    ``_make_schedule``, and the port's ``two_steps``), on the device:
+    count tensor -> f32 rate tensor."""
     if cfg.schedule == "onecycle":
         return onecycle_t(lr, max(total_steps, 1))
+    if cfg.schedule == "two_steps":
+        return two_steps_t(lr, cfg.warmup_steps, total_steps)
     return cosine_to_floor_t(lr, cfg.lr_final, total_steps)
 
 
@@ -178,6 +203,7 @@ class GroupedOptimizer:
         mlp = [p for f in fields for p in f.mlp.parameters()]
         self.count = torch.zeros((), dtype=torch.int32,
                                  device=mlp[0].device)
+        self.total_steps = total_steps
         self.groups = [
             AdamGroup(tables, make_schedule(cfg, cfg.lr_hash, total_steps),
                       eps=1e-15),

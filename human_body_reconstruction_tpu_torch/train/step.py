@@ -64,8 +64,11 @@ def sample_ray_batch(images, c2ws, K, batch: int, generator=None,
 
 def loss_fn(field, scene, batch, cfg: PipelineConfig, occ=None,
             compute_dtype=None, step=None, generator=None, draws=None,
-            placement=None, enc_generator=None):
-    """(loss, aux) of one ray batch, as the JAX ``loss_fn``.  ``step``
+            placement=None, enc_generator=None, horizon=None):
+    """(loss, aux) of one ray batch, as the JAX ``loss_fn``.  A head that
+    renders itself (``field.mlp.renders``) gives its own ``loss_fn``, the
+    neuralangelo head's at the schedule's stage at ``step`` (a device
+    count) over ``horizon`` steps (its last stage without a step).  ``step``
     (the update count: a host integer, or a device tensor, then a select)
     gates the factor-line TV by ``cfg.train.cp_tv_warmup``;
     ``draws``, ``placement`` and ``enc_generator`` go to ``render_rays``.
@@ -74,6 +77,10 @@ def loss_fn(field, scene, batch, cfg: PipelineConfig, occ=None,
     (``field.lp.psum``), so loss and aux are the single-device values on
     every rank."""
     rays_o, rays_d, dir_norm, gt = batch
+    if field.mlp.renders:
+        return field.mlp.loss_fn(field, scene, batch, cfg, step=step,
+                                 horizon=horizon, generator=generator,
+                                 draws=draws)
     out = nerf.render_rays(field, scene, rays_o, rays_d, dir_norm, cfg,
                            occ=occ, compute_dtype=compute_dtype, jitter=True,
                            generator=generator, draws=draws,
@@ -126,7 +133,8 @@ def _update(state, scene, images, c2ws, K, cfg: PipelineConfig,
                         compute_dtype, step=state.opt.count,
                         generator=generator, draws=feed.get("draws"),
                         placement=feed.get("placement"),
-                        enc_generator=enc_generator)
+                        enc_generator=enc_generator,
+                        horizon=state.opt.total_steps)
     loss.backward()
     state.opt.step()
     return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}

@@ -38,7 +38,12 @@ log (the JAX probe reuses one key), so the training draws are untouched.
 shows it in a cv2 window where cv2 imports and a display exists.  In a
 ``torch.profiler`` trace each call that takes steps, each refresh and each
 log (the probe's gradient norms included) is a span (``hbr.train.window``,
-``hbr.train.refresh``, ``hbr.train.log``; ``observability.span``); with
+``hbr.train.refresh``, ``hbr.train.log``; ``observability.span``), and
+under the neuralangelo head each window that crosses a stage of its
+schedule is followed by ``hbr.train.stage`` (the stage is read on the
+device from the step count, so a window graph needs no new capture; the
+span logs the new stage), whose log records carry ``active_levels`` and
+``normal_eps``; with
 ``steps_per_call`` n > 1 every log record carries the window graph's
 cumulative ``captures`` and ``replays``.  The step
 count is kept on the host; every random draw comes from one
@@ -287,6 +292,8 @@ class Trainer:
             return every > 0 and upto // every > (upto - n) // every
 
         spc, i = max(1, self.steps_per_call), 0
+        head = self.state.field.mlp
+        stage = head.stage_key(cfg, start_step)
         while i < steps:
             if self._occ_pending is not None and (
                     start_step + i >= cfg.train.occ_warmup_steps):
@@ -317,6 +324,15 @@ class Trainer:
             rays_done += cfg.train.ray_batch * n
             i += n
             step_no = start_step + i
+            if head.stage_key(cfg, step_no) != stage:
+                with obs.span("train.stage"):
+                    stage = head.stage_key(cfg, step_no)
+                    st = head.stage_record(cfg, step_no, self.total_steps,
+                                           self.scene)
+                    self.log_fn(f"stage at step {step_no}: "
+                                f"{st['active_levels']} levels active, "
+                                f"eps {st['normal_eps']:.6g}, curvature "
+                                f"weight {st['curvature_weight']:.6g}")
             if cfg.render.occupancy and crossed(step_no, n,
                                                 cfg.train.update_rate):
                 self.update_occupancy()
@@ -345,6 +361,8 @@ class Trainer:
         if self.state.occ is not None:
             rec["occupied_frac"] = float(
                 occupancy.occupied_fraction(self.state.occ))
+        rec.update(self.state.field.mlp.stage_record(
+            self.cfg, step_no, self.total_steps, self.scene))
         if self.steps_per_call > 1:     # the window graph's, cumulative
             rec["captures"] = self._window.captures
             rec["replays"] = self._window.replays

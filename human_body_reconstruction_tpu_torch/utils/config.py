@@ -285,6 +285,15 @@ class MLPConfig:
     geo_feat_dim: int = 15
     density_activation: str = "leaky_relu"  # or "sdf" (2*sigmoid-1)
     rgb_activation: str = "sigmoid"         # "sigmoid" | "elu" (reference)
+    # The port's own fields (the JAX package has none of them; their
+    # defaults leave every JAX configuration as it is).  ``head``
+    # "mlp3d" is the head above; "neuralangelo" is Neuralangelo's
+    # NeuralSDF and IDR NeuralRGB (models/sdf_head.py), whose SDF MLP's
+    # hidden layer and feature are ``sdf_width`` wide and whose colour
+    # MLP's layers are ``rgb_width`` wide.
+    head: str = "mlp3d"
+    sdf_width: int = 256
+    rgb_width: int = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -380,6 +389,11 @@ class RenderConfig:
     # ~3-4x; quality vs the exact ladder is measured per checkpoint
     # (cli/render.py --eval_guided).  Requires an occupancy grid.
     eval_guided: int = 0
+    # The port's own (the ``neuralangelo`` head): NeuS up-sampling of
+    # ``num_samples`` stratified depths by ``neus_rounds`` rounds of
+    # ``neus_fine_samples``.
+    neus_fine_samples: int = 16
+    neus_rounds: int = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -392,7 +406,9 @@ class TrainConfig:
     lr_mlp: float = 0.005           # AdamW on the MLP
     lr_final: float = 1e-4          # cosine floor (CosineAnnealingLR eta_min)
     schedule: str = "cosine"        # "cosine" (train_hash2.py:156-162) or
-                                    # "onecycle" (train_hash.py:133-142)
+                                    # "onecycle" (train_hash.py:133-142);
+                                    # the port adds "two_steps"
+                                    # (Neuralangelo's, below)
     weight_decay: float = 0.01
     eikonal_weight: float = 0.1     # reference train_hash2.py:224
     # Eikonal point budget per step (0 = all B*S sample points, the
@@ -438,6 +454,16 @@ class TrainConfig:
     # grid never converges and quality collapses (measured: holdout
     # 15.6 dB vs 28.8 unculled on the hard scene, quality_matrix.json).
     occ_warmup_steps: int = 256
+    # The port's own (the ``neuralangelo`` head, whose ``schedule`` is
+    # "two_steps": a linear warm-up over ``warmup_steps``, then the base
+    # rate, a tenth of it from 0.6 of the horizon and a hundredth from
+    # 0.8).  The curvature term's weight ramps up over ``warmup_steps``
+    # too; coarse to fine, ``c2f_init_levels`` levels are active at
+    # first (0: all, always) and one more every ``c2f_every`` steps after
+    # the warm-up (models/sdf_head.py ``stage``).
+    warmup_steps: int = 5000
+    c2f_init_levels: int = 0
+    c2f_every: int = 5000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -531,4 +557,31 @@ def flagship_config() -> PipelineConfig:
             num_epochs=1000, ray_batch=16000, update_rate=15, seed=0,
             occ_warmup_steps=256, cp_tv_weight=1e-2, cp_tv_warmup=256 + 64,
             sigma_l1_weight=0.0, eikonal_subsample=16384),
+    )
+
+
+def neuralangelo_config() -> PipelineConfig:
+    """Neuralangelo (Li et al., CVPR 2023) at the widths of its
+    ``projects/neuralangelo/configs/base.yaml``: a 16-level hash grid of 8
+    features a level in 2^22-entry tables from resolution 2^5 to 2^11,
+    the ``neuralangelo`` head (SDF MLP 131 -> 256 -> 1 + 256, colour MLP
+    four layers of 256), six-tap numerical gradients and curvature, NeuS
+    compositing of 64 stratified depths up-sampled by 4 rounds of 16, 1,024
+    rays a step, AdamW at 1e-3 on the two-step schedule, eikonal weight
+    0.1, curvature 5e-4, coarse to fine from 4 levels every 5,000 steps,
+    f32 MLPs.  The scene keeps the port's normalisation."""
+    return PipelineConfig(
+        hash=HashConfig(num_levels=16, features_per_level=8,
+                        log2_table_size=22, n_min=32, n_max=2048,
+                        variant="corner", init_scale=1e-4),
+        mlp=MLPConfig(head="neuralangelo", density_activation="sdf"),
+        render=RenderConfig(near=2.0, far=6.0, num_samples=64, use_sdf=True,
+                            occupancy=False, neus_fine_samples=16,
+                            neus_rounds=4),
+        train=TrainConfig(ray_batch=1024, lr_hash=1e-3, lr_mlp=1e-3,
+                          schedule="two_steps", weight_decay=0.01,
+                          eikonal_weight=0.1, lr_var=1e-3,
+                          compute_dtype="float32",
+                          warmup_steps=5000, c2f_init_levels=4,
+                          c2f_every=5000),
     )

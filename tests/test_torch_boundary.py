@@ -28,6 +28,8 @@ from human_body_reconstruction_tpu_torch.cli import (
 from human_body_reconstruction_tpu_torch.data import datasets
 from human_body_reconstruction_tpu_torch.utils import config as C
 
+import port_config
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = ("HashConfig", "PosEncConfig", "MLPConfig", "RenderConfig",
             "TrainConfig", "ClassicNeRFConfig", "PipelineConfig")
@@ -41,6 +43,10 @@ PRESET_ARGVS = [[], ["--stochastic"], HASH_ARGV,
                  "--no_occ_stratified"]]
 
 
+# The port's own choices of a JAX flag: (cli, dest) -> the added choices.
+PORT_CHOICES = {("train_hash", "preset"): ("neuralangelo",)}
+
+
 def _props(obj) -> dict:
     return {name: getattr(obj, name) for name, v in vars(type(obj)).items()
             if isinstance(v, property)}
@@ -51,15 +57,21 @@ def test_config_dataclasses_match_jax(name):
     """Field names, types and defaults, and every property's value, of each
     dataclass at its defaults (and the flagship's sections)."""
     port, ref = getattr(C, name), getattr(jC, name)
-    assert [(f.name, str(f.type)) for f in dataclasses.fields(port)] == \
-        [(f.name, str(f.type)) for f in dataclasses.fields(ref)]
-    assert dataclasses.asdict(port()) == dataclasses.asdict(ref())
+    fields = [(f.name, str(f.type)) for f in dataclasses.fields(port)]
+    n = len(dataclasses.fields(ref))
+    assert fields[:n] == [(f.name, str(f.type))
+                          for f in dataclasses.fields(ref)]
+    assert tuple(k for k, _ in fields[n:]) == \
+        port_config.PORT_FIELDS.get(name, ())
+    assert port_config.jax_part(name, dataclasses.asdict(port())) == \
+        dataclasses.asdict(ref())
     assert _props(port()) == _props(ref())
     assert port.__dataclass_params__.frozen and ref.__dataclass_params__.frozen
     if name == "PipelineConfig":
         flag = C.flagship_config()
         jflag = jcli.make_config(jcli.build_parser().parse_args([]))
-        assert dataclasses.asdict(flag) == dataclasses.asdict(jflag)
+        assert port_config.jax_part(name, dataclasses.asdict(flag)) == \
+            dataclasses.asdict(jflag)
         assert _props(flag.hash) == _props(jflag.hash)
 
 
@@ -145,6 +157,12 @@ def test_parsers_match_jax(cli):
         f"human_body_reconstruction_tpu.cli.{cli}").build_parser())
     port = flags(mod.build_parser())
     assert set(port) - set(ref) == extra
+    for (c, dest), added in PORT_CHOICES.items():
+        if c == cli:
+            opts, default, typ, choices, kind, nargs = port[dest]
+            assert choices[len(choices) - len(added):] == added
+            port[dest] = (opts, default, typ, choices[:-len(added)], kind,
+                          nargs)
     assert {k: port[k] for k in ref} == ref
     if extra:
         assert port["device"][1] == "cuda"

@@ -37,6 +37,7 @@ from human_body_reconstruction_tpu_torch.pipeline import restore
 from human_body_reconstruction_tpu_torch.train import checkpoint as ckpt
 from human_body_reconstruction_tpu_torch.train import step
 from human_body_reconstruction_tpu_torch.utils import config as C
+import port_config
 from torch_threads import one_torch_thread  # noqa: F401
 
 N = 600
@@ -509,7 +510,7 @@ def test_cli_stochastic_run_restores_in_jax(tmp_path):
     assert all(np.isfinite(r["loss"]) for r in tr.history)
     jres = jrestore.restore(d, "h", log_fn=lambda s: None)
     pres = restore.restore(d, "h", device="cpu", log_fn=lambda s: None)
-    assert dataclasses.asdict(jres.cfg) == dataclasses.asdict(pres.cfg)
+    assert dataclasses.asdict(jres.cfg) == port_config.jax_view(pres.cfg)
     for a, b in zip(jax.tree_util.tree_leaves(jres.params),
                     ckpt.jax_leaves(pres.field)):
         np.testing.assert_array_equal(np.asarray(a), b)

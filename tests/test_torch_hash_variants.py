@@ -42,6 +42,7 @@ from human_body_reconstruction_tpu_torch.train import step
 from human_body_reconstruction_tpu_torch.utils import config as C
 from test_torch_hash import (  # noqa: F401
     LO, HI, B, camera, jax_render, small_dataset, t)
+import port_config
 from torch_threads import one_torch_thread  # noqa: F401
 
 N = 600
@@ -742,7 +743,7 @@ def test_cli_int8_run_restores_in_jax(tmp_path):
     assert all(np.isfinite(r["loss"]) for r in tr.history)
     jres = jrestore.restore(d, "q", log_fn=lambda s: None)
     pres = restore.restore(d, "q", device="cpu", log_fn=lambda s: None)
-    assert dataclasses.asdict(jres.cfg) == dataclasses.asdict(pres.cfg)
+    assert dataclasses.asdict(jres.cfg) == port_config.jax_view(pres.cfg)
     for a, b in zip(jax.tree_util.tree_leaves(jres.params),
                     ckpt.jax_leaves(pres.field)):
         np.testing.assert_array_equal(np.asarray(a), b)

@@ -26,6 +26,8 @@ from human_body_reconstruction_tpu_torch.ops import (
     compositing, dense_grid, lowrank, occupancy, positional, rays, sampling)
 from human_body_reconstruction_tpu_torch.utils import config as C
 
+import port_config
+
 ATOL = 1e-5
 
 
@@ -225,7 +227,7 @@ def test_level_geometry_full_width():
 
     jcfg = train_hash.make_config(train_hash.build_parser().parse_args([]))
     cfg = C.flagship_config()
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert port_config.jax_view(cfg) == dataclasses.asdict(jcfg)
     h = cfg.hash
     np.testing.assert_array_equal(C.level_scales(h), jhe.level_scales(h))
     assert lowrank.cp_line_sizes(h) == jlowrank.cp_line_sizes(h)

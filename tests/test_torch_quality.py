@@ -32,6 +32,7 @@ from human_body_reconstruction_tpu_torch.data import synthetic
 from human_body_reconstruction_tpu_torch.ops import hash_encoding, occupancy
 from human_body_reconstruction_tpu_torch.pipeline import restore
 from human_body_reconstruction_tpu_torch.train import step
+import port_config
 from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -125,7 +126,7 @@ def test_mode_configs_match_make_modes(name):
         return dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, ray_batch=16384))
 
-    assert dataclasses.asdict(batch(port)) == dataclasses.asdict(batch(ref))
+    assert port_config.jax_view(batch(port)) == dataclasses.asdict(batch(ref))
     assert hash_encoding.unported(port.hash) is None
     h = port.hash
     if h.variant == "cp":
@@ -157,7 +158,7 @@ def test_all_modes_are_jax_make_modes():
     port = qh.all_modes()
     assert list(port) == list(ref) and len(port) == 60
     for name in ref:
-        assert dataclasses.asdict(port[name]) == dataclasses.asdict(
+        assert port_config.jax_view(port[name]) == dataclasses.asdict(
             ref[name]), name
     assert qh.refused_modes() == {}
     assert list(qh.make_modes()) == list(ref)

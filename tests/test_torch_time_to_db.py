@@ -26,6 +26,7 @@ from human_body_reconstruction_tpu_torch.cli import quality_holdout as qh
 from human_body_reconstruction_tpu_torch.cli import speedrun
 from human_body_reconstruction_tpu_torch.ops import occupancy
 from human_body_reconstruction_tpu_torch.train import step
+import port_config
 from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -108,7 +109,7 @@ def test_time_to_db_config_matches_jax(rank, monkeypatch, tmp_path):
     with pytest.raises(_Stop):
         mod.main()
     port = speedrun.make_config(speedrun.build_parser().parse_args(argv))
-    assert dataclasses.asdict(port) == dataclasses.asdict(caught["cfg"])
+    assert port_config.jax_view(port) == dataclasses.asdict(caught["cfg"])
     assert (port.hash.cp_rank, port.hash.dense_levels) == (rank, 2)
 
 
@@ -132,7 +133,7 @@ def test_time_to_db_int8_matches_jax_and_runs(monkeypatch, tmp_path):
     with pytest.raises(_Stop):
         mod.main()
     port = speedrun.make_config(speedrun.build_parser().parse_args(argv))
-    assert dataclasses.asdict(port) == dataclasses.asdict(caught["cfg"])
+    assert port_config.jax_view(port) == dataclasses.asdict(caught["cfg"])
     h = port.hash
     assert (h.dense_levels, h.num_hashed_levels, h.features_per_level,
             h.pack_format, h.grad_subsample) == (2, 6, 4, "int8", True)

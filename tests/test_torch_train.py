@@ -41,6 +41,7 @@ from human_body_reconstruction_tpu_torch.train import state, step
 from human_body_reconstruction_tpu_torch.train import trainer as trainer_lib
 from human_body_reconstruction_tpu_torch.utils import config as C
 from test_torch_ops import _JnpWithTorchSums
+import port_config
 from torch_threads import one_torch_thread  # noqa: F401
 
 LO = np.array([-1.5, -1.5, -1.5], np.float32)
@@ -382,7 +383,7 @@ def test_fit_loop_checkpoint_renders_same_in_jax(fitted):
     jres = jrestore.restore(d, "m", with_occ=True, log_fn=lambda s: None)
     pres = restore.restore(d, "m", device="cpu", with_occ=True,
                            log_fn=lambda s: None)
-    assert dataclasses.asdict(jres.cfg) == dataclasses.asdict(pres.cfg)
+    assert dataclasses.asdict(jres.cfg) == port_config.jax_view(pres.cfg)
     np.testing.assert_array_equal(np.asarray(jres.occ.mask),
                                   pres.occ.mask.numpy())
     for a, b in zip(jax.tree_util.tree_leaves(jres.params),
@@ -420,7 +421,7 @@ def test_fit_loop_checkpoint_renders_same_in_jax(fitted):
      "--level_parallel", "2"]])
 def test_cli_config_matches_jax(argv):
     args = train_hash.build_parser().parse_args(argv)
-    assert dataclasses.asdict(train_hash.make_config(args)) == \
+    assert port_config.jax_view(train_hash.make_config(args)) == \
         dataclasses.asdict(jcli.make_config(jcli.build_parser().parse_args(argv)))
     train_hash.check_supported(args, train_hash.make_config(args))
 
