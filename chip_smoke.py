@@ -259,9 +259,13 @@
     "")'``): its published widths on the textured scene through
     ``Trainer.run`` in 25-step windows across the stage change at step
     85,000 (one capture, the ``hbr.train.stage`` span), ms a step, the
-    point counters, the ``hbr.sdf.*`` spans of one eager step, and the F 8
-    hash kernels in the 2^22-entry table against their plain versions on
-    a step's 917,504 centre and tap points.
+    point counters, the ``hbr.sdf.*`` spans of one eager step, the Adam
+    kernel's host launches and elements over the windows (one a group at
+    the warm-up and the capture) and its kernels in a replayed window, the
+    F 8 hash kernels in the 2^22-entry table against their plain versions
+    on a step's 917,504 centre and tap points, and the Adam kernel alone on
+    a group of the table's 536,870,912 entries: bit for bit against the
+    foreach passes, timed beside them and torch's ``_fused_adam_``.
 
 Each kernel's bound is the larger of the bytes its call must move (each
 input read once, each output written once) over 3.35 TB/s and its scalar
@@ -296,7 +300,7 @@ hash_{forward,backward}_2d/image_fit_batch and /full_pred,
 {cp,dense}_{forward,backward}/r64_path and /l12_path (and
 cp_forward/*_path_contiguous), hash_{forward,backward}/exact_path,
 hash_{forward,backward}/level_shard_k2 and _k4,
-hash_{forward,backward}/neuralangelo_step,
+hash_{forward,backward}/neuralangelo_step, adam/neuralangelo_table,
 uniform_bits/level_shard_k2 and _k4, cp_{forward,backward}/rank_shard_k2
 and _k4, with the launches of the phase that runs each shape; a shard
 shape runs on a step only under ``--level_parallel`` on 2 or 4 cards, so
@@ -512,9 +516,10 @@ def write_run_dir(path: str, device: torch.device):
 def wrappers(*names):
     """(name, wrapper) of the named kernels, in the order given."""
     from human_body_reconstruction_tpu_torch.ops import (
-        cp_kernel, dense_kernel, hash_kernel, mlp_kernel, rng_kernel)
+        adam_kernel, cp_kernel, dense_kernel, hash_kernel, mlp_kernel,
+        rng_kernel)
 
-    table = {"mlp": mlp_kernel,
+    table = {"mlp": mlp_kernel, "adam": adam_kernel,
              "cp_forward": cp_kernel.cp_encode_kernel,
              "dense_forward": dense_kernel.dense_encode_kernel,
              "cp_backward": cp_kernel.cp_encode_backward_kernel,
@@ -558,7 +563,7 @@ def train(run_dir: str, device: torch.device, tag: str):
           f"the card in {time.perf_counter() - t0:.2f} s")
     trainer = Trainer(cfg=cfg, ds=ds, out_dir=run_dir, model_name="flagship",
                       total_steps=TRAIN_STEPS, log_fn=print)
-    kernels = wrappers(*TRAIN_KERNELS, "mlp")
+    kernels = wrappers(*TRAIN_KERNELS, "mlp", "adam")
     for _, kern in kernels:
         kern.launches = 0
     mlp_kernel.composed_calls = 0
@@ -1123,7 +1128,8 @@ def train_hash_grid(run_dir: str, ds, device: torch.device, tag: str):
                       total_steps=HASH_STEPS, log_fn=print)
     warm = 5                         # first-use costs, and the first log
     trainer.run(warm, log_every=warm)
-    kernels = wrappers("uniform_bits", "hash_forward", "hash_backward", "mlp")
+    kernels = wrappers("uniform_bits", "hash_forward", "hash_backward", "mlp",
+                       "adam")
     for _, kern in kernels:
         kern.launches = 0
     mlp_kernel.composed_calls = 0
@@ -5108,7 +5114,8 @@ def neuralangelo_phase(device, tag):
 
     from human_body_reconstruction_tpu_torch.data import synthetic
     from human_body_reconstruction_tpu_torch.models import sdf_head
-    from human_body_reconstruction_tpu_torch.ops import mlp_kernel, sampling
+    from human_body_reconstruction_tpu_torch.ops import (
+        adam_kernel, mlp_kernel, sampling)
     from human_body_reconstruction_tpu_torch.train import step as step_lib
     from human_body_reconstruction_tpu_torch.train.trainer import Trainer
     from human_body_reconstruction_tpu_torch.utils import config as C
@@ -5129,18 +5136,22 @@ def neuralangelo_phase(device, tag):
     kernels = wrappers("hash_forward", "hash_backward")
     for _, kern in kernels:
         kern.launches = 0
+    adam_before = adam_kernel.launches
     t0 = time.perf_counter()
     trainer.run(25, log_every=25)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    adam_first = (adam_kernel.launches - adam_before,
+                  adam_kernel.fused_elements)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         trainer.run(25, log_every=25)
         torch.cuda.synchronize()
+    adam_replayed = adam_kernel.launches - adam_before - adam_first[0]
     stage_spans = obs.span_summary(prof.events()).get("hbr.train.stage")
     replayed = {nm: sum(e.device_type == torch.autograd.DeviceType.CUDA
                         and f"{nm}_kernel" in e.name for e in prof.events())
-                for nm, _ in kernels}
+                for nm, _ in (*kernels, ("hbr_adam_multi_tensor_apply", 0))}
     t0 = time.perf_counter()
     trainer.run(NEURALANGELO_TIMED, log_every=NEURALANGELO_TIMED)
     torch.cuda.synchronize()
@@ -5157,10 +5168,20 @@ def neuralangelo_phase(device, tag):
           f"{rec['normal_eps']:.6g}; hbr.train.stage {stage_spans}; points a "
           f"step {sdf_head.step_points()}; hash launches (host calls) over "
           f"the windows {launches}, kernels in the traced 25-step window "
-          f"{replayed}; peak memory "
+          f"{replayed}; Adam kernel host launches (launches, fused_elements)"
+          f" over the capture's window {adam_first}, over the traced window "
+          f"of replays {adam_replayed}; peak memory "
           f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB {tag}")
+    groups = trainer.state.opt.groups
     check(win.captures == 1, ("one capture across the stage change",
                               win.captures))
+    check(adam_first == (2 * len(groups),
+                         sum(q.numel() for q in groups[-1].params))
+          and adam_replayed == 0,
+          ("one Adam launch a group at the warm-up and the capture, none "
+           "replayed", adam_first, adam_replayed, len(groups)))
+    check(replayed["hbr_adam_multi_tensor_apply"] == 25 * len(groups),
+          ("a replayed step runs the Adam kernel once a group", replayed))
     check(stage_spans is not None and stage_spans["n"] == 1, stage_spans)
     check(rec["active_levels"] == 16 and rec["normal_eps"]
           == 1.0 / 2048 * float(trainer.scene["sigma"]), rec)
@@ -5207,9 +5228,11 @@ def neuralangelo_phase(device, tag):
     check(at.shape[0] == 917504, at.shape)
     fwd, bwd = hash_mode_check(field.table.detach(), at, scene, cfg.hash, g,
                                None, "neuralangelo step", tag)
-    del trainer, field, at, g
+    n_table = field.table.numel()
+    del trainer, field, at, g, groups
     work.cleanup()
     torch.cuda.empty_cache()
+    adam = adam_table_check(n_table, device, tag)
     shape = ("917,504 points: a neuralangelo step's 131,072 centre points "
              "and their six taps (1,024 rays x 128 NeuS samples), F 8, "
              "T 2^22; launches: host calls in the phase's Trainer.run "
@@ -5220,7 +5243,64 @@ def neuralangelo_phase(device, tag):
     return [entry(f"{nm}/neuralangelo_step", HASH_SOURCE, replaces,
                   launches[nm], *rec, shape) for nm, replaces, rec in (
         ("hash_forward", "none (the JAX package has no such model)", fwd),
-        ("hash_backward", "none (the JAX package has no such model)", bwd))]
+        ("hash_backward", "none (the JAX package has no such model)", bwd))
+    ] + [entry("adam/neuralangelo_table", "csrc/adam.cu",
+               "none (optax's update, which XLA fuses)", adam_first[0], *adam,
+               f"{n_table:,} f32 entries: the neuralangelo hash table's group;"
+               " launches: host calls over the phase's windows, one a group "
+               "at the warm-up and the capture")]
+
+
+def adam_table_check(n: int, device, tag: str):
+    """The Adam kernel alone on a group of one n-entry f32 tensor (the
+    neuralangelo table's size), the table group's eps: bit for bit against
+    the foreach passes, and the device time of the kernel, of the foreach
+    passes and of torch's ``_fused_adam_`` (the same algorithm, not the same
+    rounding: it divides by sqrt(v) / sqrt(bc2)), against the bytes the
+    update must move (p, g, m and v read, p, m and v written).  Returns
+    (max_abs_err, ms, plain_ms, library_ms, bound)."""
+    from human_body_reconstruction_tpu_torch.ops import adam_kernel
+
+    gen = torch.Generator(device).manual_seed(SEED + 26)
+    p, g, m = (torch.randn(n, generator=gen, device=device)
+               for _ in range(3))
+    g.mul_(1e-3)
+    m.mul_(1e-4)
+    v = m * m + 1e-6 * torch.rand(n, generator=gen, device=device)
+    c1 = torch.tensor(85_001.0, device=device)
+    rate = torch.tensor(1e-4, device=device)
+    bc1, bc2 = 1.0 - torch.pow(0.9, c1), 1.0 - torch.pow(0.999, c1)
+    ref = [t.clone() for t in (p, m, v)]
+    adam_kernel.update([p], [g], [m], [v], rate, bc1, bc2, 1e-15)
+    check(adam_kernel.fused_elements == n, adam_kernel.fused_elements)
+    adam_kernel.update_plain([ref[0]], [g], [ref[1]], [ref[2]], rate, bc1,
+                             bc2, 1e-15)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip((p, m, v), ref))
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip((p, m, v), ref))
+    del ref
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: adam_kernel.update([p], [g], [m], [v], rate, bc1,
+                                            bc2, 1e-15), reps=10)
+    plain_ms = time_ms(lambda: adam_kernel.update_plain(
+        [p], [g], [m], [v], rate, bc1, bc2, 1e-15), reps=10)
+    fused = getattr(torch, "_fused_adam_", None)
+    steps = [torch.tensor(85_001.0, device=device)]
+    library_ms = None if fused is None else time_ms(lambda: fused(
+        [p], [g], [m], [v], [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.0, eps=1e-15, amsgrad=False, maximize=False), reps=10)
+    bnd = bound(7 * 4 * n, 15 * n)
+    print(f"adam kernel on {n:,} entries: {ms:.4f} ms (bound {bnd[0]:.4f} ms,"
+          f" {bnd[1]}: {100 * bnd[0] / ms:.1f}%), foreach passes "
+          f"{plain_ms:.4f} ms, torch._fused_adam_ (not the same rounding) "
+          f"{library_ms} ms; bit for bit with the foreach passes: {same} "
+          f"(max abs err {err:.3g}) {tag}")
+    check(same, ("the Adam kernel equals the foreach passes bit for bit",
+                 err))
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    return err, ms, plain_ms, library_ms, bnd
 
 
 def main() -> int:

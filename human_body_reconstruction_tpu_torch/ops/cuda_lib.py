@@ -11,10 +11,10 @@ functions are the tolerance the backward kernels are held to against their
 plain versions, by the tests and by chip_smoke.py.
 
 Each kernel wrapper (``cp_kernel``, ``dense_kernel``, ``hash_kernel``,
-``hash_variants``, ``rng_kernel``, ``mlp_kernel``) counts in its ``.launches``
-the host calls that launched its kernel.  Under a CUDA graph those are the
-warm-up and the capture only: the graph's replays are counted by
-``step.WindowGraph.replays`` and ``step.FrameGraphs.replays``.
+``hash_variants``, ``rng_kernel``, ``mlp_kernel``, ``adam_kernel``) counts in
+its ``.launches`` the host calls that launched its kernel.  Under a CUDA
+graph those are the warm-up and the capture only: the graph's replays are
+counted by ``step.WindowGraph.replays`` and ``step.FrameGraphs.replays``.
 """
 
 from __future__ import annotations
@@ -184,6 +184,10 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.hbr_uniform_bits.argtypes = [p, ll, i, p, p]
     lib.hbr_uniform_bits.restype = i
+    pp = ctypes.POINTER(p)
+    lib.hbr_adam_update.argtypes = [i, pp, pp, pp, pp, llp, p, p, p, f32, f32,
+                                    f32, f32, f32, f32, p]
+    lib.hbr_adam_update.restype = i
     lib.hbr_error_string.argtypes = [i]
     lib.hbr_error_string.restype = ctypes.c_char_p
     lib.hbr_max_levels.argtypes = []

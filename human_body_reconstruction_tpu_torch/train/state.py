@@ -7,8 +7,9 @@ pytree: Adam (eps 1e-15) on the embedding-like groups ``dense``,
 ``cosine_to_floor`` of its own base rate, and in SDF mode AdamW at the
 constant rate ``cfg.lr_var`` with optax's default weight decay 1e-4 (not
 torch's 1e-2) on the sharpness ``var``.  Here each group is an
-``AdamGroup``: optax's Adam/AdamW update written in tensor operations on
-the device, its rate from the group's schedule evaluated in f32 on the
+``AdamGroup``: optax's Adam/AdamW update on the device (one pass of
+``ops/adam_kernel.py``'s CUDA kernel a group; its foreach passes on the
+CPU), its rate from the group's schedule evaluated in f32 on the
 device at the count of updates taken so far (optax's ``scale_by_schedule``
 reads its count before incrementing it), the count an int32 device tensor.
 One formulation serves the eager step and a captured CUDA graph (torch's
@@ -30,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from human_body_reconstruction_tpu_torch.ops import adam_kernel
 from human_body_reconstruction_tpu_torch.ops.occupancy import OccupancyGrid
 from human_body_reconstruction_tpu_torch.utils.config import TrainConfig
 
@@ -142,7 +144,7 @@ def make_schedule(cfg: TrainConfig, lr: float, total_steps: int):
 
 
 OPTAX_ADAMW_DECAY = 1e-4     # optax.adamw's default weight_decay
-ADAM_B1, ADAM_B2 = 0.9, 0.999
+ADAM_B1, ADAM_B2 = adam_kernel.B1, adam_kernel.B2
 
 
 class AdamGroup:
@@ -151,9 +153,11 @@ class AdamGroup:
     b2 nu, bias-corrected with the count after this update, the update
     mu_hat / (sqrt(nu_hat) + eps), plus ``weight_decay`` p (adamw), times
     -rate(count).  Every quantity is a device tensor and the moments are
-    updated in place, so an update can be captured in a CUDA graph.  A
-    parameter without a gradient takes a zero one, as in JAX, where every
-    leaf has a gradient.  ``lr`` holds the last rate used."""
+    updated in place, so an update can be captured in a CUDA graph: on a
+    CUDA device one pass of ``ops/adam_kernel.py``'s kernel, on the CPU its
+    foreach passes.  A parameter without a gradient takes a zero one, as in
+    JAX, where every leaf has a gradient.  ``lr`` holds the last rate
+    used."""
 
     def __init__(self, params, sched, eps: float, weight_decay: float = 0.0):
         self.params = list(params)
@@ -168,23 +172,10 @@ class AdamGroup:
         ``bc2`` the bias corrections 1 - b^(count + 1)."""
         if not self.params:
             return
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in self.params]
-        m, v = self.exp_avg, self.exp_avg_sq
-        torch._foreach_mul_(m, ADAM_B1)
-        torch._foreach_add_(m, grads, alpha=1.0 - ADAM_B1)
-        torch._foreach_mul_(v, ADAM_B2)
-        torch._foreach_addcmul_(v, grads, grads, value=1.0 - ADAM_B2)
-        den = torch._foreach_div(v, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(m, bc1)
-        torch._foreach_div_(upd, den)
-        if self.weight_decay:
-            torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
         self.lr = self.sched(count)
-        torch._foreach_mul_(upd, -self.lr)
-        torch._foreach_add_(self.params, upd)
+        adam_kernel.update(self.params, [p.grad for p in self.params],
+                           self.exp_avg, self.exp_avg_sq, self.lr, bc1, bc2,
+                           self.eps, self.weight_decay)
 
 
 class GroupedOptimizer:
