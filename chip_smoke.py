@@ -337,6 +337,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from benchmark.counts import (F32_OPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S,
+                              PHILOX_OPS_PER_VALUE, bound_s)
+from benchmark.trace import _union
+
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))   # the repo's checkout
 N_POINTS = 16384 * 128          # one ladder chunk: 16384 rays x 128 samples
@@ -369,8 +373,6 @@ HASH_SOURCE = "human_body_reconstruction_tpu_torch/csrc/hash.cu"
 HASH_STEPS = 150
 HASH_POINTS = 16000 * 64        # one step of the hash path: rays x samples
 HASH_RUN = 16                   # points a hash backward thread merges (csrc/hash.cu)
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak
-F32_OPS_PER_S = 67e12           # non-tensor f32
 BF16_OPS_PER_S = 989e12         # dense bf16 tensor cores
 # the MLP kernels against the composed path, as the card tests hold them
 # (tests/test_torch_mlp_kernel.py, whose docstring says why)
@@ -383,7 +385,6 @@ MLP_SOURCE = "human_body_reconstruction_tpu_torch/csrc/mlp.cu"
 MLP_REPLACES = ("none (no TPU kernel: human_body_reconstruction_tpu/models/"
                 "mlp.py _linear is jnp.dot(bf16, bf16, preferred_element_type="
                 "f32), left to XLA)")
-INT32_OPS_PER_S = F32_OPS_PER_S / 2
 QUALITY_STEPS = 320             # the protocol's 6000-step horizon, cut in depth
 # the holdout mean of the first card run (28.80 dB; H100 80GB HBM3, 700 W)
 # less 2 dB for the nondeterministic sums of the backward kernels
@@ -467,10 +468,10 @@ def nbytes(*tensors) -> int:
 
 def bound(n_bytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(least time in ms, "bytes" or "operations") of a call that must move
-    n_bytes and do ops scalar operations."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    n_bytes and do ops scalar operations (benchmark/counts.py's bound)."""
+    t = bound_s(n_bytes, ops, ops_per_s)
+    return 1e3 * t, ("bytes" if t == n_bytes / HBM_BYTES_PER_S
+                     else "operations")
 
 
 def write_run_dir(path: str, device: torch.device):
@@ -1028,11 +1029,7 @@ def profile_step(trainer, label, tag):
             a, b = e.time_range.start, e.time_range.end
             spans.append((a, b))
             by_kind[kind(e.name)] = by_kind.get(kind(e.name), 0.0) + (b - a)
-        busy, end = 0.0, -math.inf
-        for a, b in sorted(spans):
-            if b > end:
-                busy += b - max(a, end)
-                end = b
+        busy = _union(spans)[0]
         return res, wall * 1e3, busy / 1e3, {k: v / 1e3 for k, v in by_kind.items()}
 
     batch = step.sample_ray_batch(ds["images"], ds["c2ws"], ds["K"],
@@ -1195,7 +1192,7 @@ def hash_kernel_checks(trainer, device, tag, train_pts, serve_pts):
                            reps=5)
         lib_ms = time_ms(lambda: torch.rand(shape, device=device))
         del bits
-    bnd = bound(nbytes(seed, u), m * 28, INT32_OPS_PER_S)
+    bnd = bound(nbytes(seed, u), m * PHILOX_OPS_PER_VALUE, INT32_OPS_PER_S)
     print(f"kernel uniform_bits: {m} values, bit for bit {same}, mean "
           f"{mean:.6f} (|mean - 0.5| bound {6 / math.sqrt(12 * m):.2e}), "
           f"chi2 {chi2:.1f} (256 bins, bound {255 + 6 * math.sqrt(510):.1f}), "
@@ -3964,7 +3961,8 @@ def shard_records(device, tag, hash_trainer, flag_trainer):
         plain_ms = time_ms(lambda: rng_kernel.uniform_plain(seed, shp),
                            reps=5)
         lib_ms = time_ms(lambda: torch.rand(shp, device=device))
-        bnd = bound(nbytes(seed, u_k), u_k.numel() * 28, INT32_OPS_PER_S)
+        bnd = bound(nbytes(seed, u_k), u_k.numel() * PHILOX_OPS_PER_VALUE,
+                    INT32_OPS_PER_S)
         print(f"kernel uniform_bits: a level rank's {shp}, bit for bit "
               f"{same}, {ms:.4f} ms vs plain {plain_ms:.4f} ms, torch.rand "
               f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) {tag}")
@@ -4438,11 +4436,7 @@ def profile_kernels(fn):
           and not e.name.lower().startswith(("memset", "memcpy"))]
     if not ev:
         return None, None
-    busy, end = 0.0, -math.inf
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in ev):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = _union([(e.time_range.start, e.time_range.end) for e in ev])[0]
     return [e.name for e in ev], busy / 1e3
 
 

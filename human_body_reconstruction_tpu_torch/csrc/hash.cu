@@ -224,14 +224,12 @@ constexpr int HASH_FWD_GROUPS = 4;  // threads a point, stochastic forward
 // for, the rest kept as L1 for the corner gathers (PERF.md: 38 read 1-2%
 // faster than 50, and 0.21 against 0.28 ms unset on a serving chunk).
 constexpr int HASH_FWD_EXACT_CARVEOUT = 38;
-// The packed-exact forward (packed_exact_forward_kernel): points a block
-// takes times the threads a point, those threads, the bytes of the chunk
-// each corner pair's load reads (8: the pair's aligned words; 16 and 4 were
-// no faster), and its shared-memory carveout (16 and 25 read 1-2% faster on
-// ray points and 8% slower on a sweep chunk, PERF.md).
+// The packed-exact forward (packed_exact_forward_kernel): the points a block
+// takes, one a thread (2 and 4 threads a point were no faster), and its
+// shared-memory carveout (16 and 25 read 1-2% faster on ray points and 8%
+// slower on a sweep chunk, PERF.md).  Each corner pair's load reads the
+// pair's aligned 8 bytes (16 and 4 were no faster).
 constexpr int PX_THREADS = 128;
-constexpr int PX_GROUPS = 1;
-constexpr int PX_LOAD = 8;
 constexpr int PX_CARVEOUT = 38;
 constexpr int HASH_BWD_THREADS = 256;
 constexpr int HASH_RUN = 16;           // consecutive points a backward thread walks
@@ -331,18 +329,17 @@ struct F32Rows {  // the (L, T, F) f32 table
   }
 };
 
-// The packed words (L * T,) uint32: word(row) and chunk<Chunk>(row) read
-// them raw (a chunk of 2 or 4 words from an aligned row), mult(l) is level
-// l's unpacking factor and unpack<F>(w, m, v) turns one word into F f32
-// features; load<F>(l, row, v) does all three for one row.
+// The packed words (L * T,) uint32: word(row) and pair(row) read them raw
+// (pair: the two words from an even row), mult(l) is level l's unpacking
+// factor and unpack<F>(w, m, v) turns one word into F f32 features;
+// load<F>(l, row, v) does all three for one row.
 struct PackedWords {
   const unsigned* __restrict__ words;
   __device__ __forceinline__ unsigned word(long long row) const {
     return __ldg(words + row);
   }
-  template <class Chunk>
-  __device__ __forceinline__ Chunk chunk(long long row) const {
-    return __ldg(reinterpret_cast<const Chunk*>(words + row));
+  __device__ __forceinline__ uint2 pair(long long row) const {
+    return __ldg(reinterpret_cast<const uint2*>(words + row));
   }
 };
 
@@ -497,20 +494,16 @@ hash_forward_kernel(WorldPoints pts, Rows rows,
 // The corner words of one (point, level) of the packed-exact forward, as
 // loaded.  The x prime being 1, corner 2k + 1 (x0 + 1) of the k-th (y, z)
 // pair sits at row h[k] ^ dm, dm = (x0 ^ (x0 + 1)) & mask, where corner 2k
-// (x0) sits at h[k].  A pair's load reads the LOAD-byte chunk of LOAD / 4
-// words that holds row h[k] (aligned: level offsets are multiples of T); row
-// h[k] ^ dm lies in the same chunk when dm < LOAD / 4 (LOAD 8: x0 even, half
-// the (point, level)s; LOAD 16: x0 % 4 != 3, three quarters), else it is read
-// alone into far[k].  So a (point, level) asks for 4 loads, or 8 when x0's
-// carry leaves the chunk, where 8 separate rows asked for 8.
-template <int LOAD>
+// (x0) sits at h[k].  A pair's load reads the aligned 8 bytes of the two
+// words that hold row h[k] (level offsets are multiples of T, which is
+// even); row h[k] ^ dm lies in them when dm < 2 (x0 even, half the (point,
+// level)s), else it is read alone into far[k].  So a (point, level) asks
+// for 4 loads, or 8 when x0's carry leaves the pair, where 8 separate rows
+// asked for 8.
 struct CornerWords {
-  static constexpr unsigned Q = LOAD / 4;  // words a chunk
-  using Chunk = std::conditional_t<LOAD == 16, uint4,
-                                   std::conditional_t<LOAD == 8, uint2, unsigned>>;
-  Chunk q[4];
+  uint2 q[4];
   unsigned far[4];
-  unsigned lo[4];  // h[k] % Q
+  unsigned lo[4];  // h[k] & 1
   unsigned dm;
 
   template <class Words>
@@ -518,39 +511,34 @@ struct CornerWords {
                                        unsigned mask) {
     const unsigned c0 = (unsigned)x0[0];
     dm = (c0 ^ (c0 + 1u)) & mask;
-    const bool near = dm < Q;
+    const bool near = dm < 2u;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const unsigned h = hash3(c0, (unsigned)x0[1] + (unsigned)(k & 1),
                                (unsigned)x0[2] + (unsigned)(k >> 1), mask);
-      lo[k] = h & (Q - 1);
-      q[k] = words.template chunk<Chunk>(base + (h & ~(Q - 1)));
+      lo[k] = h & 1u;
+      q[k] = words.pair(base + (h & ~1u));
       far[k] = near ? 0u : words.word(base + (h ^ dm));
     }
   }
 
-  static __device__ __forceinline__ unsigned pick(uint4 v, unsigned i) {
-    return i & 2 ? (i & 1 ? v.w : v.z) : (i & 1 ? v.y : v.x);
-  }
   static __device__ __forceinline__ unsigned pick(uint2 v, unsigned i) {
     return i & 1 ? v.y : v.x;
   }
-  static __device__ __forceinline__ unsigned pick(unsigned v, unsigned) { return v; }
 
   // Corner c's word (offset bit d of c is (c >> d) & 1).
   __device__ __forceinline__ unsigned word(int c) const {
     const int k = c >> 1;
     if (!(c & 1)) return pick(q[k], lo[k]);
-    return dm < Q ? pick(q[k], lo[k] ^ dm) : far[k];
+    return dm < 2u ? pick(q[k], lo[k] ^ dm) : far[k];
   }
 };
 
 // The eight corners' words of a (point, level) unpacked into F f32 features
 // each, with the level's factor m.
-template <int F, int LOAD, class Words>
-__device__ __forceinline__ void unpack_corners(const Words& words,
-                                               const CornerWords<LOAD>& cw, float m,
-                                               float (*v)[F]) {
+template <int F, class Words>
+__device__ __forceinline__ void unpack_corners(const Words& words, const CornerWords& cw,
+                                               float m, float (*v)[F]) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) words.template unpack<F>(cw.word(c), m, v[c]);
 }
@@ -558,73 +546,54 @@ __device__ __forceinline__ void unpack_corners(const Words& words,
 // The packed-exact forward (3-D): out[p, l*F + f], row stride out_stride,
 // from words (Bf16Words, Int8Words) at level l's first row lv.offset[l]: the
 // sum over corners c = 0..7 of unpack(word_c) * w_c from 0 (exact_sum).  A
-// block takes P = PX_THREADS / G points and a group of `group` levels, the
-// group the grid's slowest index (block b: tile b % tiles, group b /
-// tiles); the G threads of a point take every G-th level of the group, the
-// point fastest, asking for the next level's corner words
-// (CornerWords<LOAD>) before summing this level's.  RAW keeps those words
-// packed until the sum (8 to 24 registers a level in flight); else they are
-// unpacked into 8F floats as they are asked for.  The levels' unpacking
-// factors are computed once a block.
-template <int F, int G, int LOAD, bool RAW, class Words>
+// block takes PX_THREADS points, a thread a point; the thread walks every
+// level, asking for the next level's corner words (CornerWords) before
+// summing this level's, and keeps those words packed until the sum (8 to
+// 24 registers a level in flight; unpacking them as they arrived was no
+// faster).  The levels' unpacking factors are computed once a block.
+template <int F, class Words>
 __global__ void __launch_bounds__(PX_THREADS)
 packed_exact_forward_kernel(WorldPoints pts, Words words, long long n, int T, HbrLevels lv,
-                            int group, long long tiles, float* __restrict__ out,
-                            long long out_stride) {
-  constexpr int P = PX_THREADS / G;
-  extern __shared__ float s_rows[];  // (P, width * F + 1)
+                            float* __restrict__ out, long long out_stride) {
+  constexpr int P = PX_THREADS;
+  extern __shared__ float s_rows[];  // (P, L * F + 1)
   __shared__ float s_mult[HBR_MAX_LEVELS];
-  const int gi = (int)(blockIdx.x / tiles);
-  const long long p0 = (long long)(blockIdx.x - gi * tiles) * P;
-  const int l0 = gi * group;
-  const int l1 = min(l0 + group, lv.n_levels);
-  const int C = (l1 - l0) * F;
-  if (threadIdx.x < lv.n_levels) s_mult[threadIdx.x] = words.mult(threadIdx.x);
+  const int L = lv.n_levels;
+  const int C = L * F;
+  const long long p0 = (long long)blockIdx.x * P;
+  if (threadIdx.x < L) s_mult[threadIdx.x] = words.mult(threadIdx.x);
   __syncthreads();
-  const int i = threadIdx.x % P;
-  const long long p = p0 + i;
+  const long long p = p0 + threadIdx.x;
   const unsigned mask = (unsigned)(T - 1);
-  int l = l0 + threadIdx.x / P;
-  if (p < n && l < l1) {
+  if (p < n) {
     float xn[3];
     pts.at<3>(p, xn);
-    float* dst = s_rows + i * (C + 1);
+    float* dst = s_rows + threadIdx.x * (C + 1);
     int x0[3];
     float fr[3], v[8][F];
-    level_cell<3>(xn, lv.scale[l], x0, fr);
-    CornerWords<LOAD> cw;
-    cw.load(words, lv.offset[l], x0, mask);
-    if constexpr (!RAW) unpack_corners<F>(words, cw, s_mult[l], v);
-    for (;;) {
-      const int nl = l + G;
-      float nfr[3], nv[8][F];
-      CornerWords<LOAD> ncw;
-      if (nl < l1) {
-        level_cell<3>(xn, lv.scale[nl], x0, nfr);
-        ncw.load(words, lv.offset[nl], x0, mask);
-        if constexpr (!RAW) unpack_corners<F>(words, ncw, s_mult[nl], nv);
+    level_cell<3>(xn, lv.scale[0], x0, fr);
+    CornerWords cw;
+    cw.load(words, lv.offset[0], x0, mask);
+    for (int l = 0;; ++l) {
+      float nfr[3];
+      CornerWords ncw;
+      if (l + 1 < L) {
+        level_cell<3>(xn, lv.scale[l + 1], x0, nfr);
+        ncw.load(words, lv.offset[l + 1], x0, mask);
       }
-      if constexpr (RAW) unpack_corners<F>(words, cw, s_mult[l], v);
+      unpack_corners<F>(words, cw, s_mult[l], v);
       float acc[F];
       exact_sum<F, 3>(v, fr, acc);
 #pragma unroll
-      for (int f = 0; f < F; ++f) dst[(l - l0) * F + f] = acc[f];
-      if (nl >= l1) break;
-      l = nl;
+      for (int f = 0; f < F; ++f) dst[l * F + f] = acc[f];
+      if (l + 1 == L) break;
 #pragma unroll
       for (int d = 0; d < 3; ++d) fr[d] = nfr[d];
-      if constexpr (RAW) {
-        cw = ncw;
-      } else {
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-#pragma unroll
-          for (int f = 0; f < F; ++f) v[c][f] = nv[c][f];
-      }
+      cw = ncw;
     }
   }
   __syncthreads();
-  store_rows(s_rows, C, p0, n, P, out + l0 * F, out_stride);
+  store_rows(s_rows, C, p0, n, P, out, out_stride);
 }
 
 // Adds a row's F values into a level's gradient in L2 (all-zero skipped:
@@ -916,29 +885,15 @@ cell_backward_kernel(WorldPoints pts, const float* __restrict__ g, long long g_s
   bulk_wait_read<0>();  // the slots are read before the block's memory goes
 }
 
-// A 16-byte piece of a cell row.  HINTS: marked L2 evict-last (policy from
+// A 16-byte piece of a cell row, marked L2 evict-last (policy from
 // evict_last_policy), so the rows of the level group stay in L2 past the
 // stream of points and features.
-template <bool HINTS>
 __device__ __forceinline__ float4 load_piece(const float* p, unsigned long long policy) {
-  if constexpr (HINTS) {
-    float4 v;
-    asm volatile("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;\n"
-                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-                 : "l"(p), "l"(policy));
-    return v;
-  } else {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-}
-
-// Shared memory of a cell forward block: its staged features, (P, group * F
-// + 1) words, then (COOP) a warp's 32 rows, CELL_ROW_PAD words past each.
-template <int F, bool COOP>
-constexpr size_t cell_forward_smem(int group) {
-  return ((size_t)CELL_FWD_THREADS * (group * F + 1) +
-          (COOP ? (size_t)CELL_FWD_THREADS * (8 * F + CELL_ROW_PAD) : 0)) *
-         sizeof(float);
+  float4 v;
+  asm volatile("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
 }
 
 // The cell variant: table (L, T, 8F) f32, row h of level l holding corner c's
@@ -950,15 +905,15 @@ constexpr size_t cell_forward_smem(int group) {
 // the blocks resident at one time read one group's rows, which stay in L2
 // (the whole table, 64 MB at L 16, T 2^16, F 2, is past the 50 MB L2).  A
 // thread normalises its point once a group and walks the group's levels.
-// COOP: at each level a warp reads its 32 rows together, 2F lanes a row and
-// a 16-byte piece a lane, so a load instruction covers whole rows (8 at F 2)
+// At each level a warp reads its 32 rows together, 2F lanes a row and a
+// 16-byte piece a lane, so a load instruction covers whole rows (8 at F 2)
 // in place of one 16-byte piece of 32 rows; the pieces go through shared
 // memory (rows padded by CELL_ROW_PAD words: no bank conflicts on the
 // reads), and each thread sums its own row there, in the plain version's
-// order.  Else each thread reads its own row.  The features are staged in
-// shared memory and written by consecutive threads on consecutive columns
-// (streaming stores under HINTS: written once).
-template <int F, bool COOP, bool HINTS>
+// order.  The features are staged in shared memory and written by
+// consecutive threads on consecutive columns, as streaming stores (written
+// once).
+template <int F>
 __global__ void __launch_bounds__(CELL_FWD_THREADS)
 cell_forward_kernel(WorldPoints pts, const float* __restrict__ table, long long n, int T,
                     HbrLevels lv, int group, long long tiles, float* __restrict__ out,
@@ -980,8 +935,7 @@ cell_forward_kernel(WorldPoints pts, const float* __restrict__ table, long long 
   const long long p = p0 + threadIdx.x;
   const bool live = p < n;
   const unsigned mask = (unsigned)(T - 1);
-  unsigned long long policy = 0;
-  if constexpr (HINTS) policy = evict_last_policy();
+  const unsigned long long policy = evict_last_policy();
   float xn[3];
   pts.at<3>(live ? p : p0, xn);  // a lane past n reads the tile's first rows
   for (int l = l0; l < l0 + width; ++l) {
@@ -989,39 +943,28 @@ cell_forward_kernel(WorldPoints pts, const float* __restrict__ table, long long 
     float fr[3], v[W];
     level_cell<3>(xn, lv.scale[l], x0, fr);
     const unsigned row = (unsigned)lv.offset[l] + corner_row<3>(x0, 0, mask);
-    if constexpr (COOP) {
-      float4 piece[R];
+    float4 piece[R];
 #pragma unroll
-      for (int k = 0; k < R; ++k) {  // piece q % R of the row of lane q / R
-        const int q = k * 32 + lane;
-        const unsigned r = __shfl_sync(0xFFFFFFFFu, row, q / R);
-        piece[k] = load_piece<HINTS>(table + (long long)r * W + (q % R) * 4, policy);
-      }
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const int q = k * 32 + lane;
-        reinterpret_cast<float4*>(s_rows + (q / R) * RS)[q % R] = piece[k];
-      }
-      __syncwarp();
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const float4 q = reinterpret_cast<const float4*>(s_rows + lane * RS)[k];
-        v[4 * k] = q.x;
-        v[4 * k + 1] = q.y;
-        v[4 * k + 2] = q.z;
-        v[4 * k + 3] = q.w;
-      }
-      __syncwarp();  // read before the next level's rows land
-    } else {
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const float4 q = load_piece<HINTS>(table + (long long)row * W + 4 * k, policy);
-        v[4 * k] = q.x;
-        v[4 * k + 1] = q.y;
-        v[4 * k + 2] = q.z;
-        v[4 * k + 3] = q.w;
-      }
+    for (int k = 0; k < R; ++k) {  // piece q % R of the row of lane q / R
+      const int q = k * 32 + lane;
+      const unsigned r = __shfl_sync(0xFFFFFFFFu, row, q / R);
+      piece[k] = load_piece(table + (long long)r * W + (q % R) * 4, policy);
     }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int q = k * 32 + lane;
+      reinterpret_cast<float4*>(s_rows + (q / R) * RS)[q % R] = piece[k];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float4 q = reinterpret_cast<const float4*>(s_rows + lane * RS)[k];
+      v[4 * k] = q.x;
+      v[4 * k + 1] = q.y;
+      v[4 * k + 2] = q.z;
+      v[4 * k + 3] = q.w;
+    }
+    __syncwarp();  // read before the next level's rows land
     float w[3][2], acc[F];
     axis_weights<3>(fr, w);
 #pragma unroll
@@ -1047,9 +990,7 @@ cell_forward_kernel(WorldPoints pts, const float* __restrict__ table, long long 
       ++r;
       if (r >= np) break;
     }
-    float* o = out + (p0 + r) * out_stride + l0 * F + c;
-    if constexpr (HINTS) __stcs(o, s_out[r * (C + 1) + c]);
-    else *o = s_out[r * (C + 1) + c];
+    __stcs(out + (p0 + r) * out_stride + l0 * F + c, s_out[r * (C + 1) + c]);
   }
 }
 
@@ -1211,8 +1152,8 @@ pairs_kernel(WorldPoints pts, const unsigned char* __restrict__ bits, Routing rt
 
 // The sorted strategies, a reduce-by-key over tiles of SEG_TILE sorted
 // pairs.  scatter_tile_kernel: a block takes a tile; a thread loads its
-// ITEMS consecutive pairs (16-byte loads where the arrays are aligned) and
-// sums them run by run in registers, storing a run that starts and ends
+// SEG_ITEMS consecutive pairs (16-byte loads where the arrays are aligned)
+// and sums them run by run in registers, storing a run that starts and ends
 // among them at once; a segmented scan over the threads (shuffles in a warp,
 // the warps' totals through shared memory) joins the runs that cross
 // threads, and the thread where such a run ends stores it.  "segsum" leaves
@@ -1239,7 +1180,6 @@ __device__ __forceinline__ void seg_join(int pr, float pv, int* r, float* v) {
 
 // The block's segmented inclusive scan of (r, v), one element a thread in
 // thread order; s_r, s_v hold a warp each.
-template <int THREADS>
 __device__ __forceinline__ float block_seg_scan(int r, float v, int* s_r, float* s_v) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -1269,27 +1209,26 @@ __device__ __forceinline__ float block_seg_scan(int r, float v, int* s_r, float*
 // out[idx[k]] += val[k] over the sorted pairs of tile blockIdx.x (out
 // zeroed), the crossing runs as EDGE_ATOMICS says: atomics ("sorted"), or
 // partials and flags for scatter_join_kernel ("segsum").
-template <bool EDGE_ATOMICS, int ITEMS = SEG_ITEMS>
+template <bool EDGE_ATOMICS>
 __global__ void __launch_bounds__(SEG_THREADS)
 scatter_tile_kernel(const int* __restrict__ idx, const float* __restrict__ val,
                    long long m, bool vec, float* __restrict__ out,
                    float* __restrict__ first, float* __restrict__ last,
                    int* __restrict__ flags) {
-  constexpr int TILE = SEG_THREADS * ITEMS;
   __shared__ int s_first[SEG_THREADS + 1];  // each thread's first index; then the next tile's
   __shared__ int s_last[SEG_THREADS];       // each thread's last index
   __shared__ float s_incl[SEG_THREADS];     // the scan, inclusive
   __shared__ int s_wr[SEG_THREADS / 32];
   __shared__ float s_wv[SEG_THREADS / 32];
-  const long long t0 = (long long)blockIdx.x * TILE;
-  const int nt = (int)min((long long)TILE, m - t0);
-  const int i0 = threadIdx.x * ITEMS;
-  const int cnt = max(0, min(ITEMS, nt - i0));
-  int key[ITEMS];
-  float v[ITEMS];
-  if (vec && cnt == ITEMS) {
+  const long long t0 = (long long)blockIdx.x * SEG_TILE;
+  const int nt = (int)min((long long)SEG_TILE, m - t0);
+  const int i0 = threadIdx.x * SEG_ITEMS;
+  const int cnt = max(0, min(SEG_ITEMS, nt - i0));
+  int key[SEG_ITEMS];
+  float v[SEG_ITEMS];
+  if (vec && cnt == SEG_ITEMS) {
 #pragma unroll
-    for (int q = 0; q < ITEMS / 4; ++q) {
+    for (int q = 0; q < SEG_ITEMS / 4; ++q) {
       const int4 k4 = __ldg(reinterpret_cast<const int4*>(idx + t0 + i0) + q);
       const float4 v4 = __ldg(reinterpret_cast<const float4*>(val + t0 + i0) + q);
       key[4 * q] = k4.x, key[4 * q + 1] = k4.y, key[4 * q + 2] = k4.z, key[4 * q + 3] = k4.w;
@@ -1297,7 +1236,7 @@ scatter_tile_kernel(const int* __restrict__ idx, const float* __restrict__ val,
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
+    for (int i = 0; i < SEG_ITEMS; ++i) {
       key[i] = i < cnt ? __ldg(idx + t0 + i0 + i) : -1;
       v[i] = i < cnt ? __ldg(val + t0 + i0 + i) : 0.0f;
     }
@@ -1307,7 +1246,7 @@ scatter_tile_kernel(const int* __restrict__ idx, const float* __restrict__ val,
   int cur = key[0];
   float head = 0.0f, sum = 0.0f;
 #pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
+  for (int i = 0; i < SEG_ITEMS; ++i) {
     if (i < cnt) {
       if (key[i] != cur) {
         if (multi) out[cur] = sum;
@@ -1327,7 +1266,7 @@ scatter_tile_kernel(const int* __restrict__ idx, const float* __restrict__ val,
   const int after = s_first[threadIdx.x + 1];  // -1 past the pairs' end
   // a thread's last run starts among its pairs unless it continues the one before
   const int reset = cnt > 0 && (multi || key[0] != before);
-  const float incl = block_seg_scan<SEG_THREADS>(reset, sum, s_wr, s_wv);
+  const float incl = block_seg_scan(reset, sum, s_wr, s_wv);
   s_incl[threadIdx.x] = incl;
   __syncthreads();
   if (cnt == 0) return;
@@ -1361,7 +1300,6 @@ scatter_tile_kernel(const int* __restrict__ idx, const float* __restrict__ val,
 // from the tile before and ends in it walks back to the tile where the run
 // starts (past the tiles that are all of it) and stores last[s] + ... +
 // last[t - 1] + first[t], in tile order.
-template <int TILE = SEG_TILE>
 __global__ void __launch_bounds__(SEG_THREADS)
 scatter_join_kernel(const int* __restrict__ idx, long long tiles,
                    const float* __restrict__ first, const float* __restrict__ last,
@@ -1377,7 +1315,7 @@ scatter_join_kernel(const int* __restrict__ idx, long long tiles,
   while ((flags[s] & THROUGH) == THROUGH) --s;
   float total = last[s];
   for (long long k = s + 1; k < t; ++k) total = __fadd_rn(total, last[k]);
-  out[__ldg(idx + t * TILE)] = __fadd_rn(total, first[t]);
+  out[__ldg(idx + t * SEG_TILE)] = __fadd_rn(total, first[t]);
 }
 
 constexpr int PACK_THREADS = 256;  // bf16; an int8 block takes PACK_INT8_THREADS
@@ -1426,26 +1364,26 @@ __device__ __forceinline__ unsigned int8_word(const float* t, float s) {
 
 // int8 words: table (L, T, F) f32 -> words (L*T,) and scale (L,), s_l =
 // max|table_l| + 1e-12.  One thread-block cluster a level (blockIdx.y): its
-// blocks hold the level's rows in registers, VALUES / F rows a thread
+// blocks hold the level's rows in registers, PACK_VALUES / F rows a thread
 // (consecutive threads of the cluster on consecutive rows), reduce max|t| in
 // the block, then across the cluster through distributed shared memory, and
 // quantise the rows they hold.  A level past the cluster's registers is read
 // twice, its rows past the first cap from L2.  The max is taken on the bits
 // of |t| (a non-negative float's order is its bits' unsigned order), exact
 // in any order.
-template <int F, int THREADS = PACK_INT8_THREADS, int VALUES = PACK_VALUES>
-__global__ void __launch_bounds__(THREADS)
+template <int F>
+__global__ void __launch_bounds__(PACK_INT8_THREADS)
 pack_int8_kernel(const float* __restrict__ table, long long T, float* __restrict__ scale,
                  unsigned* __restrict__ words) {
-  constexpr int R = VALUES / F;
-  __shared__ unsigned s_warp[THREADS / 32];
+  constexpr int R = PACK_VALUES / F;
+  __shared__ unsigned s_warp[PACK_INT8_THREADS / 32];
   __shared__ unsigned s_block, s_level;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int l = blockIdx.y;
   const float* tl = table + (long long)l * T * F;
-  const long long stride = (long long)C * THREADS;  // between a thread's rows
-  const long long first = (long long)cluster.block_rank() * THREADS + threadIdx.x;
+  const long long stride = (long long)C * PACK_INT8_THREADS;  // between a thread's rows
+  const long long first = (long long)cluster.block_rank() * PACK_INT8_THREADS + threadIdx.x;
   const long long cap = stride * R;  // rows the cluster holds
   float v[R][F];
   unsigned m = 0;
@@ -1472,7 +1410,7 @@ pack_int8_kernel(const float* __restrict__ table, long long T, float* __restrict
   __syncthreads();
   if (threadIdx.x < 32) {
     m = __reduce_max_sync(0xFFFFFFFFu,
-                          threadIdx.x < THREADS / 32 ? s_warp[threadIdx.x] : 0u);
+                          threadIdx.x < PACK_INT8_THREADS / 32 ? s_warp[threadIdx.x] : 0u);
     if (threadIdx.x == 0) s_block = m;
   }
   cluster.sync();
@@ -1526,21 +1464,18 @@ static int launch_hash_forward(const WorldPoints& pts, const Rows& rows,
   return (int)cudaGetLastError();
 }
 
-// The packed-exact forward: one block a (tile of PX_THREADS / G points,
-// group of `group` levels), the carveout percent of the SM's memory asked
-// for as shared memory.  Words must start LOAD-byte aligned and T hold
-// whole chunks.
-template <int F, int G = PX_GROUPS, int LOAD = PX_LOAD, bool RAW = true, class Words>
+// The packed-exact forward: one block a tile of PX_THREADS points, PX_CARVEOUT
+// percent of the SM's memory asked for as shared memory.  Words must start
+// 8-byte aligned and T be even (a corner pair's load reads two words).
+template <int F, class Words>
 static int launch_packed_exact(const WorldPoints& pts, const Words& words, long long n,
-                               int T, const HbrLevels& lv, int group, int carveout,
-                               float* out, long long out_stride, cudaStream_t s) {
-  const auto kernel = packed_exact_forward_kernel<F, G, LOAD, RAW, Words>;
-  constexpr int P = PX_THREADS / G;
-  const size_t smem = (size_t)P * (group * F + 1) * sizeof(float);
-  const long long tiles = (n + P - 1) / P;
-  const long long blocks = tiles * ((lv.n_levels + group - 1) / group);
-  if (reinterpret_cast<unsigned long long>(words.words) % LOAD || T % (LOAD / 4) ||
-      group < 1 || blocks >= (1LL << 31))
+                               int T, const HbrLevels& lv, float* out, long long out_stride,
+                               cudaStream_t s) {
+  const auto kernel = packed_exact_forward_kernel<F, Words>;
+  const size_t smem = (size_t)PX_THREADS * (lv.n_levels * F + 1) * sizeof(float);
+  const long long blocks = (n + PX_THREADS - 1) / PX_THREADS;
+  if (reinterpret_cast<unsigned long long>(words.words) % 8 || T % 2 || lv.n_levels < 1 ||
+      blocks >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024)
@@ -1548,10 +1483,9 @@ static int launch_packed_exact(const WorldPoints& pts, const Words& words, long 
                              (int)smem);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             carveout);
+                             PX_CARVEOUT);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)blocks, PX_THREADS, smem, s>>>(pts, words, n, T, lv, group, tiles, out,
-                                                    out_stride);
+  kernel<<<(unsigned)blocks, PX_THREADS, smem, s>>>(pts, words, n, T, lv, out, out_stride);
   return (int)cudaGetLastError();
 }
 
@@ -1604,13 +1538,17 @@ static int launch_cell_backward(const WorldPoints& pts, const float* g, long lon
 }
 
 // The cell forward: one block a (tile of CELL_FWD_THREADS points, group of
-// `group` levels), the group slowest.
-template <int F, bool COOP = true, bool HINTS = true>
+// `group` levels), the group slowest.  Its shared memory: the staged
+// features, (P, group * F + 1) words, then a warp's 32 rows, CELL_ROW_PAD
+// words past each.
+template <int F>
 static int launch_cell_forward(const WorldPoints& pts, const float* table, long long n,
                                int T, const HbrLevels& lv, int group, float* out,
                                long long out_stride, cudaStream_t s) {
-  const auto kernel = cell_forward_kernel<F, COOP, HINTS>;
-  const size_t smem = cell_forward_smem<F, COOP>(group);
+  const auto kernel = cell_forward_kernel<F>;
+  const size_t smem = ((size_t)CELL_FWD_THREADS * (group * F + 1) +
+                       (size_t)CELL_FWD_THREADS * (8 * F + CELL_ROW_PAD)) *
+                      sizeof(float);
   const long long tiles = (n + CELL_FWD_THREADS - 1) / CELL_FWD_THREADS;
   const long long blocks = tiles * ((lv.n_levels + group - 1) / group);
   if (group < 1 || blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
@@ -1638,10 +1576,10 @@ static int with_word_features(int features, Fn fn) {
 }
 
 // The int8 pack: one cluster of PACK_CLUSTER blocks a level.
-template <int F, int THREADS = PACK_INT8_THREADS, int VALUES = PACK_VALUES>
+template <int F>
 static int launch_pack_int8(const float* table, long long L, long long T, float* scale,
                             unsigned* words, cudaStream_t s) {
-  const auto kernel = pack_int8_kernel<F, THREADS, VALUES>;
+  const auto kernel = pack_int8_kernel<F>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return (int)e;
@@ -1651,7 +1589,7 @@ static int launch_pack_int8(const float* table, long long L, long long T, float*
   attr[0].val.clusterDim.y = attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(PACK_CLUSTER, (unsigned)L);
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(PACK_INT8_THREADS);
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -1783,9 +1721,8 @@ int hbr_hash_pack(const float* table, long long L, long long T, int features,
 
 // The packed forward (3-D): words (L * T,) uint32 from hbr_hash_pack (format
 // 0 bf16, F 2; 1 int8, F 1 to 4, with its scale (L,)); stochastic given u (3,
-// L, n) and bits (L, n); packed-exact with both null, its words from a
-// PX_LOAD-byte aligned address and T a multiple of PX_LOAD / 4
-// (cudaErrorInvalidValue else).
+// L, n) and bits (L, n); packed-exact with both null, its words from an
+// 8-byte aligned address and T even (cudaErrorInvalidValue else).
 int hbr_hash_packed_forward(const float* x, const float* mu, const float* sigma,
                             const unsigned* words, const float* scale, const float* u,
                             long long n, int table_size, int features, int format,
@@ -1802,8 +1739,7 @@ int hbr_hash_packed_forward(const float* x, const float* mu, const float* sigma,
     if (u != nullptr)
       return launch_hash_forward<2, true, 3>(pts, rows, u, n, table_size, *lv, out,
                                              out_stride, bits, s);
-    return launch_packed_exact<2>(pts, rows, n, table_size, *lv, lv->n_levels,
-                                  PX_CARVEOUT, out, out_stride, s);
+    return launch_packed_exact<2>(pts, rows, n, table_size, *lv, out, out_stride, s);
   }
   const Int8Words rows{{words}, scale};
   return with_word_features(features, [&](auto f) {
@@ -1811,8 +1747,7 @@ int hbr_hash_packed_forward(const float* x, const float* mu, const float* sigma,
     if (u != nullptr)
       return launch_hash_forward<F, true, 3>(pts, rows, u, n, table_size, *lv, out,
                                              out_stride, bits, s);
-    return launch_packed_exact<F>(pts, rows, n, table_size, *lv, lv->n_levels,
-                                  PX_CARVEOUT, out, out_stride, s);
+    return launch_packed_exact<F>(pts, rows, n, table_size, *lv, out, out_stride, s);
   });
 }
 
@@ -1916,7 +1851,7 @@ int hbr_scatter_sorted(const int* idx, const float* val, long long m, int strate
   if (tiles > 1) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    scatter_join_kernel<SEG_TILE><<<item_blocks(tiles, SEG_THREADS), SEG_THREADS, 0, s>>>(
+    scatter_join_kernel<<<item_blocks(tiles, SEG_THREADS), SEG_THREADS, 0, s>>>(
         idx, tiles, first, last, flags, out);
   }
   return (int)cudaGetLastError();

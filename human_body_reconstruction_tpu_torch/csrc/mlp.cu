@@ -641,12 +641,12 @@ __device__ __forceinline__ void simt_layer(const bf16* X, int xs, const bf16* W,
 // One forward layer l over the tile, epi(p, o, sum) for each point and
 // output o < outputs (64, 16, or the colour's 3 of 4): EXACT on the FP32
 // pipes in cuBLAS's order, otherwise as bf16 MMAs into f32 (the sums in the
-// tensor cores' order).
-template <bool EXACT, int PT, int OT, typename Epi>
+// tensor cores' order).  EXACT: a thread takes one point and OT outputs.
+template <bool EXACT, int OT, typename Epi>
 __device__ __forceinline__ void forward_layer(const Layout& L, Smem& s, int l, int outputs,
                                               Epi epi) {
   if constexpr (EXACT) {
-    simt_layer<PT, OT>(s.x[l], L.xs[l], s.w + L.w_off[l], L.ws[l], L.in[l], outputs, epi);
+    simt_layer<1, OT>(s.x[l], L.xs[l], s.w + L.w_off[l], L.ws[l], L.in[l], outputs, epi);
   } else {
     tile_product<NPW_H, false>(s.x[l], L.xs[l], s.w + L.w_off[l], L.ws[l], (outputs + 7) / 8,
                                L.kdim[l] / 16, threadIdx.x >> 5, threadIdx.x & 31,
@@ -692,7 +692,7 @@ __device__ void forward_tile(const Layout& L, Smem& s, int mode, long long p0, i
     const float* b = s.bias + 2 * WIDTH;
     bf16* x3 = s.x[3];
     const int s3 = L.xs[3];
-    forward_layer<EXACT, 1, 4>(L, s, 2, N3, [&](int r, int c, float v) {
+    forward_layer<EXACT, 4>(L, s, 2, N3, [&](int r, int c, float v) {
                        const float z = v + b[c];
                        if (donly) {
                          if (r < rows) out0[(p0 + r) * N3 + c] = z;
@@ -710,7 +710,7 @@ __device__ void forward_tile(const Layout& L, Smem& s, int mode, long long p0, i
   hidden(4);
   {  // colour output (3 of 4 output groups)
     const float* b = s.bias + 5 * WIDTH;
-    forward_layer<EXACT, 1, 1>(L, s, 5, 4, [&](int r, int c, float v) {
+    forward_layer<EXACT, 1>(L, s, 5, 4, [&](int r, int c, float v) {
                        if (c >= 3) return;
                        const float z = v + b[c];
                        s.zs[r * 4 + c] = z;

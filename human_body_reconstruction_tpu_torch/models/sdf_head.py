@@ -251,7 +251,7 @@ class NeuralangeloHead(nn.Module):
 
 def named_leaves(field) -> dict:
     """{name: parameter} of a neuralangelo field, named as the plain
-    reference (reference/neuralangelo.py) names its leaves: "table",
+    reference (benchmark/reference/neuralangelo.py) names its leaves: "table",
     "sdf.<i>.v|g|b", "rgb.<i>.v|g|b", "s_var"."""
     out = {"table": field.table}
     for branch, layers in (("sdf", field.mlp.sig), ("rgb", field.mlp.col)):
